@@ -1,0 +1,103 @@
+"""Model abstraction: an ``nn.Module`` specification plus explicit weights.
+
+Counterpart of ``distkeras_tpu/models/core.py``. As there, a :class:`Model`
+is a specification and the weights travel beside it: ``variables`` is a
+flat ``state_dict`` (name -> tensor), and ``apply(variables, x)`` runs the
+module with those weights through ``torch.func.functional_call``. The
+module instance the specification holds lives on the ``meta`` device, so it
+owns no memory of its own. :class:`TrainedModel` bundles the two for
+inference. ``from_flax``/``from_keras`` are not ported.
+"""
+
+from __future__ import annotations
+
+from collections.abc import Callable
+
+import numpy as np
+import torch
+from torch import nn
+
+from distkeras_tpu_torch.utils.device import resolve_device
+
+__all__ = ["Model", "TrainedModel"]
+
+Variables = dict[str, torch.Tensor]
+
+
+class Model:
+    """A model specification.
+
+    ``module_fn()`` builds the ``nn.Module``; a module may define
+    ``init_weights(generator)`` to draw its initial weights.
+    ``apply(variables, x, train) -> (outputs, new_state)``, where
+    ``new_state`` is empty for the architectures of this slice."""
+
+    def __init__(
+        self,
+        module_fn: Callable[[], nn.Module],
+        name: str = "model",
+        input_shape: tuple[int, ...] | None = None,
+        output_dim: int | None = None,
+        flops_per_example: float | None = None,
+    ):
+        self.module_fn = module_fn
+        self.name = name
+        self.input_shape = input_shape
+        self.output_dim = output_dim
+        # Approximate forward-pass FLOPs per example.
+        self.flops_per_example = flops_per_example
+        with torch.device("meta"):
+            self.module = module_fn()
+
+    def init(self, seed: int = 0, device: str | torch.device | None = None) -> Variables:
+        """Fresh weights drawn from a ``torch.Generator`` seeded with
+        ``seed`` on ``device`` (CUDA unless ``"cpu"`` is asked for)."""
+        dev = resolve_device(device)
+        generator = torch.Generator(device=dev).manual_seed(int(seed))
+        with torch.device("meta"):
+            module = self.module_fn()
+        module = module.to_empty(device=dev)
+        with torch.no_grad():
+            module.init_weights(generator)
+        return {k: v.detach() for k, v in module.state_dict().items()}
+
+    def apply(self, variables: Variables, x, train: bool = False):
+        out = torch.func.functional_call(self.module, variables, (x,), {"train": train})
+        return out, {}
+
+    def count_params(self) -> int:
+        return int(sum(p.numel() for p in self.module.parameters()))
+
+
+class TrainedModel:
+    """Weights + spec: what a trainer returns."""
+
+    def __init__(self, model: Model, variables: Variables):
+        self.model = model
+        self.variables = variables
+
+    @property
+    def params(self) -> Variables:
+        return self.variables
+
+    @property
+    def device(self) -> torch.device:
+        return next(iter(self.variables.values())).device
+
+    def to(self, device: str | torch.device) -> "TrainedModel":
+        """The same model with its weights on ``device``."""
+        dev = resolve_device(device)
+        return TrainedModel(self.model, {k: v.to(dev) for k, v in self.variables.items()})
+
+    @torch.inference_mode()
+    def predict(self, x) -> np.ndarray:
+        """Forward pass on the device the weights live on."""
+        x = torch.as_tensor(np.asarray(x), device=self.device)
+        return self.model.apply(self.variables, x, train=False)[0].float().cpu().numpy()
+
+    def load_weights(self, path: str) -> None:
+        """Load a weight file written by the reference package
+        (``save_weights_file``) onto the device the weights live on."""
+        from distkeras_tpu_torch.utils.bridge import load_weights_file, params_from_jax
+
+        self.variables = params_from_jax(load_weights_file(path), device=self.device)
