@@ -2,17 +2,24 @@
 """Drive the PyTorch port (distkeras_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --kernels-only [--root DIR]   # phases 1-2 only
+
+``--root`` drives the package of another checkout (an older commit unpacked
+beside this one) with this script's checks and timings, so that two versions
+of the kernels are compared by one script on one card.
 
 Phases, each of which must pass or the script exits non-zero:
 
-1. Build the hand-written kernels from the sources in this checkout (nvcc
-   for the CUDA C++ flash-attention forward, Triton's JIT for the fused
-   cross-entropy forward) and print the build time.
+1. Build the hand-written kernels from the sources in this checkout (one
+   nvcc per CUDA C++ source, all at once: the flash-attention forward, and
+   its dQ and dK/dV kernels; Triton's JIT for the fused cross-entropy
+   forward, stats and grad kernels) and print the build time.
 2. Hold each kernel against its plain PyTorch version on the card, at the
    shapes the main path gives it, and time kernel, plain version and the
-   one PyTorch call that computes the same function (scaled_dot_product_attention,
-   cross_entropy), with the bound the card's published rates put on it.
-3. The slice at full width: bert_base_mlm (seq 128, flash attention on,
+   one PyTorch call that computes the same function (scaled_dot_product_attention
+   and its backward, cross_entropy and its backward, logsumexp), with the
+   bound the card's published rates put on it.
+3. Inference at full width: bert_base_mlm (seq 128, flash attention on,
    random weights from a seed) through ModelPredictor (64 rows, batch 32)
    and Trainer.evaluate with fused_categorical_crossentropy (512 rows,
    batch 32), counting kernel launches in each run; one 4-row batch's
@@ -20,7 +27,14 @@ Phases, each of which must pass or the script exits non-zero:
    torch.profiler table of device time by kernel over 4 eval batches.
 4. The same for gpt_small (seq 512, causal): ModelPredictor on 8 rows,
    Trainer.evaluate on 2 batches of 8.
-5. Print the kernels line, the card's name and power limit, and last the
+5. Training at full width: SingleTrainer.train on bert_base_mlm (seq 128,
+   batch 32, flash on, dropout 0.1, adam) for 3 epochs over a copy task
+   (label = features, 256 rows), counting launches per step, checking that
+   the losses are finite and fall, timing the run; 8 steady steps timed and
+   4 profiled (batches already on the device); one step at dropout 0 on the card against the same step on the
+   CPU from the same weights (loss and every gradient).
+6. The same for gpt_small (seq 512, batch 8, causal), 2 epochs of 64 rows.
+7. Print the kernels line, the card's name and power limit, and last the
    result line {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
@@ -50,6 +64,26 @@ FLASH_LSE_ATOL = 1e-3   # f32 lse of O(1..10) values, summation order
 XENT_RTOL = 1e-5        # f32 per-row loss, summation order
 LOGITS_ATOL = 0.1       # bf16 logits of |x| < 4: ~13 bf16 ulps of rounding drift over 12 layers
 LOSS_RTOL = 2e-3
+# bf16 dQ/dK/dV: both round P and dS to bf16 before the products, from exps
+# computed by different code, so a weight near a rounding boundary lands one
+# bf16 ulp apart; 1e-2 of the largest gradient.
+FLASH_BWD_RTOL = 1e-2
+XENT_STATS_RTOL = 1e-4  # f32 sum of exps by different code, in another order
+# dlogits, element by element, |d - want| <= RTOL * |want| + ATOL * g: f32 exps
+# from different code (a few ulps apart); bf16 one rounding of the same f32
+# value (at most 2**-7 relative) apart, with room for two. The floor, 1e-12
+# of g, lies far below the smallest entries here, so every column is checked.
+XENT_GRAD_RTOL = {"float32": 1e-4, "bfloat16": 1.6e-2}
+XENT_GRAD_ATOL = 1e-12
+# One training step at dropout 0 from the same weights, on the card (bf16)
+# and on the CPU (bf16, and float32 as the exact step): each gradient's
+# card-CPU difference, in norm, within 5% of the gradient's norm or within 3x
+# the CPU bf16 step's own distance from the float32 step, whichever is larger.
+# The second bound is for tensors whose gradient is mostly cancellation (the
+# attention key weights: every row of dS sums to 0), where bf16 rounding
+# alone moves the gradient by far more than 5% on any device.
+GRAD_REL_TOL = 5e-2
+GRAD_NOISE_FACTOR = 3.0
 
 
 def log(msg: str) -> None:
@@ -96,6 +130,15 @@ def bound_ms(nbytes: float, ops: float, peak_ops: float) -> tuple[float, str]:
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def attended_pairs(S: int, causal: bool, shift: int) -> int:
+    """Query-key pairs the attention needs: all of them, the causal
+    triangle, or the strict triangle plus row 0, which under shift 1 sees no
+    key and so, as in the reference, weighs every key equally."""
+    if not causal:
+        return S * S
+    return S * (S + 1) // 2 if shift == 0 else S * (S - 1) // 2 + S
+
+
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
@@ -127,7 +170,7 @@ def flash_case(B, S, H, D, causal, shift, gen):
         q4, k4, v4 = (x.view(B, H, S, D) for x in (q, k, v))
         library_ms = cuda_ms(
             lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal), 50)
-    pairs = S * S if not causal else (S * (S + 1) // 2 if shift == 0 else S * (S - 1) // 2)
+    pairs = attended_pairs(S, causal, shift)
     nbytes = 4 * BH * S * D * 2 + BH * S * 4
     bound, by = bound_ms(nbytes, 4.0 * BH * pairs * D, BF16_TENSOR_FLOPS)
     case = {"shape": f"B={B} S={S} H={H} D={D} causal={causal} shift={shift} bf16",
@@ -166,23 +209,151 @@ def xent_case(T, V, dtype, gen):
     return case
 
 
-# -- phases 3 and 4: the slice at full width ----------------------------------
+def flash_bwd_cases(B, S, H, D, causal, shift, gen):
+    """K2 and K3 on the inputs the forward gives (lse from K1's plain
+    version, delta = rowsum(dO * O)); the library yardstick is SDPA's
+    backward, timed as SDPA forward+backward less SDPA forward."""
+    import torch
+    import torch.nn.functional as F
+
+    from distkeras_tpu_torch.ops.flash_attention import (
+        dkv_call, dq_call, flash_dkv_reference, flash_dq_reference, flash_forward_reference)
+
+    BH = B * H
+    q, k, v, do = (torch.randn(BH, S, D, device="cuda", generator=gen).bfloat16()
+                   for _ in range(4))
+    out, lse = flash_forward_reference(q, k, v, causal, shift)
+    delta = (do.float() * out.float()).sum(-1, keepdim=True)
+    dq = dq_call(q, k, v, do, lse, delta, causal, shift)
+    dk, dv = dkv_call(k, v, q, do, lse, delta, causal, shift)
+    want_dq = flash_dq_reference(q, k, v, do, lse, delta, causal, shift)
+    want_dk, want_dv = flash_dkv_reference(k, v, q, do, lse, delta, causal, shift)
+    torch.cuda.synchronize()
+    errs = {}
+    for name, got, want in (("dq", dq, want_dq), ("dk", dk, want_dk), ("dv", dv, want_dv)):
+        err = (got.float() - want.float()).abs().max().item()
+        scale = want.float().abs().max().item()
+        check(math.isfinite(err) and err <= FLASH_BWD_RTOL * scale,
+              f"flash {name} error {err} > {FLASH_BWD_RTOL} x {scale}")
+        errs[name] = err
+    library_ms = None
+    if shift == 0:  # SDPA has no strict-causal form of the same function
+        q4, k4, v4 = (x.view(B, H, S, D).detach().requires_grad_() for x in (q, k, v))
+        do4 = do.view(B, H, S, D)
+        fwd_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal), 20)
+        both_ms = cuda_ms(lambda: torch.autograd.grad(
+            F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal), (q4, k4, v4), do4), 20)
+        library_ms = both_ms - fwd_ms
+    pairs = attended_pairs(S, causal, shift)
+    tensor = BH * S * D * 2
+    stats = 2 * BH * S * 4
+    shape = f"B={B} S={S} H={H} D={D} causal={causal} shift={shift} bf16"
+    cases = {}
+    for name, fn, plain, nbytes, flops, err in (
+        ("K2", lambda: dq_call(q, k, v, do, lse, delta, causal, shift),
+         lambda: flash_dq_reference(q, k, v, do, lse, delta, causal, shift),
+         5 * tensor + stats, 6.0 * BH * pairs * D, errs["dq"]),
+        ("K3", lambda: dkv_call(k, v, q, do, lse, delta, causal, shift),
+         lambda: flash_dkv_reference(k, v, q, do, lse, delta, causal, shift),
+         6 * tensor + stats, 8.0 * BH * pairs * D, max(errs["dk"], errs["dv"])),
+    ):
+        ms = cuda_ms(fn, 50)
+        plain_ms = cuda_ms(plain, 5)
+        bound, by = bound_ms(nbytes, flops, BF16_TENSOR_FLOPS)
+        cases[name] = {"shape": shape, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                       "bound_ms": bound, "bound_by": by,
+                       "library_ms": library_ms, "library": "SDPA backward (K2 and K3 together)"}
+        log(f"  {name} {shape}: err {err:.3g} kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
+            f"library (K2+K3) {library_ms} ms bound {bound:.4f} ms ({by})")
+    return cases["K2"], cases["K3"]
+
+
+def xent_bwd_cases(T, V, dtype, gen):
+    """K5 and K6; the yardsticks are torch.logsumexp for K5 and the backward
+    of F.cross_entropy (forward+backward less forward) for K5 and K6
+    together."""
+    import torch
+    import torch.nn.functional as F
+
+    from distkeras_tpu_torch.ops.fused_xent import (
+        xent_grad, xent_grad_reference, xent_stats, xent_stats_reference)
+
+    logits = (torch.randn(T, V, device="cuda", generator=gen) * 3).to(dtype)
+    labels = torch.randint(0, V, (T,), device="cuda", generator=gen)
+    g = torch.full((T,), 1.0 / T, device="cuda")
+    m, s = xent_stats(logits)
+    want_m, want_s = xent_stats_reference(logits)
+    d = xent_grad(logits, labels, g, want_m, want_s)
+    want_d = xent_grad_reference(logits, labels, g, want_m, want_s)
+    torch.cuda.synchronize()
+    check(torch.equal(m, want_m), "xent stats: row max differs")
+    s_err = (s - want_s).abs().max().item()
+    s_rel = ((s - want_s).abs() / want_s).max().item()
+    check(s_rel <= XENT_STATS_RTOL, f"xent stats relative error {s_rel} > {XENT_STATS_RTOL}")
+    diff = (d.float() - want_d.float()).abs()
+    d_err = diff.max().item()
+    rtol, atol = XENT_GRAD_RTOL[str(dtype).split(".")[-1]], XENT_GRAD_ATOL / T
+    d_rel = (diff / (want_d.float().abs() + atol)).max().item()
+    excess = (diff - rtol * want_d.float().abs()).max().item()
+    check(math.isfinite(d_err) and excess <= atol,
+          f"xent grad: an element exceeds {rtol} x |want| + {atol} by {excess - atol}")
+    del want_d, diff
+
+    lse_ms = cuda_ms(lambda: torch.logsumexp(logits, dim=-1), 10)
+    x = logits.detach().requires_grad_()
+    ce_fwd_ms = cuda_ms(lambda: F.cross_entropy(x, labels), 5)
+    ce_both_ms = cuda_ms(lambda: torch.autograd.grad(F.cross_entropy(x, labels), (x,)), 5)
+    es = logits.element_size()
+    shape = f"T={T} V={V} {str(dtype).split('.')[-1]}"
+    cases = {}
+    for name, fn, plain, nbytes, ops, err, library_ms, library in (
+        ("K5", lambda: xent_stats(logits), lambda: xent_stats_reference(logits),
+         T * V * es + 2 * T * 4, 4.0 * T * V, s_err, lse_ms,
+         "torch.logsumexp"),
+        ("K6", lambda: xent_grad(logits, labels, g, m, s),
+         lambda: xent_grad_reference(logits, labels, g, m, s),
+         2 * T * V * es + T * (labels.element_size() + 12), 5.0 * T * V, d_err,
+         ce_both_ms - ce_fwd_ms, "F.cross_entropy backward (K5 and K6 together)"),
+    ):
+        ms = cuda_ms(fn, 10)
+        plain_ms = cuda_ms(plain, 3)
+        bound, by = bound_ms(nbytes, ops, F32_FLOPS)
+        cases[name] = {"shape": shape, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                       "bound_ms": bound, "bound_by": by, "library_ms": library_ms,
+                       "library": library}
+        log(f"  {name} {shape}: err {err:.3g} kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
+            f"library {library_ms:.4f} ms ({library}) bound {bound:.4f} ms ({by})")
+        torch.cuda.empty_cache()
+    cases["K6"]["max_rel_err"] = d_rel
+    log(f"  K6 {shape}: largest error relative to the element {d_rel:.3g} (tolerance {rtol})")
+    return cases["K5"], cases["K6"]
+
+
+# -- phases 3 to 6: the slice at full width -----------------------------------
+
+
+def kernel_wrappers() -> dict:
+    """Each kernel's name in the kernels line -> its wrapper, which counts
+    launches in ``.launches``."""
+    from distkeras_tpu_torch.ops.flash_attention import dkv_call, dq_call, flash_forward
+    from distkeras_tpu_torch.ops.fused_xent import xent_forward, xent_grad, xent_stats
+
+    return {"flash_attention_fwd": flash_forward, "flash_attention_dq": dq_call,
+            "flash_attention_dkv": dkv_call, "fused_xent_fwd": xent_forward,
+            "fused_xent_stats": xent_stats, "fused_xent_grad": xent_grad}
 
 
 def reset_counts():
-    from distkeras_tpu_torch.ops.flash_attention import flash_forward
-    from distkeras_tpu_torch.ops.fused_xent import xent_forward
-
-    flash_forward.launches = 0
-    xent_forward.launches = 0
+    for fn in kernel_wrappers().values():
+        fn.launches = 0
 
 
 def read_counts() -> dict:
-    from distkeras_tpu_torch.ops.flash_attention import flash_forward
-    from distkeras_tpu_torch.ops.fused_xent import xent_forward
+    return {name: fn.launches for name, fn in kernel_wrappers().items()}
 
-    return {"flash_attention_fwd": flash_forward.launches,
-            "fused_xent_fwd": xent_forward.launches}
+
+def expected(**counts) -> dict:
+    return {name: counts.get(name, 0) for name in kernel_wrappers()}
 
 
 def run_model(name, seq, pred_rows, eval_rows, batch, cpu_rows):
@@ -223,8 +394,8 @@ def run_model(name, seq, pred_rows, eval_rows, batch, cpu_rows):
     check(preds.shape == (pred_rows, seq, cfg.vocab_size), f"prediction shape {preds.shape}")
     check(bool(np.isfinite(preds).all()), "non-finite logits")
     n_pred_batches = -(-pred_rows // batch)
-    check(pred_counts == {"flash_attention_fwd": cfg.num_layers * n_pred_batches,
-                          "fused_xent_fwd": 0}, f"predict launches {pred_counts}")
+    check(pred_counts == expected(flash_attention_fwd=cfg.num_layers * n_pred_batches),
+          f"predict launches {pred_counts}")
     log(f"  predict {pred_rows} rows at batch {batch}: {pred_s:.3f} s "
         f"(host copy of the logits included), launches {pred_counts}")
 
@@ -235,8 +406,9 @@ def run_model(name, seq, pred_rows, eval_rows, batch, cpu_rows):
     eval_s = time.perf_counter() - t0
     eval_counts = read_counts()
     n_eval_batches = -(-eval_rows // batch)
-    check(eval_counts == {"flash_attention_fwd": cfg.num_layers * n_eval_batches,
-                          "fused_xent_fwd": n_eval_batches}, f"evaluate launches {eval_counts}")
+    check(eval_counts == expected(flash_attention_fwd=cfg.num_layers * n_eval_batches,
+                                  fused_xent_fwd=n_eval_batches),
+          f"evaluate launches {eval_counts}")
     ln_v = math.log(cfg.vocab_size)
     check(math.isfinite(metrics["loss"]) and abs(metrics["loss"] - ln_v) < 1.0,
           f"eval loss {metrics['loss']} not near ln V = {ln_v}")
@@ -264,39 +436,189 @@ def run_model(name, seq, pred_rows, eval_rows, batch, cpu_rows):
     check(err <= LOGITS_ATOL, f"card vs CPU logits error {err} > {LOGITS_ATOL}")
     check(loss_rel <= LOSS_RTOL, f"card vs CPU loss relative error {loss_rel} > {LOSS_RTOL}")
 
-    profile_eval(trainer, trained, data.take(4 * batch), batch)
+    sample = data.take(4 * batch)
+    profile(f"{-(-sample.num_rows // batch)} eval batches",
+            lambda: trainer.evaluate(trained, sample, batch_size=batch))
     return {k: pred_counts[k] + eval_counts[k] for k in pred_counts}
 
 
-def profile_eval(trainer, trained, data, batch):
-    """Device time by kernel, and the device's busy share, over the eval
-    batches of ``data`` (torch.profiler with CUDA activity)."""
+def profile(what: str, fn) -> None:
+    """Device time by kernel, and the device's busy share, over one call of
+    ``fn`` (torch.profiler with CUDA activity)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        trainer.evaluate(trained, data, batch_size=batch)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.device_time_total for e in kernels) / 1e3
-    log(f"  profile: {-(-data.num_rows // batch)} eval batches, wall {wall_ms:.3f} ms, "
+    log(f"  profile: {what}, wall {wall_ms:.3f} ms, "
         f"device busy {busy_ms:.3f} ms ({busy_ms / wall_ms:.1%})")
-    log(prof.key_averages().table(sort_by="self_device_time_total", row_limit=15, max_name_column_width=60))
+    log(prof.key_averages().table(sort_by="self_device_time_total", row_limit=25, max_name_column_width=60))
 
 
-def main() -> int:
+def train_model(name, seq, batch, rows, epochs, cpu_rows):
+    """SingleTrainer.train at full width on a copy task; returns the launch
+    counts of the timed run."""
+    import numpy as np
+    import torch
+
+    from distkeras_tpu_torch import Dataset, SingleTrainer
+    from distkeras_tpu_torch.models import bert
+
+    base = getattr(bert, name)(seq_len=seq)
+    cfg = dataclasses.replace(base.config, use_flash_attention=True)
+    model = bert._make(cfg, seq, name)
+    rng = np.random.default_rng(SEED)
+    tokens = rng.integers(0, cfg.vocab_size, size=(rows, seq)).astype(np.int32)
+    data = Dataset.from_arrays(features=tokens, label=tokens)
+    log(f"{name} training: {model.count_params()} params, dropout {cfg.dropout_rate}, "
+        f"batch {batch} x seq {seq}, {rows} rows x {epochs} epochs, adam, copy task")
+
+    def trainer(n_epochs):
+        return SingleTrainer(model, "adam", loss="fused_categorical_crossentropy",
+                             batch_size=batch, num_epoch=n_epochs, seed=SEED)
+
+    trainer(1).train(data.take(batch))  # warm-up: cuBLAS handles, allocator
+    torch.cuda.synchronize()
+
+    reset_counts()
+    tr = trainer(epochs)
+    t0 = time.perf_counter()
+    trained = tr.train(data, shuffle=True)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    counts = read_counts()
+    steps = len(tr.get_history())
+    check(steps == epochs * (rows // batch), f"{steps} steps")
+    L = cfg.num_layers
+    check(counts == expected(flash_attention_fwd=L * steps, flash_attention_dq=L * steps,
+                             flash_attention_dkv=L * steps, fused_xent_fwd=steps,
+                             fused_xent_stats=steps, fused_xent_grad=steps),
+          f"train launches {counts} for {steps} steps")
+    losses = [h["loss"] for h in tr.get_history()]
+    check(all(math.isfinite(x) for x in losses), f"non-finite training loss: {losses}")
+    per_epoch = rows // batch
+    first = sum(losses[:per_epoch]) / per_epoch
+    last = sum(losses[-per_epoch:]) / per_epoch
+    check(last < first, f"loss did not fall: first epoch {first}, last epoch {last}")
+    check(trained.device.type == "cuda", f"trained weights on {trained.device}")
+    tokens_per_s = steps * batch * seq / wall_s
+    log(f"  train {steps} steps: {wall_s:.3f} s ({wall_s / steps * 1e3:.2f} ms/step with "
+        f"init and feed), {tokens_per_s:.0f} tokens/s; loss first step {losses[0]:.4f}, "
+        f"epoch means {first:.4f} -> {last:.4f}, last step {losses[-1]:.4f}, "
+        f"accuracy last step {tr.get_history()[-1]['accuracy']:.4f}; launches {counts}")
+    steady_steps(model, data, batch, seq)
+    card_vs_cpu_step(model, cfg, tokens[:cpu_rows])
+    return counts
+
+
+def steady_steps(model, data, batch, seq):
+    """The train step alone, on trained-size state and batches already on
+    the device: 8 steps timed by the host clock, then 4 under the
+    profiler."""
+    import torch
+
+    from distkeras_tpu_torch.data.feed import DeviceFeed, minibatches
+    from distkeras_tpu_torch.ops.losses import get_optimizer
+    from distkeras_tpu_torch.training.step import TrainState, make_train_step
+
+    state = TrainState.create(model, get_optimizer("adam"), SEED)
+    step = make_train_step(model, "fused_categorical_crossentropy")
+    batches = list(DeviceFeed(minibatches(data, batch)))
+
+    def run(n):
+        nonlocal state
+        for i in range(n):
+            state, _ = step(state, batches[i % len(batches)])
+
+    run(2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run(8)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / 8 * 1e3
+    log(f"  steady train step: {ms:.2f} ms/step, {batch * seq / ms * 1e3:.0f} tokens/s "
+        f"(8 steps, batches on the device)")
+    profile("4 train steps", lambda: run(4))
+
+
+def card_vs_cpu_step(model, cfg, tokens):
+    """Loss and gradients of one step at dropout 0, on the card and on the
+    CPU from the same weights, with the CPU's float32 step as the exact
+    reference."""
+    import torch
+
+    from distkeras_tpu_torch.models import bert
+    from distkeras_tpu_torch.ops.fused_xent import fused_softmax_xent
+
+    def make(dtype):
+        return bert._make(dataclasses.replace(cfg, dropout_rate=0.0, dtype=dtype),
+                          model.input_shape[0], model.name)
+
+    model0 = make(cfg.dtype)
+    weights = model0.init(SEED)
+
+    def loss_and_grads(m, device):
+        params = {k: v.to(device).requires_grad_() for k, v in weights.items()}
+        x = torch.from_numpy(tokens).to(device)
+        logits, _ = m.apply(params, x, True, 0)
+        loss = fused_softmax_xent(logits, x)
+        grads = torch.autograd.grad(loss, list(params.values()))
+        return loss.item(), {k: g.float().cpu() for k, g in zip(params, grads)}
+
+    gpu_loss, gpu = loss_and_grads(model0, "cuda")
+    t0 = time.perf_counter()
+    cpu_loss, cpu = loss_and_grads(model0, "cpu")
+    cpu_s = time.perf_counter() - t0
+    f32_loss, exact = loss_and_grads(make(torch.float32), "cpu")
+    loss_rel = abs(gpu_loss - cpu_loss) / abs(cpu_loss)
+    norms = {k: g.norm().item() for k, g in cpu.items()}
+    floor = 1e-3 * max(norms.values())
+    rel = {k: (gpu[k] - cpu[k]).norm().item() / max(norms[k], floor) for k in cpu}
+    # Each bf16 step's distance from the float32 step, relative to its norm.
+    card_err = {k: (gpu[k] - exact[k]).norm().item() / max(norms[k], floor) for k in cpu}
+    cpu_err = {k: (cpu[k] - exact[k]).norm().item() / max(norms[k], floor) for k in cpu}
+    allowed = {k: max(GRAD_REL_TOL, GRAD_NOISE_FACTOR * cpu_err[k]) for k in cpu}
+    worst = sorted(rel, key=lambda k: rel[k] / allowed[k], reverse=True)
+    log(f"  card vs CPU, one step on {tokens.shape[0]} rows at dropout 0: loss {gpu_loss:.6f} "
+        f"vs {cpu_loss:.6f} (rel {loss_rel:.3g}; float32 {f32_loss:.6f}); gradient difference "
+        f"norm relative to the gradient's: median {sorted(rel.values())[len(rel) // 2]:.3g}, "
+        f"max {max(rel.values()):.3g} over {len(rel)} tensors; CPU bf16 step {cpu_s:.2f} s")
+    for k in worst[:4]:
+        log(f"    {k}: card-CPU {rel[k]:.3g} (allowed {allowed[k]:.3g}); from float32: "
+            f"card {card_err[k]:.3g}, CPU {cpu_err[k]:.3g}")
+    check(loss_rel <= LOSS_RTOL, f"card vs CPU loss relative error {loss_rel} > {LOSS_RTOL}")
+    k = worst[0]
+    check(rel[k] <= allowed[k], f"card vs CPU gradient {k}: {rel[k]} > {allowed[k]}")
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="run phases 1 and 2 only and print their cases as one JSON line")
+    ap.add_argument("--root", default=REPO,
+                    help="checkout whose distkeras_tpu_torch is driven (default: this "
+                         "script's), to time two versions of the kernels with one script")
+    args = ap.parse_args(argv)
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    if not os.path.isdir(os.path.join(REPO, "distkeras_tpu_torch", "csrc")):
+    root = os.path.abspath(args.root)
+    if not os.path.isdir(os.path.join(root, "distkeras_tpu_torch", "csrc")):
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
         return 2
-    sys.path.insert(0, REPO)
+    sys.path.insert(0, root)
     from distkeras_tpu_torch.ops.flash_attention import flash_forward
+    from distkeras_tpu_torch.ops.fused_xent import fused_softmax_xent
     from distkeras_tpu_torch.utils.build import build_all
 
     card = card_line()
@@ -308,13 +630,11 @@ def main() -> int:
     t0 = time.perf_counter()
     reports = build_all()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    q = torch.randn(1, 64, 64, device="cuda", generator=gen).bfloat16()
-    flash_forward(q, q, q)
-    from distkeras_tpu_torch.ops.fused_xent import xent_forward
-
-    for dt in (torch.float32, torch.bfloat16):
-        xent_forward(torch.zeros(2, 8, device="cuda", dtype=dt),
-                     torch.zeros(2, dtype=torch.long, device="cuda"))
+    q = torch.randn(1, 64, 64, device="cuda", generator=gen).bfloat16().requires_grad_()
+    flash_forward(q, q, q)[0].sum().backward()  # K1, K2, K3
+    for dt in (torch.float32, torch.bfloat16):  # Triton compiles per dtype: K4, K5, K6
+        x = torch.zeros(2, 8, device="cuda", dtype=dt, requires_grad=True)
+        fused_softmax_xent(x, torch.zeros(2, dtype=torch.long, device="cuda")).backward()
     torch.cuda.synchronize()
     log(f"phase 1: kernels built and loaded in {time.perf_counter() - t0:.2f} s")
     for name, rep in reports.items():
@@ -329,22 +649,50 @@ def main() -> int:
     k4 = [xent_case(4096, 30522, torch.float32, gen),
           xent_case(4096, 30522, torch.bfloat16, gen),
           xent_case(4096, 50257, torch.float32, gen)]
+    k23 = [flash_bwd_cases(32, 128, 12, 64, False, 0, gen),
+           flash_bwd_cases(8, 512, 12, 64, True, 0, gen),
+           flash_bwd_cases(8, 512, 12, 64, True, 1, gen)]
+    k56 = [xent_bwd_cases(4096, 30522, torch.float32, gen),
+           xent_bwd_cases(4096, 30522, torch.bfloat16, gen),
+           xent_bwd_cases(4096, 50257, torch.float32, gen)]
+    torch.cuda.empty_cache()
+    phase2 = {"flash_attention_fwd": k1, "flash_attention_dq": [c[0] for c in k23],
+              "flash_attention_dkv": [c[1] for c in k23], "fused_xent_fwd": k4,
+              "fused_xent_stats": [c[0] for c in k56], "fused_xent_grad": [c[1] for c in k56]}
+    if args.kernels_only:
+        print(json.dumps({"root": root, "card": card, "cases": phase2}))
+        return 0
 
-    log("phase 3: bert_base_mlm at full width")
-    launches = run_model("bert_base_mlm", 128, 64, 512, 32, 4)
-    log("phase 4: gpt_small at full width")
-    gpt = run_model("gpt_small", 512, 8, 16, 8, 1)
-    launches = {k: launches[k] + gpt[k] for k in launches}
+    runs = []
+    log("phase 3: bert_base_mlm inference at full width")
+    runs.append(run_model("bert_base_mlm", 128, 64, 512, 32, 4))
+    log("phase 4: gpt_small inference at full width")
+    runs.append(run_model("gpt_small", 512, 8, 16, 8, 1))
+    log("phase 5: bert_base_mlm training at full width")
+    runs.append(train_model("bert_base_mlm", 128, 32, 256, 3, 2))
+    log("phase 6: gpt_small training at full width")
+    runs.append(train_model("gpt_small", 512, 8, 64, 2, 1))
+    launches = {k: sum(r[k] for r in runs) for k in runs[0]}
     for k, n in launches.items():
         check(n > 0, f"kernel {k} was not launched on the main path")
 
     kernels = []
-    for name, route, source, replaces, cases in (
+    flash_src = "distkeras_tpu/ops/pallas/flash_attention.py"
+    xent_src = "distkeras_tpu/ops/pallas/fused_xent.py"
+    for name, route, source, replaces in (
         ("flash_attention_fwd", "cuda", "distkeras_tpu_torch/csrc/flash_attention_fwd.cu",
-         "distkeras_tpu/ops/pallas/flash_attention.py:189", k1),
-        ("fused_xent_fwd", "triton", "distkeras_tpu_torch/ops/fused_xent.py",
-         "distkeras_tpu/ops/pallas/fused_xent.py:107", k4),
+         f"{flash_src}:189"),
+        ("flash_attention_dq", "cuda", "distkeras_tpu_torch/csrc/flash_attention_bwd.cu",
+         f"{flash_src}:214"),
+        ("flash_attention_dkv", "cuda", "distkeras_tpu_torch/csrc/flash_attention_bwd.cu",
+         f"{flash_src}:238"),
+        ("fused_xent_fwd", "triton", "distkeras_tpu_torch/ops/fused_xent.py", f"{xent_src}:107"),
+        ("fused_xent_stats", "triton", "distkeras_tpu_torch/ops/fused_xent.py",
+         f"{xent_src}:127"),
+        ("fused_xent_grad", "triton", "distkeras_tpu_torch/ops/fused_xent.py",
+         f"{xent_src}:145"),
     ):
+        cases = phase2[name]
         main_case = cases[0]
         kernels.append({
             "name": name, "route": route, "source": source, "replaces": replaces,

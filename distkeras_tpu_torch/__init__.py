@@ -1,9 +1,9 @@
 """PyTorch port of distkeras_tpu for NVIDIA Hopper (H100).
 
-This package exports what the port has so far: batch inference and
-evaluation of the BERT/GPT family, with the flash-attention forward (CUDA
-C++) and the fused softmax cross-entropy forward (Triton) as hand-written
-kernels. ``distkeras_tpu`` is the reference it is held against; this package
+This package exports what the port has so far: training through
+``SingleTrainer``, batch inference and evaluation of the BERT/GPT family,
+with flash attention forward and backward (CUDA C++) and the fused softmax
+cross-entropy forward and backward (Triton) as hand-written kernels. ``distkeras_tpu`` is the reference it is held against; this package
 never imports it, nor JAX.
 """
 
@@ -18,7 +18,7 @@ from distkeras_tpu_torch.models.bert import (
     gpt_tiny,
 )
 from distkeras_tpu_torch.models.core import Model, TrainedModel
-from distkeras_tpu_torch.training.trainers import Trainer
+from distkeras_tpu_torch.training.trainers import SingleTrainer, Trainer
 from distkeras_tpu_torch.utils.bridge import load_weights_file, params_from_jax
 from distkeras_tpu_torch.utils.device import resolve_device
 
@@ -28,6 +28,7 @@ __all__ = [
     "Dataset",
     "Model",
     "ModelPredictor",
+    "SingleTrainer",
     "TrainedModel",
     "Trainer",
     "bert_base_mlm",

@@ -32,42 +32,16 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "mma_bf16.cuh"
+
 namespace {
+
+using namespace flash;
 
 constexpr int kBlockQ = 64;   // query rows per block (4 warps x 16)
 constexpr int kBlockK = 64;   // keys per staged tile
 constexpr int kThreads = 128;
 constexpr float kMaskFill = -1e30f;
-
-__device__ __forceinline__ void mma_bf16_16816(float c[4], const uint32_t a[4],
-                                               const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// Two floats to one register of two bf16: `lo` in the low half, as the mma
-// fragments expect for the lower column index.
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ float group_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float group_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
 
 template <int D>
 constexpr size_t smem_bytes() {
@@ -211,12 +185,8 @@ __global__ void __launch_bounds__(kThreads)
     // O += P V: the score accumulators are the A fragments of P.
 #pragma unroll
     for (int j = 0; j < kBlockK / 16; ++j) {
-      const uint32_t a[4] = {
-          pack_bf16x2(s[2 * j][0], s[2 * j][1]),
-          pack_bf16x2(s[2 * j][2], s[2 * j][3]),
-          pack_bf16x2(s[2 * j + 1][0], s[2 * j + 1][1]),
-          pack_bf16x2(s[2 * j + 1][2], s[2 * j + 1][3]),
-      };
+      uint32_t a[4];
+      acc_to_a(a, s[2 * j], s[2 * j + 1]);
 #pragma unroll
       for (int dn = 0; dn < D / 8; ++dn) {
         const __nv_bfloat16* pv = sVt + (dn * 8 + g) * VST + j * 16 + 2 * t;

@@ -1,19 +1,24 @@
-"""Host minibatch feed.
+"""Host minibatch feed and device prefetch.
 
-Counterpart of ``distkeras_tpu/data/feed.py`` ``minibatches`` and
-``_epoch_batch_indices``: the same batch order, seed for seed. The device
-prefetcher (``DeviceFeed``) belongs to the training slice.
+Counterpart of ``distkeras_tpu/data/feed.py``: ``minibatches``,
+``window_batches`` and ``index_windows`` give the same batch order as the
+reference's, batch for batch and seed for seed, because they draw from the
+same ``_epoch_batch_indices`` and ``_window_group``. :class:`DeviceFeed`
+moves each batch to the device one step ahead of the compute.
 """
 
 from __future__ import annotations
 
+import collections
 from collections.abc import Iterator
 
 import numpy as np
+import torch
 
 from distkeras_tpu_torch.data.dataset import Dataset
+from distkeras_tpu_torch.utils.device import resolve_device
 
-__all__ = ["minibatches"]
+__all__ = ["minibatches", "window_batches", "index_windows", "DeviceFeed"]
 
 Batch = dict[str, np.ndarray]
 
@@ -49,6 +54,20 @@ def _epoch_batch_indices(
             yield order[lo:hi].astype(np.int32)
 
 
+def _window_group(items, window: int, stack):
+    """Group ``window`` consecutive items with ``stack``; the tail is emitted
+    as ``stack([item])`` singles rather than one shorter group, as the
+    reference does (its scanned program is compiled per leading length)."""
+    buf = []
+    for b in items:
+        buf.append(b)
+        if len(buf) == window:
+            yield stack(buf)
+            buf = []
+    for b in buf:
+        yield stack([b])
+
+
 def minibatches(
     dataset: Dataset,
     batch_size: int,
@@ -67,3 +86,78 @@ def minibatches(
     for idx in _epoch_batch_indices(n, batch_size, num_epoch, seed,
                                     drop_remainder, start_batch):
         yield {"features": x[idx], "label": y[idx]}
+
+
+def window_batches(batches: Iterator[Batch], window: int) -> Iterator[Batch]:
+    """Group ``window`` consecutive minibatches into one stacked batch with a
+    leading window axis (``[W, B, ...]``) for the window step
+    (:func:`distkeras_tpu_torch.training.step.make_window_train_step`)."""
+
+    def _stack(buf: list[Batch]) -> Batch:
+        return {k: np.stack([b[k] for b in buf]) for k in buf[0]}
+
+    return _window_group(batches, window, _stack)
+
+
+def index_windows(
+    n: int,
+    batch_size: int,
+    window: int,
+    num_epoch: int = 1,
+    seed: int | None = None,
+) -> Iterator[np.ndarray]:
+    """Yield ``[W, B]`` int32 row-index arrays with the same cadence as
+    ``window_batches(minibatches(...))``, for the device-cached window step:
+    the data lives on the device whole and only these indices cross."""
+    return _window_group(
+        _epoch_batch_indices(n, batch_size, num_epoch, seed), window, np.stack
+    )
+
+
+class DeviceFeed:
+    """Iterator of device batches that keeps ``buffer_size`` batches in
+    flight.
+
+    On a CUDA device each numpy batch is copied into pinned host memory and
+    sent with a ``non_blocking`` copy on a side stream; the consuming stream
+    waits on that copy's event before it gets the batch, so the next batch's
+    transfer overlaps the current step's compute. On the CPU it only wraps
+    the arrays with ``torch.from_numpy``. ``device`` is CUDA unless ``"cpu"``
+    is asked for."""
+
+    def __init__(self, batches: Iterator[Batch], device: str | torch.device | None = None,
+                 buffer_size: int = 2):
+        self._batches = batches
+        self._device = resolve_device(device)
+        self._buffer_size = max(1, buffer_size)
+        self._stream = (torch.cuda.Stream(self._device)
+                        if self._device.type == "cuda" else None)
+
+    def _put(self, batch: Batch):
+        host = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in batch.items()}
+        if self._stream is None:
+            return host, None
+        with torch.cuda.stream(self._stream):
+            out = {k: v.pin_memory().to(self._device, non_blocking=True)
+                   for k, v in host.items()}
+            ready = torch.cuda.Event()
+            ready.record(self._stream)
+        return out, ready
+
+    def _take(self, item) -> dict[str, torch.Tensor]:
+        out, ready = item
+        if ready is not None:
+            consumer = torch.cuda.current_stream(self._device)
+            consumer.wait_event(ready)
+            for t in out.values():
+                t.record_stream(consumer)  # allocated on the side stream
+        return out
+
+    def __iter__(self):
+        buffer: collections.deque = collections.deque()
+        for batch in self._batches:
+            buffer.append(self._put(batch))
+            if len(buffer) >= self._buffer_size:
+                yield self._take(buffer.popleft())
+        while buffer:
+            yield self._take(buffer.popleft())

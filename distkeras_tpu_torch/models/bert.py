@@ -15,6 +15,12 @@ the same numerics:
 - the tied head multiplies in ``cfg.dtype`` (flax ``Embed.attend`` promotes
   both sides) and adds the float32 ``mlm_bias``, so logits are float32.
 
+Dropout keeps flax's semantics (keep with probability ``1 - rate``, scale
+by ``1 / (1 - rate)``, in the input's dtype) and draws its masks from
+``torch.Generator``s seeded inside the forward from the ``rng`` seed the
+caller passes, one derived seed per dropout site, so a recompute under
+``torch.utils.checkpoint`` draws the same masks.
+
 Attention takes the flash kernel (:mod:`distkeras_tpu_torch.ops.flash_attention`)
 when ``use_flash_attention`` is set and no mask is given, else dense
 attention. Decode, sequence and tensor parallelism, paged KV and MoE come
@@ -32,9 +38,10 @@ from torch import nn
 from distkeras_tpu_torch.models.core import Model
 from distkeras_tpu_torch.ops.attention import dot_product_attention
 from distkeras_tpu_torch.ops.flash_attention import flash_attention
+from distkeras_tpu_torch.utils.rng import fold_in
 
 __all__ = [
-    "BertConfig", "Bert", "EncoderLayer", "SelfAttention",
+    "BertConfig", "Bert", "EncoderLayer", "SelfAttention", "dropout",
     "bert_base_mlm", "bert_tiny_mlm", "gpt_tiny", "gpt_small",
 ]
 
@@ -78,6 +85,23 @@ class BertConfig:
             if getattr(self, name):
                 raise NotImplementedError(
                     f"BertConfig.{name} is not ported yet: it comes with {where}")
+
+
+def dropout(x, rate: float, seed: int | None):
+    """flax ``nn.Dropout`` in train mode: keep each element with probability
+    ``1 - rate`` and scale it by ``1 / (1 - rate)``, in x's dtype. The keep
+    mask comes from a ``torch.Generator`` on x's device seeded with ``seed``."""
+    if rate == 0.0:
+        return x
+    if seed is None:
+        raise ValueError("dropout in train mode needs a seed: apply(..., train=True, rng=seed)")
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    keep_prob = 1.0 - rate
+    gen = torch.Generator(device=x.device)
+    gen.manual_seed(seed)
+    keep = torch.rand(x.shape, generator=gen, device=x.device) < keep_prob
+    return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def _lecun_normal_(weight: torch.Tensor, generator) -> None:
@@ -141,13 +165,13 @@ class EncoderLayer(nn.Module):
         self.mlp_in = Dense(cfg.hidden_size, cfg.mlp_dim, cfg.dtype)
         self.mlp_out = Dense(cfg.mlp_dim, cfg.hidden_size, cfg.dtype)
 
-    def forward(self, x, mask=None, train: bool = False):
-        p = self.cfg.dropout_rate
+    def forward(self, x, mask=None, train: bool = False, rng: int | None = None):
+        p = self.cfg.dropout_rate if train else 0.0
         y = self.attention(self.ln_attn(x.float()), mask=mask)
-        x = x + F.dropout(y, p, training=train)
+        x = x + dropout(y, p, None if rng is None else fold_in(rng, 0))
         y = self.mlp_in(self.ln_mlp(x.float()))
         y = self.mlp_out(F.gelu(y, approximate="tanh"))
-        return x + F.dropout(y, p, training=train).to(x.dtype)
+        return x + dropout(y, p, None if rng is None else fold_in(rng, 1)).to(x.dtype)
 
 
 class Bert(nn.Module):
@@ -185,15 +209,22 @@ class Bert(nn.Module):
                 nn.init.ones_(module.weight)
                 nn.init.zeros_(module.bias)
 
-    def forward(self, token_ids, train: bool = False):
+    def forward(self, token_ids, train: bool = False, rng: int | None = None):
+        """``rng``: the integer seed of this forward's dropout masks (needed
+        when ``train`` and ``dropout_rate > 0``); site ``i`` draws from
+        ``fold_in(rng, i)``."""
         cfg = self.cfg
         S = token_ids.shape[1]
         table = self.token_embed.weight
         x = F.embedding(token_ids.long(), table).to(cfg.dtype)
         x = x + self.pos_embed[:, :S].to(cfg.dtype)
-        x = F.dropout(x, cfg.dropout_rate, training=train)
-        for layer in self.layers():
-            x = layer(x, train=train)
+
+        def site(i):
+            return None if rng is None else fold_in(rng, i)
+
+        x = dropout(x, cfg.dropout_rate if train else 0.0, site(0))
+        for i, layer in enumerate(self.layers()):
+            x = layer(x, train=train, rng=site(i + 1))
         x = self.ln_final(x.float())
         # The vocab rows are padded to a multiple of 8 so that the product's
         # rows stay 16-byte aligned: with 30522 or 50257 columns cuBLAS

@@ -29,8 +29,9 @@ class Model:
 
     ``module_fn()`` builds the ``nn.Module``; a module may define
     ``init_weights(generator)`` to draw its initial weights.
-    ``apply(variables, x, train) -> (outputs, new_state)``, where
-    ``new_state`` is empty for the architectures of this slice."""
+    ``apply(variables, x, train, rng) -> (outputs, new_state)``, where
+    ``rng`` is the integer seed of the step's dropout masks and
+    ``new_state`` is empty for the architectures ported so far."""
 
     def __init__(
         self,
@@ -61,8 +62,9 @@ class Model:
             module.init_weights(generator)
         return {k: v.detach() for k, v in module.state_dict().items()}
 
-    def apply(self, variables: Variables, x, train: bool = False):
-        out = torch.func.functional_call(self.module, variables, (x,), {"train": train})
+    def apply(self, variables: Variables, x, train: bool = False, rng: int | None = None):
+        out = torch.func.functional_call(self.module, variables, (x,),
+                                         {"train": train, "rng": rng})
         return out, {}
 
     def count_params(self) -> int:

@@ -3,8 +3,9 @@
 Each source under ``distkeras_tpu_torch/csrc/`` becomes one shared library
 with a plain C interface, compiled for Hopper (``sm_90a``) into
 ``build/kernels/`` at the root of the checkout on first use. The library's
-file name carries a hash of its source and flags, so an edited source is
-rebuilt and an unchanged one is loaded as it is. ``build_all`` starts one
+file name carries a hash of its source, of every header under ``csrc/``
+(the sources share ``mma_bf16.cuh``) and of the flags, so an edited source
+or header is rebuilt and an unchanged one is loaded as it is. ``build_all`` starts one
 ``nvcc`` for each source at once and waits for all of them.
 """
 
@@ -38,9 +39,11 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build_all(names: list[str] | None = None) -> dict[str, str]:

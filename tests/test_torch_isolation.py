@@ -11,10 +11,11 @@ import pytest
 import torch
 
 import distkeras_tpu_torch
+from distkeras_tpu_torch.data.feed import DeviceFeed
 from distkeras_tpu_torch.inference.predictors import ModelPredictor
 from distkeras_tpu_torch.models.bert import bert_tiny_mlm
 from distkeras_tpu_torch.models.core import TrainedModel
-from distkeras_tpu_torch.training.trainers import Trainer
+from distkeras_tpu_torch.training.trainers import SingleTrainer, Trainer
 from distkeras_tpu_torch.utils.bridge import params_from_jax
 from distkeras_tpu_torch.utils.device import resolve_device
 
@@ -55,7 +56,8 @@ def test_resolve_device():
         resolve_device("meta")
 
 
-@pytest.mark.parametrize("entry", ["init", "params_from_jax", "trainer", "predictor"])
+@pytest.mark.parametrize("entry", ["init", "params_from_jax", "trainer", "predictor",
+                                   "single_trainer", "device_feed"])
 def test_entry_points_raise_without_cuda(entry):
     _no_cuda()
     model = bert_tiny_mlm(seq_len=16, vocab_size=64)
@@ -64,6 +66,8 @@ def test_entry_points_raise_without_cuda(entry):
         "params_from_jax": lambda: params_from_jax({"params": {"w": np.zeros(2)}}),
         "trainer": lambda: Trainer(model, loss="fused_categorical_crossentropy"),
         "predictor": lambda: ModelPredictor(TrainedModel(model, model.init(0, device="cpu"))),
+        "single_trainer": lambda: SingleTrainer(model, loss="fused_categorical_crossentropy"),
+        "device_feed": lambda: DeviceFeed(iter([])),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()

@@ -10,8 +10,24 @@ that has only PyTorch and the CUDA toolkit:
 import pytest
 import torch
 
-from distkeras_tpu_torch.ops.flash_attention import flash_forward, flash_forward_reference
-from distkeras_tpu_torch.ops.fused_xent import xent_forward, xent_forward_reference
+from distkeras_tpu_torch.ops.flash_attention import (
+    dkv_call,
+    dq_call,
+    flash_attention,
+    flash_dkv_reference,
+    flash_dq_reference,
+    flash_forward,
+    flash_forward_reference,
+)
+from distkeras_tpu_torch.ops.fused_xent import (
+    fused_softmax_xent,
+    xent_forward,
+    xent_forward_reference,
+    xent_grad,
+    xent_grad_reference,
+    xent_stats,
+    xent_stats_reference,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -68,3 +84,108 @@ def test_xent_kernel_takes_row_strided_logits(gen):
     labels = torch.randint(0, 1000, (64,), device="cuda", generator=gen)
     torch.testing.assert_close(xent_forward(logits, labels),
                                xent_forward_reference(logits, labels), rtol=1e-5, atol=1e-4)
+
+
+def _backward_inputs(gen, BH, Sq, Skv, D, causal, shift):
+    """bf16 q/k/v/dO and the float32 lse and delta the forward would give,
+    computed densely (S_q may differ from S_kv)."""
+    q, do = (torch.randn(BH, Sq, D, device="cuda", generator=gen).bfloat16() for _ in range(2))
+    k, v = (torch.randn(BH, Skv, D, device="cuda", generator=gen).bfloat16() for _ in range(2))
+    s = torch.matmul(q.float(), k.float().transpose(1, 2)) * D**-0.5
+    if causal:
+        keep = (torch.arange(Sq, device="cuda")[:, None]
+                >= torch.arange(Skv, device="cuda")[None, :] + shift)
+        s = torch.where(keep, s, torch.full_like(s, -1e30))
+    lse = torch.logsumexp(s, dim=-1, keepdim=True)
+    out = torch.matmul(torch.softmax(s, dim=-1), v.float()).bfloat16()
+    delta = (do.float() * out.float()).sum(-1, keepdim=True)
+    return q, k, v, do, lse, delta
+
+
+def _close(got, want):
+    """bf16 gradients: both round P and dS to bf16 before the products, but
+    from exps computed by different code, so a weight near a rounding
+    boundary may land one bf16 ulp apart; 1e-2 of the largest value."""
+    scale = want.float().abs().max().item()
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= 1e-2 * max(scale, 1e-3), (err, scale)
+
+
+@pytest.mark.parametrize("D", [32, 64])
+@pytest.mark.parametrize("Sq,Skv", [(200, 200), (96, 200), (200, 72)])
+@pytest.mark.parametrize("causal,shift", [(False, 0), (True, 0), (True, 1)])
+def test_flash_backward_kernels_match_plain(gen, D, Sq, Skv, causal, shift):
+    """K2 and K3 at ragged lengths, S_q != S_kv, and under shift 1 the fully
+    masked row 0, whose P is 1 for every key."""
+    q, k, v, do, lse, delta = _backward_inputs(gen, 12, Sq, Skv, D, causal, shift)
+    n_dq, n_dkv = dq_call.launches, dkv_call.launches
+    dq = dq_call(q, k, v, do, lse, delta, causal, shift)
+    dk, dv = dkv_call(k, v, q, do, lse, delta, causal, shift)
+    torch.cuda.synchronize()
+    assert (dq_call.launches, dkv_call.launches) == (n_dq + 1, n_dkv + 1)
+    _close(dq, flash_dq_reference(q, k, v, do, lse, delta, causal, shift))
+    want_dk, want_dv = flash_dkv_reference(k, v, q, do, lse, delta, causal, shift)
+    _close(dk, want_dk)
+    _close(dv, want_dv)
+
+
+@pytest.mark.parametrize("B", [1, 2])
+def test_flash_attention_gradient_on_the_card(gen, B):
+    """The autograd path end to end: forward K1, backward K2 and K3, against
+    the same function through the plain versions on the card. At B = 1 the
+    fold of [B, S, H, D] to [BH, S, D] is a strided view that must be made
+    contiguous for the kernels."""
+    q, k, v = (torch.randn(B, 256, 4, 64, device="cuda", generator=gen).bfloat16()
+               .requires_grad_() for _ in range(3))
+    g = torch.randn(B, 256, 4, 64, device="cuda", generator=gen).bfloat16()
+    grads = torch.autograd.grad(flash_attention(q, k, v, causal=True), (q, k, v), g)
+
+    def fold(x):
+        return x.detach().permute(0, 2, 1, 3).reshape(B * 4, 256, 64).contiguous()
+
+    qf, kf, vf, gf = map(fold, (q, k, v, g))
+    out, lse = flash_forward_reference(qf, kf, vf, True)
+    delta = (gf.float() * out.float()).sum(-1, keepdim=True)
+    want = (flash_dq_reference(qf, kf, vf, gf, lse, delta, True),
+            *flash_dkv_reference(kf, vf, qf, gf, lse, delta, True))
+    for got, w in zip(grads, want):
+        _close(fold(got), w)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("V", [30522, 50257, 100])
+def test_xent_backward_kernels_match_plain(gen, dtype, V):
+    """K5 and K6 at ragged vocabularies, labels including out-of-range ones.
+    m exactly (a max); s and the f32 gradient to 1e-4 relative (float32 exps
+    from different code, summed in another order); bf16 gradients one bf16
+    rounding of the same float32 values. The gradient is held element by
+    element, with an absolute floor (1e-15) far below its smallest entries."""
+    logits = (torch.randn(333, V, device="cuda", generator=gen) * 3).to(dtype)
+    labels = torch.randint(-2, V + 2, (333,), device="cuda", generator=gen)
+    g = torch.rand(333, device="cuda", generator=gen) / 333
+    n_stats, n_grad = xent_stats.launches, xent_grad.launches
+    m, s = xent_stats(logits)
+    d = xent_grad(logits, labels, g, m, s)
+    torch.cuda.synchronize()
+    assert (xent_stats.launches, xent_grad.launches) == (n_stats + 1, n_grad + 1)
+    want_m, want_s = xent_stats_reference(logits)
+    assert torch.equal(m, want_m)
+    torch.testing.assert_close(s, want_s, rtol=1e-4, atol=0)
+    want = xent_grad_reference(logits, labels, g, want_m, want_s)
+    assert d.dtype == dtype
+    if dtype == torch.float32:
+        torch.testing.assert_close(d, want, rtol=1e-4, atol=1e-15)
+    else:
+        torch.testing.assert_close(d.float(), want.float(), rtol=1.6e-2, atol=1e-15)
+
+
+def test_xent_gradient_on_the_card(gen):
+    """fused_softmax_xent's gradient through K4, K5 and K6 against the plain
+    versions' on the same logits."""
+    logits = (torch.randn(256, 30522, device="cuda", generator=gen) * 3).requires_grad_()
+    labels = torch.randint(0, 30522, (256,), device="cuda", generator=gen)
+    (got,) = torch.autograd.grad(fused_softmax_xent(logits, labels), (logits,))
+    m, s = xent_stats_reference(logits.detach())
+    g = torch.full((256,), 1 / 256, device="cuda")
+    want = xent_grad_reference(logits.detach(), labels, g, m, s)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-15)
