@@ -13,12 +13,14 @@ Phases, each of which must pass or the script exits non-zero:
 1. Build the hand-written kernels from the sources in this checkout (one
    nvcc per CUDA C++ source, all at once: the flash-attention forward, and
    its dQ and dK/dV kernels; Triton's JIT for the fused cross-entropy
-   forward, stats and grad kernels) and print the build time.
+   forward, stats and grad kernels) and print the build time and each CUDA
+   kernel's registers and spills (K1 and K3 must not spill).
 2. Hold each kernel against its plain PyTorch version on the card, at the
    shapes the main path gives it, and time kernel, plain version and the
    one PyTorch call that computes the same function (scaled_dot_product_attention
-   and its backward, cross_entropy and its backward, logsumexp), with the
-   bound the card's published rates put on it.
+   and its backward, with a float additive mask under the strict causal mask;
+   cross_entropy and its backward, logsumexp), with the bound the card's
+   published rates put on it, and the flash wrappers' host time per call.
 3. Inference at full width: bert_base_mlm (seq 128, flash attention on,
    random weights from a seed) through ModelPredictor (64 rows, batch 32)
    and Trainer.evaluate with fused_categorical_crossentropy (512 rows,
@@ -125,6 +127,43 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def host_us(fn, rounds: int = 5, calls: int = 200) -> float:
+    """Host time of one eager call of ``fn`` (the wrapper's checks, tensor
+    maps and launch): ``rounds`` runs of ``calls`` calls by the host clock,
+    with no synchronize inside a run; the median run's time per call (the
+    host is shared, and single runs spread by tens of percent)."""
+    import torch
+
+    for _ in range(10):
+        fn()
+    per_call = []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        per_call.append((time.perf_counter() - t0) / calls * 1e6)
+    torch.cuda.synchronize()
+    return sorted(per_call)[rounds // 2]
+
+
+def sdpa_call(q4, k4, v4, causal: bool, shift: int):
+    """The one PyTorch call that computes the flash function on [B, H, S, D]:
+    SDPA with is_causal for shift 0; for shift 1 with a float additive mask,
+    0 where row >= col + 1 and -1e30 elsewhere, so that row 0, which sees no
+    key, averages every V row as the reference's does."""
+    import torch
+    import torch.nn.functional as F
+
+    if not (causal and shift):
+        return lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal)
+    S = q4.shape[2]
+    pos = torch.arange(S, device=q4.device)
+    mask = torch.zeros(S, S, device=q4.device, dtype=q4.dtype)
+    mask.masked_fill_(pos[:, None] < pos[None, :] + shift, -1e30)
+    return lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask)
+
+
 def bound_ms(nbytes: float, ops: float, peak_ops: float) -> tuple[float, str]:
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / peak_ops
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
@@ -139,6 +178,24 @@ def attended_pairs(S: int, causal: bool, shift: int) -> int:
     return S * (S + 1) // 2 if shift == 0 else S * (S - 1) // 2 + S
 
 
+def ptxas_summary(report: str) -> dict:
+    """Each kernel's registers and spills from ``nvcc -Xptxas -v`` output:
+    {"flash_dkv_kernel<64>": "168 registers, 0 bytes spill stores, ..."}."""
+    import re
+
+    out, kernel = {}, None
+    for line in report.splitlines():
+        m = re.search(r"(?:entry function|Function properties for) .*?\d([a-z_]+_kernel)ILi(\d+)E",
+                      line)
+        if m:
+            kernel = f"{m.group(1)}<{m.group(2)}>"
+            continue
+        m = re.search(r"(\d+ bytes spill stores, \d+ bytes spill loads)|Used (\d+ registers)", line)
+        if m and kernel:
+            out[kernel] = ", ".join(filter(None, [out.get(kernel), m.group(1) or m.group(2)]))
+    return out
+
+
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
@@ -149,7 +206,6 @@ def check(cond: bool, what: str) -> None:
 
 def flash_case(B, S, H, D, causal, shift, gen):
     import torch
-    import torch.nn.functional as F
 
     from distkeras_tpu_torch.ops.flash_attention import flash_forward, flash_forward_reference
 
@@ -165,20 +221,22 @@ def flash_case(B, S, H, D, causal, shift, gen):
           f"flash lse error {lse_err} > {FLASH_LSE_ATOL}")
     ms = cuda_ms(lambda: flash_forward(q, k, v, causal, shift), 50)
     plain_ms = cuda_ms(lambda: flash_forward_reference(q, k, v, causal, shift), 5)
-    library_ms = None
-    if shift == 0:  # SDPA has no strict-causal form of the same function
-        q4, k4, v4 = (x.view(B, H, S, D) for x in (q, k, v))
-        library_ms = cuda_ms(
-            lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal), 50)
+    host = host_us(lambda: flash_forward(q, k, v, causal, shift))
+    q4, k4, v4 = (x.view(B, H, S, D) for x in (q, k, v))
+    sdpa = sdpa_call(q4, k4, v4, causal, shift)
+    library_ms = cuda_ms(sdpa, 50)
+    library_err = (sdpa().reshape(BH, S, D).float() - ref_out.float()).abs().max().item()
     pairs = attended_pairs(S, causal, shift)
     nbytes = 4 * BH * S * D * 2 + BH * S * 4
     bound, by = bound_ms(nbytes, 4.0 * BH * pairs * D, BF16_TENSOR_FLOPS)
     case = {"shape": f"B={B} S={S} H={H} D={D} causal={causal} shift={shift} bf16",
             "max_abs_err": err, "lse_max_abs_err": lse_err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound, "bound_by": by, "library_ms": library_ms}
+            "bound_ms": bound, "bound_by": by, "library_ms": library_ms,
+            "library_max_abs_err": library_err, "host_us": host}
     log(f"  K1 {case['shape']}: err {err:.3g} lse_err {lse_err:.3g} "
-        f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms library {library_ms} ms "
-        f"bound {bound:.4f} ms ({by})")
+        f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms library {library_ms:.4f} ms "
+        f"(SDPA, err {library_err:.3g}) bound {bound:.4f} ms ({by}), "
+        f"host {host:.2f} us a call")
     return case
 
 
@@ -214,7 +272,6 @@ def flash_bwd_cases(B, S, H, D, causal, shift, gen):
     version, delta = rowsum(dO * O)); the library yardstick is SDPA's
     backward, timed as SDPA forward+backward less SDPA forward."""
     import torch
-    import torch.nn.functional as F
 
     from distkeras_tpu_torch.ops.flash_attention import (
         dkv_call, dq_call, flash_dkv_reference, flash_dq_reference, flash_forward_reference)
@@ -236,14 +293,12 @@ def flash_bwd_cases(B, S, H, D, causal, shift, gen):
         check(math.isfinite(err) and err <= FLASH_BWD_RTOL * scale,
               f"flash {name} error {err} > {FLASH_BWD_RTOL} x {scale}")
         errs[name] = err
-    library_ms = None
-    if shift == 0:  # SDPA has no strict-causal form of the same function
-        q4, k4, v4 = (x.view(B, H, S, D).detach().requires_grad_() for x in (q, k, v))
-        do4 = do.view(B, H, S, D)
-        fwd_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal), 20)
-        both_ms = cuda_ms(lambda: torch.autograd.grad(
-            F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal), (q4, k4, v4), do4), 20)
-        library_ms = both_ms - fwd_ms
+    q4, k4, v4 = (x.view(B, H, S, D).detach().requires_grad_() for x in (q, k, v))
+    do4 = do.view(B, H, S, D)
+    sdpa = sdpa_call(q4, k4, v4, causal, shift)
+    fwd_ms = cuda_ms(sdpa, 20)
+    both_ms = cuda_ms(lambda: torch.autograd.grad(sdpa(), (q4, k4, v4), do4), 20)
+    library_ms = both_ms - fwd_ms
     pairs = attended_pairs(S, causal, shift)
     tensor = BH * S * D * 2
     stats = 2 * BH * S * 4
@@ -259,12 +314,14 @@ def flash_bwd_cases(B, S, H, D, causal, shift, gen):
     ):
         ms = cuda_ms(fn, 50)
         plain_ms = cuda_ms(plain, 5)
+        host = host_us(fn)
         bound, by = bound_ms(nbytes, flops, BF16_TENSOR_FLOPS)
         cases[name] = {"shape": shape, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                       "bound_ms": bound, "bound_by": by,
+                       "bound_ms": bound, "bound_by": by, "host_us": host,
                        "library_ms": library_ms, "library": "SDPA backward (K2 and K3 together)"}
         log(f"  {name} {shape}: err {err:.3g} kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
-            f"library (K2+K3) {library_ms} ms bound {bound:.4f} ms ({by})")
+            f"library (K2+K3) {library_ms:.4f} ms bound {bound:.4f} ms ({by}), "
+            f"host {host:.2f} us a call")
     return cases["K2"], cases["K3"]
 
 
@@ -638,9 +695,10 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     log(f"phase 1: kernels built and loaded in {time.perf_counter() - t0:.2f} s")
     for name, rep in reports.items():
-        for line in rep.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+        for kernel, info in ptxas_summary(rep).items():
+            log(f"  {name}: {kernel}: {info}")
+            if root == REPO and kernel.startswith(("flash_fwd_kernel", "flash_dkv_kernel")):
+                check("0 bytes spill stores" in info, f"{kernel} spills: {info}")  # K1, K3
 
     log("phase 2: kernels against their plain versions on the card")
     k1 = [flash_case(32, 128, 12, 64, False, 0, gen),

@@ -23,52 +23,76 @@
 // therefore reads every input once per tile that needs it and never writes
 // the S x S probability or score matrices: they live in registers.
 //
-// Design: one thread block of 4 warps per 64-row tile, each warp owning 16
-// rows, with mma.sync m16n8k16 (bf16 inputs, f32 accumulators).
-// - K2, one block per (64-query tile, bh). The warp's Q and dO fragments,
-//   and lse and delta of its rows, stay in registers for the whole key loop.
-//   K and V tiles of 64 keys are staged row-major in shared memory. The dS
-//   accumulators, rounded to bf16, are the A fragments of dS.K directly; the
-//   B fragments of that product come from the same row-major K tile through
-//   ldmatrix.trans, so no transposed copy is made. Causal tiles stop at the
-//   diagonal, except a tile that holds a fully masked row.
-// - K3, one block per (64-key tile, bh), in the key-row frame:
-//   S^T = K Q^T, P^T = exp(S^T * scale - lse[col]), dP^T = V dO^T,
-//   dS^T = P^T * (dP^T - delta[col]) * scale, then dV += P^T dO and
-//   dK += dS^T Q with the P^T and dS^T accumulators as A fragments and the
-//   row-major Q and dO tiles read through ldmatrix.trans. lse and delta of
-//   the tile's 64 queries sit in shared memory. Causal blocks skip query
-//   tiles wholly above the diagonal, but always visit the tile that holds a
-//   fully masked row.
-// - Both stage their tiles with cp.async into two buffers: the copy of the
-//   next tile runs while the warps compute on this one.
-// - The exps run in base 2 on pre-scaled scores (one ex2 each, where expf
-//   costs about ten instructions and each thread takes 64 per tile).
-// - Under the causal mask tiles differ in length; the grid puts the tile in
-//   blockIdx.y, so that the longest tiles are dispatched first.
+// - K2 (dQ), one block of 4 warps per (64-query tile, bh), each warp owning
+//   16 rows, with mma.sync m16n8k16 (bf16 inputs, f32 accumulators). The
+//   warp's Q and dO fragments, and lse and delta of its rows, stay in
+//   registers for the whole key loop. K and V tiles of 64 keys are staged
+//   row-major in shared memory by cp.async into two buffers, so the next
+//   tile's copy runs while the warps compute on this one. The dS
+//   accumulators, rounded to bf16, are the A fragments of dS.K directly;
+//   the B fragments of that product come from the same row-major K tile
+//   through ldmatrix.trans. Causal tiles stop at the diagonal, except a tile
+//   that holds a fully masked row. Three blocks an SM cap it at 168
+//   registers.
+// - K3 (dK, dV), TMA and wgmma: a persistent block on each SM walks work
+//   items (128-key tile, bh), key tiles outermost, with two consumer
+//   warpgroups of 64 keys each (the m64 of wgmma) and one producer
+//   warpgroup, in the key-row frame:
+//     S^T = K Q^T, P^T = exp(S^T * scale - lse[col]), dP^T = V dO^T,
+//     dS^T = P^T * (dP^T - delta[col]) * scale, dV += P^T dO, dK += dS^T Q.
+//   One producer thread loads an item's K and V into one of two slots (the
+//   next item's while this one computes and stores), then Q, dO, lse and
+//   delta of each 64-query tile into a ring of four stages with TMA
+//   (3-D maps over [BH, S, D], 128-byte swizzle for D = 64, 64-byte for
+//   D = 32; 1-D maps over lse and delta), with `full` and `empty` mbarriers
+//   per stage. Both warpgroups read the same staged query tile, so Q and dO
+//   are read once per 128 keys. S^T and dP^T are wgmma chains with both
+//   operands K-major in shared memory (A = K or V, B = Q or dO); dV and dK
+//   take A = P^T and dS^T from the accumulator registers rounded to bf16,
+//   and B = dO and Q row-major through the transpose bit. K and V never
+//   enter registers. dV's product runs while dS^T is formed. dK and dV go
+//   out through the item's K/V slot with one TMA store each. A consumer
+//   thread holds four 64 x 64 f32 tiles (dK, dV, S^T, dP^T: 4 x 32
+//   registers); setmaxnreg gives the consumers 240 registers and the
+//   producer 24 (the block's 384 x 168 at launch), so nothing spills.
+//   Causal items skip query tiles wholly above the diagonal, but always
+//   visit the tile that holds a fully masked row; items are dealt in snake
+//   order (snake_item), the longest first. Why persistent: at bert_base
+//   shape (BH = 384, S = 128) there are 384 items of two query tiles each,
+//   and a 384-thread block at 168 registers fits once on an SM; one block
+//   per item (2.9 waves on 132 SMs) left each block's K/V load and output
+//   store exposed and ran slower than the mma.sync design it replaces (37
+//   against 35 us, NVIDIA H100 80GB HBM3, 700 W). The two K/V slots
+//   overlap them with the previous item's work.
+// - The exps run in base 2 on pre-scaled scores: exp2f in K2, one
+//   ex2.approx in K3 (exp2f's full-range path took K3 to 53 us at
+//   gpt_small's shape, ex2.approx to 32). Under the causal mask tiles
+//   differ in length, and the longest are dispatched (K2) or walked (K3)
+//   first.
 // P^T is rounded to bf16 for the P^T.dO product (the reference keeps it in
-// f32 there); dS is rounded to bf16 on both sides. Each block owns its output
-// tile: no atomics, and the result does not depend on the launch order.
-// No TMA and no wgmma yet.
+// f32 there); dS is rounded to bf16 on both sides. Each K2 block and K3 item
+// owns its output tile: no atomics, and the result does not depend on the launch order.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper_sm90.cuh"
 #include "mma_bf16.cuh"
 
 namespace {
 
 using namespace flash;
+using namespace hopper;
 using bf16 = __nv_bfloat16;
 
-constexpr int kBlock = 64;  // rows per block (4 warps x 16) and per staged tile
-constexpr int kThreads = 128;
-// Three blocks per SM cap the kernels at 168 registers (K3 would take 255).
-// K3 then spills a few hundred bytes, and is faster all the same: the extra
-// warps hide the latency of the tile copies (measured on the H100 at both
-// bert_base_mlm and gpt_small shapes).
+constexpr int kBlock = 64;  // K2's rows per block (4 warps x 16); a staged tile's rows
+constexpr int kThreads = 128;  // K2
+// Three K2 blocks per SM cap K2 at 168 registers: the extra warps hide the
+// latency of its tile copies (measured on the H100 at both bert_base_mlm and
+// gpt_small shapes).
 constexpr int kMinBlocksPerSM = 3;
 constexpr float kMaskFill = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
@@ -166,13 +190,6 @@ template <int D>
 constexpr size_t dq_smem_bytes() {
   // Two stages of K and V tiles [64][D + 8] (Q and dO before the key loop).
   return sizeof(bf16) * (size_t)(4 * kBlock * (D + 8));
-}
-
-template <int D>
-constexpr size_t dkv_smem_bytes() {
-  // Two stages of Q and dO tiles [64][D + 8] (K and V before the query
-  // loop), and of lse and delta of the tile's 64 queries.
-  return sizeof(bf16) * (size_t)(4 * kBlock * (D + 8)) + sizeof(float) * 4 * kBlock;
 }
 
 template <int D>
@@ -287,117 +304,237 @@ __device__ __forceinline__ int next_query_tile(int qb, int n_qb, int k0, int cau
   return qb;
 }
 
+// K3: the block's keys and query tiles, and its shared memory.
+constexpr int kDkvKeys = 128;  // keys per work item: two consumer warpgroups of 64
+constexpr int kDkvStages = 4;  // ring of query tiles (Q, dO, lse, delta)
+constexpr int kDkvConsumers = 256;
+constexpr int kDkvThreads = kDkvConsumers + 128;  // and one producer warpgroup
+// setmaxnreg moves registers between the warpgroups of a block, within what
+// the block was launched with: 384 threads at 168 registers (ptxas's count
+// at entry) = 64,512 = 128 x 24 (producer) + 256 x 240 (consumers).
+constexpr uint32_t kProducerRegs = 24;
+constexpr uint32_t kConsumerRegs = 240;
+// lse and delta of a query tile: a TMA box of 68 f32 from a 16-byte aligned
+// start (up to 3 values before the tile, 64 of it, the rest after), each in
+// a 128-byte aligned slot of 96.
+constexpr int kStatBox = kBlock + 4;
+constexpr int kStatSlot = 96;
+
 template <int D>
-__device__ __forceinline__ void stage_query_tile(bf16* sQD, float* sLD, const bf16* q,
-                                                 const bf16* dout, const float* lse,
-                                                 const float* delta, int q0, int Sq,
-                                                 int tid) {
-  constexpr int TILE = kBlock * (D + 8);
-  stage_tile<D>(sQD, q, q0, Sq, tid);
-  stage_tile<D>(sQD + TILE, dout, q0, Sq, tid);
-  if (tid < kBlock) {
-    const bool in = q0 + tid < Sq;
-    const int r = in ? q0 + tid : 0;
-    cp_async_4(sLD + tid, lse + r, in);
-    cp_async_4(sLD + kBlock + tid, delta + r, in);
-  }
+constexpr size_t dkv_smem_bytes() {
+  // Two slots of K and V [128][D], kDkvStages x (Q, dO [64][D]), then
+  // kDkvStages x (lse, delta slots), and 1024 bytes to align the first tile.
+  return sizeof(bf16) * (size_t)(4 * kDkvKeys + 2 * kDkvStages * kBlock) * D +
+         sizeof(float) * 2 * kDkvStages * kStatSlot + 1024;
+}
+
+// The key tile and (bh) slice of work item w: key tiles outermost, so that
+// under the causal mask the longest items (the first key tiles, which see
+// the most queries) come first.
+__device__ __forceinline__ void dkv_item(int w, int bh_count, int& k0, int& bh) {
+  k0 = (w / bh_count) * kDkvKeys;
+  bh = w % bh_count;
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads, kMinBlocksPerSM)
-    flash_dkv_kernel(const bf16* __restrict__ k, const bf16* __restrict__ v,
-                     const bf16* __restrict__ q, const bf16* __restrict__ dout,
-                     const float* __restrict__ lse, const float* __restrict__ delta,
-                     bf16* __restrict__ dk, bf16* __restrict__ dv, int Sq, int Skv,
+__global__ void __launch_bounds__(kDkvThreads, 1)
+    flash_dkv_kernel(const __grid_constant__ CUtensorMap k_map,
+                     const __grid_constant__ CUtensorMap v_map,
+                     const __grid_constant__ CUtensorMap q_map,
+                     const __grid_constant__ CUtensorMap do_map,
+                     const __grid_constant__ CUtensorMap lse_map,
+                     const __grid_constant__ CUtensorMap delta_map,
+                     const __grid_constant__ CUtensorMap dk_map,
+                     const __grid_constant__ CUtensorMap dv_map, int bh_count, int Sq, int Skv,
                      float scale, int causal, int shift) {
-  constexpr int TILE = kBlock * (D + 8);
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  // Stage s: Q tile at sQD + 2 s TILE, dO right after it; lse of its 64
-  // queries at sLD + 2 s 64, delta right after.
-  bf16* sQD = reinterpret_cast<bf16*>(smem_raw);
-  float* sLD = reinterpret_cast<float*>(sQD + 4 * TILE);
-
-  // Under the causal mask the first key tiles see the most queries: with the
-  // key tile in blockIdx.y they are dispatched first.
-  const int k0 = blockIdx.y * kBlock;
-  const size_t bh = blockIdx.x;
-  const size_t qoff = bh * Sq * D, koff = bh * Skv * D;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int wr = warp * 16;
-  const float scale_log2 = scale * kLog2e, fill_log2 = to_log2(kMaskFill);
-  const bf16* qs = q + qoff;
-  const bf16* dos = dout + qoff;
-  const float* lses = lse + bh * Sq;
-  const float* deltas = delta + bh * Sq;
+  constexpr int QT = kBlock * D;     // elements of a query tile
+  constexpr int KT = kDkvKeys * D;   // elements of a K (or V) tile
+  constexpr uint32_t ROW = D * sizeof(bf16);
+  constexpr uint32_t STAGE_BYTES = 2 * QT * sizeof(bf16) + 2 * kStatBox * sizeof(float);
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t bars[2 * kDkvStages + 4];
+  bf16* sKV = reinterpret_cast<bf16*>(align_1024(smem_raw));  // slot j: K, then V
+  bf16* sQD = sKV + 4 * KT;  // stage s: Q at sQD + 2 s QT, dO right after
+  float* sLD = reinterpret_cast<float*>(sQD + 2 * kDkvStages * QT);  // lse, delta slots
+  uint64_t* full = bars;
+  uint64_t* empty = bars + kDkvStages;
+  uint64_t* kv_full = bars + 2 * kDkvStages;   // two K/V slots
+  uint64_t* kv_empty = kv_full + 2;
 
   const int n_qb = (Sq + kBlock - 1) / kBlock;
-  int qb = next_query_tile(0, n_qb, k0, causal, shift);
+  const int n_items = bh_count * ((Skv + kDkvKeys - 1) / kDkvKeys);
 
-  // K and V into stage 1, the first query tile into stage 0.
-  stage_tile<D>(sQD + 2 * TILE, k + koff, k0, Skv, tid);
-  stage_tile<D>(sQD + 3 * TILE, v + koff, k0, Skv, tid);
-  cp_async_commit();
-  if (qb < n_qb)
-    stage_query_tile<D>(sQD, sLD, qs, dos, lses, deltas, qb * kBlock, Sq, tid);
-  cp_async_commit();
-
-  cp_async_wait<1>();
-  __syncthreads();
-  uint32_t kf[D / 16][4], vf[D / 16][4];
-  load_a<D>(kf, sQD + 2 * TILE, wr, lane);
-  load_a<D>(vf, sQD + 3 * TILE, wr, lane);
-  __syncthreads();  // stage 1 is free for the next query tile
-  const int keys[2] = {k0 + wr + g, k0 + wr + g + 8};
-
-  float dk_acc[D / 8][4], dv_acc[D / 8][4];
-#pragma unroll
-  for (int dn = 0; dn < D / 8; ++dn) {
-    dk_acc[dn][0] = dk_acc[dn][1] = dk_acc[dn][2] = dk_acc[dn][3] = 0.f;
-    dv_acc[dn][0] = dv_acc[dn][1] = dv_acc[dn][2] = dv_acc[dn][3] = 0.f;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kDkvStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kDkvConsumers);
+    }
+    for (int j = 0; j < 2; ++j) {
+      mbar_init(&kv_full[j], 1);
+      mbar_init(&kv_empty[j], kDkvConsumers);
+    }
+    mbar_fence_init();
   }
+  __syncthreads();
 
-  for (int stage = 0; qb < n_qb; stage ^= 1) {
-    const int q0 = qb * kBlock;
-    const int next = next_query_tile(qb + 1, n_qb, k0, causal, shift);
-    if (next < n_qb)
-      stage_query_tile<D>(sQD + 2 * (stage ^ 1) * TILE, sLD + 2 * (stage ^ 1) * kBlock, qs,
-                          dos, lses, deltas, next * kBlock, Sq, tid);
-    cp_async_commit();  // possibly empty, so that the wait below is uniform
-    cp_async_wait<1>();
-    __syncthreads();
-    const bf16* sQ = sQD + 2 * stage * TILE;
-    const bf16* sD = sQ + TILE;
-    const float* sL = sLD + 2 * stage * kBlock;
-    const float* sDl = sL + kBlock;
-
-    float pt[kBlock / 8][4], dst[kBlock / 8][4];
-    product_nt<D>(pt, kf, sQ, lane);   // S^T
-    product_nt<D>(dst, vf, sD, lane);  // dP^T
-#pragma unroll
-    for (int n = 0; n < kBlock / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = n * 8 + 2 * t + (e & 1);
-        float p = 0.f, ds = 0.f;
-        if (q0 + c < Sq) {
-          float x = pt[n][e] * scale_log2;
-          if (causal && q0 + c < keys[e >> 1] + shift) x = fill_log2;
-          p = exp2f(x - to_log2(sL[c]));
-          ds = p * (dst[n][e] - sDl[c]) * scale;
+  // The block walks work items snake_item(0), (1), ...; counters `it`
+  // (items, two K/V slots) and `i` (query tiles, the stage ring) run on
+  // across items in the producer and the consumers alike.
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (warp >= kDkvConsumers / 32) {  // the producer warpgroup: one thread issues
+    setmaxnreg_dec<kProducerRegs>();
+    if (warp == kDkvConsumers / 32 && lane == 0) {
+      int i = 0, it = 0;
+      for (int w = snake_item(0); w < n_items; w = snake_item(++it)) {
+        int k0, bh;
+        dkv_item(w, bh_count, k0, bh);
+        const int j = it & 1;
+        if (it >= 2) mbar_wait(&kv_empty[j], ((it >> 1) - 1) & 1);
+        mbar_arrive_expect_tx(&kv_full[j], 2 * KT * sizeof(bf16));
+        tma_load_3d(sKV + 2 * j * KT, &k_map, &kv_full[j], 0, k0, bh);
+        tma_load_3d(sKV + (2 * j + 1) * KT, &v_map, &kv_full[j], 0, k0, bh);
+        for (int qb = next_query_tile(0, n_qb, k0, causal, shift); qb < n_qb;
+             qb = next_query_tile(qb + 1, n_qb, k0, causal, shift), ++i) {
+          const int s = i % kDkvStages;
+          if (i >= kDkvStages) mbar_wait(&empty[s], (i / kDkvStages - 1) & 1);
+          bf16* sQ = sQD + 2 * s * QT;
+          float* sL = sLD + 2 * s * kStatSlot;
+          const int first = bh * Sq + qb * kBlock;  // of the tile's lse and delta
+          mbar_arrive_expect_tx(&full[s], STAGE_BYTES);
+          tma_load_3d(sQ, &q_map, &full[s], 0, qb * kBlock, bh);
+          tma_load_3d(sQ + QT, &do_map, &full[s], 0, qb * kBlock, bh);
+          // lse and delta are [BH * Sq] vectors. Boxes starting off a
+          // 16-byte boundary faulted on the H100 (at Sq = 1), so the box of
+          // 68 values starts at `first` rounded down to a multiple of 4; the
+          // consumers skip the `first % 4` before it.
+          // Its values may run into the next slice (or past the end, as
+          // zeros): those columns are masked as queries past Sq.
+          tma_load_1d(sL, &lse_map, &full[s], first & ~3);
+          tma_load_1d(sL + kStatSlot, &delta_map, &full[s], first & ~3);
         }
-        pt[n][e] = p;
-        dst[n][e] = ds;
       }
     }
-    product_acc<D>(dv_acc, pt, sD, lane);
-    product_acc<D>(dk_acc, dst, sQ, lane);
-    __syncthreads();  // every warp is done with this stage before it is refilled
-    qb = next;
+    return;
   }
-  store_rows<D>(dk + koff, dk_acc, k0 + wr, Skv, g, t);
-  store_rows<D>(dv + koff, dv_acc, k0 + wr, Skv, g, t);
+
+  setmaxnreg_inc<kConsumerRegs>();
+  // Consumer warpgroup wg owns keys k0 + 64 wg .. + 63 of each item, in the
+  // key-row frame: S^T = K Q^T, P^T = exp(S^T * scale - lse[col]),
+  // dP^T = V dO^T, dS^T = P^T * (dP^T - delta[col]) * scale, dV += P^T dO,
+  // dK += dS^T Q.
+  const int wg = warp / 4;
+  const int g = lane >> 2, t = lane & 3;
+  const float scale_log2 = scale * kLog2e, fill_log2 = to_log2(kMaskFill);
+  int i = 0, it = 0;
+  for (int w = snake_item(0); w < n_items; w = snake_item(++it)) {
+    int k0, bh;
+    dkv_item(w, bh_count, k0, bh);
+    const int key0 = k0 + 64 * wg + 16 * (warp % 4) + g;
+    const int keys[2] = {key0, key0 + 8};
+    float dk_acc[D / 2], dv_acc[D / 2];
+#pragma unroll
+    for (int r = 0; r < D / 2; ++r) dk_acc[r] = dv_acc[r] = 0.f;
+
+    const int j = it & 1;
+    mbar_wait(&kv_full[j], (it >> 1) & 1);
+    const uint64_t desc_k = make_desc(sKV + 2 * j * KT + 64 * wg * D, ROW);
+    const uint64_t desc_v = make_desc(sKV + (2 * j + 1) * KT + 64 * wg * D, ROW);
+
+    for (int qb = next_query_tile(0, n_qb, k0, causal, shift); qb < n_qb;
+         qb = next_query_tile(qb + 1, n_qb, k0, causal, shift), ++i) {
+      const int s = i % kDkvStages;
+      const int q0 = qb * kBlock;
+      mbar_wait(&full[s], (i / kDkvStages) & 1);
+      const bf16* sQ = sQD + 2 * s * QT;
+      const int skip = (bh * Sq + q0) & 3;  // see the producer
+      const float* sL = sLD + 2 * s * kStatSlot + skip;
+      const float* sDl = sL + kStatSlot;
+      const uint64_t desc_q = make_desc(sQ, ROW);
+      const uint64_t desc_do = make_desc(sQ + QT, ROW);
+
+      float pt[32], dst[32];  // S^T and dP^T, 64 keys x 64 queries
+      wgmma_fence();
+      wgmma_ss_n64<0>(pt, desc_k, desc_q);
+#pragma unroll
+      for (int kk = 1; kk < D / 16; ++kk)
+        wgmma_ss_n64<1>(pt, desc_add(desc_k, 32 * kk), desc_add(desc_q, 32 * kk));
+      wgmma_commit();
+      wgmma_ss_n64<0>(dst, desc_v, desc_do);
+#pragma unroll
+      for (int kk = 1; kk < D / 16; ++kk)
+        wgmma_ss_n64<1>(dst, desc_add(desc_v, 32 * kk), desc_add(desc_do, 32 * kk));
+      wgmma_commit();
+
+      // This thread's 16 query columns: 8 jj + 2 t + h.
+      float col_stat[16];  // lse * log2(e), then delta
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) col_stat[2 * jj + h] = to_log2(sL[8 * jj + 2 * t + h]);
+      wgmma_wait<1>();  // S^T is ready; dP^T may still run
+      fence_regs(pt);
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = 8 * jj + 2 * t + (e & 1);
+          float x = pt[4 * jj + e] * scale_log2;
+          if (causal && q0 + c < keys[e >> 1] + shift) x = fill_log2;
+          pt[4 * jj + e] =
+              q0 + c < Sq ? exp2_approx(x - col_stat[2 * jj + (e & 1)]) : 0.f;
+        }
+      }
+      uint32_t pf[4][4];  // P^T in bf16: the A fragments of P^T dO
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) acc_to_frag(pf[kk], pt, kk);
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) col_stat[2 * jj + h] = sDl[8 * jj + 2 * t + h];
+      wgmma_wait<0>();
+      fence_regs(dst);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs(dv_acc, pf[kk], desc_add(desc_do, 16 * ROW * kk));
+      wgmma_commit();  // dV runs while dS^T is formed
+
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          dst[4 * jj + e] =
+              pt[4 * jj + e] * (dst[4 * jj + e] - col_stat[2 * jj + (e & 1)]) * scale;
+      uint32_t df[4][4];  // dS^T in bf16
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) acc_to_frag(df[kk], dst, kk);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs(dk_acc, df[kk], desc_add(desc_q, 16 * ROW * kk));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dv_acc);
+      fence_regs(dk_acc);
+      fence_regs(pf);
+      fence_regs(df);
+      mbar_arrive(&empty[s]);
+    }
+    // dK and dV through this warpgroup's half of the K/V slot (its products
+    // have completed) and one TMA store each: coalesced, off the path.
+    unsigned char* tK = reinterpret_cast<unsigned char*>(sKV + 2 * j * KT + 64 * wg * D);
+    store_acc_tile(tK, dk_acc, warp % 4, lane);
+    store_acc_tile(tK + KT * sizeof(bf16), dv_acc, warp % 4, lane);
+    fence_async_smem();
+    named_barrier(1 + wg, 128);
+    if (threadIdx.x % 128 == 0) {
+      tma_store_3d(&dk_map, tK, 0, k0 + 64 * wg, bh);
+      tma_store_3d(&dv_map, tK + KT * sizeof(bf16), 0, k0 + 64 * wg, bh);
+      tma_store_wait<true>();  // the slot may be refilled once the stores have read it
+    }
+    mbar_arrive(&kv_empty[j]);
+  }
+  if (threadIdx.x % 128 == 0) tma_store_wait<false>();
 }
 
 template <int D>
@@ -420,14 +557,23 @@ int launch_dkv(const void* k, const void* v, const void* q, const void* dout,
                const void* lse, const void* delta, void* dk, void* dv, int bh,
                int sq, int skv, int causal, int shift, float scale,
                cudaStream_t stream) {
+  CUtensorMap maps[8];
+  int err = encode_rows_bf16(&maps[0], k, bh, skv, D, kDkvKeys);
+  if (!err) err = encode_rows_bf16(&maps[1], v, bh, skv, D, kDkvKeys);
+  if (!err) err = encode_rows_bf16(&maps[2], q, bh, sq, D, kBlock);
+  if (!err) err = encode_rows_bf16(&maps[3], dout, bh, sq, D, kBlock);
+  if (!err) err = encode_vec_f32(&maps[4], lse, (long long)bh * sq, kStatBox);
+  if (!err) err = encode_vec_f32(&maps[5], delta, (long long)bh * sq, kStatBox);
+  if (!err) err = encode_rows_bf16(&maps[6], dk, bh, skv, D, 64);
+  if (!err) err = encode_rows_bf16(&maps[7], dv, bh, skv, D, 64);
+  if (err) return err;
   constexpr size_t smem = dkv_smem_bytes<D>();
-  static_assert(smem <= 48 * 1024, "above 48 KB needs cudaFuncSetAttribute");
-  const dim3 grid(bh, (skv + kBlock - 1) / kBlock);
-  flash_dkv_kernel<D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(q), static_cast<const bf16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), sq, skv, scale, causal, shift);
+  if (const int e = allow_smem(flash_dkv_kernel<D>, smem)) return e;
+  const int items = bh * ((skv + kDkvKeys - 1) / kDkvKeys);
+  const int grid = items < sm_count() ? items : sm_count();  // persistent: one block an SM
+  flash_dkv_kernel<D><<<grid, kDkvThreads, smem, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], maps[4], maps[5], maps[6], maps[7], bh, sq, skv,
+      scale, causal, shift);
   return (int)cudaGetLastError();
 }
 

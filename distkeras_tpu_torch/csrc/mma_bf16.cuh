@@ -1,5 +1,6 @@
-// Helpers shared by the flash-attention kernels: the bf16 tensor-core
-// product (mma.sync m16n8k16, f32 accumulators), bf16 packing, fragment
+// Helpers of the mma.sync kernel (K2) and of bf16 packing and row
+// reductions shared with the others: the bf16 tensor-core product
+// (mma.sync m16n8k16, f32 accumulators), bf16 packing, fragment
 // loads with ldmatrix, cp.async copies into shared memory, and the
 // reductions over the four threads that hold one row of an mma accumulator.
 //
@@ -70,17 +71,11 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4], const __nv_bflo
                : "r"(smem_u32(p)));
 }
 
-// Asynchronous copies from device to shared memory (cp.async): 16 or 4
-// bytes, zero-filled when `valid` is false (then nothing is read from `src`).
+// An asynchronous 16-byte copy from device to shared memory (cp.async),
+// zero-filled when `valid` is false (then nothing is read from `src`).
 __device__ __forceinline__ void cp_async_16(void* dst, const void* src, bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
                "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_4(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(valid ? 4 : 0)
                : "memory");
 }
 

@@ -38,6 +38,7 @@ __all__ = [
 
 _NEG_INF = -1e30
 _KERNEL_HEAD_DIMS = (32, 64)  # the tiny models' 32, the published ones' 64
+_TENSOR_MAP_ERROR = 10000  # csrc/hopper_sm90.cuh kTensorMapError
 
 
 def flash_forward_reference(q, k, v, causal: bool = False, causal_shift: int = 0):
@@ -136,8 +137,6 @@ def _check_kernel_inputs(stats=(), **tensors) -> None:
             raise ValueError(f"{name} must be a contiguous, 16-byte aligned tensor on {dev}")
     if D not in _KERNEL_HEAD_DIMS:
         raise ValueError(f"the flash kernels take head dim {_KERNEL_HEAD_DIMS}, got {D}")
-    if BH > 65535:
-        raise ValueError(f"batch*heads {BH} exceeds the kernel grid's 65535")
     for x in stats:
         if x.dtype != torch.float32 or x.device != dev or not x.is_contiguous():
             raise ValueError(f"lse/delta must be contiguous float32 tensors on {dev}")
@@ -146,6 +145,9 @@ def _check_kernel_inputs(stats=(), **tensors) -> None:
 def _launch(fn, what: str, device, *args) -> None:
     with torch.cuda.device(device):
         err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if err >= _TENSOR_MAP_ERROR:
+        raise RuntimeError(f"{what}: TMA tensor map not encoded (CUresult "
+                           f"{err - _TENSOR_MAP_ERROR}, or no driver entry point if 0)")
     if err != 0:
         raise RuntimeError(f"{what} launch failed: cudaError {err}")
 

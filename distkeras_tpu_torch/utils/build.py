@@ -4,8 +4,9 @@ Each source under ``distkeras_tpu_torch/csrc/`` becomes one shared library
 with a plain C interface, compiled for Hopper (``sm_90a``) into
 ``build/kernels/`` at the root of the checkout on first use. The library's
 file name carries a hash of its source, of every header under ``csrc/``
-(the sources share ``mma_bf16.cuh``) and of the flags, so an edited source
-or header is rebuilt and an unchanged one is loaded as it is. ``build_all`` starts one
+(the sources share ``mma_bf16.cuh`` and ``hopper_sm90.cuh``) and of the
+flags, so an edited source or header is rebuilt and an unchanged one is
+loaded as it is. ``build_all`` starts one
 ``nvcc`` for each source at once and waits for all of them.
 """
 

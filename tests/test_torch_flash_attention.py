@@ -14,6 +14,9 @@ in the reference and to the row max in the port, a difference of up to one
 bfloat16 ulp (2^-8) in each weight.
 """
 
+import importlib.util
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -78,6 +81,25 @@ def test_flash_forward_causal_shift_matches_reference(causal_shift):
     np.testing.assert_allclose(out.numpy(), np.asarray(ref_out), atol=F32_TOL, rtol=0)
     # Row 0 of the strict mask sees no key: lse is -1e30 on both sides.
     np.testing.assert_allclose(lse.numpy(), np.asarray(ref_lse), atol=F32_TOL, rtol=1e-6)
+
+
+@pytest.mark.parametrize("causal_shift", [0, 1])
+def test_chip_smoke_sdpa_yardstick_matches_reference(causal_shift):
+    """The one PyTorch call ``chip_smoke.py`` times beside K1 (SDPA; under
+    ``causal_shift=1`` with a float additive -1e30 mask) computes the
+    reference's ``_flash_forward``, row 0's uniform average included, so its
+    time is a fair yardstick. float32 on the CPU, 2e-5 as above."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(os.path.dirname(__file__), os.pardir, "chip_smoke.py"))
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    rng = np.random.default_rng(7)
+    q, k, v = [np.asarray(rng.normal(size=(2, 3, 64, 16)), np.float32) for _ in range(3)]
+    ref_out, _ = ref_flash_forward(*(x.reshape(6, 64, 16) for x in (q, k, v)), True, 32, 32,
+                                   True, causal_shift=causal_shift)
+    got = chip_smoke.sdpa_call(*map(torch.from_numpy, (q, k, v)), True, causal_shift)()
+    np.testing.assert_allclose(got.reshape(6, 64, 16).numpy(), np.asarray(ref_out),
+                               atol=F32_TOL, rtol=0)
 
 
 def test_flash_bfloat16_matches_reference():

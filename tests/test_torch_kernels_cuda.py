@@ -40,12 +40,40 @@ def gen():
 
 
 @pytest.mark.parametrize("D", [32, 64])
+def test_hopper_building_blocks(gen, D):
+    """The TMA loads (64- or 128-byte swizzle by D) and the wgmma forms the
+    kernels use, alone: s = q k^T with both operands K-major in shared
+    memory, o = p v with A from registers and B MN-major through the
+    transpose bit, against float32 matmuls of the same bf16 values (exact
+    products, summed in another order)."""
+    from distkeras_tpu_torch.ops.flash_attention import _kernel, _launch
+
+    q, k, v = (torch.randn(64, D, device="cuda", generator=gen).bfloat16() for _ in range(3))
+    p = torch.randn(64, 64, device="cuda", generator=gen).bfloat16()
+    s = torch.empty(64, 64, device="cuda")
+    o = torch.empty(64, D, device="cuda")
+    _launch(_kernel("flash_attention_fwd", "hopper_selftest_bf16", 6, 1), "hopper_selftest",
+            q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), p.data_ptr(), s.data_ptr(),
+            o.data_ptr(), D, 0.0)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(s, q.float() @ k.float().T, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(o, p.float() @ v.float(), rtol=1e-5, atol=1e-4)
+
+
+# Lengths below one 64-row tile and not a multiple of 8, one and two tiles
+# exactly, and ragged past them.
+_LENGTHS = [1, 17, 64, 127, 128, 200, 256]
+
+
+@pytest.mark.parametrize("D", [32, 64])
+@pytest.mark.parametrize("S", _LENGTHS)
 @pytest.mark.parametrize("causal,shift", [(False, 0), (True, 0), (True, 1)])
-def test_flash_kernel_matches_plain(gen, D, causal, shift):
-    """bf16 q/k/v at a ragged length (200, not a multiple of the 64-row
-    tiles). O to 2e-2: the two round P to bf16 against different maxima;
-    lse to 1e-3, float32 summed in another order."""
-    q, k, v = (torch.randn(24, 200, D, device="cuda", generator=gen).bfloat16()
+def test_flash_kernel_matches_plain(gen, D, S, causal, shift):
+    """bf16 q/k/v of B = 1, H = 12 at every edge of the tiles; under shift 1
+    row 0 sees no key and averages every V row. O to 2e-2: the two round P
+    to bf16 against different maxima; lse to 1e-3, float32 summed in
+    another order (and exactly -1e30 for row 0 under shift 1)."""
+    q, k, v = (torch.randn(12, S, D, device="cuda", generator=gen).bfloat16()
                for _ in range(3))
     before = flash_forward.launches
     out, lse = flash_forward(q, k, v, causal=causal, causal_shift=shift)
@@ -54,6 +82,8 @@ def test_flash_kernel_matches_plain(gen, D, causal, shift):
     ref_out, ref_lse = flash_forward_reference(q, k, v, causal, shift)
     assert (out.float() - ref_out.float()).abs().max().item() < 2e-2
     torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-5)
+    if causal and shift:
+        assert torch.equal(lse[:, 0], ref_lse[:, 0])  # -1e30, as the reference's
 
 
 def test_flash_kernel_rejects_float32(gen):
@@ -112,11 +142,13 @@ def _close(got, want):
 
 
 @pytest.mark.parametrize("D", [32, 64])
-@pytest.mark.parametrize("Sq,Skv", [(200, 200), (96, 200), (200, 72)])
+@pytest.mark.parametrize("Sq,Skv", [(S, S) for S in _LENGTHS]
+                         + [(96, 200), (200, 72), (17, 256), (256, 17)])
 @pytest.mark.parametrize("causal,shift", [(False, 0), (True, 0), (True, 1)])
 def test_flash_backward_kernels_match_plain(gen, D, Sq, Skv, causal, shift):
-    """K2 and K3 at ragged lengths, S_q != S_kv, and under shift 1 the fully
-    masked row 0, whose P is 1 for every key."""
+    """K2 and K3 (B = 1, H = 12) at every edge of the 64-query and 128-key
+    tiles, S_q != S_kv both ways, and under shift 1 the fully masked row 0,
+    whose P is 1 for every key."""
     q, k, v, do, lse, delta = _backward_inputs(gen, 12, Sq, Skv, D, causal, shift)
     n_dq, n_dkv = dq_call.launches, dkv_call.launches
     dq = dq_call(q, k, v, do, lse, delta, causal, shift)
