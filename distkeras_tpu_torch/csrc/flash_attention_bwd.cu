@@ -1,5 +1,6 @@
 // Flash attention backward for Hopper (sm_90a): dQ (K2) and dK/dV (K3),
-// bf16 in, bf16 out, f32 statistics.
+// bf16 in, bf16 out, f32 statistics. Both are persistent TMA + mbarrier +
+// wgmma kernels built on hopper_sm90.cuh.
 //
 // Replaces: distkeras_tpu/ops/pallas/flash_attention.py `dq_call` (kernel
 // `_dq_kernel`) and `dkv_call` (kernel `_dkv_kernel`), the Pallas TPU
@@ -19,21 +20,40 @@
 // products) on 4 tensors of S*D bf16 in and 1 out; K3 8*Sq*Skv*D on 4 in and
 // 2 out. At S = 128 (bert_base_mlm) that is 77 and 85 flops per byte, at
 // S = 512 causal (gpt_small, half of it masked) about 150: all below the
-// card's ~295 flops/byte balance point, so both are memory bound. The design
+// card's ~295 flops/byte balance point, so both are memory bound (K2 moves
+// 31.9 MB a call at both main-path shapes: 9.5 us at 3.35 TB/s). The design
 // therefore reads every input once per tile that needs it and never writes
-// the S x S probability or score matrices: they live in registers.
+// the S x S probability or score matrices: they live in registers; and it
+// keeps the copies and the output stores off the consumers' path.
 //
-// - K2 (dQ), one block of 4 warps per (64-query tile, bh), each warp owning
-//   16 rows, with mma.sync m16n8k16 (bf16 inputs, f32 accumulators). The
-//   warp's Q and dO fragments, and lse and delta of its rows, stay in
-//   registers for the whole key loop. K and V tiles of 64 keys are staged
-//   row-major in shared memory by cp.async into two buffers, so the next
-//   tile's copy runs while the warps compute on this one. The dS
-//   accumulators, rounded to bf16, are the A fragments of dS.K directly;
-//   the B fragments of that product come from the same row-major K tile
-//   through ldmatrix.trans. Causal tiles stop at the diagonal, except a tile
-//   that holds a fully masked row. Three blocks an SM cap it at 168
-//   registers.
+// - K2 (dQ): persistent blocks of one consumer warpgroup (4 warps, 64
+//   query rows, the m64 of wgmma) and one producer warp; three blocks an SM
+//   walk the work items (64-query tile, bh), query tiles outermost, ordered
+//   by the number of key tiles they visit (longest first) and dealt in
+//   snake order (snake_item). The producer's lane 0 loads an item's Q and
+//   dO into one of two slots (the next item's while this one runs) and K
+//   and V tiles of 64 keys into a ring of two stages, with TMA (3-D maps
+//   over [BH, S, D]: q, dO and dq over Sq, k and v over Skv, so rows past
+//   the end arrive as zeros and never from the next slice; 128-byte swizzle
+//   for D = 64, 64-byte for D = 32) and `full`/`empty` mbarriers. Each
+//   consumer thread reads the lse and delta of its two rows once per item,
+//   straight into registers. S = Q K^T and dP = dO V^T are two wgmma chains
+//   with both operands K-major in shared memory; P is formed while dP runs.
+//   dQ += dS K takes A = dS from the accumulator registers rounded to bf16,
+//   and B = the same K tile MN-major through the transpose bit: K serves
+//   two descriptors and is never transposed by threads. dQ goes out through
+//   the item's Q slot with one TMA store once its last product has
+//   completed. Causal items stop at the diagonal, except the one holding a
+//   fully masked row (q < shift), which visits every key tile; only the
+//   diagonal and ragged tiles pay for per-element masks. A consumer thread
+//   holds three 64 x 64 f32 tiles (S, dP, dQ) and dS's fragments in 128
+//   registers, under the 136 that three blocks an SM allow: nothing spills.
+//   Why three blocks of one warpgroup: each tile is a chain (S, the exps,
+//   dS, dQ) that leaves the tensor cores idle between its products, and
+//   the other warpgroups fill the gaps. Two warpgroups of a 128-row item
+//   sharing each K/V tile (half the K/V reads from L2, one block an SM), and
+//   two blocks an SM, both ran slower (NVIDIA H100 80GB HBM3, 700 W): the
+//   reads are not what holds it.
 // - K3 (dK, dV), TMA and wgmma: a persistent block on each SM walks work
 //   items (128-key tile, bh), key tiles outermost, with two consumer
 //   warpgroups of 64 keys each (the m64 of wgmma) and one producer
@@ -43,16 +63,15 @@
 //   One producer thread loads an item's K and V into one of two slots (the
 //   next item's while this one computes and stores), then Q, dO, lse and
 //   delta of each 64-query tile into a ring of four stages with TMA
-//   (3-D maps over [BH, S, D], 128-byte swizzle for D = 64, 64-byte for
-//   D = 32; 1-D maps over lse and delta), with `full` and `empty` mbarriers
-//   per stage. Both warpgroups read the same staged query tile, so Q and dO
-//   are read once per 128 keys. S^T and dP^T are wgmma chains with both
-//   operands K-major in shared memory (A = K or V, B = Q or dO); dV and dK
-//   take A = P^T and dS^T from the accumulator registers rounded to bf16,
-//   and B = dO and Q row-major through the transpose bit. K and V never
-//   enter registers. dV's product runs while dS^T is formed. dK and dV go
-//   out through the item's K/V slot with one TMA store each. A consumer
-//   thread holds four 64 x 64 f32 tiles (dK, dV, S^T, dP^T: 4 x 32
+//   (3-D maps as in K2; 1-D maps over lse and delta), with `full` and
+//   `empty` mbarriers per stage. Both warpgroups read the same staged query
+//   tile, so Q and dO are read once per 128 keys. S^T and dP^T are wgmma
+//   chains with both operands K-major in shared memory (A = K or V, B = Q or
+//   dO); dV and dK take A = P^T and dS^T from the accumulator registers
+//   rounded to bf16, and B = dO and Q row-major through the transpose bit.
+//   K and V never enter registers. dV's product runs while dS^T is formed.
+//   dK and dV go out through the item's K/V slot with one TMA store each. A
+//   consumer thread holds four 64 x 64 f32 tiles (dK, dV, S^T, dP^T: 4 x 32
 //   registers); setmaxnreg gives the consumers 240 registers and the
 //   producer 24 (the block's 384 x 168 at launch), so nothing spills.
 //   Causal items skip query tiles wholly above the diagonal, but always
@@ -64,14 +83,13 @@
 //   store exposed and ran slower than the mma.sync design it replaces (37
 //   against 35 us, NVIDIA H100 80GB HBM3, 700 W). The two K/V slots
 //   overlap them with the previous item's work.
-// - The exps run in base 2 on pre-scaled scores: exp2f in K2, one
-//   ex2.approx in K3 (exp2f's full-range path took K3 to 53 us at
-//   gpt_small's shape, ex2.approx to 32). Under the causal mask tiles
-//   differ in length, and the longest are dispatched (K2) or walked (K3)
-//   first.
+// - The exps run in base 2 on pre-scaled scores, one ex2.approx each
+//   (exp2f's full-range path took K3 to 53 us at gpt_small's shape,
+//   ex2.approx to 32).
 // P^T is rounded to bf16 for the P^T.dO product (the reference keeps it in
-// f32 there); dS is rounded to bf16 on both sides. Each K2 block and K3 item
-// owns its output tile: no atomics, and the result does not depend on the launch order.
+// f32 there); dS is rounded to bf16 on both sides. Each K2 and K3 item owns
+// its output tile: no atomics, and the result does not depend on the launch
+// order.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -80,20 +98,13 @@
 #include <stdint.h>
 
 #include "hopper_sm90.cuh"
-#include "mma_bf16.cuh"
 
 namespace {
 
-using namespace flash;
 using namespace hopper;
 using bf16 = __nv_bfloat16;
 
-constexpr int kBlock = 64;  // K2's rows per block (4 warps x 16); a staged tile's rows
-constexpr int kThreads = 128;  // K2
-// Three K2 blocks per SM cap K2 at 168 registers: the extra warps hide the
-// latency of its tile copies (measured on the H100 at both bert_base_mlm and
-// gpt_small shapes).
-constexpr int kMinBlocksPerSM = 3;
+constexpr int kBlock = 64;  // rows of a staged query (K2: and key) tile
 constexpr float kMaskFill = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -102,193 +113,202 @@ constexpr float kLog2e = 1.4426950408889634f;
 // that their difference is exactly 0 and that row's P exactly 1.
 __device__ __forceinline__ float to_log2(float x) { return __fmul_rn(x, kLog2e); }
 
-// Rows [r0, r0 + 64) of a [rows, D] bf16 matrix into a [64][D + 8] tile, by
-// cp.async; rows past `rows` are zero-filled. The +8 pad puts the 8 rows of
-// one ldmatrix phase on disjoint banks.
-template <int D>
-__device__ __forceinline__ void stage_tile(bf16* dst, const bf16* src, int r0, int rows,
-                                           int tid) {
-  constexpr int ST = D + 8, CHUNKS = D / 8;
-  for (int c = tid; c < kBlock * CHUNKS; c += kThreads) {
-    const int r = c / CHUNKS, col = (c % CHUNKS) * 8;
-    const bool in = r0 + r < rows;
-    cp_async_16(dst + r * ST + col, src + (in ? (size_t)(r0 + r) * D + col : 0), in);
-  }
-}
+// K2: one consumer warpgroup and one producer warp a block, three blocks an
+// SM (the `(160, 3)` bound caps a thread at 136 registers), and a ring of
+// two K/V stages.
+constexpr int kDqStages = 2;
+constexpr int kDqConsumers = 128;
+constexpr int kDqThreads = kDqConsumers + 32;
+constexpr int kDqBlocksPerSM = 3;
 
-// The warp's A fragments (its 16 rows from `wr`, all D columns) of a tile.
-template <int D>
-__device__ __forceinline__ void load_a(uint32_t f[D / 16][4], const bf16* tile, int wr,
-                                       int lane) {
-  constexpr int ST = D + 8;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    ldmatrix_x4(f[kk], tile + (wr + (lane & 15)) * ST + kk * 16 + (lane >> 4) * 8);
-}
+// K2's work item w: the (bh) slice, the first row of its query tile and the
+// number of 64-key tiles it visits. Query tiles are outermost, ordered by
+// that number, longest first: under the causal mask the last tiles see the
+// most keys and stop at the diagonal, except that under shift 1 the first
+// tile, whose row 0 sees no key and so weighs every key, visits them all.
+struct DqItem {
+  int bh, q0, kb_end;
+};
 
-// out (16 x 64) = A (16 x D, fragments) . tile^T: the 64 rows of a staged
-// [64][D + 8] tile are the columns of the result, 8 n-tiles of 8. One
-// ldmatrix gives the B fragments of an n-tile over 32 columns of D.
-template <int D>
-__device__ __forceinline__ void product_nt(float out[kBlock / 8][4],
-                                           const uint32_t a[D / 16][4],
-                                           const bf16* tile, int lane) {
-  constexpr int ST = D + 8;
-#pragma unroll
-  for (int n = 0; n < kBlock / 8; ++n) {
-    out[n][0] = out[n][1] = out[n][2] = out[n][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; kk += 2) {
-      uint32_t b[4];
-      ldmatrix_x4(b, tile + (n * 8 + (lane & 7)) * ST + kk * 16 + (lane >> 3) * 8);
-      mma_bf16_16816(out[n], a[kk], b);
-      mma_bf16_16816(out[n], a[kk + 1], b + 2);
-    }
-  }
-}
-
-// out (16 x D) += X (16 x 64, accumulators rounded to bf16) . M (64 x D),
-// M the row-major [64][D + 8] tile: ldmatrix.trans gives the B fragments of
-// two 8-column n-tiles at once.
-template <int D>
-__device__ __forceinline__ void product_acc(float out[D / 8][4],
-                                            const float x[kBlock / 8][4],
-                                            const bf16* tile, int lane) {
-  constexpr int ST = D + 8;
-#pragma unroll
-  for (int j = 0; j < kBlock / 16; ++j) {
-    uint32_t a[4];
-    acc_to_a(a, x[2 * j], x[2 * j + 1]);
-    const bf16* rows = tile + (j * 16 + (lane & 15)) * ST + (lane >> 4) * 8;
-#pragma unroll
-    for (int dn = 0; dn < D / 8; dn += 2) {
-      uint32_t b[4];
-      ldmatrix_x4_trans(b, rows + dn * 8);
-      mma_bf16_16816(out[dn], a, b);
-      mma_bf16_16816(out[dn + 1], a, b + 2);
-    }
-  }
-}
-
-// The warp's rows `row0 + g` and `row0 + g + 8` of a [rows, D] bf16 output.
-template <int D>
-__device__ __forceinline__ void store_rows(bf16* dst, const float acc[D / 8][4],
-                                           int row0, int rows, int g, int t) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = row0 + g + 8 * i;
-    if (row >= rows) continue;
-    bf16* out = dst + (size_t)row * D;
-#pragma unroll
-    for (int dn = 0; dn < D / 8; ++dn)
-      *reinterpret_cast<uint32_t*>(out + dn * 8 + 2 * t) =
-          pack_bf16x2(acc[dn][2 * i], acc[dn][2 * i + 1]);
-  }
-}
-
-template <int D>
-constexpr size_t dq_smem_bytes() {
-  // Two stages of K and V tiles [64][D + 8] (Q and dO before the key loop).
-  return sizeof(bf16) * (size_t)(4 * kBlock * (D + 8));
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads, kMinBlocksPerSM)
-    flash_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                    const float* __restrict__ lse, const float* __restrict__ delta,
-                    bf16* __restrict__ dq, int Sq, int Skv, float scale,
-                    int causal, int shift) {
-  constexpr int TILE = kBlock * (D + 8);
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  // Stage s: K tile at sKV + 2 s TILE, V tile right after it.
-  bf16* sKV = reinterpret_cast<bf16*>(smem_raw);
-
-  // Under the causal mask the last query tiles have the most keys: they are
-  // dispatched first, so that the short ones fill the tail.
-  const int qb = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
-  const int q0 = qb * kBlock;
-  const size_t bh = blockIdx.x;
-  const size_t qoff = bh * Sq * D, koff = bh * Skv * D;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int wr = warp * 16;
-  // The exps run in base 2: P = 2^(S * scale * log2(e) - lse * log2(e)).
-  const float scale_log2 = scale * kLog2e, fill_log2 = to_log2(kMaskFill);
-
+__device__ __forceinline__ DqItem dq_item(int w, int bh_count, int Sq, int Skv, int causal,
+                                          int shift) {
+  const int n_qb = (Sq + kBlock - 1) / kBlock;
   const int n_kb = (Skv + kBlock - 1) / kBlock;
-  int kb_end = n_kb;
-  if (causal && q0 >= shift) {  // no fully masked row here: stop at the diagonal
-    const int last_key = min(q0 + kBlock, Sq) - 1 - shift;
-    kb_end = min(n_kb, last_key / kBlock + 1);
-  }
+  const int qi = w / bh_count;
+  int qb = qi;
+  if (causal) qb = shift ? (qi == 0 ? 0 : n_qb - qi) : n_qb - 1 - qi;
+  DqItem item;
+  item.bh = w % bh_count;
+  item.q0 = qb * kBlock;
+  item.kb_end = n_kb;
+  if (causal && item.q0 >= shift)
+    item.kb_end = min(n_kb, (min(item.q0 + kBlock, Sq) - 1 - shift) / kBlock + 1);
+  return item;
+}
 
-  // Q and dO into stage 1, the first K and V tiles into stage 0.
-  stage_tile<D>(sKV + 2 * TILE, q + qoff, q0, Sq, tid);
-  stage_tile<D>(sKV + 3 * TILE, dout + qoff, q0, Sq, tid);
-  cp_async_commit();
-  stage_tile<D>(sKV, k + koff, 0, Skv, tid);
-  stage_tile<D>(sKV + TILE, v + koff, 0, Skv, tid);
-  cp_async_commit();
+template <int D>
+__global__ void __launch_bounds__(kDqThreads, kDqBlocksPerSM)
+    flash_dq_kernel(const __grid_constant__ CUtensorMap q_map,
+                    const __grid_constant__ CUtensorMap do_map,
+                    const __grid_constant__ CUtensorMap k_map,
+                    const __grid_constant__ CUtensorMap v_map,
+                    const __grid_constant__ CUtensorMap dq_map,
+                    const float* __restrict__ lse, const float* __restrict__ delta,
+                    int bh_count, int Sq, int Skv, float scale, int causal, int shift) {
+  constexpr int TILE = kBlock * D;  // elements of one tile
+  constexpr uint32_t TILE_BYTES = TILE * sizeof(bf16);
+  constexpr uint32_t ROW = D * sizeof(bf16);
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t bars[2 * kDqStages + 4];
+  bf16* sQD = reinterpret_cast<bf16*>(align_1024(smem_raw));  // slot j: Q, then dO
+  bf16* sKV = sQD + 4 * TILE;  // stage s: K at sKV + 2 s TILE, V right after
+  uint64_t* full = bars;
+  uint64_t* empty = bars + kDqStages;
+  uint64_t* q_full = bars + 2 * kDqStages;  // two (Q, dO) slots
+  uint64_t* q_empty = q_full + 2;
+  const int n_items = bh_count * ((Sq + kBlock - 1) / kBlock);
 
-  int rows[2];
-  float row_lse[2], row_delta[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    rows[i] = q0 + wr + g + 8 * i;
-    const bool in = rows[i] < Sq;
-    row_lse[i] = in ? to_log2(lse[bh * Sq + rows[i]]) : 0.f;
-    row_delta[i] = in ? delta[bh * Sq + rows[i]] : 0.f;
-  }
-
-  cp_async_wait<1>();
-  __syncthreads();
-  uint32_t qf[D / 16][4], df[D / 16][4];
-  load_a<D>(qf, sKV + 2 * TILE, wr, lane);
-  load_a<D>(df, sKV + 3 * TILE, wr, lane);
-  __syncthreads();  // stage 1 is free for the next K and V tiles
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int dn = 0; dn < D / 8; ++dn)
-    acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
-
-  for (int kb = 0; kb < kb_end; ++kb) {
-    const int k0 = kb * kBlock;
-    if (kb + 1 < kb_end) {
-      bf16* next = sKV + 2 * ((kb + 1) & 1) * TILE;
-      stage_tile<D>(next, k + koff, k0 + kBlock, Skv, tid);
-      stage_tile<D>(next + TILE, v + koff, k0 + kBlock, Skv, tid);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kDqStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kDqConsumers);
     }
-    cp_async_commit();  // possibly empty, so that the wait below is uniform
-    cp_async_wait<1>();
-    __syncthreads();
-    const bf16* sK = sKV + 2 * (kb & 1) * TILE;
-    const bf16* sV = sK + TILE;
+    for (int j = 0; j < 2; ++j) {
+      mbar_init(&q_full[j], 1);
+      mbar_init(&q_empty[j], kDqConsumers);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
 
-    float s[kBlock / 8][4], dp[kBlock / 8][4];
-    product_nt<D>(s, qf, sK, lane);
-    product_nt<D>(dp, df, sV, lane);
-#pragma unroll
-    for (int n = 0; n < kBlock / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = e >> 1;
-        const int col = k0 + n * 8 + 2 * t + (e & 1);
-        float x = s[n][e] * scale_log2;
-        if (col >= Skv)
-          x = -INFINITY;  // past the sequence: no key at all
-        else if (causal && rows[i] < col + shift)
-          x = fill_log2;
-        const float p = exp2f(x - row_lse[i]);
-        s[n][e] = p * (dp[n][e] - row_delta[i]) * scale;  // dS
+  // The block walks work items snake_item(0), (1), ...; counters `it`
+  // (items, two slots) and `n` (key tiles, the K/V ring) run on across
+  // items in the producer and the consumers alike.
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (warp == kDqConsumers / 32) {  // the producer warp
+    if (lane == 0) {
+      int n = 0, it = 0;
+      for (int w = snake_item(0); w < n_items; w = snake_item(++it)) {
+        const DqItem item = dq_item(w, bh_count, Sq, Skv, causal, shift);
+        const int j = it & 1;
+        if (it >= 2) mbar_wait(&q_empty[j], ((it >> 1) - 1) & 1);
+        mbar_arrive_expect_tx(&q_full[j], 2 * TILE_BYTES);
+        tma_load_3d(sQD + 2 * j * TILE, &q_map, &q_full[j], 0, item.q0, item.bh);
+        tma_load_3d(sQD + (2 * j + 1) * TILE, &do_map, &q_full[j], 0, item.q0, item.bh);
+        for (int kb = 0; kb < item.kb_end; ++kb, ++n) {
+          const int s = n % kDqStages;
+          if (n >= kDqStages) mbar_wait(&empty[s], (n / kDqStages - 1) & 1);
+          bf16* sK = sKV + 2 * s * TILE;
+          mbar_arrive_expect_tx(&full[s], 2 * TILE_BYTES);
+          tma_load_3d(sK, &k_map, &full[s], 0, kb * kBlock, item.bh);
+          tma_load_3d(sK + TILE, &v_map, &full[s], 0, kb * kBlock, item.bh);
+        }
       }
     }
-    product_acc<D>(acc, s, sK, lane);
-    __syncthreads();  // every warp is done with this stage before it is refilled
+    return;
   }
-  store_rows<D>(dq + qoff, acc, q0 + wr, Sq, g, t);
+
+  // The consumer warpgroup: this thread's rows are g and g + 8 of its
+  // warp's 16, its columns 2t, 2t + 1 of each 8-column chunk. The exps run
+  // in base 2: P = 2^(S * scale * log2(e) - lse * log2(e)).
+  const int g = lane >> 2, t = lane & 3;
+  const float scale_log2 = scale * kLog2e, fill_log2 = to_log2(kMaskFill);
+  int n = 0, it = 0;
+  for (int w = snake_item(0); w < n_items; w = snake_item(++it)) {
+    const DqItem item = dq_item(w, bh_count, Sq, Skv, causal, shift);
+    const int rows[2] = {item.q0 + warp * 16 + g, item.q0 + warp * 16 + g + 8};
+    float row_lse[2], row_delta[2];  // lse * log2(e), and delta; 0 past Sq
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const bool in = rows[i] < Sq;
+      const size_t at = (size_t)item.bh * Sq + rows[i];
+      row_lse[i] = in ? to_log2(lse[at]) : 0.f;
+      row_delta[i] = in ? delta[at] : 0.f;
+    }
+    float acc[D / 2];  // dQ
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+    const int j = it & 1;
+    bf16* tQ = sQD + 2 * j * TILE;
+    mbar_wait(&q_full[j], (it >> 1) & 1);
+    const uint64_t desc_q = make_desc(tQ, ROW);
+    const uint64_t desc_do = make_desc(tQ + TILE, ROW);
+
+    for (int kb = 0; kb < item.kb_end; ++kb, ++n) {
+      const int s = n % kDqStages;
+      const int k0 = kb * kBlock;
+      mbar_wait(&full[s], (n / kDqStages) & 1);
+      const bf16* sK = sKV + 2 * s * TILE;
+      const uint64_t desc_k = make_desc(sK, ROW);
+      const uint64_t desc_v = make_desc(sK + TILE, ROW);
+
+      float sc[32], dp[32];  // S = Q K^T and dP = dO V^T, 64 x 64
+      wgmma_fence();
+      wgmma_ss_n64<0>(sc, desc_q, desc_k);
+#pragma unroll
+      for (int kk = 1; kk < D / 16; ++kk)
+        wgmma_ss_n64<1>(sc, desc_add(desc_q, 32 * kk), desc_add(desc_k, 32 * kk));
+      wgmma_commit();
+      wgmma_ss_n64<0>(dp, desc_do, desc_v);
+#pragma unroll
+      for (int kk = 1; kk < D / 16; ++kk)
+        wgmma_ss_n64<1>(dp, desc_add(desc_do, 32 * kk), desc_add(desc_v, 32 * kk));
+      wgmma_commit();
+      wgmma_wait<1>();  // S is ready; dP may still run
+      fence_regs(sc);
+      // P. Only a tile that holds keys past Skv, or (causal) keys past some
+      // row's diagonal, is masked element by element.
+      if (k0 + kBlock > Skv || (causal && item.q0 < k0 + kBlock - 1 + shift)) {
+#pragma unroll
+        for (int c8 = 0; c8 < kBlock / 8; ++c8) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = k0 + 8 * c8 + 2 * t + (e & 1);
+            float x = sc[4 * c8 + e] * scale_log2;
+            if (col >= Skv)
+              x = -INFINITY;  // past the sequence: no key at all
+            else if (causal && rows[e >> 1] < col + shift)
+              x = fill_log2;
+            sc[4 * c8 + e] = exp2_approx(x - row_lse[e >> 1]);
+          }
+        }
+      } else {
+#pragma unroll
+        for (int r = 0; r < 32; ++r)
+          sc[r] = exp2_approx(sc[r] * scale_log2 - row_lse[(r >> 1) & 1]);
+      }
+      wgmma_wait<0>();
+      fence_regs(dp);
+#pragma unroll
+      for (int r = 0; r < 32; ++r)  // dS
+        sc[r] = sc[r] * (dp[r] - row_delta[(r >> 1) & 1]) * scale;
+      uint32_t df[kBlock / 16][4];  // dS in bf16: the A fragments of dS K
+#pragma unroll
+      for (int kk = 0; kk < kBlock / 16; ++kk) acc_to_frag(df[kk], sc, kk);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBlock / 16; ++kk)
+        wgmma_rs(acc, df[kk], desc_add(desc_k, 16 * ROW * kk));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      fence_regs(df);
+      mbar_arrive(&empty[s]);
+    }
+
+    // dQ through the Q slot (its last product has completed) and one TMA
+    // store: coalesced, and off the consumers' path.
+    store_acc_tile(reinterpret_cast<unsigned char*>(tQ), acc, warp, lane);
+    fence_async_smem();
+    named_barrier(1, kDqConsumers);
+    if (threadIdx.x == 0) {
+      tma_store_3d(&dq_map, tQ, 0, item.q0, item.bh);
+      tma_store_wait<true>();  // the slot may be refilled once the store has read it
+    }
+    mbar_arrive(&q_empty[j]);
+  }
+  if (threadIdx.x == 0) tma_store_wait<false>();
 }
 
 // The first query tile at or after `qb` that a K3 block of keys from `k0`
@@ -541,14 +561,20 @@ template <int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* delta, void* dq, int bh, int sq, int skv,
               int causal, int shift, float scale, cudaStream_t stream) {
-  constexpr size_t smem = dq_smem_bytes<D>();
-  static_assert(smem <= 48 * 1024, "above 48 KB needs cudaFuncSetAttribute");
-  const dim3 grid(bh, (sq + kBlock - 1) / kBlock);
-  flash_dq_kernel<D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<bf16*>(dq), sq, skv, scale, causal, shift);
+  CUtensorMap maps[5];
+  const void* src[5] = {q, dout, k, v, dq};
+  const int rows[5] = {sq, sq, skv, skv, sq};
+  for (int i = 0; i < 5; ++i)
+    if (const int err = encode_rows_bf16(&maps[i], src[i], bh, rows[i], D, kBlock)) return err;
+  // Two (Q, dO) slots and kDqStages (K, V) stages of 64 x D bf16 tiles, and
+  // 1024 bytes to align the first.
+  constexpr size_t smem = sizeof(bf16) * (size_t)(4 + 2 * kDqStages) * kBlock * D + 1024;
+  if (const int err = allow_smem(flash_dq_kernel<D>, smem)) return err;
+  const int items = bh * ((sq + kBlock - 1) / kBlock);
+  const int resident = kDqBlocksPerSM * sm_count();  // persistent blocks
+  flash_dq_kernel<D><<<items < resident ? items : resident, kDqThreads, smem, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], maps[4], static_cast<const float*>(lse),
+      static_cast<const float*>(delta), bh, sq, skv, scale, causal, shift);
   return (int)cudaGetLastError();
 }
 
@@ -580,7 +606,9 @@ int launch_dkv(const void* k, const void* v, const void* q, const void* dout,
 }  // namespace
 
 // q, dout, dq: [bh, sq, d]; k, v: [bh, skv, d]; contiguous bf16, 16-byte
-// aligned. lse, delta: [bh, sq] f32. Returns the cudaError_t of the launch.
+// aligned. lse, delta: [bh, sq] f32. Returns the cudaError_t of the launch
+// (0 on success), or hopper::kTensorMapError (+ the CUresult) if a tensor
+// map cannot be made.
 extern "C" int flash_attention_dq_bf16(const void* q, const void* k, const void* v,
                                        const void* dout, const void* lse,
                                        const void* delta, void* dq, int bh, int sq,

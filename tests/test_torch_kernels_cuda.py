@@ -161,6 +161,25 @@ def test_flash_backward_kernels_match_plain(gen, D, Sq, Skv, causal, shift):
     _close(dv, want_dv)
 
 
+@pytest.mark.parametrize("B,S,causal,shift", [(32, 128, False, 0), (8, 512, True, 0),
+                                               (8, 512, True, 1)])
+def test_flash_dq_kernel_at_main_path_shapes(gen, B, S, causal, shift):
+    """K2 at the main path's shapes (H = 12, D = 64): bert_base and gpt_small
+    causal, shift 0 and 1, each 768 work items, more than the card's
+    resident blocks, so that every persistent block walks several items and
+    refills its (Q, dO) slots. Two launches on the same inputs give
+    bitwise-equal dQ: each item owns its rows, and nothing is summed
+    across blocks."""
+    q, k, v, do, lse, delta = _backward_inputs(gen, B * 12, S, S, 64, causal, shift)
+    n_dq = dq_call.launches
+    dq = dq_call(q, k, v, do, lse, delta, causal, shift)
+    again = dq_call(q, k, v, do, lse, delta, causal, shift)
+    torch.cuda.synchronize()
+    assert dq_call.launches == n_dq + 2
+    _close(dq, flash_dq_reference(q, k, v, do, lse, delta, causal, shift))
+    assert torch.equal(dq, again)
+
+
 @pytest.mark.parametrize("B", [1, 2])
 def test_flash_attention_gradient_on_the_card(gen, B):
     """The autograd path end to end: forward K1, backward K2 and K3, against
