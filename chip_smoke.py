@@ -36,7 +36,24 @@ Phases, each of which must pass or the script exits non-zero:
    4 profiled (batches already on the device); one step at dropout 0 on the card against the same step on the
    CPU from the same weights (loss and every gradient).
 6. The same for gpt_small (seq 512, batch 8, causal), 2 epochs of 64 rows.
-7. Print the kernels line, the card's name and power limit, and last the
+7. Asynchronous training at full width: DynSGD on bert_base_mlm (seq 128,
+   batch 32, flash on, fused loss, adam, window 5) against the in-process
+   parameter server, over a copy task. 7a: one worker, overlap_window on,
+   dropout 0, the partition cached on the device; the PS's final center
+   equals the worker's last snapshot (what its delta was taken from) and the
+   tensors its optimizer steps, to 1e-6 of the parameters' norm. 7b: two
+   workers, each on its own CUDA stream, dropout 0.1, batches through
+   DeviceFeed; the commits equal the windows, the launches equal 12 (K1-K3)
+   and 1 (K4-K6) per step summed over both, the losses are finite and fall,
+   the center moved. Logged: ms per window per worker, the exchange split
+   (device to host, PS apply, host to device, from the trainer's spans),
+   tokens/s, peak memory, the staleness statusz reports, and a profiler
+   table of the device's busy share over two windows with one worker and
+   with two.
+8. ADAG on cifar10_cnn at full width (2 workers, device_cache "auto",
+   adam, window 12) on seeded class-prototype images: the commits equal the
+   windows, the loss is finite and falls, and no kernel of ours launches.
+9. Print the kernels line, the card's name and power limit, and last the
    result line {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
@@ -499,9 +516,9 @@ def run_model(name, seq, pred_rows, eval_rows, batch, cpu_rows):
     return {k: pred_counts[k] + eval_counts[k] for k in pred_counts}
 
 
-def profile(what: str, fn) -> None:
+def profile(what: str, fn) -> float:
     """Device time by kernel, and the device's busy share, over one call of
-    ``fn`` (torch.profiler with CUDA activity)."""
+    ``fn`` (torch.profiler with CUDA activity); returns the busy share."""
     import torch
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -512,10 +529,18 @@ def profile(what: str, fn) -> None:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.device_time_total for e in kernels) / 1e3
-    log(f"  profile: {what}, wall {wall_ms:.3f} ms, "
+    total_ms = sum(e.device_time_total for e in kernels) / 1e3
+    # Busy: the union of the device activities' intervals, so that work
+    # overlapping on two streams counts once.
+    busy_us, end = 0.0, -math.inf
+    for start, stop in sorted((e.time_range.start, e.time_range.end) for e in kernels):
+        busy_us += max(0.0, stop - max(start, end))
+        end = max(end, stop)
+    busy_ms = busy_us / 1e3
+    log(f"  profile: {what}, wall {wall_ms:.3f} ms, device time {total_ms:.3f} ms, "
         f"device busy {busy_ms:.3f} ms ({busy_ms / wall_ms:.1%})")
     log(prof.key_averages().table(sort_by="self_device_time_total", row_limit=25, max_name_column_width=60))
+    return busy_ms / wall_ms
 
 
 def train_model(name, seq, batch, rows, epochs, cpu_rows):
@@ -654,6 +679,219 @@ def card_vs_cpu_step(model, cfg, tokens):
     check(rel[k] <= allowed[k], f"card vs CPU gradient {k}: {rel[k]} > {allowed[k]}")
 
 
+# -- phases 7 and 8: the asynchronous parameter-server trainers ---------------
+
+
+def span_totals(tracer) -> dict:
+    """{(span name, worker): [count, seconds]} from a tracer's B/E events
+    (each lane a stack)."""
+    out: dict = {}
+    stacks: dict = {}
+    for ph, name, t, lane, _, attrs in tracer.events():
+        if ph == "B":
+            stacks.setdefault(lane, []).append((name, t, (attrs or {}).get("worker")))
+        else:
+            name, t0, worker = stacks[lane].pop()
+            entry = out.setdefault((name, worker), [0, 0.0])
+            entry[0] += 1
+            entry[1] += t - t0
+    return out
+
+
+def log_spans(tracer) -> dict:
+    totals = span_totals(tracer)
+    for (name, worker), (n, sec) in sorted(totals.items(), key=lambda kv: str(kv[0])):
+        who = "" if worker is None else f" worker {worker}"
+        log(f"    span {name}{who}: {n} x {sec / n * 1e3:.2f} ms = {sec:.3f} s")
+    return totals
+
+
+def first_last(hist, window: int) -> tuple[float, float]:
+    """Mean loss of every worker's first window and of every worker's last."""
+    workers = sorted({h["worker"] for h in hist})
+    per = [[h["loss"] for h in hist if h["worker"] == w] for w in workers]
+    n = window * len(per)
+    return sum(sum(p[:window]) for p in per) / n, sum(sum(p[-window:]) for p in per) / n
+
+
+def rel_gap(a: dict, b: dict) -> float:
+    """||a - b|| / ||b|| over every tensor, in float64."""
+    a = {k: v.detach().double() for k, v in a.items()}
+    b = {k: v.detach().double() for k, v in b.items()}
+    num = sum(float((a[k] - b[k]).square().sum()) for k in b)
+    den = sum(float(b[k].square().sum()) for k in b)
+    return (num / den) ** 0.5
+
+
+def async_bert(seq=128, batch=32, window=5):
+    """Phase 7: DynSGD on bert_base_mlm at full width; returns the launch
+    counts of 7b."""
+    import numpy as np
+    import torch
+
+    from distkeras_tpu_torch import Dataset, DynSGD
+    from distkeras_tpu_torch.models import bert
+    from distkeras_tpu_torch.telemetry.spans import Tracer, disable_tracing, enable_tracing
+
+    base = bert.bert_base_mlm(seq_len=seq)
+    cfg = dataclasses.replace(base.config, use_flash_attention=True)
+    rng = np.random.default_rng(SEED)
+
+    def data(rows):
+        tokens = rng.integers(0, cfg.vocab_size, size=(rows, seq)).astype(np.int32)
+        return Dataset.from_arrays(features=tokens, label=tokens)
+
+    def trainer(model, workers, **kw):
+        return DynSGD(model, "adam", loss="fused_categorical_crossentropy", num_workers=workers,
+                      batch_size=batch, communication_window=window, seed=SEED, **kw)
+
+    n_params = base.count_params()
+    log(f"bert_base_mlm DynSGD: {n_params} params ({n_params * 4 / 2**20:.0f} MiB a float32 "
+        f"delta), batch {batch} x seq {seq}, window {window}, adam, copy task")
+    model0 = bert._make(dataclasses.replace(cfg, dropout_rate=0.0), seq, "bert_base_mlm")
+    trainer(model0, 1).train(data(batch * window))  # warm-up: allocator, host pins
+    torch.cuda.synchronize()
+
+    # 7a: one worker, overlap on, dropout 0.
+    tr = trainer(model0, 1, overlap_window=True)
+    snaps = {}
+    exchange = tr.protocol.worker_window
+
+    def recording_exchange(params, carry, client):
+        snaps["last"] = {k: v.detach().clone() for k, v in params.items()}
+        return exchange(params, carry, client)
+
+    tr.protocol.worker_window = recording_exchange
+    windows_a = 4
+    tracer = enable_tracing(Tracer())
+    t0 = time.perf_counter()
+    trained = tr.train(data(batch * window * windows_a))
+    torch.cuda.synchronize()
+    wall_a = time.perf_counter() - t0
+    disable_tracing()
+    state = tr.worker_states[0]
+    stepped = dict(zip(state.params, state.optimizer.param_groups[0]["params"]))
+    center = {k: trained.variables[k] for k in stepped}
+    gap_snap, gap_opt = rel_gap(center, snaps["last"]), rel_gap(center, stepped)
+    steps_a = len(tr.get_history())
+    log(f"  7a: 1 worker, {steps_a} steps in {wall_a:.3f} s ({steps_a * batch * seq / wall_a:.0f} "
+        f"tokens/s), {tr.parameter_server.num_commits} commits; center vs the last snapshot "
+        f"{gap_snap:.3g}, vs the optimizer's tensors {gap_opt:.3g} (relative norm)")
+    log_spans(tracer)
+    check(steps_a == windows_a * window and tr.parameter_server.num_commits == windows_a,
+          f"7a: {steps_a} steps, {tr.parameter_server.num_commits} commits")
+    check(gap_snap <= 1e-6 and gap_opt <= 1e-6,
+          f"7a: center off the worker's parameters ({gap_snap}, {gap_opt})")
+    check(all(p is q for p, q in zip(state.params.values(), stepped.values())),
+          "7a: the optimizer steps tensors the trainer does not hold")
+    del tr, trained, state, stepped, center, snaps
+    torch.cuda.empty_cache()
+
+    # 7b: two workers on two streams, dropout 0.1, the host feed.
+    model = bert._make(cfg, seq, "bert_base_mlm")
+    windows_b = 4
+    rows = 2 * batch * window * windows_b
+    center0 = {k: v.cpu() for k, v in model.init(SEED).items()}
+    torch.cuda.reset_peak_memory_stats()
+    tr = trainer(model, 2, device_cache=False)
+    reset_counts()
+    tracer = enable_tracing(Tracer())
+    t0 = time.perf_counter()
+    trained = tr.train(data(rows))
+    torch.cuda.synchronize()
+    wall_b = time.perf_counter() - t0
+    disable_tracing()
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    hist = tr.get_history()
+    steps = len(hist)
+    windows = sum(len(w) for w in tr.window_times)
+    L = cfg.num_layers
+    check(steps == 2 * windows_b * window and windows == 2 * windows_b,
+          f"7b: {steps} steps in {windows} windows")
+    check(tr.parameter_server.num_commits == windows,
+          f"7b: {tr.parameter_server.num_commits} commits for {windows} windows")
+    check(counts == expected(flash_attention_fwd=L * steps, flash_attention_dq=L * steps,
+                             flash_attention_dkv=L * steps, fused_xent_fwd=steps,
+                             fused_xent_stats=steps, fused_xent_grad=steps),
+          f"7b: launches {counts} for {steps} steps")
+    losses = [h["loss"] for h in hist]
+    check(all(math.isfinite(x) for x in losses), f"7b: non-finite loss {losses}")
+    first, last = first_last(hist, window)
+    check(last < first, f"7b: loss did not fall: first windows {first}, last windows {last}")
+    check(trained.device.type == "cuda", f"7b: trained weights on {trained.device}")
+    moved = max((trained.variables[k].cpu() - center0[k]).abs().max().item() for k in center0)
+    check(moved > 0, "7b: the center did not move")
+    status = tr.training_health.statusz()
+    log(f"  7b: 2 workers, {steps} steps in {wall_b:.3f} s ({steps * batch * seq / wall_b:.0f} "
+        f"tokens/s over both), {windows} windows, {tr.parameter_server.num_commits} commits; "
+        f"loss first windows {first:.4f} -> last {last:.4f}; center moved by up to {moved:.3g}; "
+        f"peak memory {peak / 2**30:.2f} GiB; launches {counts}")
+    for w, times in enumerate(tr.window_times):
+        gaps = [b[0] - a[0] for a, b in zip(times, times[1:])]
+        log(f"    worker {w}: window completions {len(times)}, ms between them "
+            f"{[round(g * 1e3, 1) for g in gaps]}")
+    log(f"    staleness {status.get('staleness')}, goodput {status.get('goodput')}, "
+        f"workers {[{k: r.get(k) for k in ('worker', 'commits', 'steps', 'last_staleness')} for r in status['workers']]}")
+    log_spans(tracer)
+    del tr, trained
+    torch.cuda.empty_cache()
+
+    busy = {}
+    for workers in (1, 2):
+        tr = trainer(model, workers, device_cache=False)
+        sample = data(workers * batch * window * 2)
+        busy[workers] = profile(f"DynSGD, {workers} worker(s) x 2 windows of {window} steps",
+                                lambda: tr.train(sample))
+        del tr
+    log(f"  device busy share: 1 worker {busy[1]:.1%}, 2 workers {busy[2]:.1%}")
+    return counts
+
+
+def async_cnn(batch=32, window=12, windows=3):
+    """Phase 8: ADAG on cifar10_cnn at full width, two workers."""
+    import numpy as np
+    import torch
+
+    from distkeras_tpu_torch import ADAG, Dataset, cifar10_cnn
+
+    rng = np.random.default_rng(SEED)
+    rows = 2 * batch * window * windows
+    labels = rng.integers(0, 10, size=rows)
+    protos = rng.normal(size=(10, 32, 32, 3)).astype(np.float32)
+    images = (protos[labels] + rng.normal(size=(rows, 32, 32, 3))).astype(np.float32)
+    data = Dataset.from_arrays(features=images, label=labels.astype(np.int32))
+    model = cifar10_cnn()
+    log(f"cifar10_cnn ADAG: {model.count_params()} params, 2 workers, batch {batch}, window "
+        f"{window}, adam, {rows} prototype images 32x32x3")
+    def trainer():
+        return ADAG(model, "adam", num_workers=2, batch_size=batch, communication_window=window,
+                    seed=SEED, device_cache="auto")
+
+    trainer().train(data.take(4 * batch))  # warm-up: cuDNN's choice of algorithms
+    torch.cuda.synchronize()
+    reset_counts()
+    tr = trainer()
+    t0 = time.perf_counter()
+    trained = tr.train(data)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    hist = tr.get_history()
+    n_windows = sum(len(w) for w in tr.window_times)
+    check(tr.parameter_server.num_commits == n_windows == 2 * windows,
+          f"8: {tr.parameter_server.num_commits} commits, {n_windows} windows")
+    check(counts == expected(), f"8: our kernels launched on the CNN path: {counts}")
+    losses = [h["loss"] for h in hist]
+    check(all(math.isfinite(x) for x in losses), f"8: non-finite loss {losses}")
+    first, last = first_last(hist, window)
+    check(last < first, f"8: loss did not fall: {first} -> {last}")
+    acc = float((trained.predict(images[:512]).argmax(-1) == labels[:512]).mean())
+    log(f"  8: {len(hist)} steps in {wall:.3f} s ({len(hist) * batch / wall:.0f} images/s over "
+        f"both), {n_windows} windows = commits; loss {first:.4f} -> {last:.4f}; center's "
+        f"accuracy on 512 training images {acc:.3f}; launches {counts}")
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -730,6 +968,10 @@ def main(argv=None) -> int:
     runs.append(train_model("bert_base_mlm", 128, 32, 256, 3, 2))
     log("phase 6: gpt_small training at full width")
     runs.append(train_model("gpt_small", 512, 8, 64, 2, 1))
+    log("phase 7: bert_base_mlm asynchronous training (DynSGD) at full width")
+    runs.append(async_bert())
+    log("phase 8: cifar10_cnn asynchronous training (ADAG) at full width")
+    async_cnn()
     launches = {k: sum(r[k] for r in runs) for k in runs[0]}
     for k, n in launches.items():
         check(n > 0, f"kernel {k} was not launched on the main path")

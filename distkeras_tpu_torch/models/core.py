@@ -5,12 +5,16 @@ is a specification and the weights travel beside it: ``variables`` is a
 flat ``state_dict`` (name -> tensor), and ``apply(variables, x)`` runs the
 module with those weights through ``torch.func.functional_call``. The
 module instance the specification holds lives on the ``meta`` device, so it
-owns no memory of its own. :class:`TrainedModel` bundles the two for
+owns no memory of its own. ``functional_call`` swaps the weights into the
+module for the length of the call, so each thread applies its own meta
+instance: worker threads of the async trainers (and autograd's recompute
+under remat) run the same :class:`Model` at once. :class:`TrainedModel` bundles the two for
 inference. ``from_flax``/``from_keras`` are not ported.
 """
 
 from __future__ import annotations
 
+import threading
 from collections.abc import Callable
 
 import numpy as np
@@ -49,6 +53,15 @@ class Model:
         self.flops_per_example = flops_per_example
         with torch.device("meta"):
             self.module = module_fn()
+        self._local = threading.local()
+        self._local.module = self.module
+
+    def _thread_module(self) -> nn.Module:
+        module = getattr(self._local, "module", None)
+        if module is None:
+            with torch.device("meta"):
+                module = self._local.module = self.module_fn()
+        return module
 
     def init(self, seed: int = 0, device: str | torch.device | None = None) -> Variables:
         """Fresh weights drawn from a ``torch.Generator`` seeded with
@@ -63,7 +76,7 @@ class Model:
         return {k: v.detach() for k, v in module.state_dict().items()}
 
     def apply(self, variables: Variables, x, train: bool = False, rng: int | None = None):
-        out = torch.func.functional_call(self.module, variables, (x,),
+        out = torch.func.functional_call(self._thread_module(), variables, (x,),
                                          {"train": train, "rng": rng})
         return out, {}
 

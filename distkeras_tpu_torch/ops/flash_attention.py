@@ -19,8 +19,9 @@ CPU path, and what the kernels are held against on the card.
 :func:`flash_forward`, :func:`dq_call` and :func:`dkv_call` dispatch on
 the tensor's device: the plain version for a CPU tensor, the kernel for a
 CUDA tensor (or an error: nothing falls back). Each counts its kernel
-launches in its ``launches`` attribute. Differentiating through
-:func:`flash_forward` runs ``Δ = rowsum(dO·O)`` in float32 plain torch, as
+launches in its ``launches`` attribute, exactly when several threads launch
+(:func:`~distkeras_tpu_torch.ops.launches.count_launch`). Differentiating
+through :func:`flash_forward` runs ``Δ = rowsum(dO·O)`` in float32 plain torch, as
 the reference's ``_flash_backward`` does outside Pallas, then K2 and K3.
 """
 
@@ -30,6 +31,8 @@ import ctypes
 import functools
 
 import torch
+
+from distkeras_tpu_torch.ops.launches import count_launch
 
 __all__ = [
     "dkv_call", "dq_call", "flash_attention", "flash_dkv_reference",
@@ -163,7 +166,7 @@ def _flash_forward_cuda(q, k, v, causal: bool, causal_shift: int):
             "flash_attention_fwd", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             out.data_ptr(), lse.data_ptr(), BH, S, D, int(causal), int(causal_shift),
             float(D**-0.5))
-    flash_forward.launches += 1
+    count_launch(flash_forward)
     return out, lse
 
 
@@ -198,7 +201,7 @@ def dq_call(q, k, v, do, lse, delta, causal: bool, causal_shift: int = 0):
             "flash_attention_dq", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), BH, Sq,
             k.shape[1], D, int(causal), int(causal_shift), float(D**-0.5))
-    dq_call.launches += 1
+    count_launch(dq_call)
     return dq
 
 
@@ -223,7 +226,7 @@ def dkv_call(k, v, q, do, lse, delta, causal: bool, causal_shift: int = 0):
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), BH, q.shape[1], Skv, D, int(causal), int(causal_shift),
             float(D**-0.5))
-    dkv_call.launches += 1
+    count_launch(dkv_call)
     return dk, dv
 
 

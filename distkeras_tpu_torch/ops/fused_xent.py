@@ -27,7 +27,7 @@ padded, so no padded copy of the logits is made.
 :func:`xent_forward`, :func:`xent_stats` and :func:`xent_grad` dispatch on
 the tensor's device (the plain version for a CPU tensor, the kernel for a
 CUDA tensor: nothing falls back) and count kernel launches in their
-``launches`` attributes. The backward of :func:`xent_forward` runs K5 then
+``launches`` attributes, exactly when several threads launch. The backward of :func:`xent_forward` runs K5 then
 K6, as the reference's ``_call_bwd`` does.
 """
 
@@ -36,6 +36,8 @@ from __future__ import annotations
 import functools
 
 import torch
+
+from distkeras_tpu_torch.ops.launches import count_launch
 
 __all__ = [
     "fused_softmax_xent", "xent_forward", "xent_forward_reference", "xent_grad",
@@ -167,7 +169,7 @@ def _xent_forward_cuda(logits, labels):
         with torch.cuda.device(logits.device):
             _triton_kernels()["fwd"][(T,)](logits, labels, loss, V, logits.stride(0),
                                        BLOCK_V=_BLOCK_V, num_warps=_NUM_WARPS)
-        xent_forward.launches += 1
+        count_launch(xent_forward)
     return loss
 
 
@@ -209,7 +211,7 @@ def xent_stats(logits):
         with torch.cuda.device(logits.device):
             _triton_kernels()["stats"][(T,)](logits, m, s, V, logits.stride(0),
                                        BLOCK_V=_BLOCK_V, num_warps=_NUM_WARPS)
-        xent_stats.launches += 1
+        count_launch(xent_stats)
     return m, s
 
 
@@ -232,7 +234,7 @@ def xent_grad(logits, labels, g, m, s):
             _triton_kernels()["grad"][(T, -(-V // _GRAD_BLOCK_V))](
                 logits, labels, g, m, s, out, V, logits.stride(0), out.stride(0),
                 BLOCK_V=_GRAD_BLOCK_V, num_warps=_GRAD_NUM_WARPS)
-        xent_grad.launches += 1
+        count_launch(xent_grad)
     return out
 
 

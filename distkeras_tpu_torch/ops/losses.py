@@ -17,7 +17,7 @@ import torch.nn.functional as F
 
 from distkeras_tpu_torch.ops.fused_xent import fused_softmax_xent
 
-__all__ = ["get_loss", "get_optimizer", "LOSSES"]
+__all__ = ["get_loss", "get_optimizer", "LOSSES", "NesterovTrace"]
 
 LossFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 
@@ -123,6 +123,35 @@ class OptaxRMSprop(torch.optim.Optimizer):
                     state["nu"] = torch.zeros_like(p)
                 nu = state["nu"].mul_(decay).addcmul_(p.grad, p.grad, value=1 - decay)
                 p.add_(p.grad * torch.rsqrt(nu + group["eps"]), alpha=-group["lr"])
+
+
+class NesterovTrace(torch.optim.Optimizer):
+    """``optax.chain(base, optax.trace(decay, nesterov=True))``: EAMSGD's
+    local optimizer. The trace follows the base optimizer's *update*, not
+    the gradient: each step runs ``base`` (a factory ``params -> torch
+    optimizer``) to get its update ``u``, then ``t = u + decay·t`` and the
+    parameter moves by ``u + decay·t`` in its stead. ``u`` is read back as
+    the base step's change of the weights, so it carries one rounding of
+    the weights' magnitude more than optax's."""
+
+    def __init__(self, params, base: "OptimizerFactory", decay: float = 0.9):
+        params = list(params)
+        super().__init__(params, {"decay": float(decay)})
+        self.base = base(params)
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        items = [(p, group["decay"]) for group in self.param_groups
+                 for p in group["params"] if p.grad is not None]
+        before = [p.clone() for p, _ in items]
+        self.base.step()
+        for (p, decay), old in zip(items, before):
+            u = p - old
+            state = self.state[p]
+            if not state:
+                state["trace"] = torch.zeros_like(p)
+            t = state["trace"].mul_(decay).add_(u)
+            p.copy_(old + (u + decay * t))
 
 
 # name -> (default learning rate, optimizer class, its other arguments)

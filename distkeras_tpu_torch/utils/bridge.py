@@ -5,10 +5,11 @@
   flat ``state_dict`` for the port's modules, and :func:`params_to_jax`
   goes back. Module paths keep their names (``layer_0/attention/query`` ->
   ``layer_0.attention.query``); a flax ``Dense`` ``kernel`` ``[in, out]``
-  becomes a ``Linear`` ``weight`` ``[out, in]``, a LayerNorm ``scale`` and
-  an ``Embed`` ``embedding`` become ``weight``; every other leaf
-  (``bias``, ``pos_embed`` ``[1, L, H]``, ``mlm_bias``) keeps its name and
-  shape.
+  becomes a ``Linear`` ``weight`` ``[out, in]``, a flax ``Conv`` ``kernel``
+  ``[kh, kw, in, out]`` a ``Conv2d`` ``weight`` ``[out, in, kh, kw]``, a
+  LayerNorm ``scale`` and an ``Embed`` ``embedding`` become ``weight``;
+  every other leaf (``bias``, ``pos_embed`` ``[1, L, H]``, ``mlm_bias``)
+  keeps its name and shape.
 - :func:`load_weights_file` reads the reference's weight files
   (``checkpoint.save_weights_file``: the ``serialize_pytree`` npz of
   ``leaf_i`` arrays plus a ``__treedef__`` JSON of tagged key paths and
@@ -58,7 +59,7 @@ def params_from_jax(tree: dict, device: str | torch.device | None = None) -> dic
     for path, leaf in _flatten(params):
         t = _as_tensor(leaf)
         if path[-1] == "kernel":
-            t = t.t().contiguous()
+            t = (t.permute(3, 2, 0, 1) if t.ndim == 4 else t.t()).contiguous()
         name = ".".join((*path[:-1], _RENAMED.get(path[-1], path[-1])))
         out[name] = t.to(dev)
     return out
@@ -67,7 +68,8 @@ def params_from_jax(tree: dict, device: str | torch.device | None = None) -> dic
 def params_to_jax(state_dict: dict[str, torch.Tensor], module: nn.Module) -> dict:
     """The port's ``state_dict`` -> reference variables ``{"params": ...}``
     of numpy arrays (bfloat16 leaves widen to float32, exactly). ``module``
-    says which ``weight`` was a kernel, a scale or an embedding."""
+    says which ``weight`` was a dense or conv kernel, a scale or an
+    embedding."""
     root: dict = {}
     for name, t in state_dict.items():
         *parents, leaf = name.split(".")
@@ -79,6 +81,8 @@ def params_to_jax(state_dict: dict[str, torch.Tensor], module: nn.Module) -> dic
         if leaf == "weight":
             if isinstance(owner, nn.Linear):
                 leaf, arr = "kernel", arr.T.copy()
+            elif isinstance(owner, nn.Conv2d):
+                leaf, arr = "kernel", arr.transpose(2, 3, 1, 0).copy()
             elif isinstance(owner, nn.LayerNorm):
                 leaf = "scale"
             elif isinstance(owner, nn.Embedding):

@@ -17,6 +17,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 __all__ = ["CSRC_DIR", "BUILD_DIR", "build_all", "load_library"]
@@ -29,6 +30,7 @@ NVCC_FLAGS = (
 )
 
 _loaded: dict[str, ctypes.CDLL] = {}
+_load_lock = threading.Lock()  # one build of a library when threads race to it
 
 
 def _nvcc() -> str:
@@ -82,10 +84,11 @@ def build_all(names: list[str] | None = None) -> dict[str, str]:
 
 def load_library(name: str) -> ctypes.CDLL:
     """The loaded library built from ``csrc/<name>.cu``, building it first
-    if needed. One handle per process."""
-    lib = _loaded.get(name)
-    if lib is None:
-        build_all([name])
-        lib = ctypes.CDLL(str(_target(name)))
-        _loaded[name] = lib
+    if needed. One handle per process, whichever threads ask."""
+    with _load_lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            build_all([name])
+            lib = ctypes.CDLL(str(_target(name)))
+            _loaded[name] = lib
     return lib

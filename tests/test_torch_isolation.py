@@ -1,5 +1,6 @@
-"""The port stands alone: it imports neither JAX nor the reference package,
-and its entry points run on CUDA unless asked for the CPU."""
+"""The port stands alone: it imports neither JAX (nor flax, optax or
+ml_dtypes) nor the reference package, and its entry points run on CUDA
+unless asked for the CPU."""
 
 import os
 import pkgutil
@@ -15,7 +16,8 @@ from distkeras_tpu_torch.data.feed import DeviceFeed
 from distkeras_tpu_torch.inference.predictors import ModelPredictor
 from distkeras_tpu_torch.models.bert import bert_tiny_mlm
 from distkeras_tpu_torch.models.core import TrainedModel
-from distkeras_tpu_torch.training.trainers import SingleTrainer, Trainer
+from distkeras_tpu_torch.models.mlp import mnist_mlp
+from distkeras_tpu_torch.training.trainers import DynSGD, SingleTrainer, Trainer
 from distkeras_tpu_torch.utils.bridge import params_from_jax
 from distkeras_tpu_torch.utils.device import resolve_device
 
@@ -31,12 +33,16 @@ def _all_modules():
 
 def test_port_imports_neither_jax_nor_reference():
     mods = _all_modules()
-    assert "distkeras_tpu_torch.ops.flash_attention" in mods
+    for m in ("ops.flash_attention", "parallel.protocols", "parallel.ps", "parallel.ha",
+              "telemetry.registry", "telemetry.spans", "telemetry.training_health",
+              "utils.pytree", "models.mlp", "models.cnn", "data.transformers",
+              "ops.launches"):
+        assert f"distkeras_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'distkeras_tpu', 'triton'))\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'ml_dtypes', 'distkeras_tpu', 'triton'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
@@ -57,7 +63,8 @@ def test_resolve_device():
 
 
 @pytest.mark.parametrize("entry", ["init", "params_from_jax", "trainer", "predictor",
-                                   "single_trainer", "device_feed"])
+                                   "single_trainer", "device_feed", "async_trainer",
+                                   "mlp_init"])
 def test_entry_points_raise_without_cuda(entry):
     _no_cuda()
     model = bert_tiny_mlm(seq_len=16, vocab_size=64)
@@ -68,6 +75,8 @@ def test_entry_points_raise_without_cuda(entry):
         "predictor": lambda: ModelPredictor(TrainedModel(model, model.init(0, device="cpu"))),
         "single_trainer": lambda: SingleTrainer(model, loss="fused_categorical_crossentropy"),
         "device_feed": lambda: DeviceFeed(iter([])),
+        "async_trainer": lambda: DynSGD(model, loss="fused_categorical_crossentropy"),
+        "mlp_init": lambda: mnist_mlp().init(0),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()

@@ -7,6 +7,8 @@ that has only PyTorch and the CUDA toolkit:
     python -m pytest tests/test_torch_kernels_cuda.py -q --noconftest
 """
 
+import threading
+
 import pytest
 import torch
 
@@ -240,3 +242,60 @@ def test_xent_gradient_on_the_card(gen):
     g = torch.full((256,), 1 / 256, device="cuda")
     want = xent_grad_reference(logits.detach(), labels, g, m, s)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-15)
+
+
+def test_kernels_from_two_threads_on_two_streams(gen):
+    """What the async trainers do: two threads, each on its own CUDA stream,
+    run the flash forward and backward (K1-K3) and the fused cross-entropy
+    forward and backward (K4-K6) on their own bert_base-shaped inputs, ten
+    rounds each. Every result equals a one-thread run of the same inputs
+    bit for bit, and each wrapper's launch count grows by exactly the
+    launches made."""
+    rounds = 10
+    inputs = []
+    for _ in range(2):
+        q, k, v = (torch.randn(32 * 12, 128, 64, device="cuda", generator=gen).bfloat16()
+                   for _ in range(3))
+        logits = torch.randn(512, 30522, device="cuda", generator=gen) * 3
+        labels = torch.randint(0, 30522, (512,), device="cuda", generator=gen)
+        inputs.append((q, k, v, logits, labels))
+
+    def run(q, k, v, logits, labels):
+        qkv = [x.detach().requires_grad_() for x in (q, k, v)]
+        out, _ = flash_forward(*qkv)
+        grads = torch.autograd.grad(out.float().square().sum(), qkv)
+        x = logits.detach().requires_grad_()
+        loss = fused_softmax_xent(x, labels)
+        (dx,) = torch.autograd.grad(loss, (x,))
+        return [out, *grads, loss, dx]
+
+    want = [run(*inp) for inp in inputs]
+    torch.cuda.synchronize()
+    wrappers = (flash_forward, dq_call, dkv_call, xent_forward, xent_stats, xent_grad)
+    before = [w.launches for w in wrappers]
+    results = [[], []]
+    errors = []
+
+    def worker(i):
+        try:
+            stream = torch.cuda.Stream()
+            with torch.cuda.stream(stream):
+                for _ in range(rounds):
+                    results[i].append(run(*inputs[i]))
+                stream.synchronize()
+        except BaseException as e:  # reported on the test's thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=worker, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+        assert not t.is_alive()
+    assert not errors, errors
+    for i in range(2):
+        assert len(results[i]) == rounds
+        for got in results[i]:
+            for g, w in zip(got, want[i]):
+                assert torch.equal(g, w)
+    assert [w.launches - b for w, b in zip(wrappers, before)] == [2 * rounds] * 6
