@@ -53,8 +53,36 @@ Phases, each of which must pass or the script exits non-zero:
 8. ADAG on cifar10_cnn at full width (2 workers, device_cache "auto",
    adam, window 12) on seeded class-prototype images: the commits equal the
    windows, the loss is finite and falls, and no kernel of ours launches.
-9. Print the kernels line, the card's name and power limit, and last the
+9. resnet50 at full width (224x224x3, 1000 classes, bf16; BASELINE config
+   #4). 9a: card against CPU on 16 images (where train-mode BatchNorm is
+   well conditioned) from the same weights (BatchNorm scales and statistics
+   drawn from a seed, so that every residual branch is live): logits at
+   train=False, logits and the change of the BatchNorm statistics
+   (new - old) at train=True, each within the larger of 2% and 3x the CPU
+   bf16 run's own distance from the CPU float32 run (L2 norm). 9b: AEASGD
+   with 2 workers on two streams, batch 32 per worker, window 4, 3 windows
+   each, on seeded prototype images: images/s, ms per window, ps_apply ms,
+   the device's busy share, peak memory, loss first -> last; the commits
+   equal the windows, the loss and the returned BatchNorm statistics are
+   finite, and no kernel of ours launches (cuDNN runs the convolutions).
+10. Checkpoints and resume on bert_base_mlm at full width (batch 32 x seq
+   128, flash on, fused loss, adam, dropout 0; K1-K6 on the path). 10a:
+   SynchronousDistributedTrainer A (2 epochs of 3 steps), B (1 epoch with
+   checkpoint_dir) and C (resume=True for 2 epochs): C ran A's steps less
+   B's and C's weights equal A's (max abs difference held to 0). 10b:
+   DynSGD with one worker and a short checkpoint interval: the snapshot
+   thread fires and never fails, and a resumed run's PS starts from the
+   last saved center bitwise. 10c: the 110M-parameter weight file saved and
+   loaded bitwise, with MB/s.
+11. EnsembleTrainer and AveragingTrainer on bert_base_mlm at full width (2
+   replicas, 3 steps each, dropout 0, one seed and data): the average
+   equals the mean of the ensemble's two models computed on the card, to
+   float32 rounding; ms per step.
+12. Print the kernels line, the card's name and power limit, and last the
    result line {"ok": true, "device": {...}}.
+
+Phases 9-11 write their checkpoints under build/chip_smoke/ (git-ignored)
+and remove them.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
@@ -66,8 +94,10 @@ import dataclasses
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import threading
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -103,6 +133,16 @@ XENT_GRAD_ATOL = 1e-12
 # alone moves the gradient by far more than 5% on any device.
 GRAD_REL_TOL = 5e-2
 GRAD_NOISE_FACTOR = 3.0
+# resnet50 card against CPU (bf16, same weights, 16 images): each output's
+# difference (the logits; the statistics' change new - old) in L2 norm,
+# relative to the CPU's, within 2% or 3x the CPU bf16 run's own relative
+# distance from the CPU float32 run, whichever is larger.
+RESNET_REL_TOL = 2e-2
+RESNET_NOISE_FACTOR = 3.0
+# Phase 11: the average against the mean of the ensemble's models computed
+# on the card: both are (a + b) / 2 in float32, one rounding each.
+AVERAGE_ATOL_ULPS = 1.0
+CKPT_ROOT = os.path.join(REPO, "build", "chip_smoke")
 
 
 def log(msg: str) -> None:
@@ -892,6 +932,374 @@ def async_cnn(batch=32, window=12, windows=3):
         f"accuracy on 512 training images {acc:.3f}; launches {counts}")
 
 
+# -- phase 9: resnet50 ---------------------------------------------------------
+
+
+def rel_norm(a, b) -> float:
+    """||a - b|| / ||b|| over tensors or dicts of tensors, in float64."""
+    if isinstance(b, dict):
+        return rel_gap(a, b)
+    return ((a.double() - b.double()).norm() / b.double().norm()).item()
+
+
+def max_abs(a, b) -> float:
+    if isinstance(b, dict):
+        return max(max_abs(a[k], b[k]) for k in b)
+    return (a.double().cpu() - b.double().cpu()).abs().max().item()
+
+
+def resnet_card_vs_cpu(rows=16, size=224):
+    """9a: resnet50 on the card against the CPU, the same weights and
+    images, at train=False and train=True (the statistics compared by
+    their change, new - old: the old values are the same on both sides)."""
+    import numpy as np
+    import torch
+
+    from distkeras_tpu_torch import resnet50
+
+    model = resnet50(image_size=size)
+    weights = model.init(SEED)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    with torch.no_grad():
+        for k, v in weights.items():  # every residual branch live, eval stats not trivial
+            if k.endswith(".weight") and v.ndim == 1:
+                v.copy_(1 + 0.2 * torch.randn(v.shape, device="cuda", generator=gen))
+            elif k.endswith(".mean"):
+                v.copy_(0.1 * torch.randn(v.shape, device="cuda", generator=gen))
+            elif k.endswith(".var"):
+                v.copy_(0.5 + torch.rand(v.shape, device="cuda", generator=gen))
+    cpu_weights = {k: v.cpu() for k, v in weights.items()}
+    x = np.random.default_rng(SEED).normal(size=(rows, size, size, 3)).astype(np.float32)
+    exact_model = resnet50(image_size=size, dtype=torch.float32)
+    for train in (False, True):
+        with torch.no_grad():
+            card, card_stats = model.apply(weights, torch.from_numpy(x).cuda(), train=train)
+            t0 = time.perf_counter()
+            cpu, cpu_stats = model.apply(cpu_weights, torch.from_numpy(x), train=train)
+            cpu_s = time.perf_counter() - t0
+            exact, exact_stats = exact_model.apply(cpu_weights, torch.from_numpy(x), train=train)
+        torch.cuda.synchronize()
+        outputs = [("logits", card.cpu(), cpu, exact)]
+        if train:
+            check(card_stats.keys() == cpu_stats.keys() and len(card_stats) == 2 * 53,
+                  f"9a: {len(card_stats)} updated statistics")
+            outputs.append(("batch_stats change",
+                            {k: v.cpu() - cpu_weights[k] for k, v in card_stats.items()},
+                            {k: v - cpu_weights[k] for k, v in cpu_stats.items()},
+                            {k: v - cpu_weights[k] for k, v in exact_stats.items()}))
+        for what, got, want, ref in outputs:
+            rel, noise = rel_norm(got, want), rel_norm(want, ref)
+            allowed = max(RESNET_REL_TOL, RESNET_NOISE_FACTOR * noise)
+            finite = (all(bool(torch.isfinite(v).all()) for v in got.values())
+                      if isinstance(got, dict) else bool(torch.isfinite(got).all()))
+            log(f"  9a train={train} {what}: card vs CPU max abs {max_abs(got, want):.4g}, "
+                f"relative norm {rel:.4g} (allowed {allowed:.4g}: max of {RESNET_REL_TOL} and "
+                f"{RESNET_NOISE_FACTOR} x the CPU bf16 run's {noise:.4g} from float32); "
+                f"CPU bf16 forward {cpu_s:.2f} s")
+            check(finite and rel <= allowed, f"9a train={train} {what}: {rel} > {allowed}")
+    del weights, cpu_weights
+    torch.cuda.empty_cache()
+
+
+def prototype_images(rows, size, classes, seed):
+    """Seeded synthetic images: each row a class prototype plus noise; the
+    labels are spread over the 1000 ImageNet classes."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, classes, size=rows)
+    protos = rng.standard_normal((classes, size, size, 3), dtype=np.float32)
+    images = protos[ids] + 0.5 * rng.standard_normal((rows, size, size, 3), dtype=np.float32)
+    labels = (ids * (1000 // classes)).astype(np.int32)
+    return images, labels
+
+
+def resnet_steady_steps(model, data, batch):
+    """The resnet50 train step alone (adam, one state, batches on the
+    device): 8 steps by the host clock, then 4 under the profiler."""
+    import torch
+
+    from distkeras_tpu_torch.data.feed import DeviceFeed, minibatches
+    from distkeras_tpu_torch.ops.losses import get_optimizer
+    from distkeras_tpu_torch.training.step import TrainState, make_train_step
+
+    state = TrainState.create(model, get_optimizer("adam"), SEED)
+    step = make_train_step(model, "categorical_crossentropy")
+    batches = list(DeviceFeed(minibatches(data.take(4 * batch), batch)))
+
+    def run(n):
+        nonlocal state
+        for i in range(n):
+            state, _ = step(state, batches[i % len(batches)])
+
+    run(2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run(8)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / 8 * 1e3
+    log(f"  9b: steady resnet50 train step alone: {ms:.2f} ms/step, {batch / ms * 1e3:.0f} "
+        f"images/s (8 steps, batch {batch}, batches on the device)")
+    busy = profile("4 resnet50 train steps", lambda: run(4))
+    log(f"  9b: device busy share of the step alone {busy:.1%}")
+
+
+def resnet_aeasgd(batch=32, window=4, windows=3, size=224):
+    """9b: AEASGD on resnet50, two workers on two streams."""
+    import torch
+
+    from distkeras_tpu_torch import AEASGD, Dataset, resnet50
+    from distkeras_tpu_torch.telemetry.spans import Tracer, disable_tracing, enable_tracing
+
+    model = resnet50(image_size=size)
+    rows = 2 * batch * window * windows
+    images, labels = prototype_images(rows, size, 16, SEED)
+    data = Dataset.from_arrays(features=images, label=labels)
+    log(f"resnet50 AEASGD: {model.count_params()} params, 2 workers, batch {batch} per worker, "
+        f"window {window}, {windows} windows each, adam 1e-3, rho 100, {rows} prototype images "
+        f"{size}x{size}x3")
+
+    def trainer():
+        return AEASGD(model, "adam", learning_rate=1e-3, rho=100.0, num_workers=2,
+                      batch_size=batch, communication_window=window, seed=SEED)
+
+    trainer().train(data.take(2 * batch * window))  # warm-up: cuDNN, allocator
+    resnet_steady_steps(model, data, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    tr = trainer()
+    tracer = enable_tracing(Tracer())
+    t0 = time.perf_counter()
+    trained = tr.train(data)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    disable_tracing()
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    hist = tr.get_history()
+    n_windows = sum(len(w) for w in tr.window_times)
+    commits = tr.parameter_server.num_commits
+    check(commits == n_windows == 2 * windows, f"9b: {commits} commits, {n_windows} windows")
+    check(counts == expected(), f"9b: our kernels launched on the ResNet path: {counts}")
+    losses = [h["loss"] for h in hist]
+    check(all(math.isfinite(v) for v in losses), f"9b: non-finite loss {losses}")
+    stats = {k: v for k, v in trained.variables.items() if k.endswith((".mean", ".var"))}
+    check(len(stats) == 2 * 53 and all(bool(torch.isfinite(v).all()) for v in stats.values()),
+          "9b: the returned BatchNorm statistics are not all finite")
+    first, last = first_last(hist, window)
+    totals = span_totals(tracer)
+    apply_n, apply_s = totals.get(("ps_apply", None), [0, 0.0])
+    log(f"  9b: {len(hist)} steps in {wall:.3f} s, {len(hist) * batch / wall:.1f} images/s over "
+        f"both, {commits} commits = windows; loss first windows {first:.4f} -> last {last:.4f}; "
+        f"peak memory {peak / 2**30:.2f} GiB; ps_apply {apply_n} x "
+        f"{apply_s / max(apply_n, 1) * 1e3:.1f} ms; launches {counts}")
+    for w, times in enumerate(tr.window_times):
+        gaps = [b[0] - a[0] for a, b in zip(times, times[1:])]
+        log(f"    worker {w}: ms between window completions "
+            f"{[round(g * 1e3, 1) for g in gaps]}")
+    log_spans(tracer)
+    del tr, trained
+    torch.cuda.empty_cache()
+    sample = data.take(2 * batch * window * 2)
+    busy = profile(f"AEASGD resnet50, 2 workers x 2 windows of {window} steps",
+                   lambda: trainer().train(sample))
+    log(f"  9b: device busy share {busy:.1%} (2 workers)")
+
+
+# -- phases 10 and 11: checkpoints and the replica trainers -------------------
+
+
+def bert_copy_task(seq, rows, seed=SEED):
+    import numpy as np
+
+    from distkeras_tpu_torch import Dataset
+    from distkeras_tpu_torch.models import bert
+
+    base = bert.bert_base_mlm(seq_len=seq)
+    cfg = dataclasses.replace(base.config, use_flash_attention=True, dropout_rate=0.0)
+    model = bert._make(cfg, seq, "bert_base_mlm")
+    tokens = np.random.default_rng(seed).integers(0, cfg.vocab_size,
+                                                  size=(rows, seq)).astype(np.int32)
+    return model, cfg, Dataset.from_arrays(features=tokens, label=tokens)
+
+
+def train_launches(cfg, steps) -> dict:
+    L = cfg.num_layers
+    return expected(flash_attention_fwd=L * steps, flash_attention_dq=L * steps,
+                    flash_attention_dkv=L * steps, fused_xent_fwd=steps, fused_xent_stats=steps,
+                    fused_xent_grad=steps)
+
+
+def checkpoint_phase(seq=128, batch=32, steps_per_epoch=3) -> tuple[dict, float]:
+    """Phase 10; returns the launch counts of 10a and 10b and the resume
+    difference of 10a."""
+    import torch
+
+    from distkeras_tpu_torch import (CheckpointManager, DynSGD, SynchronousDistributedTrainer,
+                                     TrainedModel, load_weights_file, params_from_jax)
+
+    model, cfg, data = bert_copy_task(seq, batch * steps_per_epoch)
+    shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+    os.makedirs(CKPT_ROOT)
+
+    def sync(epochs, **kw):
+        return SynchronousDistributedTrainer(model, "adam", loss="fused_categorical_crossentropy",
+                                             batch_size=batch, num_epoch=epochs, seed=SEED, **kw)
+
+    sync(1).train(data.take(batch))  # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    a = sync(2)
+    t0 = time.perf_counter()
+    trained_a = a.train(data, shuffle=True)
+    torch.cuda.synchronize()
+    a_s = time.perf_counter() - t0
+    ck = os.path.join(CKPT_ROOT, "sync")
+    b = sync(1, checkpoint_dir=ck)
+    t0 = time.perf_counter()
+    b.train(data, shuffle=True)
+    torch.cuda.synchronize()
+    b_s = time.perf_counter() - t0
+    c = sync(2, checkpoint_dir=ck, resume=True)
+    t0 = time.perf_counter()
+    trained_c = c.train(data, shuffle=True)
+    torch.cuda.synchronize()
+    c_s = time.perf_counter() - t0
+    counts_a = read_counts()
+    steps = len(a.history) + len(b.history) + len(c.history)
+    check(counts_a == train_launches(cfg, steps), f"10a: launches {counts_a} for {steps} steps")
+    check(len(c.history) == len(a.history) - len(b.history) == steps_per_epoch,
+          f"10a: histories A {len(a.history)}, B {len(b.history)}, C {len(c.history)}")
+    diff = max_abs(trained_c.variables, trained_a.variables)
+    loss_diff = max(abs(x["loss"] - y["loss"]) for x, y in
+                    zip(c.history, a.history[len(b.history):]))
+    log(f"  10a: sync A {len(a.history)} steps {a_s:.2f} s, B {len(b.history)} steps with the "
+        f"final save {b_s:.2f} s, C resumed {len(c.history)} steps {c_s:.2f} s (restore and save "
+        f"included); C - A: max abs weight difference {diff:.3g}, loss {loss_diff:.3g}; "
+        f"checkpoint steps {CheckpointManager(ck).all_steps()}")
+    check(diff == 0.0, f"10a: the resumed run is {diff} off the uninterrupted one")
+    del a, b, c, trained_a, trained_c
+    shutil.rmtree(ck)
+    torch.cuda.empty_cache()
+
+    # 10b: DynSGD, one worker, the snapshot thread, then resume.
+    window = 5
+    _, _, async_data = bert_copy_task(seq, batch * window * 4, seed=SEED + 1)
+    ck = os.path.join(CKPT_ROOT, "async")
+
+    def dynsgd(**kw):
+        return DynSGD(model, "adam", loss="fused_categorical_crossentropy", num_workers=1,
+                      batch_size=batch, communication_window=window, seed=SEED,
+                      checkpoint_dir=ck, **kw)
+
+    reset_counts()
+    tr = dynsgd(checkpoint_interval_s=0.5)
+    savers = []
+    save_center = tr._save_center
+
+    def counting_save(mgr, ps, center=None):
+        savers.append(threading.current_thread().name)
+        return save_center(mgr, ps, center)
+
+    tr._save_center = counting_save
+    t0 = time.perf_counter()
+    trained = tr.train(async_data)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    ps = tr.parameter_server
+    mgr = CheckpointManager(ck)
+    saved = mgr.restore()
+    mgr.close()
+    center_gap = max_abs(saved["ps"]["center"], {k: trained.variables[k]
+                                                 for k in saved["ps"]["center"]})
+    second = dynsgd(resume=True)
+    started = {}
+    service = second.service
+
+    def recording_service(center):
+        started.update({k: v.detach().cpu().clone() for k, v in center.items()})
+        return service(center)
+
+    second.service = recording_service
+    second.train(async_data.take(batch * window))
+    torch.cuda.synchronize()
+    counts_b = read_counts()
+    resume_gap = max_abs(started, saved["ps"]["center"])
+    steps_b = len(tr.history) + len(second.history)
+    log(f"  10b: DynSGD {len(tr.history)} steps in {run_s:.2f} s, {ps.num_commits} commits, "
+        f"saves {len(savers)} ({savers.count('ps-checkpoint')} from the ps-checkpoint thread), "
+        f"snapshot failures {ps.snapshot_failures}; last saved step {mgr.latest_step()} "
+        f"{saved['meta']}; saved center vs the returned one {center_gap:.3g}; resumed PS start vs "
+        f"the saved center {resume_gap:.3g}; launches {counts_b}")
+    check(ps.snapshot_failures == 0, f"10b: {ps.snapshot_failures} snapshot failures")
+    check("ps-checkpoint" in savers, "10b: the snapshot thread never saved")
+    check(saved["meta"] == {"weight_version": ps.num_commits}, f"10b: meta {saved['meta']}")
+    check(center_gap == 0.0 and resume_gap == 0.0,
+          f"10b: saved {center_gap}, resumed {resume_gap}")
+    check(counts_b == train_launches(cfg, steps_b), f"10b: launches {counts_b}")
+    del tr, second, trained, saved, started
+    shutil.rmtree(ck)
+    torch.cuda.empty_cache()
+
+    # 10c: the weight file of the 110M-parameter model.
+    trained = TrainedModel(model, {k: v.cpu() for k, v in model.init(SEED).items()})
+    path = os.path.join(CKPT_ROOT, "bert_base.npz")
+    t0 = time.perf_counter()
+    trained.save_weights(path)
+    save_s = time.perf_counter() - t0
+    mb = os.path.getsize(path) / 1e6
+    t0 = time.perf_counter()
+    back = params_from_jax(load_weights_file(path), device="cpu")
+    load_s = time.perf_counter() - t0
+    same = back.keys() == trained.variables.keys() and all(
+        back[k].dtype == v.dtype and torch.equal(back[k], v) for k, v in trained.variables.items())
+    log(f"  10c: weight file {mb:.1f} MB, save {save_s:.3f} s ({mb / save_s:.0f} MB/s), load "
+        f"{load_s:.3f} s ({mb / load_s:.0f} MB/s), bitwise {same}")
+    check(same, "10c: the weight file did not round-trip bitwise")
+    shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+    return {k: counts_a[k] + counts_b[k] for k in counts_a}, diff
+
+
+def replica_phase(seq=128, batch=32, steps=3) -> dict:
+    """Phase 11: EnsembleTrainer and AveragingTrainer, 2 replicas."""
+    import torch
+
+    from distkeras_tpu_torch import AveragingTrainer, EnsembleTrainer
+
+    model, cfg, data = bert_copy_task(seq, 2 * batch * steps)
+    kw = dict(loss="fused_categorical_crossentropy", batch_size=batch, num_epoch=1, seed=SEED)
+    EnsembleTrainer(model, "adam", num_models=2, **kw).train(data.take(2 * batch))  # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    ens = EnsembleTrainer(model, "adam", num_models=2, **kw)
+    members = ens.train(data, shuffle=True)
+    torch.cuda.synchronize()
+    ens_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    avg = AveragingTrainer(model, "adam", num_workers=2, **kw)
+    averaged = avg.train(data, shuffle=True)
+    torch.cuda.synchronize()
+    avg_s = time.perf_counter() - t0
+    counts = read_counts()
+    check(len(ens.history) == len(avg.history) == steps, f"11: {len(ens.history)} steps")
+    check(counts == train_launches(cfg, 4 * steps), f"11: launches {counts}")
+    worst = 0.0
+    for k, v in averaged.variables.items():
+        mean = (members[0].variables[k] + members[1].variables[k]) / 2
+        ulp = torch.finfo(torch.float32).eps * mean.abs().max().item()
+        worst = max(worst, (v - mean).abs().max().item() / max(ulp, 1e-30))
+    losses = [list(map(float, h["loss"])) for h in ens.history]
+    log(f"  11: 2 replicas x {steps} steps: ensemble {ens_s:.3f} s "
+        f"({ens_s / (2 * steps) * 1e3:.1f} ms a replica step), averaging {avg_s:.3f} s "
+        f"({avg_s / (2 * steps) * 1e3:.1f} ms a replica step); losses per step {losses}; "
+        f"average vs the mean of the members: {worst:.3g} float32 ulps of the largest weight "
+        f"(allowed {AVERAGE_ATOL_ULPS}); launches {counts}")
+    check(worst <= AVERAGE_ATOL_ULPS, f"11: average off the members' mean by {worst} ulps")
+    return counts
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -972,6 +1380,14 @@ def main(argv=None) -> int:
     runs.append(async_bert())
     log("phase 8: cifar10_cnn asynchronous training (ADAG) at full width")
     async_cnn()
+    log("phase 9: resnet50 at full width, card against CPU, then AEASGD")
+    resnet_card_vs_cpu()
+    resnet_aeasgd()
+    log("phase 10: bert_base_mlm checkpoints and resume at full width")
+    counts, _ = checkpoint_phase()
+    runs.append(counts)
+    log("phase 11: bert_base_mlm EnsembleTrainer and AveragingTrainer at full width")
+    runs.append(replica_phase())
     launches = {k: sum(r[k] for r in runs) for k in runs[0]}
     for k, n in launches.items():
         check(n > 0, f"kernel {k} was not launched on the main path")

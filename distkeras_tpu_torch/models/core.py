@@ -34,8 +34,10 @@ class Model:
     ``module_fn()`` builds the ``nn.Module``; a module may define
     ``init_weights(generator)`` to draw its initial weights.
     ``apply(variables, x, train, rng) -> (outputs, new_state)``, where
-    ``rng`` is the integer seed of the step's dropout masks and
-    ``new_state`` is empty for the architectures ported so far."""
+    ``rng`` is the integer seed of the step's dropout masks. A module whose
+    forward returns ``(outputs, new_state)`` reports updated buffers there
+    (ResNet's BatchNorm statistics in train mode, under their
+    ``state_dict`` names); for the others ``new_state`` is empty."""
 
     def __init__(
         self,
@@ -78,7 +80,7 @@ class Model:
     def apply(self, variables: Variables, x, train: bool = False, rng: int | None = None):
         out = torch.func.functional_call(self._thread_module(), variables, (x,),
                                          {"train": train, "rng": rng})
-        return out, {}
+        return out if isinstance(out, tuple) else (out, {})
 
     def count_params(self) -> int:
         return int(sum(p.numel() for p in self.module.parameters()))
@@ -110,9 +112,19 @@ class TrainedModel:
         x = torch.as_tensor(np.asarray(x), device=self.device)
         return self.model.apply(self.variables, x, train=False)[0].float().cpu().numpy()
 
+    def save_weights(self, path: str) -> None:
+        """Write the weights as the reference's stamped weight file
+        (``{"params": ..., "batch_stats": ...}``, each leaf in its dtype),
+        atomically; either package loads it."""
+        from distkeras_tpu_torch.checkpoint import save_weights_file
+        from distkeras_tpu_torch.utils.bridge import params_to_jax
+
+        save_weights_file(path, params_to_jax(self.variables, self.model.module))
+
     def load_weights(self, path: str) -> None:
-        """Load a weight file written by the reference package
-        (``save_weights_file``) onto the device the weights live on."""
-        from distkeras_tpu_torch.utils.bridge import load_weights_file, params_from_jax
+        """Load a weight file written by either package onto the device the
+        weights live on."""
+        from distkeras_tpu_torch.checkpoint import load_weights_file
+        from distkeras_tpu_torch.utils.bridge import params_from_jax
 
         self.variables = params_from_jax(load_weights_file(path), device=self.device)

@@ -1,10 +1,11 @@
 """Counter/gauge/histogram metrics registry.
 
 Copy of the reference's ``distkeras_tpu/telemetry/registry.py`` (jax-free),
-cut to what the parameter server, its HA clients and the training-health
-layer publish into: :class:`Counter`, :class:`Gauge`, :class:`Histogram`
-(with its bucket-interpolated percentile), :class:`MetricsRegistry` and the
-one exact :func:`percentile`. The fleet merge and delta surface and the
+cut to what the parameter server, its HA clients, the training-health
+layer and the trainers publish into: :class:`Counter`, :class:`Gauge`,
+:class:`Histogram` (with its bucket-interpolated percentile),
+:class:`MetricsRegistry`, the one exact :func:`percentile` and
+:func:`sanitize_metric_name`. The fleet merge and delta surface and the
 exposition formats belong to the serving slices.
 
 Conventions (Prometheus-shaped): metric names ``[a-zA-Z_:][a-zA-Z0-9_:]*``,
@@ -28,10 +29,21 @@ __all__ = [
     "Histogram",
     "MetricsRegistry",
     "percentile",
+    "sanitize_metric_name",
     "DEFAULT_BUCKETS",
 ]
 
 _NAME_RE = re.compile(r"^[a-zA-Z_:][a-zA-Z0-9_:]*$")
+
+
+def sanitize_metric_name(key: str) -> str:
+    """A history or stream key as a valid metric name (the rule ``_NAME_RE``
+    enforces): other characters become ``_``, and a leading digit gets a
+    ``_`` prefix."""
+    out = "".join(c if c.isalnum() or c == "_" else "_" for c in str(key))
+    if not out or out[0].isdigit():
+        out = "_" + out
+    return out
 
 # Cumulative upper bounds tuned for latencies from sub-millisecond decode
 # ticks to multi-second cold compiles; +Inf is implicit.

@@ -1,15 +1,20 @@
 """Trainers: counterpart of ``distkeras_tpu/training/trainers.py``.
 
-Ported so far: the :class:`Trainer` base (constructor surface, wall-clock
-bookkeeping, step history, :meth:`Trainer.evaluate`), :class:`SingleTrainer`
-(one step loop on one device) and the asynchronous parameter-server family,
+The :class:`Trainer` base (constructor surface, wall-clock bookkeeping,
+step history, the telemetry surface: a per-step ``metric_stream`` and the
+``train_*`` series published into a ``registry``, :meth:`Trainer.evaluate`);
+:class:`SingleTrainer` (one step loop on one device);
+:class:`EnsembleTrainer` and :class:`AveragingTrainer` (N replicas, each
+with its own state, stepped in turn); :class:`SynchronousDistributedTrainer`
+(data parallelism, on one device here, with step checkpoints and resume);
+and the asynchronous parameter-server family,
 :class:`AsynchronousDistributedTrainer` with ``DOWNPOUR``, ``ADAG``,
 ``AEASGD``, ``EAMSGD`` and ``DynSGD``: worker threads, each running its
 windows on its own CUDA stream, exchange with one in-process parameter
-server every ``communication_window`` steps. The replica trainers (ensemble,
-averaging, synchronous), the gRPC transport, multi-device islands,
-checkpointing and the telemetry hooks of the serving slices (metric stream,
-recompile auditor, weight publisher) come with later slices.
+server every ``communication_window`` steps, with periodic PS checkpoints
+and resume. Not ported yet, and refused with the ``ROADMAP.md`` item that
+brings them: the gRPC transport, multi-device islands and meshes, the
+recompile ``auditor`` and the weight ``publisher``.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from distkeras_tpu_torch.checkpoint import CheckpointManager
 from distkeras_tpu_torch.data.dataset import Dataset
 from distkeras_tpu_torch.data.feed import DeviceFeed, index_windows, minibatches, window_batches
 from distkeras_tpu_torch.models.core import Model, TrainedModel
@@ -37,6 +43,7 @@ from distkeras_tpu_torch.parallel.protocols import (
     EAMSGDProtocol,
 )
 from distkeras_tpu_torch.parallel.ps import ParameterServerService
+from distkeras_tpu_torch.telemetry.registry import sanitize_metric_name
 from distkeras_tpu_torch.telemetry.spans import span
 from distkeras_tpu_torch.telemetry.training_health import TrainingHealth
 from distkeras_tpu_torch.training.step import (
@@ -52,6 +59,9 @@ from distkeras_tpu_torch.utils.rng import worker_seed
 __all__ = [
     "Trainer",
     "SingleTrainer",
+    "EnsembleTrainer",
+    "AveragingTrainer",
+    "SynchronousDistributedTrainer",
     "AsynchronousDistributedTrainer",
     "DOWNPOUR",
     "ADAG",
@@ -61,10 +71,58 @@ __all__ = [
 ]
 
 
+class _StepCheckpointer:
+    """Save and resume for the step-loop trainers (reference ``trainers.py:87-138``):
+    restore the latest step into the live state, timed ``wait=False`` saves
+    during the loop, a final blocking save, and a ``close()`` safe to call
+    from ``finally``, so a crash mid-train still finishes an in-flight save."""
+
+    def __init__(self, directory, interval_s, resume, like):
+        self.mgr = None
+        self.start_step = 0
+        self.state = None
+        self.interval_s = float(interval_s)
+        if directory is None:
+            return
+        self.mgr = CheckpointManager(directory)
+        if resume and self.mgr.latest_step() is not None:
+            self.state = self.mgr.restore(like={"state": like})["state"]
+            self.start_step = self.mgr.latest_step()
+        self._last = time.monotonic()
+
+    def maybe_save(self, step, state):
+        if self.mgr is not None and time.monotonic() - self._last >= self.interval_s:
+            with span("checkpoint_save", step=step):
+                self.mgr.save(step, state=state, wait=False)
+            self._last = time.monotonic()
+
+    def finalize(self, step, state):
+        if self.mgr is not None and step > self.start_step:
+            # Skipped when maybe_save already saved this very step in the
+            # background; then the wait is for that write.
+            with span("checkpoint_save", step=step):
+                self.mgr.save(step, state=state)
+            self.mgr.wait_until_finished()
+
+    def close(self):
+        if self.mgr is not None:
+            self.mgr.close()
+            self.mgr = None
+
+
 class Trainer:
     """Base trainer: holds the model spec, loss, worker optimizer name,
     the device and wall-clock bookkeeping. ``device`` defaults to CUDA and
-    raises without one; pass ``"cpu"`` to run on the host."""
+    raises without one; pass ``"cpu"`` to run on the host.
+
+    Telemetry: ``metric_stream`` (anything with ``.emit(i, record)``) gets
+    every history row after ``train()``; a ``registry``
+    (:class:`~distkeras_tpu_torch.telemetry.registry.MetricsRegistry`) gets
+    ``train_steps_total``, ``train_time_seconds`` and a ``train_last_<key>``
+    gauge per numeric metric of the last row. The replica trainers, as the
+    reference's, emit neither. ``auditor`` (the reference's
+    recompile auditor) is refused until the port has one; ``publisher``
+    stays ``None`` until the deploy slice."""
 
     def __init__(
         self,
@@ -75,10 +133,16 @@ class Trainer:
         learning_rate: float | None = None,
         seed: int = 0,
         loss_weights=None,
+        metric_stream=None,
+        registry=None,
+        auditor=None,
         device: str | torch.device | None = None,
     ):
         if not isinstance(keras_model, Model):
             raise TypeError("Trainer expects a distkeras_tpu_torch Model")
+        if auditor is not None:
+            raise ValueError("auditor= needs the port's recompile auditor, which is not "
+                             "ported yet (ROADMAP.md §A item A7)")
         self.model = keras_model
         self.device = resolve_device(device)
         self.loss_weights = loss_weights
@@ -94,6 +158,12 @@ class Trainer:
         self.metrics = tuple(metrics)
         self.learning_rate = learning_rate
         self.seed = seed
+        self.metric_stream = metric_stream
+        self.registry = registry
+        self.auditor = None
+        # The trainer side of continuous deployment (deploy/): not ported;
+        # train() refuses a publisher.
+        self.publisher = None
         self.history: list[dict] = []
         self._training_start: float | None = None
         self._training_stop: float | None = None
@@ -117,11 +187,40 @@ class Trainer:
         return self.history
 
     def get_averaged_history(self) -> dict:
-        """Mean of each metric over the recorded steps."""
+        """Mean of each metric over the recorded steps (and over replicas,
+        for the replica trainers, whose per-step metrics are arrays);
+        non-numeric keys are skipped."""
         if not self.history:
             return {}
-        return {k: float(np.mean([h[k] for h in self.history if k in h]))
-                for k in self.history[0]}
+        out = {}
+        for k in self.history[0]:
+            try:
+                out[k] = float(np.mean([np.mean(np.asarray(h[k]))
+                                        for h in self.history if k in h]))
+            except (TypeError, ValueError):
+                continue
+        return out
+
+    def _emit_history(self) -> None:
+        """Hand the history to the metric stream and the registry
+        (reference ``trainers.py:227-244``)."""
+        if self.metric_stream is not None:
+            for i, h in enumerate(self.history):
+                self.metric_stream.emit(i, h)
+        if self.registry is not None and self.history:
+            self.registry.counter("train_steps_total", help="train steps recorded"
+                                  ).inc(len(self.history))
+            self.registry.gauge("train_time_seconds", help="wall clock of the last train()"
+                                ).set(self.get_training_time())
+            for k, v in self.history[-1].items():
+                if isinstance(v, (int, float)):
+                    self.registry.gauge("train_last_" + sanitize_metric_name(k),
+                                        help="last-step train metric").set(v)
+
+    def _refuse_publisher(self) -> None:
+        if self.publisher is not None:
+            raise ValueError("a weight publisher needs deploy/, which is not ported yet "
+                             "(ROADMAP.md §A item 8)")
 
     def _optimizer(self):
         return get_optimizer(self.worker_optimizer, self.learning_rate)
@@ -179,11 +278,15 @@ class SingleTrainer(Trainer):
         aux_loss_weight: float = 0.01,
         validation_data: Dataset | None = None,
         loss_weights=None,
+        metric_stream=None,
+        registry=None,
+        auditor=None,
         device: str | torch.device | None = None,
     ):
         super().__init__(keras_model, worker_optimizer, loss, metrics,
                          learning_rate=learning_rate, seed=seed,
-                         loss_weights=loss_weights, device=device)
+                         loss_weights=loss_weights, metric_stream=metric_stream,
+                         registry=registry, auditor=auditor, device=device)
         self.features_col = features_col
         self.label_col = label_col
         self.batch_size = int(batch_size)
@@ -201,6 +304,7 @@ class SingleTrainer(Trainer):
         ``seed + epoch`` when ``shuffle``) and return the trained model, its
         weights on the trainer's device. ``history`` holds each step's
         metrics as floats, read from the device once, after the last step."""
+        self._refuse_publisher()
         self.record_training_start()
         step_fn = make_train_step(
             self.model, self.loss, self.metrics, remat=self.remat,
@@ -214,22 +318,264 @@ class SingleTrainer(Trainer):
                 dataset, self.batch_size, self.features_col, self.label_col,
                 num_epoch=1, seed=(self.seed + epoch) if shuffle else None,
             )
-            for batch in DeviceFeed(batches, self.device, buffer_size=2):
-                state, m = step_fn(state, batch)
-                history.append(m)
+            state, _ = _run_steps(step_fn, state, batches, self.device, history)
             if self.validation_data is not None:
-                val = self.evaluate(
-                    TrainedModel(self.model, state.variables), self.validation_data,
-                    features_col=self.features_col, label_col=self.label_col,
-                )
+                with span("validation", epoch=epoch):
+                    val = self.evaluate(
+                        TrainedModel(self.model, state.variables), self.validation_data,
+                        features_col=self.features_col, label_col=self.label_col,
+                    )
                 self.validation_history.append(
                     {"epoch": epoch, **{f"val_{k}": v for k, v in val.items()}})
-        # One read from the device for all the steps' metrics.
-        self.history = []
-        if history:
-            keys = list(history[0])
-            rows = torch.stack([torch.stack([h[k] for k in keys]) for h in history]).tolist()
-            self.history = [dict(zip(keys, row)) for row in rows]
+        self.history = _read_history(history)
+        self._emit_history()
+        self.record_training_stop()
+        return TrainedModel(self.model, {k: v.detach() for k, v in state.variables.items()})
+
+
+def _run_steps(step_fn, state, batches, device, history: list, ck=None, step_no: int = 0):
+    """The one-device step loop: ``batches`` through :class:`DeviceFeed`
+    onto ``device``, one ``step_fn`` a batch, each step's metrics appended
+    to ``history``; with a :class:`_StepCheckpointer`, a timed save after
+    each step. ``step_no`` is the count of steps before ``batches``.
+    Returns the state and the count after them."""
+    for batch in DeviceFeed(batches, device, buffer_size=2):
+        with span("train_step"):
+            state, m = step_fn(state, batch)
+        history.append(m)
+        step_no += 1
+        if ck is not None:
+            ck.maybe_save(step_no, state)
+    return state, step_no
+
+
+def _read_history(history: list[dict]) -> list[dict]:
+    """Per-step metric dicts of device tensors -> dicts of floats (of
+    ``[replicas]`` float32 arrays for the replica trainers' rows), in one
+    read from the device."""
+    if not history:
+        return []
+    keys = list(history[0])
+    table = torch.stack([torch.stack([h[k] for k in keys]) for h in history]).cpu()
+    rows = table.tolist() if table.ndim == 2 else table.float().numpy()
+    return [dict(zip(keys, row)) for row in rows]
+
+
+class _ReplicasTrainer(Trainer):
+    """The engine of :class:`EnsembleTrainer` and :class:`AveragingTrainer`
+    (reference ``_VmappedReplicasTrainer``, ``trainers.py:391-510``): N
+    replicas, replica ``i`` with its own :class:`TrainState` from seed
+    ``worker_seed(seed, i)`` on partition ``i`` of the data. The reference
+    vmaps the N steps into one program; here the N states are stepped in
+    turn on the trainer's device, one group of N batches at a time, so each
+    replica sees the batches the reference's replica ``i`` sees. One device
+    needs no padded replicas. The lock-step stops at the shortest partition's
+    stream; ``dropped_batches`` counts each replica's tail batches not
+    stepped. History rows hold each metric as a ``[num_models]`` array."""
+
+    def __init__(
+        self,
+        keras_model: Model,
+        worker_optimizer="adagrad",
+        loss="categorical_crossentropy",
+        metrics=("accuracy",),
+        num_models: int = 2,
+        features_col: str = "features",
+        label_col: str = "label",
+        batch_size: int = 32,
+        num_epoch: int = 1,
+        learning_rate: float | None = None,
+        seed: int = 0,
+        loss_weights=None,
+        metric_stream=None,
+        registry=None,
+        auditor=None,
+        device: str | torch.device | None = None,
+    ):
+        super().__init__(keras_model, worker_optimizer, loss, metrics,
+                         learning_rate=learning_rate, seed=seed,
+                         loss_weights=loss_weights, metric_stream=metric_stream,
+                         registry=registry, auditor=auditor, device=device)
+        self.num_models = int(num_models)
+        self.features_col = features_col
+        self.label_col = label_col
+        self.batch_size = int(batch_size)
+        self.num_epoch = int(num_epoch)
+        self.dropped_batches: list[int] = []
+
+    def _train_replicas(self, dataset: Dataset, shuffle: bool) -> list[TrainState]:
+        self._refuse_publisher()
+        n = self.num_models
+        step_fn = make_train_step(self.model, self.loss, self.metrics)
+        states = [TrainState.create(self.model, self._optimizer(), worker_seed(self.seed, i),
+                                    self.device) for i in range(n)]
+        parts = dataset.partitions(n)
+        streams = [minibatches(parts[i], self.batch_size, self.features_col, self.label_col,
+                               num_epoch=self.num_epoch,
+                               seed=worker_seed(self.seed, i) if shuffle else None)
+                   for i in range(n)]
+
+        history = []
+        # Lock-step: ends with the first stream that ends, as the reference's does.
+        for group in zip(*(DeviceFeed(s, self.device, buffer_size=2) for s in streams)):
+            with span("train_step"):
+                row = []
+                for i, batch in enumerate(group):
+                    states[i], m = step_fn(states[i], batch)
+                    row.append(m)
+            history.append({k: torch.stack([m[k] for m in row]) for k in row[0]})
+        steps = len(history)
+        expected = [self.num_epoch * (parts[i].num_rows // self.batch_size) for i in range(n)]
+        self.dropped_batches = [e - steps for e in expected]
+        if any(self.dropped_batches):
+            logging.getLogger(__name__).warning(
+                "replica lock-step stopped at %d steps; tail batches dropped per replica: %s "
+                "(uneven partitions: replica i gets rows//batch_size=%s batches/epoch)",
+                steps, self.dropped_batches, [e // max(self.num_epoch, 1) for e in expected])
+        self.history = _read_history(history)
+        return states
+
+
+class EnsembleTrainer(_ReplicasTrainer):
+    """Train N independent models and return all of them (reference
+    ``EnsembleTrainer``)."""
+
+    def train(self, dataset: Dataset, shuffle: bool = False) -> list[TrainedModel]:
+        self.record_training_start()
+        states = self._train_replicas(dataset, shuffle)
+        models = [TrainedModel(self.model, {k: v.detach() for k, v in st.variables.items()})
+                  for st in states]
+        self.record_training_stop()
+        return models
+
+
+class AveragingTrainer(_ReplicasTrainer):
+    """Train N models side by side and return the mean of their weights and
+    model states (reference ``AveragingTrainer``)."""
+
+    def __init__(self, *args, num_workers: int = 2, **kwargs):
+        kwargs.setdefault("num_models", num_workers)
+        super().__init__(*args, **kwargs)
+        self.num_workers = self.num_models
+
+    def train(self, dataset: Dataset, shuffle: bool = False) -> TrainedModel:
+        self.record_training_start()
+        states = self._train_replicas(dataset, shuffle)
+        with torch.no_grad():
+            averaged = {k: torch.stack([st.variables[k] for st in states]).mean(dim=0)
+                        for k in states[0].variables}
+        self.record_training_stop()
+        return TrainedModel(self.model, averaged)
+
+
+class SynchronousDistributedTrainer(Trainer):
+    """Synchronous data parallelism (reference
+    ``SynchronousDistributedTrainer``, ``trainers.py:565-709``, its
+    data-parallel branch): the global batch is ``batch_size`` times the
+    data-parallel size, which on the one device the port trains on is 1.
+    ``num_workers`` above the devices in use raises as the reference's
+    ``best_mesh`` does. Checkpoints: with ``checkpoint_dir`` the state is
+    saved every ``checkpoint_interval_s`` (in the background) and at the
+    end; ``resume=True`` restores the latest step into the state and
+    fast-forwards the deterministic batch stream past it, so a resumed run
+    reproduces the uninterrupted one. Model axes in ``mesh``, ``zero1``,
+    ``shard_sequence`` and a process group of more than one rank are
+    multi-device work and raise; ``mesh`` is a mapping of axis sizes
+    (``{"dp": 1}``), as the reference's ``make_mesh`` takes."""
+
+    def __init__(
+        self,
+        keras_model: Model,
+        worker_optimizer="adagrad",
+        loss="categorical_crossentropy",
+        metrics=("accuracy",),
+        num_workers: int | None = None,
+        batch_size: int = 32,
+        features_col: str = "features",
+        label_col: str = "label",
+        num_epoch: int = 1,
+        learning_rate: float | None = None,
+        seed: int = 0,
+        mesh=None,
+        zero1: bool = False,
+        shard_sequence: bool = False,
+        aux_loss_weight: float = 0.01,
+        checkpoint_dir: str | None = None,
+        checkpoint_interval_s: float = 60.0,
+        resume: bool = False,
+        loss_weights=None,
+        metric_stream=None,
+        registry=None,
+        auditor=None,
+        device: str | torch.device | None = None,
+    ):
+        super().__init__(keras_model, worker_optimizer, loss, metrics,
+                         learning_rate=learning_rate, seed=seed,
+                         loss_weights=loss_weights, metric_stream=metric_stream,
+                         registry=registry, auditor=auditor, device=device)
+        self.num_workers = num_workers
+        self.batch_size = int(batch_size)
+        self.features_col = features_col
+        self.label_col = label_col
+        self.num_epoch = int(num_epoch)
+        self.mesh = mesh
+        self.zero1 = bool(zero1)
+        self.shard_sequence = bool(shard_sequence)
+        self.aux_loss_weight = float(aux_loss_weight)
+        self.checkpoint_dir = checkpoint_dir
+        self.checkpoint_interval_s = float(checkpoint_interval_s)
+        self.resume = bool(resume)
+
+    def _data_parallel_size(self) -> int:
+        """The data-parallel size, 1: what else the reference's mesh paths
+        do is refused (ROADMAP.md §A item A10)."""
+        later = "multi-device training, which is not ported yet (ROADMAP.md §A item A10)"
+        if self.zero1:
+            raise ValueError(f"zero1 needs {later}")
+        if self.shard_sequence:
+            raise ValueError(f"shard_sequence needs {later}")
+        if (torch.distributed.is_available() and torch.distributed.is_initialized()
+                and torch.distributed.get_world_size() > 1):
+            raise ValueError(f"a process group of more than one rank needs {later}")
+        devices = 1
+        if self.num_workers is not None and self.num_workers > devices:
+            raise ValueError(f"requested {self.num_workers} devices but only {devices} "
+                             f"are attached; reduce num_workers or run on more chips")
+        if self.mesh is not None:
+            sizes = dict(self.mesh)
+            model_axes = {a: n for a, n in sizes.items() if a != "dp" and n > 1}
+            if model_axes:
+                raise ValueError(f"mesh axes {model_axes} need {later}")
+            if sizes.get("dp", 1) > devices:
+                raise ValueError(f"mesh dp={sizes['dp']} but only {devices} device is used")
+        return 1
+
+    def train(self, dataset: Dataset, shuffle: bool = False) -> TrainedModel:
+        """Train ``num_epoch`` epochs (rows reshuffled each epoch with
+        ``seed + epoch`` when ``shuffle``), resuming from ``checkpoint_dir``
+        when asked, and return the trained model on the trainer's device."""
+        self._refuse_publisher()
+        global_batch = self.batch_size * self._data_parallel_size()
+        self.record_training_start()
+        step_fn = make_train_step(self.model, self.loss, self.metrics,
+                                  aux_loss_weight=self.aux_loss_weight)
+        state = TrainState.create(self.model, self._optimizer(), self.seed, self.device)
+        ck = _StepCheckpointer(self.checkpoint_dir, self.checkpoint_interval_s, self.resume,
+                               like=state)
+        if ck.state is not None:
+            state = ck.state
+        batches = minibatches(dataset, global_batch, self.features_col, self.label_col,
+                              num_epoch=self.num_epoch, seed=self.seed if shuffle else None,
+                              start_batch=ck.start_step)
+        history = []
+        try:
+            state, step_no = _run_steps(step_fn, state, batches, self.device, history, ck,
+                                        ck.start_step)
+            ck.finalize(step_no, state)
+        finally:
+            ck.close()
+        self.history = _read_history(history)
+        self._emit_history()
         self.record_training_stop()
         return TrainedModel(self.model, {k: v.detach() for k, v in state.variables.items()})
 
@@ -260,8 +606,16 @@ class AsynchronousDistributedTrainer(Trainer):
     after ``train()``, ``worker_states`` holds each worker's
     :class:`TrainState`. ``parallelism_factor`` over-partitions the data.
 
+    With ``checkpoint_dir``, a ``ps-checkpoint`` thread saves the PS center
+    and update count every ``checkpoint_interval_s`` (a failure is logged
+    and counted in the PS's ``snapshot_failures``, never raised), and the
+    final center is saved after the workers end, each as step
+    ``num_commits`` with ``meta={"weight_version": num_commits}``.
+    ``resume=True`` starts the PS from the latest saved center; its update
+    count restarts at 0, as the reference's does.
+
     Not ported yet, and refused: ``transport="grpc"``, ``devices_per_worker
-    > 1``, ``checkpoint_dir``/``resume`` and a weight ``publisher``.
+    > 1`` and a weight ``publisher``.
     """
 
     protocol_cls: type[AsyncProtocol] = DOWNPOURProtocol
@@ -296,13 +650,16 @@ class AsynchronousDistributedTrainer(Trainer):
         device_cache: bool | str = "auto",
         track_health: bool = True,
         loss_weights=None,
+        metric_stream=None,
         registry=None,
+        auditor=None,
         device: str | torch.device | None = None,
         **protocol_kwargs,
     ):
         super().__init__(keras_model, worker_optimizer, loss, metrics,
                          learning_rate=learning_rate, seed=seed,
-                         loss_weights=loss_weights, device=device)
+                         loss_weights=loss_weights, metric_stream=metric_stream,
+                         registry=registry, auditor=auditor, device=device)
         if transport not in ("inprocess", "grpc"):
             raise ValueError(f"unknown transport {transport!r}")
         if transport == "grpc":
@@ -311,9 +668,6 @@ class AsynchronousDistributedTrainer(Trainer):
         if int(devices_per_worker) != 1:
             raise ValueError("devices_per_worker > 1 (multi-device islands) is not ported "
                              "yet (ROADMAP.md §A item 10)")
-        if checkpoint_dir is not None or resume:
-            raise ValueError("checkpoint_dir/resume need checkpoint.py, which is not "
-                             "ported yet (ROADMAP.md §A item 5)")
         self.num_workers = int(num_workers)
         self.devices_per_worker = 1
         self.batch_size = int(batch_size)
@@ -333,10 +687,6 @@ class AsynchronousDistributedTrainer(Trainer):
         # "auto": keep a worker's partition on the device (batches gathered
         # there from index arrays) when it fits the budget.
         self.device_cache = device_cache
-        self.registry = registry
-        # The trainer side of continuous deployment (deploy/ publisher):
-        # not ported; train() refuses a publisher.
-        self.publisher = None
         if communication_window is not None:
             protocol_kwargs["communication_window"] = communication_window
         self.protocol = self._allocate_protocol(**protocol_kwargs)
@@ -403,9 +753,7 @@ class AsynchronousDistributedTrainer(Trainer):
         """Train ``num_workers`` workers asynchronously against the PS and
         return the final center on the trainer's device. ``history`` holds
         every step of every worker, tagged with its ``worker``."""
-        if self.publisher is not None:
-            raise ValueError("a weight publisher needs deploy/, which is not ported yet "
-                             "(ROADMAP.md §A item 8)")
+        self._refuse_publisher()
         self.record_training_start()
         optimizer = self.protocol.local_optimizer(self._optimizer())
         window_fn = make_window_train_step(self.model, self.loss, self.metrics)
@@ -419,38 +767,63 @@ class AsynchronousDistributedTrainer(Trainer):
                 registry=self.registry, num_workers=self.num_workers,
                 protocol=self.protocol.name)
             self.training_health.set_params_bytes(_tree_bytes(center_init))
-        health = self.training_health
+        ckpt_mgr = None
+        if self.checkpoint_dir is not None:
+            ckpt_mgr = CheckpointManager(self.checkpoint_dir)
+            if self.resume and ckpt_mgr.latest_step() is not None:
+                restored = ckpt_mgr.restore(like={"ps": {"center": center_init, "num_updates": 0}})
+                center_init = {k: v.to(self.device) for k, v in restored["ps"]["center"].items()}
         ps = self.service(center_init)
         del center_init
+        stop_ckpt = threading.Event()
+        ckpt_thread = None
+        try:
+            if ckpt_mgr is not None:
+                ckpt_thread = threading.Thread(target=self._periodic_checkpoint,
+                                               args=(ckpt_mgr, ps, stop_ckpt),
+                                               name="ps-checkpoint", daemon=True)
+                ckpt_thread.start()
 
-        nw = self.num_workers
-        partitions = dataset.partitions(nw * self.parallelism_factor)
-        window = self.protocol.communication_window
-        # Per worker: (stacked window metrics on the device, window length,
-        # completion wall time), read to the host after the join.
-        win_histories: list[list[tuple[dict, int, float]]] = [[] for _ in range(nw)]
-        self.worker_states = [None] * nw
-        errors: list[BaseException | None] = [None] * nw
+            nw = self.num_workers
+            partitions = dataset.partitions(nw * self.parallelism_factor)
+            window = self.protocol.communication_window
+            # Per worker: (stacked window metrics on the device, window length,
+            # completion wall time), read to the host after the join.
+            win_histories: list[list[tuple[dict, int, float]]] = [[] for _ in range(nw)]
+            self.worker_states = [None] * nw
+            errors: list[BaseException | None] = [None] * nw
 
-        def worker_loop(widx: int):
-            try:
-                stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
-                with _on_stream(stream):
-                    self._worker(widx, stream, optimizer, partitions[widx::nw], window,
-                                 shuffle, window_fn, cached_window_fn, win_histories[widx])
-                    if stream is not None:
-                        stream.synchronize()
-            except BaseException as e:  # surfaced to the caller below
-                errors[widx] = e
+            def worker_loop(widx: int):
+                try:
+                    stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
+                    with _on_stream(stream):
+                        self._worker(widx, stream, optimizer, partitions[widx::nw], window,
+                                     shuffle, window_fn, cached_window_fn, win_histories[widx])
+                        if stream is not None:
+                            stream.synchronize()
+                except BaseException as e:  # surfaced to the caller below
+                    errors[widx] = e
 
-        threads = [threading.Thread(target=worker_loop, args=(w,), name=f"worker-{w}")
-                   for w in range(nw)]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join()
-        center = ps.get_model()
-        self.stop_service()
+            threads = [threading.Thread(target=worker_loop, args=(w,), name=f"worker-{w}")
+                       for w in range(nw)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            center = ps.get_model()
+            if ckpt_mgr is not None:
+                stop_ckpt.set()
+                ckpt_thread.join(timeout=10)
+                self._save_center(ckpt_mgr, ps, center)
+        finally:
+            # Also when anything above raised: no snapshot thread, writer
+            # or PS loop outlives train().
+            stop_ckpt.set()
+            if ckpt_thread is not None:
+                ckpt_thread.join(timeout=10)
+            if ckpt_mgr is not None:
+                ckpt_mgr.close()
+            self.stop_service()
         for e in errors:
             if e is not None:
                 raise e
@@ -466,8 +839,42 @@ class AsynchronousDistributedTrainer(Trainer):
                 self.history.extend({**dict(zip(keys, row)), "worker": w} for row in rows)
         model_state = next((st.model_state for st in self.worker_states if st.model_state), {})
         variables = {**self._put(center), **model_state}
+        self._emit_history()
         self.record_training_stop()
         return TrainedModel(self.model, variables)
+
+    @staticmethod
+    def _save_center(mgr: CheckpointManager, ps: ParameterServerService, center=None) -> None:
+        """Checkpoint the PS center as step ``num_commits``; the commit
+        count is also the snapshot's weight version. A step at or below the
+        latest saved one is skipped (no commit since, or a resumed run whose
+        count restarted), as the reference's orbax manager skips it."""
+        commits = int(ps.num_commits)
+        latest = mgr.latest_step()
+        if latest is not None and commits <= latest:
+            return
+        # get_model() of a running PS is already the caller's own CPU copy.
+        mgr.save(commits, ps_center=ps.get_model() if center is None else center,
+                 ps_num_updates=ps.num_updates, meta={"weight_version": commits},
+                 copy=False)
+
+    def _periodic_checkpoint(self, mgr: CheckpointManager, ps: ParameterServerService,
+                             stop: threading.Event) -> None:
+        """The ``ps-checkpoint`` thread (reference ``trainers.py:947-977``): a
+        snapshot every ``checkpoint_interval_s``; a failure must not stop
+        training, so it is logged (the first with its traceback) and
+        counted in ``ps.snapshot_failures``."""
+        log = logging.getLogger(__name__)
+        while not stop.wait(self.checkpoint_interval_s):
+            try:
+                self._save_center(mgr, ps)
+            except Exception:
+                ps.snapshot_failures += 1
+                if ps.snapshot_failures == 1:
+                    log.exception("PS checkpoint snapshot failed")
+                else:
+                    log.warning("PS checkpoint snapshot failed (%d so far)",
+                                ps.snapshot_failures)
 
     def _worker(self, widx, stream, optimizer, my_parts, window, shuffle, window_fn,
                 cached_window_fn, win_history):

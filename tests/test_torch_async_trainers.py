@@ -197,8 +197,7 @@ def test_feed_compression_and_over_partitioning():
 @pytest.mark.parametrize("kwargs, item", [
     ({"transport": "grpc"}, "item 4"),
     ({"devices_per_worker": 2}, "item 10"),
-    ({"checkpoint_dir": "ckpt"}, "item 5"),
-    ({"resume": True}, "item 5"),
+    ({"auditor": object()}, "item A7"),
     ({"transport": "smoke-signals"}, "unknown transport"),
 ])
 def test_unported_arguments_raise(kwargs, item):

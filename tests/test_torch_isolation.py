@@ -17,7 +17,14 @@ from distkeras_tpu_torch.inference.predictors import ModelPredictor
 from distkeras_tpu_torch.models.bert import bert_tiny_mlm
 from distkeras_tpu_torch.models.core import TrainedModel
 from distkeras_tpu_torch.models.mlp import mnist_mlp
-from distkeras_tpu_torch.training.trainers import DynSGD, SingleTrainer, Trainer
+from distkeras_tpu_torch.models.resnet import resnet18
+from distkeras_tpu_torch.training.trainers import (
+    DynSGD,
+    EnsembleTrainer,
+    SingleTrainer,
+    SynchronousDistributedTrainer,
+    Trainer,
+)
 from distkeras_tpu_torch.utils.bridge import params_from_jax
 from distkeras_tpu_torch.utils.device import resolve_device
 
@@ -36,7 +43,7 @@ def test_port_imports_neither_jax_nor_reference():
     for m in ("ops.flash_attention", "parallel.protocols", "parallel.ps", "parallel.ha",
               "telemetry.registry", "telemetry.spans", "telemetry.training_health",
               "utils.pytree", "models.mlp", "models.cnn", "data.transformers",
-              "ops.launches"):
+              "ops.launches", "checkpoint", "models.resnet", "utils.config"):
         assert f"distkeras_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -64,7 +71,8 @@ def test_resolve_device():
 
 @pytest.mark.parametrize("entry", ["init", "params_from_jax", "trainer", "predictor",
                                    "single_trainer", "device_feed", "async_trainer",
-                                   "mlp_init"])
+                                   "mlp_init", "resnet_init", "sync_trainer",
+                                   "ensemble_trainer"])
 def test_entry_points_raise_without_cuda(entry):
     _no_cuda()
     model = bert_tiny_mlm(seq_len=16, vocab_size=64)
@@ -77,6 +85,9 @@ def test_entry_points_raise_without_cuda(entry):
         "device_feed": lambda: DeviceFeed(iter([])),
         "async_trainer": lambda: DynSGD(model, loss="fused_categorical_crossentropy"),
         "mlp_init": lambda: mnist_mlp().init(0),
+        "resnet_init": lambda: resnet18(10, 32).init(0),
+        "sync_trainer": lambda: SynchronousDistributedTrainer(model),
+        "ensemble_trainer": lambda: EnsembleTrainer(model),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
