@@ -78,7 +78,27 @@ Phases, each of which must pass or the script exits non-zero:
    replicas, 3 steps each, dropout 0, one seed and data): the average
    equals the mean of the ensemble's two models computed on the card, to
    float32 rounding; ms per step.
-12. Print the kernels line, the card's name and power limit, and last the
+12. Generation on gpt_small at full width (12 layers, hidden 768, 12 heads,
+   vocab 50257, max_seq_len 512, bf16, random weights from a seed):
+   generate() on 8 seeded prompts of 128 tokens, 128 greedy tokens (prefill
+   ms, the median synchronized decode step, generated tokens/s, the device's
+   busy share, peak memory, the KV cache's bytes); (a) the cached tokens
+   against the card's own no-cache full-forward rollout, a row's first
+   divergence allowed only at a bf16 tie; (b) the decode-step logits at 4
+   steps against the full forward's at those positions, in relative norm,
+   within 3x the CPU bf16 full forward's distance from float32; (c) sampling
+   at temperature 0.8, top-k 50: the same seed twice gives the same tokens,
+   another seed others, every token in its top 50; (d) beam_search at batch
+   2, 4 beams, 32 tokens: K = 1 is greedy (up to a bf16 tie), the scores are
+   sorted and equal the full forward's summed log-probabilities (atol 0.05,
+   rtol 2e-3, the reference test's). No kernel of ours launches: decode runs
+   dense attention and F.linear, as the reference's does.
+13. Real-data acceptance on the UCI digits set (tests/data/digits.csv.gz):
+   SingleTrainer, ADAG and AEASGD (4 workers on their streams; AEASGD at
+   rho 50, window 8) with the reference test's split and settings: single
+   above 0.93, each async trainer within 0.08 of it. No kernel of ours
+   launches.
+14. Print the kernels line, the card's name and power limit, and last the
    result line {"ok": true, "device": {...}}.
 
 Phases 9-11 write their checkpoints under build/chip_smoke/ (git-ignored)
@@ -1300,6 +1320,286 @@ def replica_phase(seq=128, batch=32, steps=3) -> dict:
     return counts
 
 
+# -- phases 12 and 13: generation and real-data acceptance --------------------
+
+# Phase 12. (b): the decode-step logits against the full forward's at the
+# same positions, in relative norm, within this factor times the CPU's own
+# bf16 full forward's distance from its float32 one (row 0, same positions).
+DECODE_NOISE_FACTOR = 3.0
+# (d): a beam's score against its sequence's summed log-probabilities from
+# one full forward: the reference test's bounds (atol 0.05, rtol 2e-3).
+BEAM_ATOL, BEAM_RTOL = 0.05, 2e-3
+DECODE_CHECK_STEPS = (0, 42, 85, 127)
+
+
+def bf16_ulp(x: float) -> float:
+    return 2.0 ** (math.floor(math.log2(max(abs(x), 2.0 ** -126))) - 7)
+
+
+def first_divergence(got, want) -> list:
+    """Per row, the first index where two token arrays differ, or None."""
+    import numpy as np
+
+    out = []
+    for g, w in zip(got, want):
+        diff = np.nonzero(g != w)[0]
+        out.append(int(diff[0]) if diff.size else None)
+    return out
+
+
+def tie_at(model, variables, prefix, a: int, b: int) -> tuple[bool, float, float]:
+    """Whether tokens ``a`` and ``b`` tie at bf16 resolution in the full
+    forward's last-position logits over ``prefix`` ([1, S])."""
+    import torch
+
+    with torch.inference_mode():
+        logits = model.apply(variables, torch.as_tensor(prefix, device="cuda"))[0][0, -1]
+    la, lb = float(logits[a]), float(logits[b])
+    return abs(la - lb) <= bf16_ulp(max(abs(la), abs(lb))), la, lb
+
+
+def generation_phase(batch=8, prompt_len=128, new=128, sample_new=32, beam_batch=2,
+                     beams=4, beam_new=32, profile_new=32) -> dict:
+    """12: generate/beam_search on gpt_small at full width, bf16, random
+    weights; returns the launch counts of our kernels (none expected)."""
+    import numpy as np
+    import torch
+
+    import distkeras_tpu_torch as dk
+    from distkeras_tpu_torch.inference import generate as gen
+    from distkeras_tpu_torch.models import bert
+
+    model = bert.gpt_small()
+    cfg = model.config
+    variables = model.init(SEED)
+    rng = np.random.default_rng(SEED)
+    prompts = rng.integers(0, cfg.vocab_size, size=(batch, prompt_len)).astype(np.int32)
+    dec, dec_cfg = gen._decode_module(model)
+    log(f"gpt_small generation: {model.count_params()} params, layers {cfg.num_layers}, hidden "
+        f"{cfg.hidden_size}, heads {cfg.num_heads}, vocab {cfg.vocab_size}, max_seq_len "
+        f"{cfg.max_seq_len}, {cfg.dtype}; batch {batch}, prompt {prompt_len}, {new} new tokens")
+    t_phase = time.perf_counter()
+    # Warm-up at the measured shapes: cuBLAS handles and heuristics.
+    dk.generate(model, variables, prompts, 2, greedy=True)
+    dk.beam_search(model, variables, prompts[:beam_batch], 2, num_beams=beams)
+    reset_counts()
+
+    # The greedy loop step by step (generate's own functions), synchronized.
+    p = torch.as_tensor(prompts, device="cuda")
+    step_ms, kept = [], {}
+    with torch.inference_mode():
+        cache = gen._empty_cache(dec_cfg, batch, "cuda")
+        kv_bytes = sum(v.numel() * v.element_size() for k, v in cache.items()
+                       if k.endswith(("cached_key", "cached_value")))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = gen._step(dec, variables, cache, p)
+        tok = gen.greedy_ids(logits)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        tokens, kept[0] = [tok], logits.float()
+        for t in range(1, new):
+            t0 = time.perf_counter()
+            logits, cache = gen._step(dec, variables, cache, tokens[-1][:, None])
+            tokens.append(gen.greedy_ids(logits))
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            if t in DECODE_CHECK_STEPS:
+                kept[t] = logits.float()
+        cached = torch.stack(tokens, dim=1).cpu().numpy()
+        del cache
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()  # the weights and what earlier phases keep
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = dk.generate(model, variables, prompts, new, greedy=True)
+    gen_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    check(out.shape == (batch, new) and out.dtype == np.int32, f"12: generate gave {out.shape}")
+    check(np.array_equal(out, cached), "12: generate() differs from its own loop run step by step")
+    log(f"  12: prefill {prefill_ms:.3f} ms ({batch} x {prompt_len} tokens); decode step median "
+        f"{float(np.median(step_ms)):.3f} ms (min {min(step_ms):.3f}, max {max(step_ms):.3f}, "
+        f"synchronized, {len(step_ms)} steps); generate() {gen_s:.3f} s for {batch} x {new} "
+        f"tokens: {batch * new / gen_s:.1f} generated tokens/s; peak memory "
+        f"{peak / 2**30:.2f} GiB, {(peak - held) / 2**30:.2f} GiB above the {held / 2**30:.2f} "
+        f"GiB held before the call; KV cache {kv_bytes / 1e6:.1f} MB ({kv_bytes} bytes)")
+    busy = profile(f"generate, batch {batch}, prompt {prompt_len}, {profile_new} greedy tokens",
+                   lambda: dk.generate(model, variables, prompts, profile_new, greedy=True))
+    log(f"  12: device busy share over generate() {busy:.1%}; "
+        f"{time.perf_counter() - t_phase:.2f} s into the phase")
+
+    # (a) Cached against the card's own no-cache full-forward rollout.
+    toks = torch.as_tensor(prompts, device="cuda")
+    roll = []
+    with torch.inference_mode():
+        for _ in range(new):
+            nxt = gen.greedy_ids(model.apply(variables, toks)[0][:, -1])
+            roll.append(nxt)
+            toks = torch.cat([toks, nxt[:, None]], dim=1)
+    roll = torch.stack(roll, dim=1).cpu().numpy()
+    matched = []
+    for b, t in enumerate(first_divergence(cached, roll)):
+        matched.append(new if t is None else t)
+        if t is not None:
+            prefix = np.concatenate([prompts[b], cached[b, :t]])[None]
+            tie, la, lb = tie_at(model, variables, prefix, int(cached[b, t]), int(roll[b, t]))
+            log(f"  12a: row {b} diverges at token {t}: cached {cached[b, t]} ({la:.6f}) vs "
+                f"rollout {roll[b, t]} ({lb:.6f}) in the full forward's logits; bf16 tie {tie}")
+            check(tie, f"12a: row {b} diverges at {t} without a bf16 tie")
+    log(f"  12a: cached vs no-cache rollout, matched tokens per row {matched} of {new}; "
+        f"{time.perf_counter() - t_phase:.2f} s into the phase")
+
+    # (b) Decode-step logits against the full forward's at the same positions.
+    seq = np.concatenate([prompts, cached[:, :-1]], axis=1)
+    pos = [prompt_len - 1 + t for t in DECODE_CHECK_STEPS]
+    with torch.inference_mode():
+        full = model.apply(variables, torch.as_tensor(seq, device="cuda"))[0][:, pos]
+        decoded = torch.stack([kept[t] for t in DECODE_CHECK_STEPS], dim=1)
+        rel = rel_norm(decoded, full)
+        del full, decoded
+        cpu_vars = {k: v.cpu() for k, v in variables.items()}
+        exact = bert._make(dataclasses.replace(cfg, dtype=torch.float32), 512, "gpt_small")
+        t0 = time.perf_counter()
+        row0 = torch.as_tensor(seq[:1])
+        cpu_bf16 = model.apply(cpu_vars, row0)[0][:, pos]
+        cpu_f32 = exact.apply(cpu_vars, row0)[0][:, pos]
+        cpu_s = time.perf_counter() - t0
+    noise = rel_norm(cpu_bf16, cpu_f32)
+    allowed = DECODE_NOISE_FACTOR * noise
+    log(f"  12b: decode-step logits vs the full forward at steps {list(DECODE_CHECK_STEPS)}: "
+        f"relative norm {rel:.4g} (allowed {allowed:.4g} = {DECODE_NOISE_FACTOR} x the CPU bf16 "
+        f"full forward's {noise:.4g} from float32, row 0; CPU forwards {cpu_s:.2f} s)")
+    check(math.isfinite(rel) and rel <= allowed, f"12b: {rel} > {allowed}")
+    log(f"  12b: {time.perf_counter() - t_phase:.2f} s into the phase")
+
+    # (c) Sampling: the same seed twice, another once; tokens in their top 50.
+    top_k, temp, seed = 50, 0.8, SEED + 1
+    sp = torch.as_tensor(prompts, device="cuda")
+    with torch.inference_mode():
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        temps = torch.full((batch,), temp, device="cuda")
+        cache = gen._empty_cache(dec_cfg, batch, "cuda")
+        logits, cache = gen._step(dec, variables, cache, sp)
+        in_top, sampled = True, []
+        for t in range(sample_new):
+            tok = gen.sample_rows(logits, temps, g, top_k)
+            kth = torch.topk(logits.float() / temp, top_k, dim=-1).values[:, -1]
+            picked = logits.float().gather(1, tok.long()[:, None])[:, 0] / temp
+            in_top = in_top and bool((picked >= kth).all())
+            sampled.append(tok)
+            if t + 1 < sample_new:
+                logits, cache = gen._step(dec, variables, cache, tok[:, None])
+        sampled = torch.stack(sampled, dim=1).cpu().numpy()
+        del cache
+    t0 = time.perf_counter()
+    again = dk.generate(model, variables, prompts, sample_new, temperature=temp, top_k=top_k,
+                        seed=seed)
+    sample_s = time.perf_counter() - t0
+    other = dk.generate(model, variables, prompts, sample_new, temperature=temp, top_k=top_k,
+                        seed=seed + 1)
+    log(f"  12c: sampling at temperature {temp}, top-k {top_k}, {sample_new} tokens: same seed "
+        f"same tokens {np.array_equal(sampled, again)}, another seed differs in "
+        f"{int((other != again).sum())} of {other.size}, every token in its top {top_k} "
+        f"{in_top}; generate() {sample_s:.3f} s")
+    check(np.array_equal(sampled, again), "12c: the same seed gave other tokens")
+    check(bool((other != again).any()), "12c: another seed gave the same tokens")
+    check(in_top, f"12c: a sampled token outside its top {top_k}")
+
+    # (d) Beam search: K = 1 is greedy; scores sorted and equal to the full
+    # forward's summed log-probabilities.
+    bp = prompts[:beam_batch]
+    greedy = dk.generate(model, variables, bp, beam_new, greedy=True)
+    one, _ = dk.beam_search(model, variables, bp, beam_new, num_beams=1)
+    for b, t in enumerate(first_divergence(one[:, 0], greedy)):
+        if t is not None:
+            prefix = np.concatenate([bp[b], greedy[b, :t]])[None]
+            tie, la, lb = tie_at(model, variables, prefix, int(one[b, 0, t]), int(greedy[b, t]))
+            log(f"  12d: K=1 row {b} diverges from greedy at {t}: {one[b, 0, t]} ({la:.6f}) vs "
+                f"{greedy[b, t]} ({lb:.6f}); bf16 tie {tie}")
+            check(tie, f"12d: K=1 beam row {b} diverges from greedy at {t} without a tie")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    seqs, scores = dk.beam_search(model, variables, bp, beam_new, num_beams=beams)
+    beam_s = time.perf_counter() - t0
+    flat = seqs.reshape(beam_batch * beams, beam_new)
+    full_seq = np.concatenate([np.repeat(bp, beams, axis=0), flat[:, :-1]], axis=1)
+    with torch.inference_mode():
+        logp = torch.log_softmax(
+            model.apply(variables, torch.as_tensor(full_seq, device="cuda"))[0][
+                :, bp.shape[1] - 1:].float(), dim=-1)
+        true = logp.gather(2, torch.as_tensor(flat, device="cuda").long()[:, :, None]).sum(
+            dim=(1, 2)).reshape(beam_batch, beams).cpu().numpy()
+    err = np.abs(true - scores)
+    bound = BEAM_ATOL + BEAM_RTOL * np.abs(true)
+    log(f"  12d: beam search, batch {beam_batch}, {beams} beams, {beam_new} tokens: {beam_s:.3f} "
+        f"s, {beam_s / beam_new * 1e3:.3f} ms per token; scores {scores.tolist()}; against the "
+        f"full forward's summed log-probs max abs {float(err.max()):.4g} (allowed "
+        f"{BEAM_ATOL} + {BEAM_RTOL} x |score|); sorted {bool((np.diff(scores, 1) <= 0).all())}")
+    check(seqs.shape == (beam_batch, beams, beam_new), f"12d: beam shape {seqs.shape}")
+    check(bool((np.diff(scores, axis=1) <= 0).all()), "12d: beams not sorted")
+    check(bool((err <= bound).all()), f"12d: beam scores off the full forward's: {err}")
+    counts = read_counts()
+    check(counts == expected(), f"12: our kernels launched on the decode path: {counts}")
+    log(f"  12: phase wall {time.perf_counter() - t_phase:.2f} s")
+    del variables, cpu_vars
+    torch.cuda.empty_cache()
+    return counts
+
+
+DIGITS_CSV = os.path.join(REPO, "tests", "data", "digits.csv.gz")
+
+
+def digits_phase() -> dict:
+    """13: the reference's real-data acceptance on the card: SingleTrainer,
+    ADAG and AEASGD (4 workers on their streams) on the UCI digits set;
+    returns the launch counts of our kernels (none expected)."""
+    import numpy as np
+    import torch
+
+    import distkeras_tpu_torch as dk
+    from distkeras_tpu_torch.models.core import Model
+    from distkeras_tpu_torch.models.mlp import MLP
+
+    table = np.loadtxt(DIGITS_CSV, delimiter=",", dtype=np.float64)
+    ds = dk.Dataset.from_arrays(features=table[:, :-1].astype(np.float32),
+                                label=table[:, -1].astype(np.float32))
+    ds = dk.MinMaxTransformer(min=0, max=16, output_col="features").transform(ds)
+    ds = ds.shuffle(seed=0)
+    train, test = ds.slice(0, 1500), ds.slice(1500, len(ds))
+    kwargs = dict(worker_optimizer="adam", learning_rate=1e-3, batch_size=32, num_epoch=20,
+                  seed=0)
+
+    def model():
+        return Model(lambda: MLP(64, (64, 64), 10), name="digits_mlp", input_shape=(64,),
+                     output_dim=10)
+
+    def accuracy(trained):
+        pred = dk.ModelPredictor(trained).predict(test)
+        return dk.AccuracyEvaluator(prediction_col="prediction",
+                                    label_col="label").evaluate(pred)
+
+    reset_counts()
+    accs = {}
+    for name, extra in (("SingleTrainer", {}), ("ADAG", {"num_workers": 4}),
+                        ("AEASGD", {"num_workers": 4, "rho": 50.0,
+                                    "communication_window": 8})):
+        t0 = time.perf_counter()
+        trained = getattr(dk, name)(model(), **extra, **kwargs).train(train, shuffle=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        accs[name] = accuracy(trained)
+        log(f"  13: {name}: test accuracy {accs[name]:.4f} on {test.num_rows} rows, train "
+            f"{wall:.2f} s ({train.num_rows} rows x 20 epochs)")
+    single = accs["SingleTrainer"]
+    check(single > 0.93, f"13: SingleTrainer accuracy {single} <= 0.93")
+    for name in ("ADAG", "AEASGD"):
+        check(abs(accs[name] - single) < 0.08,
+              f"13: {name} accuracy {accs[name]} not within 0.08 of single {single}")
+    counts = read_counts()
+    check(counts == expected(), f"13: our kernels launched on the digits MLP: {counts}")
+    return counts
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -1388,6 +1688,12 @@ def main(argv=None) -> int:
     runs.append(counts)
     log("phase 11: bert_base_mlm EnsembleTrainer and AveragingTrainer at full width")
     runs.append(replica_phase())
+    t0 = time.perf_counter()
+    log("phase 12: gpt_small generation (generate, sampling, beam_search) at full width")
+    runs.append(generation_phase())
+    log("phase 13: real-data acceptance on the digits set (SingleTrainer, ADAG, AEASGD)")
+    runs.append(digits_phase())
+    log(f"phases 12-13: {time.perf_counter() - t0:.2f} s")
     launches = {k: sum(r[k] for r in runs) for k in runs[0]}
     for k, n in launches.items():
         check(n > 0, f"kernel {k} was not launched on the main path")

@@ -3,12 +3,12 @@
 This package exports what the port has so far: training through
 ``SingleTrainer``, ``EnsembleTrainer``, ``AveragingTrainer``,
 ``SynchronousDistributedTrainer`` and the asynchronous parameter-server
-trainers (DOWNPOUR, ADAG, AEASGD, EAMSGD, DynSGD), with step checkpoints
-and resume; ``TrainerConfig``; stamped weight files that either package
-reads, and publish directories; batch inference and evaluation; the
-BERT/GPT family, ResNet-18/50 and the MLP/CNN models; and the data
-transformers, with flash
-attention forward and backward (CUDA C++) and the fused softmax
+trainers (DOWNPOUR, ADAG, AEASGD, EAMSGD, DynSGD) over an in-process or
+gRPC parameter server, with step checkpoints and resume; ``TrainerConfig``;
+generation with KV caches (``generate``, ``beam_search``, ``Generator``);
+stamped weight files that either package reads, and publish directories;
+batch inference and evaluation; the BERT/GPT family, ResNet-18/50 and the
+MLP/CNN models; and the data transformers, with flash attention forward and backward (CUDA C++) and the fused softmax
 cross-entropy forward and backward (Triton) as hand-written kernels.
 ``distkeras_tpu`` is the reference it is held against; this package never
 imports it, nor JAX.
@@ -37,6 +37,7 @@ from distkeras_tpu_torch.data.transformers import (
     TransformerPipeline,
 )
 from distkeras_tpu_torch.inference.evaluators import AccuracyEvaluator
+from distkeras_tpu_torch.inference.generate import Generator, beam_search, generate
 from distkeras_tpu_torch.inference.predictors import ModelPredictor
 from distkeras_tpu_torch.models.bert import (
     BertConfig,
@@ -81,6 +82,7 @@ __all__ = [
     "DynSGD",
     "EAMSGD",
     "EnsembleTrainer",
+    "Generator",
     "LabelIndexTransformer",
     "MinMaxTransformer",
     "Model",
@@ -96,10 +98,12 @@ __all__ = [
     "TrainerConfig",
     "Transformer",
     "TransformerPipeline",
+    "beam_search",
     "bert_base_mlm",
     "bert_tiny_mlm",
     "cifar10_cnn",
     "deserialize_pytree",
+    "generate",
     "gpt_small",
     "gpt_tiny",
     "higgs_mlp",

@@ -23,8 +23,22 @@ caller passes, one derived seed per dropout site, so a recompute under
 
 Attention takes the flash kernel (:mod:`distkeras_tpu_torch.ops.flash_attention`)
 when ``use_flash_attention`` is set and no mask is given, else dense
-attention. Decode, sequence and tensor parallelism, paged KV and MoE come
-with later slices and raise here.
+attention. Sequence and tensor parallelism, paged KV and MoE come with later
+slices and raise here.
+
+Decode mode (``decode=True``, reference ``bert.py:297-404, :527-551``) keeps
+dense K/V caches ``[B, L, H, D]`` (``L = decode_cache_len or max_seq_len``)
+and position counters, a scalar each or, with ``decode_slots``, one per
+batch row. The cache is a flat dict of tensors under the reference's cache
+paths in the port's dotted form (``layer_{i}.attention.cached_key``,
+``cached_value``, ``cache_index``; ``pos_index`` at the top). It goes in
+with the weights, ``model.apply({**params, **cache}, tokens)``, and the
+updated cache comes back as the apply's ``new_state``; a leaf not given
+starts at zeros, as a flax cache variable does. Every write and index moves
+on the device: no step reads a counter back to the host. The attention
+``out`` and ``mlp_out`` projections then form their product in float32,
+round it to the compute dtype and add the bias there (two roundings, the
+reference's ``_F32AccumDense``).
 """
 
 from __future__ import annotations
@@ -41,14 +55,13 @@ from distkeras_tpu_torch.ops.flash_attention import flash_attention
 from distkeras_tpu_torch.utils.rng import fold_in
 
 __all__ = [
-    "BertConfig", "Bert", "EncoderLayer", "SelfAttention", "dropout",
+    "BertConfig", "Bert", "EncoderLayer", "SelfAttention", "dropout", "decode_cache",
     "bert_base_mlm", "bert_tiny_mlm", "gpt_tiny", "gpt_small",
 ]
 
 # Config fields of later slices: a set value raises, naming the slice.
 _LATER_SLICES = {
-    "decode": "the generation slice",
-    "paged_blocks": "the serving-engine slice",
+    "paged_blocks": "the serving-engine slice (ROADMAP.md §A item A7)",
     "tp_mesh": "the multi-device slice",
     "ring_mesh": "the multi-device slice",
     "moe_experts": "the remaining-models slice",
@@ -127,6 +140,45 @@ class Dense(nn.Linear):
         return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
 
 
+class _F32AccumDense(Dense):
+    """The decode-mode ``attention.out`` and ``mlp_out`` projections
+    (reference ``_F32AccumDense``): the product accumulates in float32 and
+    is rounded once to the compute dtype, and the bias is added after, in
+    that dtype. Names and shapes are ``Dense``'s, so weights carry over."""
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        return F.linear(x.to(dt), self.weight.to(dt)) + self.bias.to(dt)
+
+
+def _reduce_dense(cfg: "BertConfig", in_features: int, out_features: int) -> Dense:
+    return (_F32AccumDense if cfg.decode else Dense)(in_features, out_features, cfg.dtype)
+
+
+def _cache_leaf(module: nn.Module, name: str, shape, dtype, device) -> torch.Tensor:
+    """The cache leaf ``name`` given to this apply, or zeros of ``shape``
+    when none was (the module's own placeholder is empty)."""
+    leaf = getattr(module, name)
+    if leaf.numel() == 0:
+        return torch.zeros(shape, dtype=dtype, device=device)
+    return leaf
+
+
+def _register_cache(module: nn.Module, *names: str) -> None:
+    # Empty, non-persistent placeholders: the cache never enters the
+    # state_dict, and an apply swaps the given leaves in by name.
+    for name in names:
+        module.register_buffer(name, torch.empty(0), persistent=False)
+
+
+def _pos_window(pos_embed, starts, S: int, max_seq_len: int):
+    """Per-row positional window ``[B, S, H]``: row ``b`` takes positions
+    ``starts[b] .. starts[b] + S - 1``, each clipped to the table on its own
+    (reference ``_pos_window``)."""
+    pos_ids = starts[:, None].long() + torch.arange(S, device=starts.device)[None, :]
+    return pos_embed[0][pos_ids.clamp(0, max_seq_len - 1)]
+
+
 def _layer_norm(hidden: int) -> nn.LayerNorm:
     return nn.LayerNorm(hidden, eps=1e-6)
 
@@ -139,20 +191,63 @@ class SelfAttention(nn.Module):
         self.query = Dense(h, h, cfg.dtype)
         self.key = Dense(h, h, cfg.dtype)
         self.value = Dense(h, h, cfg.dtype)
-        self.out = Dense(h, h, cfg.dtype)
+        self.out = _reduce_dense(cfg, h, h)
+        if cfg.decode:
+            _register_cache(self, "cached_key", "cached_value", "cache_index")
 
-    def forward(self, x, mask=None):
+    def forward(self, x, mask=None, new_cache: dict | None = None):
+        """``new_cache`` (decode mode): receives this layer's updated cache
+        leaves under their names."""
         cfg = self.cfg
         B, S = x.shape[0], x.shape[1]
         shape = (B, S, cfg.num_heads, cfg.hidden_size // cfg.num_heads)
         q = self.query(x).reshape(shape)
         k = self.key(x).reshape(shape)
         v = self.value(x).reshape(shape)
-        if cfg.use_flash_attention and mask is None:
+        if cfg.decode:
+            out = self._decode_attention(q, k, v, new_cache)
+        elif cfg.use_flash_attention and mask is None:
             out = flash_attention(q, k, v, causal=cfg.causal)
         else:
             out = dot_product_attention(q, k, v, mask=mask, causal=cfg.causal)
         return self.out(out.reshape(B, S, cfg.hidden_size))
+
+    def _decode_attention(self, q, k, v, new_cache: dict):
+        """KV-cache attention (reference ``_decode_attention``, dense
+        branch). One path serves prefill (S = prompt length) and one-token
+        steps: the new K/V are written at the cache index, the queries
+        attend to the whole cache under ``key position <= query position``,
+        and the index advances by S. The write start is clamped to
+        ``[0, L - S]``, as ``lax.dynamic_update_slice`` clamps it; with
+        slots each row writes at its own index, which advances as
+        ``min(idx + S, L)``."""
+        cfg = self.cfg
+        B, S, H, D = q.shape
+        L = cfg.decode_cache_len or cfg.max_seq_len
+        dev = q.device
+        ck = _cache_leaf(self, "cached_key", (B, L, H, D), cfg.dtype, dev)
+        cv = _cache_leaf(self, "cached_value", (B, L, H, D), cfg.dtype, dev)
+        idx = _cache_leaf(self, "cache_index", (B,) if cfg.decode_slots else (),
+                          torch.int32, dev)
+        steps = torch.arange(S, device=dev)
+        rows = idx.long().expand(B)  # per-row write index
+        write = (rows.clamp(0, max(L - S, 0))[:, None] + steps[None, :])[:, :, None, None]
+        write = write.expand(B, S, H, D)
+        ck = ck.scatter(1, write, k.to(ck.dtype))
+        cv = cv.scatter(1, write, v.to(cv.dtype))
+        k_pos = torch.arange(L, device=dev)
+        if cfg.decode_slots:
+            new_idx = torch.clamp(idx + S, max=L)
+            q_pos = idx.long()[:, None] + steps[None, :]  # [B, S]
+            mask = k_pos[None, None, None, :] <= q_pos[:, None, :, None]  # [B, 1, S, L]
+        else:
+            new_idx = idx + S
+            q_pos = idx.long() + steps  # [S]
+            mask = (k_pos[None, :] <= q_pos[:, None])[None, None]  # [1, 1, S, L]
+        new_cache["cached_key"] = ck
+        new_cache["cached_value"] = cv
+        new_cache["cache_index"] = new_idx
+        return dot_product_attention(q, ck, cv, mask=mask)
 
 
 class EncoderLayer(nn.Module):
@@ -163,11 +258,12 @@ class EncoderLayer(nn.Module):
         self.attention = SelfAttention(cfg)
         self.ln_mlp = _layer_norm(cfg.hidden_size)
         self.mlp_in = Dense(cfg.hidden_size, cfg.mlp_dim, cfg.dtype)
-        self.mlp_out = Dense(cfg.mlp_dim, cfg.hidden_size, cfg.dtype)
+        self.mlp_out = _reduce_dense(cfg, cfg.mlp_dim, cfg.hidden_size)
 
-    def forward(self, x, mask=None, train: bool = False, rng: int | None = None):
+    def forward(self, x, mask=None, train: bool = False, rng: int | None = None,
+                new_cache: dict | None = None):
         p = self.cfg.dropout_rate if train else 0.0
-        y = self.attention(self.ln_attn(x.float()), mask=mask)
+        y = self.attention(self.ln_attn(x.float()), mask=mask, new_cache=new_cache)
         x = x + dropout(y, p, None if rng is None else fold_in(rng, 0))
         y = self.mlp_in(self.ln_mlp(x.float()))
         y = self.mlp_out(F.gelu(y, approximate="tanh"))
@@ -191,6 +287,8 @@ class Bert(nn.Module):
             self.add_module(f"layer_{i}", EncoderLayer(cfg))
         self.ln_final = _layer_norm(cfg.hidden_size)
         self.mlm_bias = nn.Parameter(torch.empty(cfg.vocab_size))
+        if cfg.decode:
+            _register_cache(self, "pos_index")
 
     def layers(self):
         return [getattr(self, f"layer_{i}") for i in range(self.cfg.num_layers)]
@@ -212,19 +310,39 @@ class Bert(nn.Module):
     def forward(self, token_ids, train: bool = False, rng: int | None = None):
         """``rng``: the integer seed of this forward's dropout masks (needed
         when ``train`` and ``dropout_rate > 0``); site ``i`` draws from
-        ``fold_in(rng, i)``."""
+        ``fold_in(rng, i)``. In decode mode returns ``(logits, new_cache)``."""
         cfg = self.cfg
-        S = token_ids.shape[1]
+        B, S = token_ids.shape[0], token_ids.shape[1]
         table = self.token_embed.weight
         x = F.embedding(token_ids.long(), table).to(cfg.dtype)
-        x = x + self.pos_embed[:, :S].to(cfg.dtype)
+        new_cache = None
+        if cfg.decode:
+            # Positions advance with the caches (reference bert.py:527-551).
+            new_cache = {}
+            pi = _cache_leaf(self, "pos_index", (B,) if cfg.decode_slots else (),
+                             torch.int32, x.device)
+            if cfg.decode_slots:
+                pos = _pos_window(self.pos_embed, pi, S, cfg.max_seq_len)  # [B, S, H]
+                new_cache["pos_index"] = torch.clamp(pi + S, max=cfg.max_seq_len)
+            else:
+                # lax.dynamic_slice clamps the window into the table; a
+                # plain slice past its end would silently shorten.
+                start = pi.long().clamp(0, cfg.max_seq_len - S)
+                pos = self.pos_embed[:, start + torch.arange(S, device=x.device)]
+                new_cache["pos_index"] = pi + S
+            x = x + pos.to(cfg.dtype)
+        else:
+            x = x + self.pos_embed[:, :S].to(cfg.dtype)
 
         def site(i):
             return None if rng is None else fold_in(rng, i)
 
         x = dropout(x, cfg.dropout_rate if train else 0.0, site(0))
         for i, layer in enumerate(self.layers()):
-            x = layer(x, train=train, rng=site(i + 1))
+            layer_cache = None if new_cache is None else {}
+            x = layer(x, train=train, rng=site(i + 1), new_cache=layer_cache)
+            if layer_cache:
+                new_cache.update({f"layer_{i}.attention.{k}": v for k, v in layer_cache.items()})
         x = self.ln_final(x.float())
         # The vocab rows are padded to a multiple of 8 so that the product's
         # rows stay 16-byte aligned: with 30522 or 50257 columns cuBLAS
@@ -232,7 +350,24 @@ class Bert(nn.Module):
         # columns are dropped before the bias.
         w = F.pad(table.to(cfg.dtype), (0, 0, 0, -cfg.vocab_size % 8))
         logits = torch.matmul(x.to(cfg.dtype), w.t())[..., : cfg.vocab_size]
-        return torch.add(logits, self.mlm_bias)  # widens to float32 in the add
+        logits = torch.add(logits, self.mlm_bias)  # widens to float32 in the add
+        return logits if new_cache is None else (logits, new_cache)
+
+
+def decode_cache(cfg: BertConfig, batch_size: int, device) -> dict[str, torch.Tensor]:
+    """The zero decode cache of ``cfg`` for ``batch_size`` rows, keyed as
+    :class:`Bert` reads and returns it."""
+    L = cfg.decode_cache_len or cfg.max_seq_len
+    D = cfg.hidden_size // cfg.num_heads
+    idx_shape = (batch_size,) if cfg.decode_slots else ()
+    cache = {"pos_index": torch.zeros(idx_shape, dtype=torch.int32, device=device)}
+    for i in range(cfg.num_layers):
+        prefix = f"layer_{i}.attention."
+        for name in ("cached_key", "cached_value"):
+            cache[prefix + name] = torch.zeros((batch_size, L, cfg.num_heads, D),
+                                               dtype=cfg.dtype, device=device)
+        cache[prefix + "cache_index"] = torch.zeros(idx_shape, dtype=torch.int32, device=device)
+    return cache
 
 
 def _bert_flops(cfg: BertConfig, seq_len: int) -> float:

@@ -33,7 +33,7 @@ from distkeras_tpu_torch.data.dataset import Dataset
 from distkeras_tpu_torch.data.feed import DeviceFeed, index_windows, minibatches, window_batches
 from distkeras_tpu_torch.models.core import Model, TrainedModel
 from distkeras_tpu_torch.ops.losses import get_loss, get_optimizer
-from distkeras_tpu_torch.parallel.ha import CompressingClient, StampingClient
+from distkeras_tpu_torch.parallel.ha import CompressingClient, RetryingClient, StampingClient
 from distkeras_tpu_torch.parallel.protocols import (
     ADAGProtocol,
     AEASGDProtocol,
@@ -43,6 +43,7 @@ from distkeras_tpu_torch.parallel.protocols import (
     EAMSGDProtocol,
 )
 from distkeras_tpu_torch.parallel.ps import ParameterServerService
+from distkeras_tpu_torch.parallel.ps_grpc import GrpcClient, GrpcParameterServer, _import_grpc
 from distkeras_tpu_torch.telemetry.registry import sanitize_metric_name
 from distkeras_tpu_torch.telemetry.spans import span
 from distkeras_tpu_torch.telemetry.training_health import TrainingHealth
@@ -614,8 +615,13 @@ class AsynchronousDistributedTrainer(Trainer):
     ``resume=True`` starts the PS from the latest saved center; its update
     count restarts at 0, as the reference's does.
 
-    Not ported yet, and refused: ``transport="grpc"``, ``devices_per_worker
-    > 1`` and a weight ``publisher``.
+    ``transport="grpc"`` puts the PS behind :class:`GrpcParameterServer` on
+    ``master_host:master_port`` (loopback and a free port by default) and
+    gives each worker a :class:`GrpcClient` wrapped in
+    :class:`RetryingClient`; it needs the ``grpcio`` package.
+
+    Not ported yet, and refused: ``devices_per_worker > 1`` and a weight
+    ``publisher``.
     """
 
     protocol_cls: type[AsyncProtocol] = DOWNPOURProtocol
@@ -663,8 +669,7 @@ class AsynchronousDistributedTrainer(Trainer):
         if transport not in ("inprocess", "grpc"):
             raise ValueError(f"unknown transport {transport!r}")
         if transport == "grpc":
-            raise ValueError("transport='grpc' needs parallel/ps_grpc.py, which is not "
-                             "ported yet (ROADMAP.md §A item 4)")
+            _import_grpc()  # fail here, not inside a worker thread
         if int(devices_per_worker) != 1:
             raise ValueError("devices_per_worker > 1 (multi-device islands) is not ported "
                              "yet (ROADMAP.md §A item 10)")
@@ -692,6 +697,7 @@ class AsynchronousDistributedTrainer(Trainer):
         self.protocol = self._allocate_protocol(**protocol_kwargs)
         self.communication_window = self.protocol.communication_window
         self.parameter_server: ParameterServerService | None = None
+        self._grpc_ps: GrpcParameterServer | None = None
         self.track_health = bool(track_health)
         self.training_health: TrainingHealth | None = None
         self.worker_states: list[TrainState | None] = []
@@ -734,14 +740,33 @@ class AsynchronousDistributedTrainer(Trainer):
                 "mirror_dtype=%s)", self.protocol.name,
                 budget_fn(n_params, self.num_workers) / 2**20, self.num_workers, n_params,
                 getattr(self.protocol, "mirror_dtype", "n/a"))
+        if self.transport == "grpc":
+            grpc_ps = GrpcParameterServer(
+                self.protocol, center_params, self.num_workers,
+                port=self.master_port or 0, registry=self.registry,
+                health=self.training_health)
+            self.master_port = grpc_ps.start()
+            if self.master_host is None:
+                self.master_host = "127.0.0.1"
+            self._grpc_ps = grpc_ps
+            self.parameter_server = grpc_ps.service
+            return self.parameter_server
         self.parameter_server = ParameterServerService(
             self.protocol, center_params, self.num_workers,
             registry=self.registry, health=self.training_health)
         self.parameter_server.start()
         return self.parameter_server
 
+    def _make_client(self):
+        if self.transport == "grpc":
+            return RetryingClient(GrpcClient(self.master_host, self.master_port))
+        return self.parameter_server.client()
+
     def stop_service(self) -> None:
-        if self.parameter_server is not None:
+        if self._grpc_ps is not None:
+            self._grpc_ps.stop()
+            self._grpc_ps = None
+        elif self.parameter_server is not None:
             self.parameter_server.stop()
 
     def _put(self, tree: dict) -> dict:
@@ -881,7 +906,7 @@ class AsynchronousDistributedTrainer(Trainer):
         """One worker's run, on the calling thread's current stream."""
         health = self.training_health
         protocol = self.protocol
-        client = self.parameter_server.client()
+        client = self._make_client()
         if self.compress_deltas:
             client = CompressingClient(client)
         # Stamped commit ids + PS dedupe: exactly-once commits.
@@ -1002,6 +1027,9 @@ class AsynchronousDistributedTrainer(Trainer):
         finally:
             if exchanger is not None:
                 exchanger.shutdown(wait=True)
+            close = getattr(client, "close", None)  # a gRPC client's channel
+            if close is not None:
+                close()
 
 
 class DOWNPOUR(AsynchronousDistributedTrainer):

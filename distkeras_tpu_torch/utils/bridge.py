@@ -12,6 +12,11 @@
   leaf (``bias``, ``pos_embed`` ``[1, L, H]``, ``mlm_bias``) keeps its name
   and shape. The ``batch_stats`` collection (BatchNorm's ``mean`` and
   ``var``) maps to the module's buffers of the same names.
+- :func:`cache_from_jax` and :func:`cache_to_jax` carry a decode cache
+  (the reference's ``"cache"`` collection: ``layer_{i}/attention/
+  cached_key`` and so on) into the port's flat layout
+  (``layer_{i}.attention.cached_key``, see :mod:`distkeras_tpu_torch.models.bert`)
+  and back, leaf for leaf and in each leaf's dtype.
 - :func:`load_weights_file` reads either package's weight files
   (:mod:`distkeras_tpu_torch.checkpoint`).
 """
@@ -25,7 +30,8 @@ from torch import nn
 from distkeras_tpu_torch.checkpoint import load_weights_file
 from distkeras_tpu_torch.utils.device import resolve_device
 
-__all__ = ["params_from_jax", "params_to_jax", "load_weights_file"]
+__all__ = ["params_from_jax", "params_to_jax", "cache_from_jax", "cache_to_jax",
+           "load_weights_file"]
 
 _RENAMED = {"kernel": "weight", "scale": "weight", "embedding": "weight"}
 
@@ -93,4 +99,26 @@ def params_to_jax(state_dict: dict[str, torch.Tensor], module: nn.Module) -> dic
         for p in parents:
             node = node.setdefault(p, {})
         node[leaf] = arr
+    return out
+
+
+def cache_from_jax(tree: dict, device: str | torch.device | None = None) -> dict[str, torch.Tensor]:
+    """A reference decode cache (the ``"cache"`` collection, or a tree
+    holding it under ``"cache"``) -> the port's flat cache on ``device``."""
+    dev = resolve_device(device)
+    return {".".join(path): _as_tensor(leaf).to(dev)
+            for path, leaf in _flatten(tree.get("cache", tree))}
+
+
+def cache_to_jax(cache: dict[str, torch.Tensor]) -> dict:
+    """The port's flat cache -> the reference's nested ``"cache"``
+    collection: numpy arrays, and CPU tensors for bfloat16 leaves."""
+    out: dict = {}
+    for name, t in cache.items():
+        *parents, leaf = name.split(".")
+        node = out
+        for p in parents:
+            node = node.setdefault(p, {})
+        arr = t.detach().cpu().contiguous()
+        node[leaf] = arr if arr.dtype == torch.bfloat16 else arr.numpy()
     return out

@@ -195,7 +195,6 @@ def test_feed_compression_and_over_partitioning():
 
 
 @pytest.mark.parametrize("kwargs, item", [
-    ({"transport": "grpc"}, "item 4"),
     ({"devices_per_worker": 2}, "item 10"),
     ({"auditor": object()}, "item A7"),
     ({"transport": "smoke-signals"}, "unknown transport"),

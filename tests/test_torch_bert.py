@@ -121,7 +121,7 @@ def test_port_init_draws_the_reference_distributions():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("decode", True), ("ring_mesh", object()), ("tp_mesh", object()),
+    ("ring_mesh", object()), ("tp_mesh", object()),
     ("paged_blocks", 8), ("moe_experts", 4),
 ])
 def test_later_slice_fields_raise(field, value):

@@ -1,6 +1,6 @@
 """The port stands alone: it imports neither JAX (nor flax, optax or
-ml_dtypes) nor the reference package, and its entry points run on CUDA
-unless asked for the CPU."""
+ml_dtypes) nor the reference package, nor grpc until a gRPC transport is
+built, and its entry points run on CUDA unless asked for the CPU."""
 
 import os
 import pkgutil
@@ -13,8 +13,9 @@ import torch
 
 import distkeras_tpu_torch
 from distkeras_tpu_torch.data.feed import DeviceFeed
+from distkeras_tpu_torch.inference.generate import Generator, beam_search, generate
 from distkeras_tpu_torch.inference.predictors import ModelPredictor
-from distkeras_tpu_torch.models.bert import bert_tiny_mlm
+from distkeras_tpu_torch.models.bert import bert_tiny_mlm, gpt_tiny
 from distkeras_tpu_torch.models.core import TrainedModel
 from distkeras_tpu_torch.models.mlp import mnist_mlp
 from distkeras_tpu_torch.models.resnet import resnet18
@@ -43,19 +44,43 @@ def test_port_imports_neither_jax_nor_reference():
     for m in ("ops.flash_attention", "parallel.protocols", "parallel.ps", "parallel.ha",
               "telemetry.registry", "telemetry.spans", "telemetry.training_health",
               "utils.pytree", "models.mlp", "models.cnn", "data.transformers",
-              "ops.launches", "checkpoint", "models.resnet", "utils.config"):
+              "ops.launches", "checkpoint", "models.resnet", "utils.config",
+              "parallel.ps_grpc", "inference.generate"):
         assert f"distkeras_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'ml_dtypes', 'distkeras_tpu', 'triton'))\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'ml_dtypes', 'distkeras_tpu', 'triton', 'grpc'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+BLOCKED_GRPC = (
+    "import sys\n"
+    "sys.modules['grpc'] = None  # any import of grpc now raises ImportError\n"
+    "import distkeras_tpu_torch, distkeras_tpu_torch.inference.generate\n"
+    "import distkeras_tpu_torch.parallel.ps_grpc\n"
+    "from distkeras_tpu_torch.models.mlp import mnist_mlp\n"
+    "try:\n"
+    "    distkeras_tpu_torch.ADAG(mnist_mlp(), transport='grpc', device='cpu')\n"
+    "except ImportError as e:\n"
+    "    print('REFUSED', e)\n"
+)
+
+
+def test_port_imports_without_grpc():
+    """With grpc unimportable, the package, ``inference.generate`` and
+    ``parallel.ps_grpc`` import, and ``transport="grpc"`` raises an
+    ImportError that names grpcio (no quiet fall back to ``inprocess``)."""
+    proc = subprocess.run([sys.executable, "-c", BLOCKED_GRPC], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "REFUSED" in proc.stdout and "grpcio" in proc.stdout, proc.stdout
 
 
 def _no_cuda():
@@ -72,10 +97,13 @@ def test_resolve_device():
 @pytest.mark.parametrize("entry", ["init", "params_from_jax", "trainer", "predictor",
                                    "single_trainer", "device_feed", "async_trainer",
                                    "mlp_init", "resnet_init", "sync_trainer",
-                                   "ensemble_trainer"])
+                                   "ensemble_trainer", "generate", "beam_search",
+                                   "generator"])
 def test_entry_points_raise_without_cuda(entry):
     _no_cuda()
     model = bert_tiny_mlm(seq_len=16, vocab_size=64)
+    gpt = gpt_tiny(seq_len=16, vocab_size=64)
+    gpt_weights, prompt = gpt.init(0, device="cpu"), np.zeros((1, 4), np.int32)
     calls = {
         "init": lambda: model.init(0),
         "params_from_jax": lambda: params_from_jax({"params": {"w": np.zeros(2)}}),
@@ -88,6 +116,9 @@ def test_entry_points_raise_without_cuda(entry):
         "resnet_init": lambda: resnet18(10, 32).init(0),
         "sync_trainer": lambda: SynchronousDistributedTrainer(model),
         "ensemble_trainer": lambda: EnsembleTrainer(model),
+        "generate": lambda: generate(gpt, gpt_weights, prompt, 2),
+        "beam_search": lambda: beam_search(gpt, gpt_weights, prompt, 2),
+        "generator": lambda: Generator(gpt, gpt_weights),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
