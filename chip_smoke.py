@@ -98,7 +98,23 @@ Phases, each of which must pass or the script exits non-zero:
    rho 50, window 8) with the reference test's split and settings: single
    above 0.93, each async trainer within 0.08 of it. No kernel of ours
    launches.
-14. Print the kernels line, the card's name and power limit, and last the
+14. Serving on gpt_small at full width (bf16, random weights from the
+   seed; engine slots 8, max_queue 64, prefix_cache_mb 64 with 16-token
+   blocks, prefill_chunk 128, top_k 50). 14a: 32 seeded requests of 16-256
+   prompt tokens (8 share a 128-token prefix), 64 new tokens each, half
+   greedy and half at temperature 0.8, submitted in 4 waves of 8 while
+   earlier ones decode: generated tokens/s, TTFT and inter-token p50/p99,
+   the host gap and device idle ratio, prefix hit tokens, peak memory and
+   the KV cache's bytes; every greedy request equals generate() on the card
+   for its prompt alone up to a parting at a bf16 tie, every sampled token
+   lies in its step's top 50 of one full forward (up to 3 bf16 ulps at the
+   edge), one decode signature, every slot free after the drain, prefix-
+   cache hits. 14b: the greedy requests through pipeline_depth=0 equal
+   14a's, up to a parting at a bf16 tie. 14c: a ServingServer on port 0;
+   the port's ServingClient streams 4 requests over JSONL and 4 over bin1,
+   each stream equal to its done record; metricsz and healthz answer;
+   stop(drain=True) completes. No kernel of ours launches.
+15. Print the kernels line, the card's name and power limit, and last the
    result line {"ok": true, "device": {...}}.
 
 Phases 9-11 write their checkpoints under build/chip_smoke/ (git-ignored)
@@ -1600,6 +1616,259 @@ def digits_phase() -> dict:
     return counts
 
 
+# -- phase 14: the serving engine and server -------------------------------------
+
+# 14a: a sampled token counts as within its step's top k when its logit in
+# one full forward over the request's sequence is at least the k-th largest
+# less this many bf16 ulps of it: the full forward's logits differ from the
+# decode step's by a few bf16 ulps (phase 12b), which can reorder the top k's
+# edge.
+TOPK_EDGE_ULPS = 3
+
+
+def _run_requests(engine, waves, tokens_before_next=16):
+    """Submit ``waves`` (lists of (prompt, max_new, temperature)) to a
+    running ``engine``: wave k+1 once every request of wave k has streamed
+    ``tokens_before_next`` tokens (or ended), so that each wave arrives
+    while the one before decodes. Returns each request's tokens, in order,
+    and the wall seconds from the first submit to the last token."""
+    import asyncio
+
+    async def go():
+        task = asyncio.create_task(engine.run())
+        try:
+            t0 = time.perf_counter()
+            reqs = []
+            for wave in waves:
+                batch = [engine.submit(p, n, temperature=temp) for p, n, temp in wave]
+                reqs += batch
+                while not all(r.done.is_set() or len(r.out_tokens) >= tokens_before_next
+                              for r in batch):
+                    await asyncio.sleep(0.002)
+            outs = [await r.result() for r in reqs]
+            return outs, time.perf_counter() - t0
+        finally:
+            engine.shutdown(drain=True)
+            await task
+
+    return asyncio.run(go())
+
+
+def _greedy_parts_at_ties(tag, model, variables, prompts, got, want) -> list:
+    """Per request, how many tokens ``got`` and ``want`` share before they
+    part; a parting is allowed only at a bf16 tie of the two tokens in the
+    full forward's logits over the shared prefix."""
+    import numpy as np
+
+    matched = []
+    for i, (p, g, w) in enumerate(zip(prompts, got, want)):
+        t = first_divergence([np.asarray(g)], [np.asarray(w)])[0]
+        matched.append(len(g) if t is None else t)
+        if t is not None:
+            prefix = np.asarray([list(p) + list(g[:t])], np.int32)
+            tie, la, lb = tie_at(model, variables, prefix, int(g[t]), int(w[t]))
+            log(f"  {tag}: request {i} parts at token {t}: {g[t]} ({la:.6f}) vs {w[t]} "
+                f"({lb:.6f}) in the full forward's logits; bf16 tie {tie}")
+            check(tie, f"{tag}: request {i} parts at {t} without a bf16 tie")
+    return matched
+
+
+def serving_phase(slots=8, waves=4, per_wave=8, new=64, shared_len=128, min_len=16,
+                  max_len=256, temperature=0.8, top_k=50, chunk=128, server_requests=4) -> dict:
+    """14: the port's ServingEngine on gpt_small at full width (bf16, random
+    weights from the seed), then behind ServingServer; returns the launch
+    counts of our kernels (none expected)."""
+    import asyncio
+
+    import numpy as np
+    import torch
+
+    import distkeras_tpu_torch as dk
+    from distkeras_tpu_torch.models import bert
+    from distkeras_tpu_torch.serving import ServingClient, ServingEngine, ServingServer
+
+    card = card_line()
+    model = bert.gpt_small()
+    cfg = model.config
+    variables = model.init(SEED)
+    rng = np.random.default_rng(SEED + 14)
+    n = waves * per_wave
+    lengths = rng.integers(min_len, max_len + 1, size=n)
+    prompts = [rng.integers(0, cfg.vocab_size, size=int(L)).tolist() for L in lengths]
+    # 8 prompts share a 128-token prefix, two in each wave, one greedy and
+    # one sampled, so that later waves can hit what the first stored.
+    shared = rng.integers(0, cfg.vocab_size, size=shared_len).tolist()
+    shared_ids = [w * per_wave + j for w in range(waves) for j in (0, 1)]
+    for i in shared_ids:
+        tail = int(rng.integers(1, max_len - shared_len + 1))
+        prompts[i] = shared + rng.integers(0, cfg.vocab_size, size=tail).tolist()
+    temps = [0.0 if i % 2 == 0 else temperature for i in range(n)]
+    greedy_ids = [i for i in range(n) if temps[i] <= 0]
+    kw = dict(slots=slots, max_queue=64, prefix_cache_mb=64, prefix_block_tokens=16,
+              prefill_chunk=chunk, top_k=top_k, seed=SEED)
+    log(f"gpt_small serving: layers {cfg.num_layers}, hidden {cfg.hidden_size}, heads "
+        f"{cfg.num_heads}, vocab {cfg.vocab_size}, max_seq_len {cfg.max_seq_len}, {cfg.dtype}; "
+        f"{n} requests in {waves} waves of {per_wave}, prompts {min(map(len, prompts))}-"
+        f"{max(map(len, prompts))} tokens ({len(shared_ids)} share a {shared_len}-token "
+        f"prefix), {new} new tokens each, {len(greedy_ids)} greedy and "
+        f"{n - len(greedy_ids)} at temperature {temperature}; engine {kw}")
+    t_phase = time.perf_counter()
+    # Warm-up on an engine of its own: cuBLAS at the prefill and decode shapes.
+    warm = ServingEngine(model, variables, **kw)
+    _run_requests(warm, [[(prompts[0][:chunk + 8], 4, 0.0), (prompts[1][:20], 4, 0.8)]])
+    del warm
+    torch.cuda.empty_cache()
+    reset_counts()
+
+    # 14a: four waves of eight, submitted while earlier ones decode.
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    engine = ServingEngine(model, variables, **kw)
+    kv_bytes = sum(v.numel() * v.element_size() for k, v in engine._cache.items()
+                   if k.endswith(("cached_key", "cached_value")))
+    waves_in = [[(prompts[i], new, temps[i]) for i in range(w * per_wave, (w + 1) * per_wave)]
+                for w in range(waves)]
+    log(f"  14: warm-up done {time.perf_counter() - t_phase:.2f} s into the phase")
+    outs, wall = _run_requests(engine, waves_in)
+    peak = torch.cuda.max_memory_allocated()
+    summ = engine.metrics.summary()
+    stats = engine.prefix_cache.stats()
+    generated = sum(len(o) for o in outs)
+    log(f"  14a ({card}): {generated} tokens generated in {wall:.3f} s: {generated / wall:.1f} "
+        f"generated tokens/s; TTFT p50 {summ['ttft_p50_s'] * 1e3:.3f} ms, p99 "
+        f"{summ['ttft_p99_s'] * 1e3:.3f} ms; inter-token p50 "
+        f"{summ['inter_token_p50_s'] * 1e3:.3f} ms, p99 {summ['inter_token_p99_s'] * 1e3:.3f} "
+        f"ms; queue wait p50 {summ['queue_wait_p50_s'] * 1e3:.3f} ms; prefill device p50 "
+        f"{summ['prefill_device_p50_s'] * 1e3:.3f} ms; decode iterations "
+        f"{int(summ['decode_iterations'])}")
+    log(f"  14a ({card}): host gap mean {summ.get('host_gap_mean_s', float('nan')) * 1e3:.4f} "
+        f"ms (p50 {summ.get('host_gap_p50_s', float('nan')) * 1e3:.4f}, p99 "
+        f"{summ.get('host_gap_p99_s', float('nan')) * 1e3:.4f}); device idle ratio "
+        f"{summ.get('device_idle_ratio', float('nan')):.4f}; prefix cache hit tokens "
+        f"{stats['hit_tokens']} of {stats['hit_tokens'] + stats['miss_tokens']} in "
+        f"{stats['hit_requests']} requests, {stats['blocks_used']} of "
+        f"{stats['capacity_blocks']} blocks used, {stats['evicted_blocks']} evicted; peak "
+        f"memory {peak / 2**30:.2f} GiB, {(peak - held) / 2**30:.2f} GiB above the "
+        f"{held / 2**30:.2f} GiB held before; KV cache {kv_bytes / 1e6:.1f} MB ({kv_bytes} "
+        f"bytes)")
+    check(all(len(o) == new for o in outs), "14a: a request ended short")
+    check(engine.decode_compile_count() == 1,
+          f"14a: decode_compile_count {engine.decode_compile_count()}")
+    check(engine.active_slots == 0 and engine.free_slots == slots, "14a: slots not free")
+    check(stats["hit_tokens"] > 0 and stats["hit_requests"] > 0, "14a: no prefix-cache hit")
+    # Greedy requests against generate() on the card, each prompt alone.
+    t0 = time.perf_counter()
+    alone = {i: dk.generate(model, variables, np.asarray([prompts[i]], np.int32), new,
+                            greedy=True)[0].tolist() for i in greedy_ids}
+    gen_s = time.perf_counter() - t0
+    matched = _greedy_parts_at_ties("14a", model, variables,
+                                    [prompts[i] for i in greedy_ids],
+                                    [outs[i] for i in greedy_ids],
+                                    [alone[i] for i in greedy_ids])
+    log(f"  14a: greedy requests vs generate() alone, matched tokens {matched} of {new} "
+        f"(generate() {gen_s:.2f} s for {len(greedy_ids)} prompts); "
+        f"{time.perf_counter() - t_phase:.2f} s into the phase")
+    # Sampled tokens in their step's top k of one full forward.
+    inside, edge, short = 0, 0, 0.0
+    with torch.inference_mode():
+        for i in range(n):
+            if temps[i] <= 0:
+                continue
+            seq = prompts[i] + outs[i][:-1]
+            logits = model.apply(variables, torch.as_tensor([seq], device="cuda"))[0][0].float()
+            rows = logits[len(prompts[i]) - 1:]
+            kth = torch.topk(rows, top_k, dim=-1).values[:, -1]
+            picked = rows.gather(1, torch.as_tensor(outs[i], device="cuda")[:, None])[:, 0]
+            inside += int((picked >= kth).sum())
+            ulp = torch.as_tensor([bf16_ulp(float(x)) for x in kth.cpu()], device="cuda")
+            near = (picked < kth) & (picked >= kth - TOPK_EDGE_ULPS * ulp)
+            edge += int(near.sum())
+            short = max(short, float((kth - picked).clamp(min=0).max()))
+            check(bool((picked >= kth - TOPK_EDGE_ULPS * ulp).all()),
+                  f"14a: request {i} sampled a token outside its top {top_k}")
+    sampled_total = (n - len(greedy_ids)) * new
+    log(f"  14a: sampled tokens in their step's top {top_k} of the full forward: {inside} of "
+        f"{sampled_total} strictly, {edge} within {TOPK_EDGE_ULPS} bf16 ulps of the edge "
+        f"(largest shortfall {short:.5f}); {time.perf_counter() - t_phase:.2f} s into the phase")
+    # The device's busy share over one more pipelined wave, under the profiler.
+    prof_engine = ServingEngine(model, variables, **kw)
+    busy = profile(f"ServingEngine, {per_wave} greedy requests, {new // 8} new tokens each",
+                   lambda: _run_requests(prof_engine, [[(prompts[i], new // 8, 0.0)
+                                                        for i in greedy_ids[:per_wave]]]))
+    log(f"  14a ({card}): device busy share over a pipelined wave {busy:.1%}; "
+        f"{time.perf_counter() - t_phase:.2f} s into the phase")
+    del prof_engine
+
+    # 14b: the greedy requests again, through pipeline_depth=0.
+    engine0 = ServingEngine(model, variables, pipeline_depth=0, **kw)
+    greedy_waves = [[(prompts[i], new, 0.0) for i in greedy_ids[w::waves]] for w in range(waves)]
+    order = [i for w in range(waves) for i in greedy_ids[w::waves]]
+    outs0, wall0 = _run_requests(engine0, greedy_waves)
+    summ0 = engine0.metrics.summary()
+    matched0 = _greedy_parts_at_ties("14b", model, variables, [prompts[i] for i in order],
+                                     outs0, [outs[i] for i in order])
+    log(f"  14b ({card}): pipeline_depth=0, {len(order)} greedy requests in {wall0:.3f} s "
+        f"({sum(map(len, outs0)) / wall0:.1f} generated tokens/s, host gap mean "
+        f"{summ0.get('host_gap_mean_s', float('nan')) * 1e3:.4f} ms, device idle ratio "
+        f"{summ0.get('device_idle_ratio', float('nan')):.4f}); tokens equal to 14a's in "
+        f"{sum(m == new for m in matched0)} of {len(order)} requests, matched {matched0}")
+    check(engine0.decode_compile_count() == 1, "14b: decode_compile_count != 1")
+    log(f"  14b: {time.perf_counter() - t_phase:.2f} s into the phase")
+    del engine, engine0
+    torch.cuda.empty_cache()
+
+    # 14c: ServingServer on port 0, the port's client over JSONL and bin1.
+    picks = greedy_ids[:2 * server_requests]
+
+    async def serve():
+        server = ServingServer(ServingEngine(model, variables, **kw), port=0)
+        await server.start()
+
+        async def one(i, wire_mode):
+            streamed = []
+            async with ServingClient("127.0.0.1", server.port, wire_mode=wire_mode) as c:
+                done = await c.generate(prompts[i], new, on_token=streamed.append)
+                return streamed, done, c.proto
+
+        try:
+            got = await asyncio.gather(*(
+                one(i, "jsonl" if k < server_requests else "bin1") for k, i in enumerate(picks)))
+            async with ServingClient("127.0.0.1", server.port) as c:
+                snap = await c.metricsz()
+                prom = await c.metricsz(format="prometheus")
+                health = await c.healthz()
+        finally:
+            await server.stop(drain=True)
+        return got, snap, prom, health
+
+    t0 = time.perf_counter()
+    got, snap, prom, health = asyncio.run(serve())
+    serve_s = time.perf_counter() - t0
+    protos = [proto for _, _, proto in got]
+    log(f"  14c: ServingServer, {server_requests} requests over JSONL and {server_requests} over "
+        f"bin1 ({protos}), {new} tokens each, {serve_s:.3f} s; metricsz "
+        f"{len(snap)} series, {len(prom.splitlines())} Prometheus lines; healthz slots "
+        f"{health['slots']}, active {health['active_slots']}, decode_compile_count "
+        f"{health['decode_compile_count']}, device memory {health['device_memory']}")
+    check(protos == ["jsonl"] * server_requests + ["bin1"] * server_requests,
+          f"14c: protocols {protos}")
+    for (streamed, done, _), i in zip(got, picks):
+        check(streamed == done["tokens"] and len(streamed) == new,
+              f"14c: request {i} streamed tokens differ from its done record")
+    check(snap["serving_requests_completed_total"]["value"] == len(picks),
+          "14c: metricsz does not count the requests")
+    check("# TYPE serving_ttft_seconds histogram" in prom, "14c: no Prometheus page")
+    check(health["slots"] == slots and health["decode_compile_count"] == 1,
+          f"14c: healthz {health}")
+    counts = read_counts()
+    check(counts == expected(), f"14: our kernels launched on the serving path: {counts}")
+    log(f"  14: phase wall {time.perf_counter() - t_phase:.2f} s ({card})")
+    del variables
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -1694,6 +1963,8 @@ def main(argv=None) -> int:
     log("phase 13: real-data acceptance on the digits set (SingleTrainer, ADAG, AEASGD)")
     runs.append(digits_phase())
     log(f"phases 12-13: {time.perf_counter() - t0:.2f} s")
+    log("phase 14: gpt_small ServingEngine and ServingServer at full width")
+    runs.append(serving_phase())
     launches = {k: sum(r[k] for r in runs) for k in runs[0]}
     for k, n in launches.items():
         check(n > 0, f"kernel {k} was not launched on the main path")

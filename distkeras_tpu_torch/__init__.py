@@ -6,6 +6,8 @@ This package exports what the port has so far: training through
 trainers (DOWNPOUR, ADAG, AEASGD, EAMSGD, DynSGD) over an in-process or
 gRPC parameter server, with step checkpoints and resume; ``TrainerConfig``;
 generation with KV caches (``generate``, ``beam_search``, ``Generator``);
+online serving (``ServingEngine``, a dense continuous-batching engine,
+behind the TCP ``ServingServer`` and its ``ServingClient``);
 stamped weight files that either package reads, and publish directories;
 batch inference and evaluation; the BERT/GPT family, ResNet-18/50 and the
 MLP/CNN models; and the data transformers, with flash attention forward and backward (CUDA C++) and the fused softmax
@@ -50,6 +52,7 @@ from distkeras_tpu_torch.models.cnn import cifar10_cnn, mnist_cnn
 from distkeras_tpu_torch.models.core import Model, TrainedModel
 from distkeras_tpu_torch.models.mlp import higgs_mlp, mnist_mlp
 from distkeras_tpu_torch.models.resnet import ResNet, resnet18, resnet50
+from distkeras_tpu_torch.serving import ServingClient, ServingEngine, ServingServer
 from distkeras_tpu_torch.training.trainers import (
     ADAG,
     AEASGD,
@@ -90,6 +93,9 @@ __all__ = [
     "OneHotTransformer",
     "ReshapeTransformer",
     "ResNet",
+    "ServingClient",
+    "ServingEngine",
+    "ServingServer",
     "SingleTrainer",
     "StandardScaleTransformer",
     "SynchronousDistributedTrainer",

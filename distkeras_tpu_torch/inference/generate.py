@@ -62,7 +62,7 @@ def _decode_module(model, slots: bool = False, **overrides):
     if paged:
         raise NotImplementedError(
             f"paged decode ({', '.join(paged)}) is not ported yet: it comes with the "
-            "serving-engine slice (ROADMAP.md §A item A7)")
+            "paged serving slice (ROADMAP.md §A item A7b)")
     dec_cfg = dataclasses.replace(
         cfg, decode=True, decode_slots=slots, dropout_rate=0.0,
         ring_mesh=None, use_flash_attention=False, **overrides,

@@ -61,7 +61,7 @@ __all__ = [
 
 # Config fields of later slices: a set value raises, naming the slice.
 _LATER_SLICES = {
-    "paged_blocks": "the serving-engine slice (ROADMAP.md §A item A7)",
+    "paged_blocks": "the paged serving slice (ROADMAP.md §A item A7b)",
     "tp_mesh": "the multi-device slice",
     "ring_mesh": "the multi-device slice",
     "moe_experts": "the remaining-models slice",

@@ -2,11 +2,13 @@
 
 Copy of the reference's ``distkeras_tpu/telemetry/registry.py`` (jax-free),
 cut to what the parameter server, its HA clients, the training-health
-layer and the trainers publish into: :class:`Counter`, :class:`Gauge`,
-:class:`Histogram` (with its bucket-interpolated percentile),
-:class:`MetricsRegistry`, the one exact :func:`percentile` and
-:func:`sanitize_metric_name`. The fleet merge and delta surface and the
-exposition formats belong to the serving slices.
+layer, the trainers and the serving engine publish into: :class:`Counter`,
+:class:`Gauge`, :class:`Histogram` (with its bucket-interpolated
+percentile and the Prometheus cumulative series), :class:`MetricsRegistry`,
+the one exact :func:`percentile`, :func:`sanitize_metric_name`, and the
+fixed log-spaced layouts (:func:`log_buckets`) and state merge
+(:func:`merge_hist_states`) the wide-event store builds on. The fleet's
+delta surface comes with the fleet.
 
 Conventions (Prometheus-shaped): metric names ``[a-zA-Z_:][a-zA-Z0-9_:]*``,
 counters end in ``_total``; labels are a frozen kwargs dict at
@@ -31,6 +33,9 @@ __all__ = [
     "percentile",
     "sanitize_metric_name",
     "DEFAULT_BUCKETS",
+    "log_buckets",
+    "hist_state_percentile",
+    "merge_hist_states",
 ]
 
 _NAME_RE = re.compile(r"^[a-zA-Z_:][a-zA-Z0-9_:]*$")
@@ -51,6 +56,69 @@ DEFAULT_BUCKETS = (
     0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1,
     0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0, 60.0,
 )
+
+
+def log_buckets(lo: float, hi: float, per_decade: int = 4) -> tuple:
+    """A fixed log-spaced bucket layout covering ``[lo, hi]`` with
+    ``per_decade`` bounds per factor of 10. Fleet-mergeable histograms
+    want every publisher on the SAME layout — building the layout from
+    (lo, hi, per_decade) instead of hand-typed tuples makes "same
+    layout" a constructor argument, not a copy-paste discipline. Bounds
+    are rounded to 6 significant digits so independently constructed
+    layouts compare equal."""
+    if not (lo > 0 and hi > lo):
+        raise ValueError(f"need 0 < lo < hi, got ({lo}, {hi})")
+    if per_decade < 1:
+        raise ValueError(f"per_decade must be >= 1, got {per_decade}")
+    step = 10.0 ** (1.0 / per_decade)
+    out, v = [], float(lo)
+    while v < hi * (1.0 + 1e-9):
+        out.append(float(f"{v:.6g}"))
+        v *= step
+    return tuple(out)
+
+
+def merge_hist_states(*states: dict) -> dict:
+    """Exact bucket-wise merge of histogram ``state()`` dicts sharing
+    one layout — associative and commutative by construction (integer
+    adds + min/max), so fleet aggregation can fold per-replica deltas
+    in any arrival order and any grouping. Returns a new state dict."""
+    states = [s for s in states if s]
+    if not states:
+        raise ValueError("merge of zero histogram states")
+    base = states[0]
+    counts = [0] * len(base["counts"])
+    total, sm = 0, 0.0
+    mn, mx = math.inf, -math.inf
+    exemplars: list = [None] * len(counts)
+    for s in states:
+        if list(s["buckets"]) != list(base["buckets"]):
+            raise ValueError(
+                "histogram merge across different bucket layouts")
+        for i, c in enumerate(s["counts"]):
+            counts[i] += int(c)
+        total += int(s["count"])
+        sm += float(s["sum"])
+        if s["count"]:
+            mn = min(mn, float(s["min"]))
+            mx = max(mx, float(s["max"]))
+        for i, ex in enumerate(s.get("exemplars") or []):
+            if ex is None:
+                continue
+            cur = exemplars[i]
+            if cur is None or float(ex[0]) > float(cur[0]):
+                exemplars[i] = [float(ex[0]), ex[1]]
+    out = {
+        "buckets": list(base["buckets"]),
+        "counts": counts,
+        "count": total,
+        "sum": sm,
+        "min": (mn if total else None),
+        "max": (mx if total else None),
+    }
+    if any(e is not None for e in exemplars):
+        out["exemplars"] = exemplars
+    return out
 
 
 def hist_state_percentile(state: dict, q: float) -> float:
@@ -229,6 +297,18 @@ class Histogram(_Metric):
     def mean(self) -> float | None:
         return self._sum / self._count if self._count else None
 
+    def cumulative_counts(self) -> list[tuple[float, int]]:
+        """(upper_bound, cumulative_count) pairs, ending at (+inf, count)
+        — the Prometheus ``_bucket{le=...}`` series."""
+        with self._lock:
+            counts = list(self._counts)
+        out, acc = [], 0
+        for bound, c in zip(self.bucket_bounds, counts):
+            acc += c
+            out.append((bound, acc))
+        out.append((math.inf, acc + counts[-1]))
+        return out
+
     def percentile(self, q: float) -> float:
         """Bucket-interpolated percentile estimate; agrees with the exact
         :func:`percentile` on the edge cases (empty raises, one sample is
@@ -293,6 +373,18 @@ class MetricsRegistry:
                   **labels) -> Histogram:
         return self._get_or_create(Histogram, name, help, labels,
                                    buckets=buckets)
+
+    def remove(self, metric) -> None:
+        """Unregister a metric instance (e.g. a superseded info-style
+        labeled series that would otherwise live in every scrape
+        forever). No-op when it was never (or already un-) registered;
+        existing handles to the object keep working but stop being
+        collected."""
+        with self._lock:
+            for key, m in list(self._metrics.items()):
+                if m is metric:
+                    del self._metrics[key]
+                    return
 
     def collect(self) -> list[_Metric]:
         with self._lock:

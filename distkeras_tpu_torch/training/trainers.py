@@ -12,9 +12,10 @@ and the asynchronous parameter-server family,
 ``AEASGD``, ``EAMSGD`` and ``DynSGD``: worker threads, each running its
 windows on its own CUDA stream, exchange with one in-process parameter
 server every ``communication_window`` steps, with periodic PS checkpoints
-and resume. Not ported yet, and refused with the ``ROADMAP.md`` item that
-brings them: the gRPC transport, multi-device islands and meshes, the
-recompile ``auditor`` and the weight ``publisher``.
+and resume. A recompile ``auditor`` signs each trainer's step, as the
+reference's ``Trainer._audit`` wraps it. Not ported yet, and refused with
+the ``ROADMAP.md`` item that brings them: multi-device islands and meshes
+and the weight ``publisher``.
 """
 
 from __future__ import annotations
@@ -111,6 +112,14 @@ class _StepCheckpointer:
             self.mgr = None
 
 
+def _step_signature(args, kwargs):
+    """What a trainer's step is signed by: the state's tensors (the Python
+    step counter the port's ``TrainState`` keeps is a device scalar of
+    fixed shape in the reference's) and the step's other arguments."""
+    state, *rest = args
+    return (state.params, state.model_state, *rest)
+
+
 class Trainer:
     """Base trainer: holds the model spec, loss, worker optimizer name,
     the device and wall-clock bookkeeping. ``device`` defaults to CUDA and
@@ -121,8 +130,12 @@ class Trainer:
     (:class:`~distkeras_tpu_torch.telemetry.registry.MetricsRegistry`) gets
     ``train_steps_total``, ``train_time_seconds`` and a ``train_last_<key>``
     gauge per numeric metric of the last row. The replica trainers, as the
-    reference's, emit neither. ``auditor`` (the reference's
-    recompile auditor) is refused until the port has one; ``publisher``
+    reference's, emit neither. ``auditor`` (a
+    :class:`~distkeras_tpu_torch.telemetry.recompile.RecompileAuditor`)
+    wraps each ``train()``'s step under the reference's name
+    (``train_step``, ``vmapped_step``, ``sync_train_step``,
+    ``async_window_step``, ``async_cached_window_step``) and counts its
+    abstract signatures: the state's tensors and the batch. ``publisher``
     stays ``None`` until the deploy slice."""
 
     def __init__(
@@ -141,9 +154,6 @@ class Trainer:
     ):
         if not isinstance(keras_model, Model):
             raise TypeError("Trainer expects a distkeras_tpu_torch Model")
-        if auditor is not None:
-            raise ValueError("auditor= needs the port's recompile auditor, which is not "
-                             "ported yet (ROADMAP.md §A item A7)")
         self.model = keras_model
         self.device = resolve_device(device)
         self.loss_weights = loss_weights
@@ -161,7 +171,7 @@ class Trainer:
         self.seed = seed
         self.metric_stream = metric_stream
         self.registry = registry
-        self.auditor = None
+        self.auditor = auditor
         # The trainer side of continuous deployment (deploy/): not ported;
         # train() refuses a publisher.
         self.publisher = None
@@ -217,6 +227,19 @@ class Trainer:
                 if isinstance(v, (int, float)):
                     self.registry.gauge("train_last_" + sanitize_metric_name(k),
                                         help="last-step train metric").set(v)
+
+    def _audit(self, step_fn, name: str):
+        """Wrap a step with the attached recompile auditor (no-op without
+        one), signed by the state's tensors and the step's other
+        arguments. Auditor names are unique per auditor, so a second
+        train() on the same trainer runs unaudited rather than failing
+        (reference ``Trainer._audit``)."""
+        if self.auditor is None:
+            return step_fn
+        try:
+            return self.auditor.wrap(step_fn, name, signature=_step_signature)
+        except ValueError:  # name already wrapped (trainer re-used)
+            return step_fn
 
     def _refuse_publisher(self) -> None:
         if self.publisher is not None:
@@ -307,10 +330,10 @@ class SingleTrainer(Trainer):
         metrics as floats, read from the device once, after the last step."""
         self._refuse_publisher()
         self.record_training_start()
-        step_fn = make_train_step(
+        step_fn = self._audit(make_train_step(
             self.model, self.loss, self.metrics, remat=self.remat,
             aux_loss_weight=self.aux_loss_weight, grad_accum_steps=self.grad_accum_steps,
-        )
+        ), "train_step")
         state = TrainState.create(self.model, self._optimizer(), self.seed, self.device)
         history: list[dict] = []
         self.validation_history = []
@@ -407,7 +430,8 @@ class _ReplicasTrainer(Trainer):
     def _train_replicas(self, dataset: Dataset, shuffle: bool) -> list[TrainState]:
         self._refuse_publisher()
         n = self.num_models
-        step_fn = make_train_step(self.model, self.loss, self.metrics)
+        step_fn = self._audit(make_train_step(self.model, self.loss, self.metrics),
+                              "vmapped_step")
         states = [TrainState.create(self.model, self._optimizer(), worker_seed(self.seed, i),
                                     self.device) for i in range(n)]
         parts = dataset.partitions(n)
@@ -558,8 +582,9 @@ class SynchronousDistributedTrainer(Trainer):
         self._refuse_publisher()
         global_batch = self.batch_size * self._data_parallel_size()
         self.record_training_start()
-        step_fn = make_train_step(self.model, self.loss, self.metrics,
-                                  aux_loss_weight=self.aux_loss_weight)
+        step_fn = self._audit(make_train_step(self.model, self.loss, self.metrics,
+                                              aux_loss_weight=self.aux_loss_weight),
+                              "sync_train_step")
         state = TrainState.create(self.model, self._optimizer(), self.seed, self.device)
         ck = _StepCheckpointer(self.checkpoint_dir, self.checkpoint_interval_s, self.resume,
                                like=state)
@@ -781,8 +806,11 @@ class AsynchronousDistributedTrainer(Trainer):
         self._refuse_publisher()
         self.record_training_start()
         optimizer = self.protocol.local_optimizer(self._optimizer())
-        window_fn = make_window_train_step(self.model, self.loss, self.metrics)
-        cached_window_fn = make_cached_window_train_step(self.model, self.loss, self.metrics)
+        window_fn = self._audit(make_window_train_step(self.model, self.loss, self.metrics),
+                                "async_window_step")
+        cached_window_fn = self._audit(
+            make_cached_window_train_step(self.model, self.loss, self.metrics),
+            "async_cached_window_step")
         init_state = TrainState.create(self.model, optimizer, self.seed, self.device)
         center_init = {k: v.detach() for k, v in init_state.params.items()}
         del init_state

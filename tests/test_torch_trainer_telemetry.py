@@ -10,7 +10,8 @@ reference's, emit nothing. On the same float32 MLP
 weights and data as the reference, the step counts are equal and the last
 loss and accuracy agree to 1e-5 relative (the same float32 arithmetic in
 another order over a few adagrad steps); the wall clock is each run's own.
-``auditor=`` is refused with a ``ValueError`` naming ROADMAP item A7.
+Under ``auditor=`` each trainer's step has as many abstract signatures as
+the reference's jitted step compiles executables over one ``train()``.
 """
 
 import jax
@@ -136,9 +137,31 @@ def test_replica_trainers_emit_nothing_as_the_reference(mlp_pair, name):
 
 
 @pytest.mark.parametrize("name", TRAINERS)
-def test_auditor_is_refused(name):
-    with pytest.raises(ValueError, match="A7"):
-        getattr(dk, name)(_port_mlp(), device="cpu", auditor=object())
+@time_limited
+def test_auditor_counts_match_reference(mlp_pair, name):
+    """One ``train()`` under an auditor: the same audited steps, each with
+    as many signatures as the reference's jit compiled executables."""
+    from distkeras_tpu.telemetry import RecompileAuditor as RefAuditor
+
+    from distkeras_tpu_torch.telemetry.recompile import RecompileAuditor
+
+    ref_model, weights = mlp_pair
+    x, y = _toy(72)  # 72 rows: a ragged last window for the async trainers
+    kwargs = dict(batch_size=8, num_epoch=2)
+    if name in ("DOWNPOUR", "ADAG", "AEASGD", "EAMSGD", "DynSGD"):
+        # One worker: the reference places each worker on a device of its own,
+        # and a second device compiles the same program again.
+        kwargs.update(num_workers=1, communication_window=4)
+    want = RefAuditor()
+    getattr(ref, name)(ref_model, auditor=want, **kwargs).train(
+        ref.Dataset.from_arrays(features=x, label=y))
+    got = RecompileAuditor()
+    tr = getattr(dk, name)(_port_mlp(weights), auditor=got, device="cpu", **kwargs)
+    assert tr.auditor is got
+    tr.train(dk.Dataset.from_arrays(features=x, label=y))
+    counts = {k: v["compiles"] for k, v in got.report().items()}
+    assert counts == {k: v["compiles"] for k, v in want.report().items()}
+    assert sum(v["calls"] for v in got.report().values()) > 0
 
 
 @pytest.mark.parametrize("name", TRAINERS)
