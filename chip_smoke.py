@@ -114,10 +114,38 @@ Phases, each of which must pass or the script exits non-zero:
    the port's ServingClient streams 4 requests over JSONL and 4 over bin1,
    each stream equal to its done record; metricsz and healthz answer;
    stop(drain=True) completes. No kernel of ours launches.
-15. Print the kernels line, the card's name and power limit, and last the
+15. Paged serving on gpt_small at full width (the same model, weights and
+   seeded requests as 14; engine slots 8, paged with 16-token blocks,
+   prefill_chunk 128, top_k 50). Phase 14's requests and its generate()
+   rollouts are the greedy reference (no rollout again). 15a: kv_pool_mb
+   256 (455 blocks), the 32 requests in 4 waves under an auditor armed
+   after warm-up: greedy rows equal 14a's dense engine and generate() up
+   to a parting at a bf16 tie, one decode signature, prefix hits through
+   adopted blocks with no copy; tokens/s, TTFT and inter-token p50/p99,
+   pool blocks peak and used, the profiler's busy share over one wave.
+   15b: kv_pool_blocks 64 (1024 tokens) with the 16 greedy requests:
+   preemptions above 0, every request finishes, its tokens equal 15a's up
+   to a bf16 tie. 15c: 4 score requests (log-probabilities against one full
+   forward on the card, within 3 x the CPU's bf16 distance from float32),
+   4 embed requests (against the full forward's mean-pooled last
+   activation, the same bound), 2 sample requests at n=4 (every fork's
+   token in its step's top 50 of a full forward; the prompt's complete
+   blocks shared, not copied). 15d: constrained=True, 4 rows under seeded
+   TokenDFAs mixed with 4 free rows: every constrained token obeys its
+   automaton, the free rows equal 15a's up to a bf16 tie, one decode
+   signature. 15e: spec_k 4, paged and dense, drafted by gpt_small itself
+   and by a random gpt_tiny(seq_len=512, vocab_size=50257): greedy tokens
+   equal 15a's up to a bf16 tie, one signature each of decode, draft and
+   verify; the acceptance rate and ms per verify tick. 15f: the reload
+   verb through ServingServer with a weight file that the port's
+   checkpoint.py wrote from seed 1: weight_version changes, and the greedy
+   tokens after the swap equal a fresh engine's on the seed-1 weights up
+   to a bf16 tie. The phase's wall time. No kernel of ours launches.
+16. Print the kernels line, the card's name and power limit, and last the
    result line {"ok": true, "device": {...}}.
 
-Phases 9-11 write their checkpoints under build/chip_smoke/ (git-ignored)
+Phases 9-11 and 15f write their checkpoints and weight files under
+build/chip_smoke/ (git-ignored)
 and remove them.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
@@ -1864,7 +1892,348 @@ def serving_phase(slots=8, waves=4, per_wave=8, new=64, shared_len=128, min_len=
     counts = read_counts()
     check(counts == expected(), f"14: our kernels launched on the serving path: {counts}")
     log(f"  14: phase wall {time.perf_counter() - t_phase:.2f} s ({card})")
-    del variables
+    torch.cuda.empty_cache()
+    served = {"model": model, "variables": variables, "prompts": prompts, "temps": temps,
+              "outs": outs, "alone": alone, "new": new, "waves": waves,
+              "per_wave": per_wave}
+    return counts, served
+
+
+# -- phase 15: paged serving ----------------------------------------------------
+
+def _greedy_check(tag, model, variables, prompts, got, want) -> list:
+    """The 14a tie check, plus the count of requests equal over all their
+    tokens."""
+    matched = _greedy_parts_at_ties(tag, model, variables, prompts, got, want)
+    equal = sum(list(g) == list(w) for g, w in zip(got, want))
+    log(f"  {tag}: {equal} of {len(got)} requests equal over all their tokens, matched "
+        f"{matched}")
+    return matched
+
+
+def _seeded_dfa(rng, vocab, states=3, width=4) -> dict:
+    """A cyclic token automaton: state s allows ``width`` seeded tokens,
+    each leading to state s + 1 (mod ``states``); no terminal state."""
+    edges = []
+    for s in range(states):
+        for tok in rng.choice(vocab, size=width, replace=False):
+            edges.append([s, int(tok), (s + 1) % states])
+    return {"start": 0, "edges": edges}
+
+
+def _dfa_obeyed(spec, tokens) -> bool:
+    table = {}
+    for s, tok, nxt in spec["edges"]:
+        table[(s, tok)] = nxt
+    state = spec["start"]
+    for tok in tokens:
+        if (state, tok) not in table:
+            return False
+        state = table[(state, tok)]
+    return True
+
+
+def _spec_ticks(engine) -> tuple[int, float]:
+    """Speculative ticks in the engine's tick lane and their mean
+    dispatch-to-harvest ms (a spec tick is harvested before the next
+    dispatch, so this is its wall)."""
+    ticks = [t for t in engine.tick_timeline() if t["kind"] == "spec"]
+    if not ticks:
+        return 0, float("nan")
+    return len(ticks), 1e3 * sum(t["t_harvest"] - t["t_dispatch"] for t in ticks) / len(ticks)
+
+
+def _cpu_noise(model, cfg, variables, seq) -> tuple[float, float]:
+    """The CPU's bf16 full forward's relative distance from its float32 one
+    over ``seq``: of the next-token log-probabilities and of the mean-pooled
+    last activation. Phase 15c's bounds are 3 x these (phase 12b's rule)."""
+    import torch
+
+    from distkeras_tpu_torch.models import bert
+
+    exact = bert._make(dataclasses.replace(cfg, dtype=torch.float32), 512, "gpt_small")
+    cpu_vars = {k: v.cpu() for k, v in variables.items()}
+    row = torch.as_tensor([seq])
+    with torch.inference_mode():
+        lp = [torch.log_softmax(m.apply(cpu_vars, row)[0][0].float(), -1) for m in (model, exact)]
+        hid = [m.apply(cpu_vars, row, return_hidden=True)[0][0].float().mean(0)
+               for m in (model, exact)]
+    targets = torch.as_tensor(seq[1:])[:, None]
+    picked = [x[:-1].gather(1, targets)[:, 0] for x in lp]
+    return rel_norm(picked[0], picked[1]), rel_norm(hid[0], hid[1])
+
+
+def paged_phase(served, slots=8, chunk=128, top_k=50, pool_mb=256, tight_blocks=64,
+                kind_requests=4, forks=4, fork_requests=2, constrained_new=32, spec_new=32,
+                reload_new=16) -> dict:
+    """15: the paged ServingEngine on gpt_small at full width, on phase
+    14's model, weights and requests; returns the launch counts of our
+    kernels (none expected)."""
+    import asyncio
+
+    import numpy as np
+    import torch
+
+    from distkeras_tpu_torch.checkpoint import save_weights_file
+    from distkeras_tpu_torch.models import bert
+    from distkeras_tpu_torch.serving import ServingClient, ServingEngine, ServingServer
+    from distkeras_tpu_torch.telemetry.recompile import RecompileAuditor
+    from distkeras_tpu_torch.utils.bridge import params_to_jax
+
+    card = card_line()
+    model, variables = served["model"], served["variables"]
+    prompts, temps, outs, alone = (served[k] for k in ("prompts", "temps", "outs", "alone"))
+    new, waves, per_wave = served["new"], served["waves"], served["per_wave"]
+    cfg = model.config
+    n = len(prompts)
+    greedy_ids = [i for i in range(n) if temps[i] <= 0]
+    base = dict(slots=slots, max_queue=64, paged=True, kv_block_tokens=16,
+                prefill_chunk=chunk, top_k=top_k, seed=SEED)
+    log(f"gpt_small paged serving: engine {base}; 15a kv_pool_mb {pool_mb}, 15b kv_pool_blocks "
+        f"{tight_blocks}")
+    t_phase = time.perf_counter()
+    warm = ServingEngine(model, variables, kv_pool_mb=pool_mb, **base)
+    _run_requests(warm, [[(prompts[0][:chunk + 8], 4, 0.0), (prompts[1][:20], 4, 0.8)]])
+    del warm
+    torch.cuda.empty_cache()
+    reset_counts()
+
+    # 15a: phase 14a's four waves through a 256 MiB pool, auditor armed.
+    auditor = RecompileAuditor()
+    engine = ServingEngine(model, variables, kv_pool_mb=pool_mb, auditor=auditor,
+                           arm_auditor_after_warmup=True, **base)
+    pool = engine.kv_pool
+    waves_in = [[(prompts[i], new, temps[i]) for i in range(w * per_wave, (w + 1) * per_wave)]
+                for w in range(waves)]
+    outs_a, wall = _run_requests(engine, waves_in)
+    summ = engine.metrics.summary()
+    stats = pool.stats()
+    generated = sum(len(o) for o in outs_a)
+    log(f"  15a ({card}): {generated} tokens generated in {wall:.3f} s: {generated / wall:.1f} "
+        f"generated tokens/s; TTFT p50 {summ['ttft_p50_s'] * 1e3:.3f} ms, p99 "
+        f"{summ['ttft_p99_s'] * 1e3:.3f} ms; inter-token p50 "
+        f"{summ['inter_token_p50_s'] * 1e3:.3f} ms, p99 {summ['inter_token_p99_s'] * 1e3:.3f} "
+        f"ms; prefill device p50 {summ['prefill_device_p50_s'] * 1e3:.3f} ms; host gap mean "
+        f"{summ.get('host_gap_mean_s', float('nan')) * 1e3:.4f} ms, device idle ratio "
+        f"{summ.get('device_idle_ratio', float('nan')):.4f}")
+    log(f"  15a: pool {pool.capacity} blocks of {pool.bytes_per_block} bytes, peak "
+        f"{stats['peak_blocks_used']} used, {stats['blocks_used']} used after the drain "
+        f"(adopted into the trie); preemptions {engine.metrics.preemptions}; prefix hit tokens "
+        f"{stats['hit_tokens']} of {stats['hit_tokens'] + stats['miss_tokens']} in "
+        f"{stats['hit_requests']} requests; {stats['inserted_blocks']} blocks adopted, "
+        f"{stats['evicted_blocks']} evicted; decode signatures "
+        f"{auditor.compiles('serving_decode')}")
+    check(all(len(o) == new for o in outs_a), "15a: a request ended short")
+    check(auditor.compiles("serving_decode") == 1 and engine.decode_compile_count() == 1,
+          f"15a: decode signatures {auditor.compiles('serving_decode')}")
+    check(auditor.report()["serving_decode"]["armed"], "15a: the auditor was not armed")
+    check(engine.active_slots == 0 and engine.prefix_cache is None, "15a: slots or a copy cache")
+    check(stats["hit_tokens"] > 0 and stats["hit_requests"] > 0, "15a: no prefix hit")
+    check(stats["inserted_blocks"] > 0 and stats["fork_cow_copies"] == 0,
+          "15a: prefix blocks were not adopted in place")
+    order = greedy_ids
+    _greedy_check("15a vs 14a", model, variables, [prompts[i] for i in order],
+                  [outs_a[i] for i in order], [outs[i] for i in order])
+    _greedy_check("15a vs generate()", model, variables, [prompts[i] for i in order],
+                  [outs_a[i] for i in order], [alone[i] for i in order])
+    log(f"  15a: {time.perf_counter() - t_phase:.2f} s into the phase")
+    prof_engine = ServingEngine(model, variables, kv_pool_mb=pool_mb, **base)
+    busy = profile(f"paged ServingEngine, {per_wave} greedy requests, {new // 8} new tokens each",
+                   lambda: _run_requests(prof_engine, [[(prompts[i], new // 8, 0.0)
+                                                        for i in greedy_ids[:per_wave]]]))
+    log(f"  15a ({card}): device busy share over a pipelined paged wave {busy:.1%}; "
+        f"{time.perf_counter() - t_phase:.2f} s into the phase")
+    del prof_engine, engine
+
+    # 15b: the greedy requests through a 64-block pool: preemption.
+    tight = ServingEngine(model, variables, kv_pool_blocks=tight_blocks, **base)
+    outs_b, wall_b = _run_requests(tight, [[(prompts[i], new, 0.0) for i in greedy_ids]])
+    sb = tight.kv_pool.stats()
+    log(f"  15b ({card}): {len(greedy_ids)} greedy requests through {tight_blocks} blocks in "
+        f"{wall_b:.3f} s ({sum(map(len, outs_b)) / wall_b:.1f} generated tokens/s); "
+        f"preemptions {tight.metrics.preemptions}, peak blocks {sb['peak_blocks_used']}, "
+        f"prefix hit tokens {sb['hit_tokens']}, evicted {sb['evicted_blocks']}")
+    check(tight.metrics.preemptions > 0, "15b: no preemption")
+    check(all(len(o) == new for o in outs_b), "15b: a request ended short")
+    check(tight.decode_compile_count() == 1, "15b: decode signatures != 1")
+    _greedy_check("15b vs 15a", model, variables, [prompts[i] for i in greedy_ids], outs_b,
+                  [outs_a[i] for i in greedy_ids])
+    log(f"  15b: {time.perf_counter() - t_phase:.2f} s into the phase")
+    del tight
+
+    # 15c: score, embed and sample requests.
+    kinds = ServingEngine(model, variables, kv_pool_mb=pool_mb, **base)
+    picks = greedy_ids[:kind_requests]
+    fork_prompts = [prompts[i] for i in greedy_ids[kind_requests:kind_requests + fork_requests]]
+
+    async def kind_run():
+        task = asyncio.create_task(kinds.run())
+        try:
+            reqs = ([kinds.submit(prompts[i], 0, kind="score") for i in picks]
+                    + [kinds.submit(prompts[i], 0, kind="embed") for i in picks]
+                    + [kinds.submit(p, new // 4, kind="sample", n=forks, temperature=0.8,
+                                    speculate=False) for p in fork_prompts])
+            for r in reqs:
+                await r.result()
+            return reqs
+        finally:
+            kinds.shutdown(drain=True)
+            await task
+
+    t0 = time.perf_counter()
+    reqs = asyncio.run(kind_run())
+    kinds_s = time.perf_counter() - t0
+    scores, embeds, samples = (reqs[:kind_requests], reqs[kind_requests:2 * kind_requests],
+                               reqs[2 * kind_requests:])
+    lp_noise, hid_noise = _cpu_noise(model, cfg, variables, prompts[picks[0]])
+    score_rel, embed_rel = [], []
+    with torch.inference_mode():
+        for i, sr, er in zip(picks, scores, embeds):
+            row = torch.as_tensor([prompts[i]], device="cuda")
+            lp = torch.log_softmax(model.apply(variables, row)[0][0].float(), -1)
+            want = lp[:-1].gather(1, row[0, 1:, None].long())[:, 0]
+            score_rel.append(rel_norm(torch.as_tensor(sr.logprobs, device="cuda"), want))
+            hid = model.apply(variables, row, return_hidden=True)[0][0].float().mean(0)
+            embed_rel.append(rel_norm(torch.as_tensor(er.embedding, device="cuda"), hid))
+    log(f"  15c ({card}): {kind_requests} score, {kind_requests} embed and {fork_requests} "
+        f"sample (n={forks}) requests in {kinds_s:.3f} s; score relative norms {score_rel} "
+        f"(allowed {DECODE_NOISE_FACTOR * lp_noise:.4g}); embed {embed_rel} (allowed "
+        f"{DECODE_NOISE_FACTOR * hid_noise:.4g})")
+    for rel in score_rel:
+        check(math.isfinite(rel) and rel <= DECODE_NOISE_FACTOR * lp_noise,
+              f"15c: score {rel} > {DECODE_NOISE_FACTOR * lp_noise}")
+    for rel in embed_rel:
+        check(math.isfinite(rel) and rel <= DECODE_NOISE_FACTOR * hid_noise,
+              f"15c: embed {rel} > {DECODE_NOISE_FACTOR * hid_noise}")
+    sk = kinds.kv_pool.stats()
+    bt = kinds.kv_block_tokens
+    shared_want = sum((forks - 1) * (len(p) // bt) for p in fork_prompts)
+    cow_want = sum((forks - 1) * bool(len(p) % bt) for p in fork_prompts)
+    log(f"  15c: forks shared {sk['forked_blocks_total']} extra block references (want "
+        f"{shared_want}), {sk['fork_cow_copies']} tail blocks copied (want {cow_want})")
+    check(sk["forked_blocks_total"] == shared_want and sk["fork_cow_copies"] == cow_want,
+          "15c: fork block accounting")
+    with torch.inference_mode():
+        for p, r in zip(fork_prompts, samples):
+            check(len(r.fork_completions) == forks, "15c: a fork is missing")
+            for fork in r.fork_completions:
+                seq = list(p) + fork[:-1]
+                logits = model.apply(variables, torch.as_tensor([seq], device="cuda"))[0][0]
+                rows = logits[len(p) - 1:].float()
+                kth = torch.topk(rows, top_k, dim=-1).values[:, -1]
+                picked = rows.gather(1, torch.as_tensor(fork, device="cuda")[:, None])[:, 0]
+                ulp = torch.as_tensor([bf16_ulp(float(x)) for x in kth.cpu()], device="cuda")
+                check(bool((picked >= kth - TOPK_EDGE_ULPS * ulp).all()),
+                      f"15c: a fork sampled outside its top {top_k}")
+    check(kinds.decode_compile_count() == 1, "15c: decode signatures != 1")
+    log(f"  15c: {time.perf_counter() - t_phase:.2f} s into the phase")
+    del kinds
+
+    # 15d: constrained rows beside free ones.
+    rng = np.random.default_rng(SEED + 15)
+    dfas = [_seeded_dfa(rng, cfg.vocab_size) for _ in range(slots // 2)]
+    free = greedy_ids[:slots // 2]
+    cons_prompts = [prompts[i] for i in greedy_ids[slots // 2:slots]]
+    c_auditor = RecompileAuditor()
+    con = ServingEngine(model, variables, kv_pool_mb=pool_mb, constrained=True,
+                        auditor=c_auditor, arm_auditor_after_warmup=True, **base)
+
+    async def con_run():
+        task = asyncio.create_task(con.run())
+        try:
+            reqs = [con.submit(p, constrained_new, constraint=d)
+                    for p, d in zip(cons_prompts, dfas)]
+            reqs += [con.submit(prompts[i], constrained_new) for i in free]
+            return [await r.result() for r in reqs]
+        finally:
+            con.shutdown(drain=True)
+            await task
+
+    t0 = time.perf_counter()
+    got_d = asyncio.run(con_run())
+    log(f"  15d ({card}): {len(dfas)} constrained and {len(free)} free rows, {constrained_new} "
+        f"tokens each, in {time.perf_counter() - t0:.3f} s; decode signatures "
+        f"{c_auditor.compiles('serving_decode')}; mask uploads "
+        f"{con.metrics.registry.snapshot()['mask_upload_seconds']['count']}")
+    for k, (d, toks) in enumerate(zip(dfas, got_d[:len(dfas)])):
+        check(len(toks) == constrained_new and _dfa_obeyed(d, toks),
+              f"15d: constrained row {k} left its automaton: {toks}")
+    check(c_auditor.compiles("serving_decode") == 1, "15d: decode signatures != 1")
+    _greedy_check("15d free rows vs 15a", model, variables, [prompts[i] for i in free],
+                  got_d[len(dfas):], [outs_a[i][:constrained_new] for i in free])
+    log(f"  15d: {time.perf_counter() - t_phase:.2f} s into the phase")
+    del con
+
+    # 15e: speculative decoding, paged and dense, two drafts.
+    tiny = bert.gpt_tiny(seq_len=512, vocab_size=cfg.vocab_size)
+    tiny_vars = tiny.init(SEED + 1)
+    spec_ids = greedy_ids[:slots]
+    for draft_name, dm, dv in (("gpt_small", model, variables), ("gpt_tiny", tiny, tiny_vars)):
+        for layout in ("paged", "dense"):
+            kw = dict(base, kv_pool_mb=pool_mb) if layout == "paged" else {
+                k: v for k, v in base.items() if k not in ("paged", "kv_block_tokens")}
+            s_auditor = RecompileAuditor()
+            spec = ServingEngine(model, variables, draft_model=dm, draft_variables=dv,
+                                 spec_k=4, auditor=s_auditor, arm_auditor_after_warmup=True,
+                                 **kw)
+            got_e, wall_e = _run_requests(spec, [[(prompts[i], spec_new, 0.0)
+                                                  for i in spec_ids]])
+            ticks, tick_ms = _spec_ticks(spec)
+            rate = spec.metrics.summary().get("spec_accept_rate", float("nan"))
+            tag = f"15e {layout}, draft {draft_name}"
+            log(f"  {tag} ({card}): {len(spec_ids)} greedy requests x {spec_new} tokens in "
+                f"{wall_e:.3f} s ({sum(map(len, got_e)) / wall_e:.1f} generated tokens/s); "
+                f"acceptance rate {rate:.4f}; {ticks} verify ticks, {tick_ms:.3f} ms per verify "
+                f"tick; signatures {[s_auditor.compiles(x) for x in ('serving_decode', 'serving_draft', 'serving_verify')]}")
+            for name in ("serving_decode", "serving_draft", "serving_verify"):
+                check(s_auditor.compiles(name) == 1, f"{tag}: {name} signatures != 1")
+            if draft_name == "gpt_small":
+                check(rate > 0.9, f"{tag}: acceptance {rate} with the target as its draft")
+            _greedy_check(tag, model, variables, [prompts[i] for i in spec_ids], got_e,
+                          [outs_a[i][:spec_new] for i in spec_ids])
+            del spec
+    del tiny_vars
+    log(f"  15e: {time.perf_counter() - t_phase:.2f} s into the phase")
+
+    # 15f: the reload verb through ServingServer, seed-1 weights from a file.
+    vars1 = model.init(SEED + 1)
+    os.makedirs(CKPT_ROOT, exist_ok=True)
+    path = os.path.join(CKPT_ROOT, "gpt_small_seed1.npz")
+    save_weights_file(path, params_to_jax(vars1, model.module), version=2)
+    picks_f = greedy_ids[:2]
+
+    async def reload_run():
+        server = ServingServer(ServingEngine(model, variables, kv_pool_mb=pool_mb, **base),
+                               port=0)
+        await server.start()
+        try:
+            async with ServingClient("127.0.0.1", server.port) as c:
+                before = [await c.generate(prompts[i], reload_new) for i in picks_f]
+                t0 = time.perf_counter()
+                swapped = await c.reload(path)
+                swap_s = time.perf_counter() - t0
+                after = [await c.generate(prompts[i], reload_new) for i in picks_f]
+        finally:
+            await server.stop(drain=True)
+        return before, swapped, swap_s, after
+
+    before, swapped, swap_s, after = asyncio.run(reload_run())
+    fresh = ServingEngine(model, vars1, kv_pool_mb=pool_mb, **base)
+    want_f, _ = _run_requests(fresh, [[(prompts[i], reload_new, 0.0)] for i in picks_f])
+    log(f"  15f ({card}): reload in {swap_s:.3f} s, weight_version "
+        f"{before[0]['weight_version']} -> {swapped['weight_version']}")
+    check(swapped["ok"] and swapped["weight_version"] != before[0]["weight_version"]
+          and after[0]["weight_version"] == swapped["weight_version"],
+          f"15f: weight_version {swapped}")
+    _greedy_check("15f after reload vs a fresh seed-1 engine", model, vars1,
+                  [prompts[i] for i in picks_f], [a["tokens"] for a in after], want_f)
+    _greedy_check("15f before reload vs 15a", model, variables, [prompts[i] for i in picks_f],
+                  [b["tokens"] for b in before], [outs_a[i][:reload_new] for i in picks_f])
+    os.remove(path)
+    del fresh, vars1
+    counts = read_counts()
+    check(counts == expected(), f"15: our kernels launched on the paged path: {counts}")
+    log(f"  15: phase wall {time.perf_counter() - t_phase:.2f} s ({card})")
     torch.cuda.empty_cache()
     return counts
 
@@ -1964,7 +2333,12 @@ def main(argv=None) -> int:
     runs.append(digits_phase())
     log(f"phases 12-13: {time.perf_counter() - t0:.2f} s")
     log("phase 14: gpt_small ServingEngine and ServingServer at full width")
-    runs.append(serving_phase())
+    counts, served = serving_phase()
+    runs.append(counts)
+    log("phase 15: gpt_small paged serving (pool, preemption, request kinds, constrained and "
+        "speculative decoding, reload) at full width")
+    runs.append(paged_phase(served))
+    del served
     launches = {k: sum(r[k] for r in runs) for k in runs[0]}
     for k, n in launches.items():
         check(n > 0, f"kernel {k} was not launched on the main path")

@@ -33,9 +33,6 @@ from distkeras_tpu_torch.utils.device import resolve_device
 __all__ = ["generate", "beam_search", "Generator", "accept_prefix_length",
            "cache_with_index", "greedy_accept_length", "greedy_ids", "sample_rows"]
 
-_PAGED = ("paged_blocks", "page_tokens", "page_table_blocks")
-
-
 @functools.lru_cache(maxsize=8)
 def _decode_model(dec_cfg: BertConfig) -> Model:
     # One specification (a meta module) per decode config, not one per call.
@@ -45,8 +42,10 @@ def _decode_model(dec_cfg: BertConfig) -> Model:
 def _decode_module(model, slots: bool = False, **overrides):
     """Decode-mode twin of ``model`` (same weights, KV-cache attention) and
     its config. ``slots=True`` gives each batch row its own cache and
-    position index; ``overrides`` are other BertConfig replacements
-    (``decode_cache_len``). The paged geometry is not ported."""
+    position index; ``overrides`` are other BertConfig replacements: the
+    serving engine's ``decode_cache_len`` cap and the paged geometry
+    (``paged_blocks``, ``page_tokens``, ``page_table_blocks``), cache shapes
+    only, so the weights stay those of the trained model."""
     cfg = getattr(model, "config", None)
     if not isinstance(cfg, BertConfig):
         raise ValueError(
@@ -58,11 +57,6 @@ def _decode_module(model, slots: bool = False, **overrides):
             f"model {model.name!r} is not causal (BertConfig.causal=False); "
             "generation requires a decoder LM"
         )
-    paged = sorted(set(overrides) & set(_PAGED))
-    if paged:
-        raise NotImplementedError(
-            f"paged decode ({', '.join(paged)}) is not ported yet: it comes with the "
-            "paged serving slice (ROADMAP.md §A item A7b)")
     dec_cfg = dataclasses.replace(
         cfg, decode=True, decode_slots=slots, dropout_rate=0.0,
         ring_mesh=None, use_flash_attention=False, **overrides,

@@ -23,8 +23,8 @@ caller passes, one derived seed per dropout site, so a recompute under
 
 Attention takes the flash kernel (:mod:`distkeras_tpu_torch.ops.flash_attention`)
 when ``use_flash_attention`` is set and no mask is given, else dense
-attention. Sequence and tensor parallelism, paged KV and MoE come with later
-slices and raise here.
+attention. Sequence and tensor parallelism and MoE come with later slices
+and raise here.
 
 Decode mode (``decode=True``, reference ``bert.py:297-404, :527-551``) keeps
 dense K/V caches ``[B, L, H, D]`` (``L = decode_cache_len or max_seq_len``)
@@ -39,6 +39,18 @@ on the device: no step reads a counter back to the host. The attention
 ``out`` and ``mlp_out`` projections then form their product in float32,
 round it to the compute dtype and add the bias there (two roundings, the
 reference's ``_F32AccumDense``).
+
+Paged decode (``paged_blocks > 0``, reference ``bert.py:297-361, :512-526``)
+replaces each layer's dense cache with a shared block pool
+``[paged_blocks, page_tokens, H, D]`` under the reference's leaf names
+(``layer_{i}.attention.pool_key``, ``pool_value``). The module keeps no
+position state: every apply takes ``positions`` (int32 ``[B]``, where each
+row's first token sits) and ``block_tables`` (int32 ``[B, T]``); their index
+work is done once an apply (:class:`~distkeras_tpu_torch.ops.attention.PagedPlan`,
+the reference's ``paged_kv_update`` and ``paged_attention``) and shared by
+every layer.
+``return_hidden=True`` returns the trunk's last activation ``[B, S, H]``
+(before the final LayerNorm and the head) instead of logits, in every mode.
 """
 
 from __future__ import annotations
@@ -50,7 +62,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from distkeras_tpu_torch.models.core import Model
-from distkeras_tpu_torch.ops.attention import dot_product_attention
+from distkeras_tpu_torch.ops.attention import PagedPlan, dot_product_attention
 from distkeras_tpu_torch.ops.flash_attention import flash_attention
 from distkeras_tpu_torch.utils.rng import fold_in
 
@@ -61,7 +73,6 @@ __all__ = [
 
 # Config fields of later slices: a set value raises, naming the slice.
 _LATER_SLICES = {
-    "paged_blocks": "the paged serving slice (ROADMAP.md §A item A7b)",
     "tp_mesh": "the multi-device slice",
     "ring_mesh": "the multi-device slice",
     "moe_experts": "the remaining-models slice",
@@ -192,25 +203,46 @@ class SelfAttention(nn.Module):
         self.key = Dense(h, h, cfg.dtype)
         self.value = Dense(h, h, cfg.dtype)
         self.out = _reduce_dense(cfg, h, h)
-        if cfg.decode:
+        if cfg.decode and cfg.paged_blocks > 0:
+            _register_cache(self, "pool_key", "pool_value")
+        elif cfg.decode:
             _register_cache(self, "cached_key", "cached_value", "cache_index")
 
-    def forward(self, x, mask=None, new_cache: dict | None = None):
+    def forward(self, x, mask=None, new_cache: dict | None = None,
+                paged: PagedPlan | None = None):
         """``new_cache`` (decode mode): receives this layer's updated cache
-        leaves under their names."""
+        leaves under their names. ``paged``: the paged decode's index plan
+        of this apply."""
         cfg = self.cfg
         B, S = x.shape[0], x.shape[1]
         shape = (B, S, cfg.num_heads, cfg.hidden_size // cfg.num_heads)
         q = self.query(x).reshape(shape)
         k = self.key(x).reshape(shape)
         v = self.value(x).reshape(shape)
-        if cfg.decode:
+        if cfg.decode and cfg.paged_blocks > 0:
+            out = self._paged_attention(q, k, v, new_cache, paged)
+        elif cfg.decode:
             out = self._decode_attention(q, k, v, new_cache)
         elif cfg.use_flash_attention and mask is None:
             out = flash_attention(q, k, v, causal=cfg.causal)
         else:
             out = dot_product_attention(q, k, v, mask=mask, causal=cfg.causal)
         return self.out(out.reshape(B, S, cfg.hidden_size))
+
+    def _paged_attention(self, q, k, v, new_cache: dict, plan: PagedPlan):
+        """Paged branch of the reference's ``_decode_attention``: the new
+        K/V go into the pools through the block tables (writes past a
+        row's blocks are dropped) and the queries attend to each row's
+        gathered blocks under ``k_pos <= q_pos``. The pools are written in
+        place and handed back as the layer's new cache leaves."""
+        cfg = self.cfg
+        H, D = q.shape[2], q.shape[3]
+        shape = (cfg.paged_blocks, cfg.page_tokens, H, D)
+        pk = plan.write(_cache_leaf(self, "pool_key", shape, cfg.dtype, q.device), k)
+        pv = plan.write(_cache_leaf(self, "pool_value", shape, cfg.dtype, q.device), v)
+        new_cache["pool_key"] = pk
+        new_cache["pool_value"] = pv
+        return plan.attend(q, pk, pv)
 
     def _decode_attention(self, q, k, v, new_cache: dict):
         """KV-cache attention (reference ``_decode_attention``, dense
@@ -261,9 +293,10 @@ class EncoderLayer(nn.Module):
         self.mlp_out = _reduce_dense(cfg, cfg.mlp_dim, cfg.hidden_size)
 
     def forward(self, x, mask=None, train: bool = False, rng: int | None = None,
-                new_cache: dict | None = None):
+                new_cache: dict | None = None, paged: PagedPlan | None = None):
         p = self.cfg.dropout_rate if train else 0.0
-        y = self.attention(self.ln_attn(x.float()), mask=mask, new_cache=new_cache)
+        y = self.attention(self.ln_attn(x.float()), mask=mask, new_cache=new_cache,
+                           paged=paged)
         x = x + dropout(y, p, None if rng is None else fold_in(rng, 0))
         y = self.mlp_in(self.ln_mlp(x.float()))
         y = self.mlp_out(F.gelu(y, approximate="tanh"))
@@ -287,7 +320,7 @@ class Bert(nn.Module):
             self.add_module(f"layer_{i}", EncoderLayer(cfg))
         self.ln_final = _layer_norm(cfg.hidden_size)
         self.mlm_bias = nn.Parameter(torch.empty(cfg.vocab_size))
-        if cfg.decode:
+        if cfg.decode and not cfg.paged_blocks:
             _register_cache(self, "pos_index")
 
     def layers(self):
@@ -307,16 +340,33 @@ class Bert(nn.Module):
                 nn.init.ones_(module.weight)
                 nn.init.zeros_(module.bias)
 
-    def forward(self, token_ids, train: bool = False, rng: int | None = None):
+    def forward(self, token_ids, train: bool = False, rng: int | None = None,
+                positions=None, block_tables=None, return_hidden: bool = False):
         """``rng``: the integer seed of this forward's dropout masks (needed
         when ``train`` and ``dropout_rate > 0``); site ``i`` draws from
-        ``fold_in(rng, i)``. In decode mode returns ``(logits, new_cache)``."""
+        ``fold_in(rng, i)``. In decode mode returns ``(logits, new_cache)``.
+        ``positions``/``block_tables``: the paged decode's inputs (reference
+        ``Bert.__call__``). ``return_hidden``: the trunk's last activation
+        in place of the logits."""
         cfg = self.cfg
         B, S = token_ids.shape[0], token_ids.shape[1]
         table = self.token_embed.weight
         x = F.embedding(token_ids.long(), table).to(cfg.dtype)
-        new_cache = None
-        if cfg.decode:
+        new_cache = plan = None
+        if cfg.decode and cfg.paged_blocks > 0:
+            # Position-stateless: the positional window comes from the
+            # caller's positions (reference bert.py:512-526).
+            new_cache = {}
+            if positions is None:
+                raise ValueError("paged decode needs positions [B]")
+            if block_tables is None:
+                raise ValueError(
+                    "paged decode needs positions [B] and block_tables [B, T] passed to "
+                    "every apply")
+            pos = _pos_window(self.pos_embed, positions, S, cfg.max_seq_len)
+            x = x + pos.to(cfg.dtype)
+            plan = PagedPlan(block_tables, positions, S, cfg.paged_blocks, cfg.page_tokens)
+        elif cfg.decode:
             # Positions advance with the caches (reference bert.py:527-551).
             new_cache = {}
             pi = _cache_leaf(self, "pos_index", (B,) if cfg.decode_slots else (),
@@ -340,9 +390,11 @@ class Bert(nn.Module):
         x = dropout(x, cfg.dropout_rate if train else 0.0, site(0))
         for i, layer in enumerate(self.layers()):
             layer_cache = None if new_cache is None else {}
-            x = layer(x, train=train, rng=site(i + 1), new_cache=layer_cache)
+            x = layer(x, train=train, rng=site(i + 1), new_cache=layer_cache, paged=plan)
             if layer_cache:
                 new_cache.update({f"layer_{i}.attention.{k}": v for k, v in layer_cache.items()})
+        if return_hidden:
+            return x if new_cache is None else (x, new_cache)
         x = self.ln_final(x.float())
         # The vocab rows are padded to a multiple of 8 so that the product's
         # rows stay 16-byte aligned: with 30522 or 50257 columns cuBLAS
@@ -356,9 +408,15 @@ class Bert(nn.Module):
 
 def decode_cache(cfg: BertConfig, batch_size: int, device) -> dict[str, torch.Tensor]:
     """The zero decode cache of ``cfg`` for ``batch_size`` rows, keyed as
-    :class:`Bert` reads and returns it."""
+    :class:`Bert` reads and returns it. A paged config's cache is its
+    block pools alone, whatever ``batch_size``."""
     L = cfg.decode_cache_len or cfg.max_seq_len
     D = cfg.hidden_size // cfg.num_heads
+    if cfg.paged_blocks > 0:
+        shape = (cfg.paged_blocks, cfg.page_tokens, cfg.num_heads, D)
+        return {f"layer_{i}.attention.{name}": torch.zeros(shape, dtype=cfg.dtype,
+                                                           device=device)
+                for i in range(cfg.num_layers) for name in ("pool_key", "pool_value")}
     idx_shape = (batch_size,) if cfg.decode_slots else ()
     cache = {"pos_index": torch.zeros(idx_shape, dtype=torch.int32, device=device)}
     for i in range(cfg.num_layers):

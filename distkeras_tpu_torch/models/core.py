@@ -34,7 +34,8 @@ class Model:
     ``module_fn()`` builds the ``nn.Module``; a module may define
     ``init_weights(generator)`` to draw its initial weights.
     ``apply(variables, x, train, rng) -> (outputs, new_state)``, where
-    ``rng`` is the integer seed of the step's dropout masks. A module whose
+    ``rng`` is the integer seed of the step's dropout masks; further keyword
+    inputs go to the module's forward. A module whose
     forward returns ``(outputs, new_state)`` reports updated buffers there
     (ResNet's BatchNorm statistics in train mode, under their
     ``state_dict`` names); for the others ``new_state`` is empty."""
@@ -77,9 +78,12 @@ class Model:
             module.init_weights(generator)
         return {k: v.detach() for k, v in module.state_dict().items()}
 
-    def apply(self, variables: Variables, x, train: bool = False, rng: int | None = None):
+    def apply(self, variables: Variables, x, train: bool = False, rng: int | None = None,
+              **inputs):
+        """``inputs``: further keyword inputs of the module's forward (the
+        paged decode's ``positions`` and ``block_tables``, ``return_hidden``)."""
         out = torch.func.functional_call(self._thread_module(), variables, (x,),
-                                         {"train": train, "rng": rng})
+                                         {"train": train, "rng": rng, **inputs})
         return out if isinstance(out, tuple) else (out, {})
 
     def count_params(self) -> int:

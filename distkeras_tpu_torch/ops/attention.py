@@ -1,13 +1,15 @@
-"""Dense attention: counterpart of ``distkeras_tpu/ops/attention.py``
-``dot_product_attention``, the path attention takes when flash is off or a
-mask is given. Ring attention and the paged decode ops come with later
-slices."""
+"""Dense and paged attention: counterpart of ``distkeras_tpu/ops/attention.py``
+``dot_product_attention`` (the path attention takes when flash is off or a
+mask is given) and the paged serving engine's ``paged_kv_update`` and
+``paged_attention``. Neither paged op is a Pallas kernel in the reference
+(they are plain gathers and scatters), so they are plain torch ops here.
+Ring attention comes with the multi-device slice."""
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["dot_product_attention"]
+__all__ = ["PagedPlan", "dot_product_attention", "paged_attention", "paged_kv_update"]
 
 
 def dot_product_attention(q, k, v, mask=None, causal: bool = False):
@@ -27,3 +29,101 @@ def dot_product_attention(q, k, v, mask=None, causal: bool = False):
         scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
     weights = torch.softmax(scores, dim=-1).to(dtype)
     return torch.einsum("bhqk,bkhd->bqhd", weights, v)
+
+
+class PagedPlan:
+    """The index work of one paged apply, done once and shared by every
+    layer's K and V (it depends only on the block tables, the positions,
+    the window width and the pool geometry).
+
+    Write side: ``targets`` (int64 ``[B * S]``), each new vector's flat
+    element ``row * page_tokens + offset`` of the pool viewed as
+    ``[C * page_tokens, H, D]``; ``valid`` (bool ``[B * S]``), whether the
+    write lands; ``first`` (int64 ``[1]``), the first valid write, or 0.
+    A write past a row's table or through an unallocated id is DROPPED,
+    never clamped into a real block (the reference's ``mode="drop"``).
+    ``index_put_`` has no drop mode, and selecting the valid writes would
+    read their count back to the host; instead every dropped write is
+    routed to the target of the first valid write, carrying that write's
+    own value, so the duplicate stores are byte-identical and the result
+    does not depend on which one lands; with no valid write at all they go
+    to element 0 carrying its current value. Every index is a tensor of
+    at least one dimension: indexing with a 0-d tensor would read it back
+    to the host.
+
+    Read side: ``gather`` (int64 ``[B, T]``), the tables with unallocated
+    ids clamped to a real block, as the reference's gather clamps (the
+    mask hides what it reads), and ``mask`` (bool ``[B, 1, S, T * bt]``),
+    ``k_pos <= q_pos``: query ``j`` of a window attends to positions
+    ``<= positions[b] + j``."""
+
+    def __init__(self, tables, positions, S: int, capacity: int, page_tokens: int):
+        C, bt = capacity, page_tokens
+        T = tables.shape[1]
+        dev = tables.device
+        tables = tables.long()
+        q_pos = positions.long()[:, None] + torch.arange(S, device=dev)[None, :]  # [B, S]
+        blk = q_pos // bt
+        rows = tables.gather(1, blk.clamp(max=T - 1))
+        valid = ((blk < T) & (rows < C)).reshape(-1)
+        targets = (rows * bt + q_pos % bt).reshape(-1)
+        self.first = torch.argmax(valid.to(torch.int32)).reshape(1)
+        self.some = valid.any().reshape(1)
+        park = torch.where(self.some, targets.index_select(0, self.first),
+                           torch.zeros_like(self.first))
+        self.park = park.clamp(0, C * bt - 1)
+        self.valid = valid
+        self.targets = torch.where(valid, targets, self.park)
+        self.gather = tables.clamp(max=C - 1)
+        k_pos = torch.arange(T * bt, device=dev)
+        self.mask = k_pos[None, None, None, :] <= q_pos[:, None, :, None]
+
+    def write(self, pool, new):
+        """Write ``new`` (``[B, S, H, D]``) into ``pool`` in place; returns
+        the pool."""
+        C, bt = pool.shape[0], pool.shape[1]
+        tail = tuple(pool.shape[2:])
+        dest = pool.view((C * bt,) + tail)
+        vals = new.to(pool.dtype).reshape((-1,) + tail)
+        park_val = torch.where(self.some.view((1,) * (len(tail) + 1)),
+                               vals.index_select(0, self.first),
+                               dest.index_select(0, self.park))
+        vals = torch.where(self.valid.view((-1,) + (1,) * len(tail)), vals, park_val)
+        dest.index_put_((self.targets,), vals)
+        return pool
+
+    def attend(self, q, pool_k, pool_v):
+        """Attention of ``q`` (``[B, S, H, D]``) over each row's gathered
+        blocks, in table order (position order)."""
+        B = q.shape[0]
+        L = self.gather.shape[1] * pool_k.shape[1]
+        k = pool_k[self.gather].reshape((B, L) + tuple(pool_k.shape[2:]))
+        v = pool_v[self.gather].reshape((B, L) + tuple(pool_v.shape[2:]))
+        return dot_product_attention(q, k, v, mask=self.mask)
+
+
+def paged_kv_update(pool, new, tables, positions, page_tokens: int):
+    """Write per-row K (or V) vectors into a paged block pool, in place,
+    and return the pool (reference ``paged_kv_update``; see
+    :class:`PagedPlan` for the dropped writes).
+
+    ``pool``: ``[C, page_tokens, H, D]``, row ``c`` one block. ``new``:
+    ``[B, S, H, D]``, each batch row's ``S`` new vectors. ``tables``: int32
+    ``[B, T]``, row ``b``'s block table (entry ``t`` holds its positions
+    ``[t * page_tokens, (t + 1) * page_tokens)``; an id ``>= C`` is
+    unallocated). ``positions``: int32 ``[B]``, where row ``b``'s first new
+    vector goes."""
+    plan = PagedPlan(tables, positions, new.shape[1], pool.shape[0], page_tokens)
+    return plan.write(pool, new)
+
+
+def paged_attention(q, pool_k, pool_v, tables, positions):
+    """Attention over paged K/V (reference ``paged_attention``).
+
+    ``q``: ``[B, S, H, D]`` queries whose first token sits at position
+    ``positions[b]``. ``pool_k``/``pool_v``: ``[C, bt, H, D]`` block pools.
+    ``tables``: int32 ``[B, T]`` block tables. Each row's K/V is gathered
+    in table order and masked with the dense decode path's
+    ``k_pos <= q_pos`` rule (:class:`PagedPlan`)."""
+    plan = PagedPlan(tables, positions, q.shape[1], pool_k.shape[0], pool_k.shape[1])
+    return plan.attend(q, pool_k, pool_v)

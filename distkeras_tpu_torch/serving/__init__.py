@@ -1,13 +1,18 @@
-"""Online serving on the port: the dense continuous-batching engine.
+"""Online serving on the port: the continuous-batching engine, dense and
+paged.
 
-Counterpart of the reference's ``distkeras_tpu/serving`` package, the
-dense single-device half (ROADMAP.md §A item A7):
+Counterpart of the reference's ``distkeras_tpu/serving`` package on one
+device (ROADMAP.md §A items A7 and A7b):
 
 - :class:`ServingEngine`: fixed-slot continuous batching over the decode
-  mode of ``models/bert.py``, with chunked prefill, a prefix cache and the
-  overlapped decode pipeline;
-- :class:`PrefixCache`: a device-resident pool of fixed-size KV blocks
-  keyed by a radix trie over prompt prefixes;
+  mode of ``models/bert.py``, with chunked prefill, the overlapped decode
+  pipeline, dense per-slot caches with a prefix cache or a paged block
+  pool with preemption, the ``score``/``embed``/``sample`` request kinds,
+  constrained and speculative decoding, and the parameter swap;
+- :class:`PrefixCache` and :class:`KVBlockPool`: the dense engine's
+  device-resident pool of KV blocks and the paged engine's block
+  allocator, both keyed by a radix trie over prompt prefixes;
+- :class:`TokenDFA`: the token automaton of a constrained request;
 - :class:`Scheduler` / :class:`Request`: priority-FIFO admission with
   backpressure, deadlines, tenant quotas and cache-aware reordering;
 - :class:`ServingServer` / :class:`ServingClient`: the asyncio TCP front
@@ -15,8 +20,8 @@ dense single-device half (ROADMAP.md §A item A7):
 - :class:`ServingMetrics`: TTFT, inter-token latency, occupancy and the
   decode pipeline's host gap.
 
-Paged KV (``KVBlockPool``) and the request kinds wait for item A7b; the
-cluster, KV transfer and SLO engine for item A8.
+The host and disk KV tiers, the cluster, KV transfer and the SLO engine
+come with item A8.
 """
 
 from distkeras_tpu_torch.serving.scheduler import (
@@ -32,7 +37,8 @@ from distkeras_tpu_torch.serving.scheduler import (
     TenantQuota,
 )
 from distkeras_tpu_torch.serving.metrics import ServingMetrics
-from distkeras_tpu_torch.serving.prefix_cache import PrefixCache
+from distkeras_tpu_torch.serving.prefix_cache import KVBlockPool, PrefixCache
+from distkeras_tpu_torch.serving.constraints import TokenDFA
 from distkeras_tpu_torch.serving.engine import ServingEngine
 from distkeras_tpu_torch.serving.server import ServingServer
 from distkeras_tpu_torch.serving.client import ServingClient
@@ -40,6 +46,8 @@ from distkeras_tpu_torch.serving.client import ServingClient
 __all__ = [
     "ServingEngine",
     "PrefixCache",
+    "KVBlockPool",
+    "TokenDFA",
     "PoolExhausted",
     "Scheduler",
     "Request",

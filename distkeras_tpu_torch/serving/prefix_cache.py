@@ -26,7 +26,14 @@ prefix's K/V exactly. A block is only ever stored from fully computed
 positions and only ever matched by the exact token sequence (trie edges
 are the block's token tuple), so a hit cannot alias a different prompt.
 
-The paged engine's :class:`KVBlockPool` waits for ROADMAP.md §A item A7b.
+:class:`KVBlockPool` is the paged engine's memory manager over the same
+trie: the engine's block pools are the paged decode module's cache leaves,
+slots address them through block tables, a prefix hit is zero-copy (the
+table points at the pinned trie blocks) and a finished or preempted
+slot's complete blocks are adopted into the trie in place. It owns no
+device tensors and is copied from the reference. Its spill hooks are
+ported; the host and disk tiers that attach to them come with the fleet
+(ROADMAP.md §A item A8).
 
 NOT thread-safe: the trie and pool are mutated without locks, relying on
 the owning :class:`~distkeras_tpu_torch.serving.engine.ServingEngine`'s loop
@@ -44,7 +51,7 @@ import math
 import numpy as np
 import torch
 
-__all__ = ["PrefixCache", "PrefixMatch"]
+__all__ = ["KVBlockPool", "PrefixCache", "PrefixMatch"]
 
 
 def _kv_names(tree: dict) -> list[str]:
@@ -598,3 +605,238 @@ def _register_trie_metrics(registry) -> dict:
         "bytes": registry.gauge(
             "prefix_cache_bytes_used", help="pool bytes in use"),
     }
+
+
+class KVBlockPool(_BlockTrie):
+    """Host-side allocator + prefix trie over ONE shared KV block pool —
+    the paged engine's single memory manager for decode slots AND the
+    prefix cache.
+
+    Unlike :class:`PrefixCache` this class owns NO device tensors: the
+    pools (``[capacity, block_tokens, H, D]`` per layer K/V) are the
+    paged decode module's cache leaves, which the engine threads through
+    its device functions. The pool hands out *row ids*:
+
+    - :meth:`alloc` — take ``n`` private blocks for a slot (all-or-
+      nothing; evicts LRU unreferenced trie leaves when the free list is
+      dry; ``None`` means the caller must preempt someone or park);
+    - :meth:`free` — return private blocks;
+    - :meth:`match`/:meth:`release` — pin/unpin a shared prefix chain
+      (the slot's block table points at the pinned rows, zero-copy);
+    - :meth:`adopt` — a finished/preempted slot's complete blocks become
+      trie nodes in place (zero-copy prefix-cache insert); already-
+      cached duplicates are freed instead.
+
+    Write-sharing is impossible by construction (block-aligned matches;
+    appends go to private blocks), so the copy-on-write refcount's only
+    job is to keep shared rows from being evicted/reallocated under a
+    reader; the one copy is a ``sample`` fork's partially filled tail
+    block (:meth:`fork`). Copied from the reference, without the fleet's
+    ``adopt_foreign`` (ROADMAP.md §A item A8).
+
+    ``kv_pool_blocks_{total,used,free}`` gauges plus the shared
+    ``prefix_cache_*`` hit/miss series publish into ``registry``.
+    """
+
+    def __init__(self, capacity: int, block_tokens: int, *,
+                 bytes_per_block: int = 0, registry=None):
+        if capacity < 1:
+            raise ValueError(f"capacity must be >= 1, got {capacity}")
+        if block_tokens < 1:
+            raise ValueError(f"block_tokens must be >= 1, got {block_tokens}")
+        self._init_trie(capacity, block_tokens)
+        self.bytes_per_block = int(bytes_per_block)
+        # High-water mark of blocks in use — what a byte budget must
+        # actually cover.
+        self.peak_blocks_used = 0
+        # Copy-on-write sharing for forked sampling (kind="sample"):
+        # ``_fork_refs[row] = k`` means k ADDITIONAL owners share the row
+        # beyond the one that will eventually free it last. ``free`` on
+        # such a row decrements instead of returning it to the free list
+        # — the row truly frees only when its last owner lets go. Rows
+        # here are PRIVATE slot rows (complete, never-again-written
+        # prompt blocks shared by n fork rows), distinct from trie
+        # pinning (``_Node.refs``), which protects SHARED trie rows.
+        self._fork_refs: dict[int, int] = {}
+        self.forked_blocks_total = 0  # cumulative extra shares handed out
+        self.fork_cow_copies = 0      # tail blocks copied at fork time
+        self._g_pool = None
+        if registry is not None:
+            self._metrics = _register_trie_metrics(registry)
+            self._metrics["capacity"].set(self.capacity)
+            self._g_pool = {
+                "total": registry.gauge(
+                    "kv_pool_blocks_total",
+                    help="KV block pool capacity (blocks)"),
+                "used": registry.gauge(
+                    "kv_pool_blocks_used",
+                    help="KV blocks held by decode slots or the prefix "
+                         "trie"),
+                "free": registry.gauge(
+                    "kv_pool_blocks_free", help="KV blocks on the free "
+                                                "list"),
+            }
+            self._g_pool["total"].set(self.capacity)
+            self._note_occupancy()
+
+    def stats(self) -> dict:
+        total = self.hit_tokens + self.miss_tokens
+        return {
+            "block_tokens": self.block_tokens,
+            "capacity_blocks": self.capacity,
+            "blocks_used": self.blocks_used,
+            "blocks_free": self.blocks_free,
+            "peak_blocks_used": self.peak_blocks_used,
+            "bytes_per_block": self.bytes_per_block,
+            "bytes_used": self.blocks_used * self.bytes_per_block,
+            "lookups": self.lookups,
+            "hit_requests": self.hit_requests,
+            "hit_tokens": self.hit_tokens,
+            "miss_tokens": self.miss_tokens,
+            "hit_rate": (self.hit_tokens / total) if total else 0.0,
+            "inserted_blocks": self.inserted_blocks,
+            "evicted_blocks": self.evicted_blocks,
+            "flushes": self.flushes,
+            "fork_shared_blocks": len(self._fork_refs),
+            "forked_blocks_total": self.forked_blocks_total,
+            "fork_cow_copies": self.fork_cow_copies,
+        }
+
+    # -- slot allocation ----------------------------------------------------
+    def alloc(self, n: int) -> list[int] | None:
+        """Take ``n`` private block rows, evicting LRU unreferenced trie
+        leaves as needed. All-or-nothing: on shortfall every row taken is
+        returned and ``None`` comes back (the caller preempts a slot or
+        parks the request) — a partial grant would leave a slot unable
+        to write its next token with no way to make progress."""
+        if n <= 0:
+            return []
+        got: list[int] = []
+        opened = self._begin_spill_burst()
+        try:
+            while len(got) < n:
+                slot = self._alloc(protect=None)
+                if slot is None:
+                    self._free.extend(got)
+                    return None
+                got.append(slot)
+        finally:
+            # Flush even on shortfall: the victims were evicted either
+            # way, and their rows (returned to the free list unwritten)
+            # still hold the bytes to spill.
+            if opened:
+                self._flush_spill_burst()
+        self.peak_blocks_used = max(self.peak_blocks_used, self.blocks_used)
+        if self._metrics is not None:
+            self._note_occupancy()
+        return got
+
+    def fork(self, ids, n: int) -> None:
+        """Register ``n - 1`` additional owners for each private row in
+        ``ids`` — the copy-on-write share under forked sampling: one
+        prefill's complete prompt blocks are pointed at by all ``n`` fork
+        rows' block tables, and each fork :meth:`free`\\ s them at its own
+        teardown. Complete blocks are never written again (appends go to
+        fresh private tail blocks), so sharing needs no copy — the only
+        copy-on-write moment is the PARTIAL tail block, which the engine
+        duplicates per fork at fork time (:attr:`fork_cow_copies`)."""
+        extra = max(0, int(n) - 1)
+        if not extra or not len(ids):
+            return
+        for i in ids:
+            self._fork_refs[int(i)] = self._fork_refs.get(int(i), 0) + extra
+        self.forked_blocks_total += extra * len(ids)
+
+    def note_cow_copy(self, n: int = 1) -> None:
+        """Count ``n`` tail blocks physically copied at fork time (the
+        divergent-write half of copy-on-write)."""
+        self.fork_cow_copies += int(n)
+
+    def free(self, ids) -> None:
+        """Return private rows to the free list. Only rows handed out by
+        :meth:`alloc` and not since adopted may be freed. Rows shared
+        across fork groups (:meth:`fork`) decrement their extra-owner
+        count instead — the row returns to the free list only on its
+        LAST owner's free, which keeps block accounting exact under
+        copy-on-write sampling."""
+        if not len(ids):
+            return
+        released: list[int] = []
+        for i in ids:
+            i = int(i)
+            extra = self._fork_refs.get(i)
+            if extra:
+                if extra == 1:
+                    del self._fork_refs[i]
+                else:
+                    self._fork_refs[i] = extra - 1
+                continue
+            released.append(i)
+        if not released:
+            return
+        self._free.extend(released)
+        self.version += 1
+        if self._metrics is not None:
+            self._note_occupancy()
+
+    def flush(self) -> None:
+        """Pool flush additionally clears fork shares: a flush runs with
+        zero active slots, so no fork group can still own rows."""
+        self._fork_refs.clear()
+        super().flush()
+
+    def adopt(self, tokens, ids, first_block: int) -> int:
+        """Zero-copy prefix-cache insert: chain the slot's private rows
+        ``ids`` — holding the K/V of ``tokens``' blocks ``first_block,
+        first_block+1, ...`` — into the trie, making them shareable (and
+        evictable once unreferenced). Blocks the trie already holds (a
+        concurrent request cached the same prefix first) free our
+        duplicate row instead; rows past ``tokens``' complete blocks are
+        freed too. Returns the count actually adopted."""
+        keys = list(self._blocks(tokens, len(tokens) // self.block_tokens))
+        node = self._root
+        for key in keys[:first_block]:
+            child = node.children.get(key)
+            if child is None:
+                # The matched prefix chain this slot hung off was flushed
+                # or evicted out from under a non-pinned walk — cannot
+                # attach a disconnected suffix; just free the rows.
+                self.free(ids)
+                return 0
+            node = child
+        now = next(self._clock)
+        adopted = 0
+        extra: list[int] = []
+        for key, slot in zip(keys[first_block:], ids):
+            child = node.children.get(key)
+            if child is not None:
+                extra.append(int(slot))  # duplicate: cached copy wins
+                self._touch(child, now)
+                node = child
+                continue
+            child = _Node(int(slot), node, key)
+            node.children[key] = child
+            self._by_slot[int(slot)] = child
+            self._touch(child, now)
+            node = child
+            adopted += 1
+        tail = len(keys) - first_block
+        extra.extend(int(s) for s in ids[max(0, tail):])
+        if extra:
+            self.free(extra)
+        self.inserted_blocks += adopted
+        self.version += 1  # adopted rows are now evictable
+        if self._metrics is not None:
+            if adopted:
+                self._metrics["inserts"].inc(adopted)
+            self._note_occupancy()
+        return adopted
+
+    def _note_occupancy(self) -> None:
+        if self._metrics is not None:
+            self._metrics["used"].set(self.blocks_used)
+            self._metrics["bytes"].set(
+                self.blocks_used * self.bytes_per_block)
+        if self._g_pool is not None:
+            self._g_pool["used"].set(self.blocks_used)
+            self._g_pool["free"].set(self.blocks_free)

@@ -1,14 +1,15 @@
 """Asyncio TCP front end for the serving engine.
 
 Port of the reference's ``distkeras_tpu/serving/server.py`` over the
-port's dense :class:`~distkeras_tpu_torch.serving.engine.ServingEngine`:
-JSONL and the negotiated bin1 frames (:mod:`.wire`), the ``metricsz``,
-``healthz``, ``queryz``, ``tracez``, ``debugz`` and ``inject_latency``
-verbs, and the graceful ``stop()``. The verbs and frames of later slices
+port's :class:`~distkeras_tpu_torch.serving.engine.ServingEngine`: JSONL
+and the negotiated bin1 frames (:mod:`.wire`), the ``metricsz``,
+``healthz``, ``queryz``, ``tracez``, ``debugz``, ``inject_latency`` and
+``reload`` verbs, the request kinds' done records, and the graceful
+``stop()``. The verbs and frames of later slices
 answer with the reference's typed error record (``{"error": ...,
 "code": "bad_request"}``) naming their ROADMAP item: ``kv_export``, ``kv_push``, ``kv_prefill``,
 KVBLK frames and the ``kv_from``/``kv_wait`` request hints (the fleet,
-A8); ``reload`` (the parameter swap, A7b); ``telemetry_start``,
+A8); ``telemetry_start``,
 ``telemetry_stop`` and ``telemetryz`` (the pushed telemetry plane of
 ``telemetry/timeseries.py``, A8).
 
@@ -67,7 +68,6 @@ _DEFERRED_VERBS = {
     "telemetry_start": "telemetry/timeseries.py (ROADMAP.md §A item A8)",
     "telemetry_stop": "telemetry/timeseries.py (ROADMAP.md §A item A8)",
     "telemetryz": "telemetry/timeseries.py (ROADMAP.md §A item A8)",
-    "reload": "the parameter swap (ROADMAP.md §A item A7b)",
 }
 
 
@@ -180,6 +180,12 @@ class ServingServer:
         }
         if req.kind != "generate":
             done["kind"] = req.kind
+        if req.fork_completions is not None:
+            done["completions"] = req.fork_completions
+        if req.logprobs is not None:
+            done["logprobs"] = req.logprobs
+        if req.embedding is not None:
+            done["embedding"] = req.embedding
         if req.weight_version is not None:
             # Provenance: the exact checkpoint (version + content
             # digest) the serving params came from — a bad answer
@@ -403,6 +409,8 @@ class ServingServer:
     async def _control(self, spec: dict) -> dict:
         """Handle a control verb; returns the single reply object."""
         cmd = spec.get("cmd")
+        if cmd == "reload":
+            return await self._reload(spec)
         if cmd in _DEFERRED_VERBS:
             return _deferred(f"the {cmd} verb", _DEFERRED_VERBS[cmd])
         if cmd == "inject_latency":
@@ -461,6 +469,8 @@ class ServingServer:
             }
             if engine.prefix_cache is not None:
                 health["prefix_cache"] = engine.prefix_cache.stats()
+            if engine.kv_pool is not None:
+                health["kv_pool"] = engine.kv_pool.stats()
             if engine.auditor is not None:
                 health["recompile_audit"] = engine.auditor.report()
             if engine.slo_s is not None:
@@ -474,6 +484,51 @@ class ServingServer:
                 health["trace_store"] = engine.trace_store.stats()
             return {"healthz": health}
         return {"error": f"unknown cmd {cmd!r}", "code": "bad_request"}
+
+    async def _reload(self, spec: dict) -> dict:
+        """``{"cmd": "reload", "weights": path}``: hot-swap the engine's
+        target weights from a weight file of either package, read through
+        :mod:`distkeras_tpu_torch.checkpoint` (see
+        :meth:`ServingEngine.request_param_swap`). The swap runs inside the
+        engine loop once no slot is in flight; ``timeout`` (default 60 s)
+        bounds the wait for that moment before answering ``code="busy"``."""
+        path = spec.get("weights")
+        if not path:
+            return {"error": "reload requires a 'weights' path",
+                    "code": "bad_request"}
+        try:
+            timeout = float(spec.get("timeout", 60.0))
+        except (TypeError, ValueError):
+            return {"error": f"bad timeout {spec.get('timeout')!r}",
+                    "code": "bad_request"}
+        loop = asyncio.get_running_loop()
+        try:
+            from distkeras_tpu_torch.checkpoint import load_weights_file_with_provenance
+
+            variables, provenance = await loop.run_in_executor(
+                None, load_weights_file_with_provenance, path)
+            event, result = self.engine.request_param_swap(
+                variables, provenance=provenance)
+        except RuntimeError as e:
+            # Another reload's swap is still pending.
+            return {"error": str(e), "code": "busy"}
+        except Exception as e:
+            # Bad input (missing path, torn file, mismatched tree): a typed
+            # reply to this one client.
+            return {"error": f"reload failed: {e!r}", "code": "bad_request"}
+        try:
+            await asyncio.wait_for(event.wait(), timeout)
+        except asyncio.TimeoutError:
+            if self.engine.cancel_param_swap(event):
+                return {"error": f"replica busy: swap did not run within "
+                                 f"{timeout}s", "code": "busy"}
+            # The loop already took the swap: report its true outcome.
+            await event.wait()
+        if "error" in result:
+            return {"error": f"reload failed: {result['error']!r}",
+                    "code": "error"}
+        return {"reload": {"weights": path, "ok": True,
+                           "weight_version": result.get("weight_version")}}
 
     def _queryz(self, spec: dict) -> dict:
         """``{"cmd": "queryz", "where": [...], "group_by": [...],

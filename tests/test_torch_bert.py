@@ -121,8 +121,7 @@ def test_port_init_draws_the_reference_distributions():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("ring_mesh", object()), ("tp_mesh", object()),
-    ("paged_blocks", 8), ("moe_experts", 4),
+    ("ring_mesh", object()), ("tp_mesh", object()), ("moe_experts", 4),
 ])
 def test_later_slice_fields_raise(field, value):
     with pytest.raises(NotImplementedError, match="slice"):

@@ -161,11 +161,18 @@ def test_positions_clamp_as_the_reference():
 
 
 def test_paged_decode_is_refused():
+    """The paged geometry is accepted now (``tests/test_torch_paged_kv.py``
+    holds it against the reference); what stays refused is a paged apply
+    without its positions and block tables, with the reference's message."""
     _, port = _models("float32")
-    with pytest.raises(NotImplementedError, match="A7"):
-        port_gen._decode_module(port, paged_blocks=8)
-    with pytest.raises(NotImplementedError, match="A7"):
-        port_bert.BertConfig(decode=True, decode_slots=True, paged_blocks=8)
+    dec, cfg = port_gen._decode_module(port, slots=True, paged_blocks=8)
+    params = port.init(0, device="cpu")
+    cache = port_bert.decode_cache(cfg, 1, "cpu")
+    tokens = torch.zeros((1, 2), dtype=torch.int32)
+    with pytest.raises(ValueError, match=r"paged decode needs positions \[B\]$"):
+        dec.apply({**params, **cache}, tokens)
+    with pytest.raises(ValueError, match="block_tables"):
+        dec.apply({**params, **cache}, tokens, positions=torch.zeros(1, dtype=torch.int32))
 
 
 def test_decode_cache_len_caps_the_cache():

@@ -53,7 +53,8 @@ def test_port_imports_neither_jax_nor_reference():
               "telemetry.recompile", "telemetry.request_trace", "telemetry.wide_events",
               "telemetry.flight_recorder", "telemetry.exposition", "serving",
               "serving.scheduler", "serving.metrics", "serving.prefix_cache",
-              "serving.engine", "serving.wire", "serving.server", "serving.client"):
+              "serving.engine", "serving.wire", "serving.server", "serving.client",
+              "serving.constraints", "ops.attention"):
         assert f"distkeras_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -70,7 +71,8 @@ def test_port_imports_neither_jax_nor_reference():
 
 def test_port_imports_with_jax_and_the_reference_blocked():
     """With ``jax`` and ``distkeras_tpu`` unimportable, every module of
-    the port imports, and the serving engine runs a request on the CPU."""
+    the port imports, and the serving engine runs a request on the CPU,
+    dense and paged (constrained, speculative)."""
     code = (
         "import importlib, sys\n"
         "for m in ('jax', 'jaxlib', 'flax', 'optax', 'distkeras_tpu'):\n"
@@ -80,17 +82,25 @@ def test_port_imports_with_jax_and_the_reference_blocked():
         "from distkeras_tpu_torch import ServingEngine, gpt_tiny\n"
         "lm = gpt_tiny(seq_len=16, vocab_size=64)\n"
         "eng = ServingEngine(lm, lm.init(0, device='cpu'), slots=2, device='cpu')\n"
-        "async def go():\n"
+        "async def go(eng, **kw):\n"
         "    task = asyncio.create_task(eng.run())\n"
-        "    out = await eng.submit([1, 2, 3], 4).result()\n"
+        "    req = eng.submit([1, 2, 3], 4, **kw)\n"
+        "    out = await req.result()\n"
         "    eng.shutdown(); await task\n"
         "    return out\n"
-        "print('TOKENS', len(asyncio.run(go())))\n"
+        "print('TOKENS', len(asyncio.run(go(eng))))\n"
+        "w = lm.init(0, device='cpu')\n"
+        "paged = ServingEngine(lm, w, slots=2, kv_pool_blocks=16, kv_block_tokens=4,\n"
+        "                      constrained=True, draft_model=lm, draft_variables=w,\n"
+        "                      device='cpu')\n"
+        "dfa = {'start': 0, 'edges': [[0, 5, 1], [1, 6, 0]]}\n"
+        "print('PAGED', asyncio.run(go(paged, constraint=dfa)))\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "TOKENS 4" in proc.stdout
+    assert "PAGED [5, 6, 5, 6]" in proc.stdout
 
 
 def test_no_port_source_imports_the_reference():
@@ -147,7 +157,8 @@ def test_resolve_device():
                                    "single_trainer", "device_feed", "async_trainer",
                                    "mlp_init", "resnet_init", "sync_trainer",
                                    "ensemble_trainer", "generate", "beam_search",
-                                   "generator", "serving_engine", "prefix_cache"])
+                                   "generator", "serving_engine", "prefix_cache",
+                                   "paged_engine"])
 def test_entry_points_raise_without_cuda(entry):
     _no_cuda()
     model = bert_tiny_mlm(seq_len=16, vocab_size=64)
@@ -169,6 +180,7 @@ def test_entry_points_raise_without_cuda(entry):
         "beam_search": lambda: beam_search(gpt, gpt_weights, prompt, 2),
         "generator": lambda: Generator(gpt, gpt_weights),
         "serving_engine": lambda: ServingEngine(gpt, gpt_weights, slots=2),
+        "paged_engine": lambda: ServingEngine(gpt, gpt_weights, slots=2, kv_pool_blocks=8),
         "prefix_cache": lambda: PrefixCache(decode_cache(
             dataclasses.replace(gpt.config, decode=True, decode_slots=True), 1, "meta"),
             block_tokens=4, budget_bytes=1 << 16),

@@ -441,14 +441,10 @@ def test_metrics_summary_and_metricsz_keys_match_reference(lm):
 # -- options of later slices ------------------------------------------------------
 
 @pytest.mark.parametrize("kw,exc,item", [
-    ({"paged": True}, NotImplementedError, "A7b"),
-    ({"kv_pool_mb": 8.0}, NotImplementedError, "A7b"),
-    ({"kv_pool_blocks": 64}, NotImplementedError, "A7b"),
-    ({"kv_host_tier_mb": 8.0}, NotImplementedError, "A7b"),
-    ({"kv_disk_tier_dir": "/nonexistent"}, NotImplementedError, "A7b"),
-    ({"kv_disk_tier_mb": 8.0}, NotImplementedError, "A7b"),
-    ({"draft_model": "gpt_tiny"}, NotImplementedError, "A7b"),
-    ({"constrained": True}, ValueError, "A7b"),
+    ({"kv_host_tier_mb": 8.0}, NotImplementedError, "A8"),
+    ({"kv_disk_tier_dir": "/nonexistent"}, NotImplementedError, "A8"),
+    ({"kv_disk_tier_mb": 8.0}, NotImplementedError, "A8"),
+    ({"paged": True, "kv_host_tier_mb": 8.0}, NotImplementedError, "A8"),
     ({"mesh": object()}, NotImplementedError, "A10"),
     ({"pipeline_depth": 2}, ValueError, "A10"),
 ])
@@ -458,7 +454,6 @@ def test_deferred_options_raise_naming_item(lm, kw, exc, item):
 
 
 @pytest.mark.parametrize("call,exc,item", [
-    (lambda e: e.request_param_swap({}), NotImplementedError, "A7b"),
     (lambda e: e.request_kv_export([1, 2]), NotImplementedError, "A8"),
     (lambda e: e.request_kv_import(b""), NotImplementedError, "A8"),
 ])

@@ -11,6 +11,12 @@ reference's, on bridged ``gpt_tiny(seq_len=32, vocab_size=64)`` in float32.
   ``tracez`` and ``inject_latency`` answer; the verbs and frames of later
   slices answer with the typed error record naming their ROADMAP item.
 - ``stop(drain=True)`` completes a mid-stream request and rejects new ones.
+- ``reload`` swaps in a weight file the port's ``checkpoint.py`` wrote:
+  ``weight_version`` changes and later tokens are the new weights'
+  ``generate()``'s, on a dense and a paged engine; a bad path or a
+  mismatched file answers with the reference server's codes.
+- The request kinds over JSONL and bin1 on a paged engine: ``score``,
+  ``embed`` and ``sample`` done records equal the reference server's.
 
 Servers bind port 0; every test runs under ``time_limited``.
 """
@@ -168,7 +174,7 @@ def test_control_verbs_answer_and_deferred_verbs_name_their_item(lm):
                 out["queryz"] = await c.queryz(group_by=["tenant"], aggs=["count"])
                 out["inject"] = await c._control({"cmd": "inject_latency",
                                                   "decode_delay_s": 0.0})
-                for cmd in ("reload", "kv_prefill", "kv_push", "kv_export",
+                for cmd in ("kv_prefill", "kv_push", "kv_export",
                             "telemetryz", "telemetry_start", "tracez"):
                     c._writer.write((json.dumps({"cmd": cmd}) + "\n").encode())
                     await c._writer.drain()
@@ -203,7 +209,7 @@ def test_control_verbs_answer_and_deferred_verbs_name_their_item(lm):
     assert out["debugz"]["decode_compile_count"] == 1
     assert out["queryz"]["groups"][0]["count"] == 1
     assert out["inject"] == {"inject_latency": {"decode_delay_s": 0.0}}
-    items = {"reload": "A7b", "kv_prefill": "A8", "kv_push": "A8", "kv_export": "A8",
+    items = {"kv_prefill": "A8", "kv_push": "A8", "kv_export": "A8",
              "telemetryz": "A8", "telemetry_start": "A8", "kv_from": "A8"}
     for cmd, item in items.items():
         assert out[cmd]["code"] == "bad_request", cmd
@@ -238,3 +244,114 @@ def test_server_stop_drain_completes_inflight_rejects_new(lm):
         return toks
 
     assert asyncio.run(go()) == _want(lm, p, 12)
+
+
+# -- reload and the request kinds ---------------------------------------------------
+
+def _weight_file(lm, tmp_path, seed, name="w.npz"):
+    """A weight file of seed ``seed``'s weights, written by the port's
+    checkpoint module; returns its path and the reference variables."""
+    from distkeras_tpu_torch.checkpoint import save_weights_file
+    from distkeras_tpu_torch.utils.bridge import params_to_jax
+
+    ref, _, port, _ = lm
+    variables = ref.init(seed)
+    params = params_from_jax(jax.tree.map(np.asarray, variables), device="cpu")
+    path = str(tmp_path / name)
+    save_weights_file(path, params_to_jax(params, port.module), version=seed + 10)
+    return path, variables
+
+
+@pytest.mark.parametrize("layout", [{}, {"kv_pool_blocks": 64, "kv_block_tokens": 4}],
+                         ids=["dense", "paged"])
+@time_limited
+def test_reload_swaps_weights_and_weight_version(lm, tmp_path, layout):
+    path, new_vars = _weight_file(lm, tmp_path, 1)
+    p = _prompts(51, (5,))[0]
+
+    async def go():
+        server = _port_server(lm, slots=2, **layout)
+        await server.start()
+        try:
+            async with ServingClient("127.0.0.1", server.port) as c:
+                before = await c.generate(p, 5)
+                swapped = await c.reload(path)
+                after = await c.generate(p, 5)
+                health = await c.healthz()
+        finally:
+            await server.stop(drain=True)
+        return before, swapped, after, health
+
+    before, swapped, after, health = asyncio.run(go())
+    assert before["tokens"] == _want(lm, p, 5)
+    assert before["weight_version"]["version"] == 0
+    assert swapped["ok"] and swapped["weight_version"]["version"] == 11
+    assert swapped["weight_version"]["digest"]
+    assert after["weight_version"] == swapped["weight_version"]
+    want = np.asarray(ref_generate(lm[0], new_vars, np.asarray([p], np.int32), 5,
+                                   greedy=True))[0].tolist()
+    assert after["tokens"] == want != before["tokens"]
+    assert health["weight_version"] == swapped["weight_version"]
+    assert health["decode_compile_count"] == 1
+
+
+@time_limited
+def test_reload_errors_equal_reference_codes(lm, tmp_path):
+    small = port_bert.gpt_tiny(seq_len=32, vocab_size=32)
+    from distkeras_tpu_torch.checkpoint import save_weights_file
+    from distkeras_tpu_torch.utils.bridge import params_to_jax
+
+    wrong = str(tmp_path / "wrong.npz")
+    save_weights_file(wrong, params_to_jax(small.init(0, device="cpu"), small.module))
+    lines = [{"cmd": "reload"}, {"cmd": "reload", "weights": str(tmp_path / "missing")},
+             {"cmd": "reload", "weights": wrong}, {"cmd": "reload", "weights": wrong,
+                                                   "timeout": "soon"}]
+
+    async def codes(server):
+        await server.start()
+        out = []
+        try:
+            reader, writer = await asyncio.open_connection("127.0.0.1", server.port)
+            for line in lines:
+                writer.write((json.dumps(line) + "\n").encode())
+                await writer.drain()
+                out.append(json.loads(await reader.readline()).get("code"))
+            writer.close()
+        finally:
+            await server.stop(drain=True)
+        return out
+
+    ref, variables = lm[0], lm[1]
+    port_codes = asyncio.run(codes(_port_server(lm, slots=1)))
+    ref_codes = asyncio.run(codes(RefServer(RefEngine(ref, variables, slots=1), port=0)))
+    assert port_codes == ref_codes == ["bad_request"] * 4
+
+
+@pytest.mark.parametrize("wire_mode", ["jsonl", "bin1"])
+@time_limited
+def test_request_kinds_over_tcp_equal_reference_server(lm, wire_mode):
+    paged = {"slots": 4, "kv_pool_blocks": 64, "kv_block_tokens": 4}
+    p = _prompts(52, (9,))[0]
+
+    async def go(server, client_cls):
+        await server.start()
+        try:
+            async with client_cls("127.0.0.1", server.port, wire_mode=wire_mode) as c:
+                score = await c.score(p)
+                embed = await c.embed(p)
+                sample = await c.sample(p, 4, n=2, speculate=False)
+                proto = c.proto
+        finally:
+            await server.stop(drain=True)
+        return score, embed, sample, proto
+
+    ref, variables = lm[0], lm[1]
+    got = asyncio.run(go(_port_server(lm, **paged), ServingClient))
+    theirs = asyncio.run(go(RefServer(RefEngine(ref, variables, **paged), port=0), RefClient))
+    assert got[3] == theirs[3] == wire_mode
+    np.testing.assert_allclose(got[0]["logprobs"], theirs[0]["logprobs"], rtol=1e-5,
+                               atol=1e-6)
+    np.testing.assert_allclose(got[1]["embedding"], theirs[1]["embedding"], rtol=1e-5,
+                               atol=1e-6)
+    assert got[2]["completions"] == theirs[2]["completions"] == [_want(lm, p, 4)] * 2
+    assert got[0]["kind"] == "score" and got[2]["kind"] == "sample"
