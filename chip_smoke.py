@@ -141,10 +141,40 @@ Phases, each of which must pass or the script exits non-zero:
    checkpoint.py wrote from seed 1: weight_version changes, and the greedy
    tokens after the swap equal a fresh engine's on the seed-1 weights up
    to a bf16 tie. The phase's wall time. No kernel of ours launches.
-16. Print the kernels line, the card's name and power limit, and last the
+16. The fleet on gpt_small at full width (phase 14's model, weights and
+   requests; 15a's rows are the greedy reference; replicas are paged
+   engines with 15a's options and an armed auditor). 16a: a ServingCluster
+   of two LocalReplicas behind the Router, 14a's 32 requests in 4 waves
+   through the port's client over bin1: greedy rows equal 15a's up to a
+   bf16 tie, the fleet healthz rollups, one request's merged tracez with
+   the router's record and the replica's hop under one trace_id; client-
+   observed generated tokens/s, TTFT and inter-token p50/p99, each
+   replica's 1 - serving_device_idle_ratio. 16d (same fleet): one replica
+   killed mid-wave: zero-streamed requests retried, only mid-stream losses
+   end typed, the supervisor restarts it and it rejoins; then the router's
+   reload rolls a published seed-1 weight file through the fleet under load
+   with no client error, every later done line on the new version. 16e
+   (same fleet): wire_controller; a WeightPublisher publishes seed-2
+   weights, which deploy (deploy latency printed); a NaN publish is
+   canary-rejected and quarantined and the fleet stays on last-good. 16b:
+   roles prefill=1, decode=1, 14a's 16 greedy requests and one 496-token
+   prompt whose 31 blocks (17.4 MiB of KVX1) cross as two KVXC frames:
+   every done line carries a kv_migration with bytes, tokens equal 15a's
+   (the long prompt: generate()'s) up to a bf16 tie, export -> import ->
+   re-export on the card is bitwise; migration ms and MiB/s. 16c: one
+   engine with a 64-block pool over a 64 MiB host tier and a disk tier:
+   the 8 shared-prefix requests, the other greedy requests, the 8 again:
+   spills and readmits above 0, round 2 equal to round 1 up to a bf16 tie,
+   ms to readmit a block beside ms to re-prefill one. 16f: `python -m
+   distkeras_tpu_torch.run cluster --model gpt_small --replicas 2 --paged
+   ...` as a child: one stream over TCP equal to 15a's, `run debugz`
+   renders the fleet page, sloz lists its objectives, the replicas' memory
+   rows show bytes in use on cuda:0, SIGINT exits 0. No kernel of ours
+   launches.
+17. Print the kernels line, the card's name and power limit, and last the
    result line {"ok": true, "device": {...}}.
 
-Phases 9-11 and 15f write their checkpoints and weight files under
+Phases 9-11, 15f and 16 write their checkpoints and weight files under
 build/chip_smoke/ (git-ignored)
 and remove them.
 
@@ -2031,6 +2061,7 @@ def paged_phase(served, slots=8, chunk=128, top_k=50, pool_mb=256, tight_blocks=
     check(stats["hit_tokens"] > 0 and stats["hit_requests"] > 0, "15a: no prefix hit")
     check(stats["inserted_blocks"] > 0 and stats["fork_cow_copies"] == 0,
           "15a: prefix blocks were not adopted in place")
+    served["outs_paged"] = outs_a
     order = greedy_ids
     _greedy_check("15a vs 14a", model, variables, [prompts[i] for i in order],
                   [outs_a[i] for i in order], [outs[i] for i in order])
@@ -2238,6 +2269,501 @@ def paged_phase(served, slots=8, chunk=128, top_k=50, pool_mb=256, tight_blocks=
     return counts
 
 
+# -- phase 16: the serving fleet and deployment ----------------------------------
+
+def _pct(xs, q) -> float:
+    import numpy as np
+
+    return float(np.percentile(np.asarray(xs, np.float64), q)) if xs else float("nan")
+
+
+async def _client_waves(port, waves, tokens_before_next=16, **gen_kw):
+    """Phase 14's wave schedule through the port's client over bin1, one
+    connection a request: wave k+1 once each request of wave k has
+    streamed ``tokens_before_next`` tokens (or ended). Returns each
+    request's done record (None for a typed failure, with its streamed
+    count), the client-side token times and the wall seconds."""
+    import asyncio
+
+    from distkeras_tpu_torch.serving import ServingClient
+    from distkeras_tpu_torch.serving.client import ServerError
+
+    t0 = time.perf_counter()
+    n = sum(len(w) for w in waves)
+    dones, stamps, failures = [None] * n, [[] for _ in range(n)], {}
+    submit_t = [0.0] * n
+
+    async def one(i, prompt, new, temp):
+        submit_t[i] = time.perf_counter()
+        async with ServingClient("127.0.0.1", port, wire_mode="bin1") as c:
+            try:
+                dones[i] = await c.generate(
+                    prompt, new, temperature=temp,
+                    on_token=lambda _t: stamps[i].append(time.perf_counter()), **gen_kw)
+            except (ServerError, ConnectionError) as e:
+                failures[i] = (getattr(e, "code", type(e).__name__), len(stamps[i]), str(e))
+
+    tasks, k = [], 0
+    for wave in waves:
+        ids = list(range(k, k + len(wave)))
+        tasks += [asyncio.create_task(one(i, p, m, t)) for i, (p, m, t) in zip(ids, wave)]
+        k += len(wave)
+        while not all(dones[i] is not None or i in failures
+                      or len(stamps[i]) >= tokens_before_next for i in ids):
+            await asyncio.sleep(0.002)
+    await asyncio.gather(*tasks)
+    wall = time.perf_counter() - t0
+    ttft = [s[0] - submit_t[i] for i, s in enumerate(stamps) if s]
+    itl = [b - a for s in stamps for a, b in zip(s, s[1:])]
+    return dones, failures, {"wall": wall, "ttft": ttft, "itl": itl,
+                             "tokens": sum(len(s) for s in stamps)}
+
+
+def _client_line(tag, card, m) -> str:
+    return (f"  {tag} ({card}): {m['tokens']} tokens in {m['wall']:.3f} s: "
+            f"{m['tokens'] / m['wall']:.1f} generated tokens/s (client-observed); TTFT p50 "
+            f"{_pct(m['ttft'], 50) * 1e3:.3f} ms, p99 {_pct(m['ttft'], 99) * 1e3:.3f} ms; "
+            f"inter-token p50 {_pct(m['itl'], 50) * 1e3:.3f} ms, p99 "
+            f"{_pct(m['itl'], 99) * 1e3:.3f} ms")
+
+
+def _busy(engine) -> float:
+    """1 - ``serving_device_idle_ratio``: the share of the engine's tick
+    span not spent in the measured gaps between ticks (the host-gap
+    tracker's view; a profiler also sees the idle inside a tick)."""
+    ratio = engine.metrics.summary().get("device_idle_ratio", float("nan"))
+    return 1.0 - ratio
+
+
+def fleet_phase(served, slots=8, chunk=128, top_k=50, pool_mb=256, long_len=496,
+                disagg_new=16, tier_blocks=64, tier_host_mb=64, tier_new=32,
+                load_new=24, cli_new=8) -> dict:
+    """16: the fleet on gpt_small at full width (phase 14's model, weights
+    and requests; 15a's rows are the greedy reference); returns the launch
+    counts of our kernels (none expected)."""
+    import asyncio
+    import signal
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import distkeras_tpu_torch as dk
+    from distkeras_tpu_torch import run as cli
+    from distkeras_tpu_torch.checkpoint import publish_weights, read_manifest
+    from distkeras_tpu_torch.deploy import PublishPolicy, WeightPublisher
+    from distkeras_tpu_torch.deploy.harness import wire_controller
+    from distkeras_tpu_torch.serving import (
+        LocalReplica,
+        ServingClient,
+        ServingCluster,
+        ServingEngine,
+    )
+    from distkeras_tpu_torch.serving import kv_transfer as kvt
+    from distkeras_tpu_torch.telemetry.recompile import RecompileAuditor
+    from distkeras_tpu_torch.telemetry.registry import MetricsRegistry
+    from distkeras_tpu_torch.telemetry.request_trace import TraceStore
+    from distkeras_tpu_torch.utils.bridge import params_to_jax
+
+    card = card_line()
+    model, variables = served["model"], served["variables"]
+    prompts, temps, new = served["prompts"], served["temps"], served["new"]
+    waves, per_wave, outs_a = served["waves"], served["per_wave"], served["outs_paged"]
+    cfg = model.config
+    n = len(prompts)
+    greedy_ids = [i for i in range(n) if temps[i] <= 0]
+    base = dict(slots=slots, max_queue=64, paged=True, kv_block_tokens=16,
+                prefill_chunk=chunk, top_k=top_k, seed=SEED)
+    sup = dict(health_interval_s=0.25, health_timeout_s=10.0, fail_after=3,
+               base_delay_s=0.1, max_delay_s=2.0, stable_after_s=1.0)
+    root = os.path.join(CKPT_ROOT, "fleet")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    log(f"gpt_small fleet: replicas of the paged engine {base}, kv_pool_mb {pool_mb}")
+    t_phase = time.perf_counter()
+    reset_counts()
+
+    def factory(engines, auditors=None, weights=None):
+        def make(i):
+            def build():
+                aud = None
+                if auditors is not None:
+                    aud = auditors[i] = RecompileAuditor()
+                eng = ServingEngine(model, weights or variables, kv_pool_mb=pool_mb,
+                                    auditor=aud, arm_auditor_after_warmup=aud is not None,
+                                    trace_store=TraceStore(512), **base)
+                engines[i] = eng
+                return eng
+
+            return LocalReplica(build)
+
+        return make
+
+    waves_in = [[(prompts[i], new, temps[i]) for i in range(w * per_wave, (w + 1) * per_wave)]
+                for w in range(waves)]
+    vars1 = model.init(SEED + 1)
+    pub_dir = os.path.join(root, "publish")
+    boot = publish_weights(pub_dir, params_to_jax(vars1, model.module), meta={"phase": "16d"})
+
+    async def fleet():
+        engines, auditors = {}, {}
+        cluster = ServingCluster(factory(engines, auditors), 2, supervisor_kwargs=sup,
+                                 registry=MetricsRegistry(),
+                                 router_kwargs={"affinity_tokens": 16})
+        out = {}
+        async with cluster:
+            # 16a: phase 14a's waves through the router.
+            dones, failures, m = await _client_waves(cluster.port, waves_in)
+            check(not failures, f"16a: client errors {failures}")
+            out["a"] = (dones, m, {i: _busy(e) for i, e in engines.items()},
+                        {i: e.decode_compile_count() for i, e in engines.items()},
+                        {i: a.report()["serving_decode"]["armed"] for i, a in auditors.items()})
+            async with ServingClient("127.0.0.1", cluster.port, wire_mode="bin1") as c:
+                traced = await c.generate(prompts[greedy_ids[0]], 8, trace_id="phase16a-trace")
+                out["trace"] = await c.tracez("phase16a-trace")
+                out["health_a"] = await c.healthz()
+            log(f"  16a: {time.perf_counter() - t_phase:.2f} s into the phase")
+
+            # 16d: kill r0 mid-wave, then roll seed-1 weights under load.
+            load = [(prompts[i], load_new, 0.0) for i in greedy_ids]
+            task = asyncio.create_task(_client_waves(cluster.port, [load], tokens_before_next=1))
+            await asyncio.sleep(0.05)
+            while not any(e.active_slots for e in engines.values()):
+                await asyncio.sleep(0.005)
+            await asyncio.sleep(0.3)
+            t_kill = time.perf_counter()
+            await cluster.replicas["r0"].handle.kill()
+            dones_d, failures_d, m_d = await task
+            deadline = time.monotonic() + 120
+            while cluster.replicas["r0"].restarts < 1 or cluster.supervisor.ready_count < 2:
+                check(time.monotonic() < deadline, "16d: r0 was not restarted")
+                await asyncio.sleep(0.05)
+            out["d_kill"] = (dones_d, failures_d, m_d, time.perf_counter() - t_kill,
+                             cluster.replicas["r0"].restarts)
+            completions, errors = [], []
+            stop = asyncio.Event()
+
+            async def worker(k):
+                async with ServingClient("127.0.0.1", cluster.port, wire_mode="bin1") as c:
+                    j = k
+                    while not stop.is_set():
+                        p = prompts[greedy_ids[j % len(greedy_ids)]]
+                        j += 3
+                        try:
+                            done = await c.generate(p, 8)
+                            completions.append((time.perf_counter(), done["weight_version"]))
+                        except Exception as e:
+                            errors.append(repr(e))
+                            return
+
+            workers = [asyncio.create_task(worker(k)) for k in range(3)]
+            while len(completions) < 3 and not errors:
+                await asyncio.sleep(0.01)
+            t0 = time.perf_counter()
+            async with ServingClient("127.0.0.1", cluster.port) as c:
+                rep = await c.reload(boot["path"], timeout=120.0)
+            t1 = time.perf_counter()
+            n_after = len(completions) + 6
+            while len(completions) < n_after and not errors:
+                await asyncio.sleep(0.01)
+            stop.set()
+            await asyncio.gather(*workers)
+            out["d_reload"] = (rep, completions, errors, t0, t1)
+            log(f"  16d: {time.perf_counter() - t_phase:.2f} s into the phase")
+
+            # 16e: the deploy controller over the same fleet.
+            ctrl = wire_controller(cluster.router, pub_dir, model=model,
+                                   vocab=cfg.vocab_size, golden_count=2, golden_len=16,
+                                   golden_new_tokens=8, seed=SEED,
+                                   registry=cluster.router.registry,
+                                   initial_weights=boot["path"])
+            publisher = WeightPublisher(pub_dir, PublishPolicy(every_steps=1))
+            vars2 = model.init(SEED + 2)
+            await asyncio.to_thread(publisher.publish, params_to_jax(vars2, model.module),
+                                    step=2, loss=1.0)
+            t0 = time.perf_counter()
+            good = await ctrl.poll_once()
+            deploy_s = time.perf_counter() - t0
+            nan_vars = {k: v * float("nan") if v.is_floating_point() else v
+                        for k, v in model.init(SEED + 3).items()}
+            await asyncio.to_thread(publisher.publish, params_to_jax(nan_vars, model.module),
+                                    step=3, loss=float("nan"))
+            t0 = time.perf_counter()
+            bad = await ctrl.poll_once()
+            reject_s = time.perf_counter() - t0
+            async with ServingClient("127.0.0.1", cluster.port) as c:
+                after = await c.generate(prompts[greedy_ids[0]], 8)
+                health_e = await c.healthz()
+                dz = await c.deployz()
+            out["e"] = (good, deploy_s, bad, reject_s, after, health_e, dz)
+            del vars2, nan_vars
+        return out
+
+    t_fleet = time.perf_counter()
+    res = asyncio.run(fleet())
+    log(f"  16a+16d+16e fleet wall {time.perf_counter() - t_fleet:.2f} s")
+
+    # 16a's checks.
+    dones, m, busy, compiles, armed = res["a"]
+    log(_client_line("16a", card, m))
+    log(f"  16a: replica busy share (1 - serving_device_idle_ratio) "
+        f"{ {f'r{i}': round(b, 4) for i, b in busy.items()} }; decode signatures {compiles}")
+    got = [d["tokens"] for d in dones]
+    check(all(len(g) == new for g in got), "16a: a request ended short")
+    check(all(c == 1 for c in compiles.values()) and all(armed.values()),
+          f"16a: decode signatures {compiles}, armed {armed}")
+    _greedy_check("16a fleet vs 15a", model, variables, [prompts[i] for i in greedy_ids],
+                  [got[i] for i in greedy_ids], [outs_a[i] for i in greedy_ids])
+    h = res["health_a"]["router"]
+    log(f"  16a healthz rollup: replicas_ready {h['replicas_ready']}, outstanding "
+        f"{h['outstanding_total']}, weight_versions {h['weight_versions']}, "
+        f"kv_migrations {h.get('kv_migrations')}")
+    check(h["replicas_ready"] == 2 and h["mixed_weight_versions"] is False,
+          f"16a: fleet healthz {h}")
+    trace = res["trace"]
+    hops = trace.get("engine_hops") or []
+    log(f"  16a tracez: router record {bool(trace.get('router'))}, engine hops "
+        f"{[hp.get('source') for hp in hops]}, events "
+        f"{[e[2] if len(e) > 2 else e for e in trace.get('events', [])][:8]}")
+    check(trace.get("router") is not None and hops
+          and all(hp["trace_id"] == "phase16a-trace" for hp in hops),
+          f"16a: tracez does not show the router and replica hops: {trace}")
+
+    # 16d's checks.
+    dones_d, failures_d, m_d, rejoin_s, restarts = res["d_kill"]
+    log(f"  16d kill ({card}): {sum(d is not None for d in dones_d)} of {len(dones_d)} "
+        f"requests completed, {len(failures_d)} ended typed "
+        f"{[(code, k) for code, k, _ in failures_d.values()]}; r0 restarted {restarts} "
+        f"time(s), fleet ready again {rejoin_s:.2f} s after the kill")
+    for i, (code, streamed, msg) in failures_d.items():
+        check(streamed >= 1, f"16d: request {i} failed with zero tokens streamed: {msg}")
+        check(code in ("replica_lost", "error"), f"16d: request {i} ended {code}: {msg}")
+    ok_d = [i for i, d in enumerate(dones_d) if d is not None]
+    _greedy_check("16d survivors vs 15a", model, variables,
+                  [prompts[greedy_ids[i]] for i in ok_d],
+                  [dones_d[i]["tokens"] for i in ok_d],
+                  [outs_a[greedy_ids[i]][:load_new] for i in ok_d])
+    rep, completions, errors, t0, t1 = res["d_reload"]
+    new_v = boot["version"]
+    during = [c for c in completions if t0 <= c[0] <= t1]
+    late = [wv for t, wv in completions if t > t1]
+    log(f"  16d reload ({card}): rolled in {t1 - t0:.3f} s, reloaded {rep.get('reloaded')}, "
+        f"failed {rep.get('failed')}; {len(completions)} completions ({len(during)} during "
+        f"the roll), {len(errors)} client errors; later versions "
+        f"{sorted({wv['version'] for wv in late})}")
+    check(rep.get("ok") and not rep.get("failed"), f"16d: reload {rep}")
+    check(not errors, f"16d: client errors under the reload {errors}")
+    check(late and all(wv["version"] == new_v and wv["digest"] == boot["digest"]
+                       for wv in late), f"16d: a later done line is not v{new_v}")
+
+    # 16e's checks.
+    good, deploy_s, bad, reject_s, after, health_e, dz = res["e"]
+    log(f"  16e deploy ({card}): seed-2 publish {good['status']} in {deploy_s:.3f} s "
+        f"(manifest seen to fleet verified); NaN publish {bad['status']} in "
+        f"{reject_s:.3f} s ({bad.get('reason')}); fleet serves v"
+        f"{after['weight_version']['version']}; counters {dz['counters']}; quarantined "
+        f"{[q['version'] for q in dz['quarantined']]}")
+    check(good["status"] == "deployed", f"16e: good publish {good}")
+    check(bad["status"] == "canary_rejected" and "not finite" in bad.get("reason", ""),
+          f"16e: NaN publish {bad}")
+    check(after["weight_version"]["version"] == good["version"]
+          and health_e["router"]["mixed_weight_versions"] is False,
+          f"16e: the fleet left last-good: {after['weight_version']}")
+    check([q["version"] for q in dz["quarantined"]] == [bad["version"]],
+          f"16e: quarantine {dz['quarantined']}")
+    log(f"  16e: {time.perf_counter() - t_phase:.2f} s into the phase")
+    torch.cuda.empty_cache()
+
+    # 16b: disaggregated prefill/decode, 14a's 16 greedy requests and one
+    # prompt of long_len tokens whose KVX1 payload passes the frame cap.
+    rng = np.random.default_rng(SEED + 16)
+    long_prompt = rng.integers(0, cfg.vocab_size, size=long_len).tolist()
+    bt = base["kv_block_tokens"]
+    per_token = 2 * cfg.num_layers * cfg.num_heads * (cfg.hidden_size // cfg.num_heads) * 2
+    log(f"  16b: one {long_len}-token prompt: {long_len // bt} blocks of "
+        f"{per_token * bt} bytes, {long_len // bt * per_token * bt / 2**20:.2f} MiB of KV "
+        f"against the {kvt.MAX_TRANSFER_BYTES / 2**20:.2f} MiB frame cap")
+
+    async def disagg():
+        engines = {}
+        registry = MetricsRegistry()
+        cluster = ServingCluster(factory(engines), 2, roles=["prefill", "decode"],
+                                 registry=registry, supervisor_kwargs=sup,
+                                 router_kwargs={"affinity_tokens": 16,
+                                                "min_handoff_tokens": bt})
+        async with cluster:
+            dones, failures, m = await _client_waves(
+                cluster.port, [[(prompts[i], new, 0.0) for i in greedy_ids]])
+            async with ServingClient("127.0.0.1", cluster.port, wire_mode="bin1") as c:
+                long_done = await c.generate(long_prompt, disagg_new)
+                health = await c.healthz()
+            pre, dec = engines[0], engines[1]
+            first = await _kv_export(pre, long_prompt)
+            imp = await _kv_import(dec, first["payload"])
+            again = await _kv_export(dec, long_prompt)
+            frames = kvt.split_frames(first["payload"])
+            return (dones, failures, m, long_done, health, first, imp, again, frames,
+                    registry.snapshot(), pre.metrics.kv_exports, dec.metrics.kv_migrations)
+
+    (dones_b, failures_b, m_b, long_done, health_b, first, imp, again, frames, snap_b,
+     exports, migrations) = asyncio.run(disagg())
+    log(_client_line("16b", card, m_b))
+    kms = [d.get("kv_migration") or {} for d in dones_b] + [long_done.get("kv_migration") or {}]
+    lk = long_done["kv_migration"]
+    log(f"  16b ({card}): migrations {migrations} on the decode replica, {exports} exports on "
+        f"the prefill replica; per request bytes {[km.get('bytes') for km in kms]}; the "
+        f"{long_len}-token prompt: {lk.get('bytes')} bytes in {len(frames)} KVBLK frames, "
+        f"{lk.get('latency_s', float('nan')) * 1e3:.3f} ms pull+adopt, "
+        f"{lk.get('bytes', 0) / 2**20 / max(lk.get('latency_s', 1e-9), 1e-9):.1f} MiB/s; "
+        f"migration ms p50 {_pct([km['latency_s'] for km in kms if 'latency_s' in km], 50) * 1e3:.3f}")
+    check(not failures_b, f"16b: client errors {failures_b}")
+    check(all(km.get("bytes", 0) > 0 and "fallback" not in km for km in kms),
+          f"16b: a done line without a migration: {kms}")
+    check(len(frames) == 2 and lk["bytes"] > kvt.MAX_TRANSFER_BYTES,
+          f"16b: the long prompt crossed in {len(frames)} frames, {lk.get('bytes')} bytes")
+    check(snap_b["router_kv_handoff_fallbacks_total"]["value"] == 0, "16b: handoff fallbacks")
+    _greedy_check("16b disaggregated vs 15a", model, variables,
+                  [prompts[i] for i in greedy_ids], [d["tokens"] for d in dones_b],
+                  [outs_a[i] for i in greedy_ids])
+    want_long = dk.generate(model, variables, np.asarray([long_prompt], np.int32),
+                            disagg_new, greedy=True)[0].tolist()
+    _greedy_check("16b long prompt vs generate()", model, variables, [long_prompt],
+                  [long_done["tokens"]], [want_long])
+    log(f"  16b: export -> import ({imp.get('adopted_blocks')} adopted, "
+        f"{imp.get('resident_blocks')} resident) -> re-export: "
+        f"{len(first['payload'])} and {len(again['payload'])} bytes, bitwise "
+        f"{first['payload'] == again['payload']}")
+    check(first["payload"] == again["payload"], "16b: re-export differs from the export")
+    check(health_b["router"].get("roles") == {"prefill": 1, "decode": 1},
+          f"16b: roles {health_b['router'].get('roles')}")
+    log(f"  16b: {time.perf_counter() - t_phase:.2f} s into the phase")
+    torch.cuda.empty_cache()
+
+    # 16c: a 64-block pool over host and disk tiers; the shared-prefix
+    # requests twice.
+    shared = [i for i in range(n) if prompts[i][:128] == prompts[0][:128]] or greedy_ids[:8]
+    disk = tempfile.mkdtemp(prefix="kvtier-", dir=root)
+    tiered = ServingEngine(model, variables, kv_pool_blocks=tier_blocks,
+                           kv_host_tier_mb=tier_host_mb, kv_disk_tier_dir=disk,
+                           kv_disk_tier_mb=tier_host_mb, **base)
+
+    others = [i for i in greedy_ids if i not in shared]
+
+    async def rounds():
+        # Round 1, then the other greedy requests (whose admissions evict
+        # round 1's adopted chains into the tiers), then round 2.
+        task = asyncio.create_task(tiered.run())
+        try:
+            out = []
+            for ids in (shared, others, shared):
+                reqs = [tiered.submit(prompts[i], tier_new) for i in ids]
+                out.append([await q.result() for q in reqs])
+                out.append(reqs)
+            return out
+        finally:
+            tiered.shutdown(drain=True)
+            await task
+
+    t0 = time.perf_counter()
+    r1, reqs1, _, _, r2, reqs2 = asyncio.run(rounds())
+    tier_s = time.perf_counter() - t0
+    mt = tiered.metrics
+    snap = mt.registry.snapshot()
+    readmit_h = snap.get("kv_tier_readmit_seconds") or {}
+    readmit_block_ms = (1e3 * readmit_h.get("sum", float("nan")) / max(mt.kv_readmits, 1))
+    pre_s = sum(q.prefill_device_s or 0.0 for q in reqs1)
+    pre_tokens = sum(len(q.prompt) - (q.prefix_hit_tokens or 0) for q in reqs1)
+    reprefill_block_ms = 1e3 * pre_s / max(pre_tokens, 1) * bt
+    log(f"  16c ({card}): {len(shared)} shared-prefix requests twice, {len(others)} others "
+        f"between, through {tier_blocks} blocks in {tier_s:.3f} s; spills {mt.kv_spills} ({mt.kv_spill_bytes} bytes), "
+        f"readmits {mt.kv_readmits} ({mt.kv_readmit_bytes} bytes), preemptions "
+        f"{mt.preemptions}; tier {tiered.kv_tier.stats()}")
+    log(f"  16c ({card}): readmit {readmit_block_ms:.3f} ms a block (host tier to pool, "
+        f"kv_tier_readmit_seconds) against re-prefill {reprefill_block_ms:.3f} ms a block "
+        f"(round 1's prefill device seconds over its computed tokens, x {bt}); round 2 prefix "
+        f"hit tokens {sum(q.prefix_hit_tokens or 0 for q in reqs2)} vs round 1 "
+        f"{sum(q.prefix_hit_tokens or 0 for q in reqs1)}")
+    check(mt.kv_spills > 0 and mt.kv_readmits > 0,
+          f"16c: spills {mt.kv_spills}, readmits {mt.kv_readmits}")
+    _greedy_check("16c round 2 vs round 1", model, variables, [prompts[i] for i in shared],
+                  r2, r1)
+    del tiered
+    shutil.rmtree(disk, ignore_errors=True)
+    torch.cuda.empty_cache()
+    log(f"  16c: {time.perf_counter() - t_phase:.2f} s into the phase")
+
+    # 16f: the command line, as a child on the card.
+    env = {**os.environ, "PYTHONPATH": REPO + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "distkeras_tpu_torch.run", "cluster", "--model", "gpt_small",
+         "--replicas", "2", "--paged", "--kv-pool-mb", str(pool_mb), "--kv-block-tokens",
+         str(bt), "--prefill-chunk", str(chunk), "--slots", str(slots), "--port", "0",
+         "--slo-ms", "60000", "--flight-dir", os.path.join(root, "flight")],
+        cwd=REPO, env=env, stdout=subprocess.PIPE, text=True, start_new_session=True)
+    try:
+        banner = json.loads(proc.stdout.readline())
+        up_s = time.perf_counter() - t0
+        port = banner["port"]
+
+        async def cli_stream():
+            async with ServingClient("127.0.0.1", port) as c:
+                done = await c.generate(prompts[greedy_ids[0]], cli_new)
+                health = await c.healthz()
+                slo = await c._control({"cmd": "sloz"})
+            return done, health, slo
+
+        done_f, health_f, slo = asyncio.run(cli_stream())
+        import contextlib
+        import io
+
+        page = io.StringIO()
+        with contextlib.redirect_stdout(page):
+            rc_dz = cli.main(["debugz", "--port", str(port)])
+        proc.send_signal(signal.SIGINT)
+        tail, _ = proc.communicate(timeout=120)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    mem = [row for rep_ in health_f["replicas"].values()
+           for row in (rep_.get("healthz") or {}).get("device_memory", [])]
+    objectives = (slo.get("sloz") or {}).get("objectives") or []
+    log(f"  16f ({card}): `run cluster` up in {up_s:.2f} s ({banner['replicas']}); one "
+        f"stream of {len(done_f['tokens'])} tokens; debugz rc {rc_dz}, "
+        f"{len(page.getvalue().splitlines())} lines; sloz objectives "
+        f"{[o.get('objective') for o in objectives]}; device memory rows "
+        f"{[(r['device'], r['bytes_in_use']) for r in mem]}; SIGINT exit {proc.returncode}")
+    check(len(done_f["tokens"]) == cli_new, "16f: the stream ended short")
+    _greedy_check("16f cli vs 15a", model, variables, [prompts[greedy_ids[0]]],
+                  [done_f["tokens"]], [outs_a[greedy_ids[0]][:cli_new]])
+    check(rc_dz == 0 and "replica r0" in page.getvalue() and "replica r1" in page.getvalue(),
+          f"16f: debugz page {page.getvalue()[:400]}")
+    check(objectives, f"16f: sloz lists no objective: {slo}")
+    check(mem and all(r["device"] == "cuda:0" and r["available"] and r["bytes_in_use"] > 0
+                      for r in mem), f"16f: memory rows {mem}")
+    check(proc.returncode == 0 and "restarts" in tail, f"16f: SIGINT exit {proc.returncode}")
+    shutil.rmtree(root, ignore_errors=True)
+    counts = read_counts()
+    check(counts == expected(), f"16: our kernels launched on the fleet path: {counts}")
+    log(f"  16: phase wall {time.perf_counter() - t_phase:.2f} s ({card})")
+    return counts
+
+
+async def _kv_export(engine, prompt) -> dict:
+    ev, res = engine.request_kv_export(prompt)
+    await ev.wait()
+    check("error" not in res and res.get("payload"), f"16b: export {res}")
+    return res
+
+
+async def _kv_import(engine, payload) -> dict:
+    ev, res = engine.request_kv_import(payload)
+    await ev.wait()
+    check("error" not in res, f"16b: import {res}")
+    return res
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2338,6 +2864,9 @@ def main(argv=None) -> int:
     log("phase 15: gpt_small paged serving (pool, preemption, request kinds, constrained and "
         "speculative decoding, reload) at full width")
     runs.append(paged_phase(served))
+    log("phase 16: the gpt_small fleet (router, replicas, disaggregated prefill/decode, KV "
+        "tiers, faults and rolling reload, deploy, the command line) at full width")
+    runs.append(fleet_phase(served))
     del served
     launches = {k: sum(r[k] for r in runs) for k in runs[0]}
     for k, n in launches.items():

@@ -18,10 +18,19 @@ device (ROADMAP.md §A items A7 and A7b):
 - :class:`ServingServer` / :class:`ServingClient`: the asyncio TCP front
   end, newline-delimited JSON or the negotiated bin1 frames;
 - :class:`ServingMetrics`: TTFT, inter-token latency, occupancy and the
-  decode pipeline's host gap.
-
-The host and disk KV tiers, the cluster, KV transfer and the SLO engine
-come with item A8.
+  decode pipeline's host gap;
+- :mod:`~distkeras_tpu_torch.serving.cluster` (item A8): the fleet —
+  :class:`ServingCluster` (the :class:`Router` front port and the
+  :class:`ReplicaSupervisor`'s restarts) over :class:`LocalReplica` or
+  :class:`ProcessReplica` replicas, with prefix-affine routing, retry of
+  zero-streamed requests, rolling reloads and disaggregated
+  prefill/decode roles;
+- :mod:`~distkeras_tpu_torch.serving.kv_transfer`: the KVX1 block codec,
+  its chunk frames and the peer pull/push clients (typed
+  :class:`KVTransferError` rejects); :mod:`.kv_tier`: the host and disk
+  KV tiers under the paged pool;
+- :class:`SLOEngine` / :class:`Objective`: burn-rate SLOs over the fleet's
+  pushed telemetry.
 """
 
 from distkeras_tpu_torch.serving.scheduler import (
@@ -36,12 +45,21 @@ from distkeras_tpu_torch.serving.scheduler import (
     TenantOverQuota,
     TenantQuota,
 )
+from distkeras_tpu_torch.serving.kv_transfer import KVTransferError
 from distkeras_tpu_torch.serving.metrics import ServingMetrics
+from distkeras_tpu_torch.serving.slo import Objective, SLOEngine, default_objectives
 from distkeras_tpu_torch.serving.prefix_cache import KVBlockPool, PrefixCache
 from distkeras_tpu_torch.serving.constraints import TokenDFA
 from distkeras_tpu_torch.serving.engine import ServingEngine
 from distkeras_tpu_torch.serving.server import ServingServer
 from distkeras_tpu_torch.serving.client import ServingClient
+from distkeras_tpu_torch.serving.cluster import (
+    LocalReplica,
+    ProcessReplica,
+    ReplicaSupervisor,
+    Router,
+    ServingCluster,
+)
 
 __all__ = [
     "ServingEngine",
@@ -61,4 +79,13 @@ __all__ = [
     "EngineStopped",
     "TenantOverQuota",
     "TenantQuota",
+    "ServingCluster",
+    "Router",
+    "ReplicaSupervisor",
+    "LocalReplica",
+    "ProcessReplica",
+    "KVTransferError",
+    "SLOEngine",
+    "Objective",
+    "default_objectives",
 ]

@@ -96,9 +96,24 @@ inline on the loop thread. Grad mode is per thread, so every function
 that touches the model enters ``torch.inference_mode()`` itself, and all
 of them queue on the device's current stream, which threads share.
 
-What the reference has and this engine refuses, each naming its ROADMAP
-item: the host and disk KV tiers and the KV export and import of the
-fleet (A8); a device mesh and ``pipeline_depth > 1`` (A10). No step is a
+**KV block transfer** (paged only; :meth:`ServingEngine.request_kv_export`,
+:meth:`ServingEngine.request_kv_import`, the fleet's disaggregated
+prefill): an export gathers a prompt's cached block chain from the pools
+(``index_select`` per KV leaf, copied to pinned host memory) and serializes
+it as KVX1 (:mod:`~distkeras_tpu_torch.serving.kv_transfer`); an import
+validates geometry and weight provenance, adopts the chain into the trie
+(:meth:`KVBlockPool.adopt_foreign`) and scatters the rows in
+(``index_copy_`` from pinned memory). Both run between iterations, after a
+pipeline barrier, so they never interleave with a tick over the same rows.
+The **host and disk KV tiers** (``kv_host_tier_mb``, ``kv_disk_tier_dir``,
+``kv_disk_tier_mb``; :class:`~distkeras_tpu_torch.serving.kv_tier.HostKVTier`)
+catch the pool's eviction victims as KVX1 bytes, one batched gather per
+allocation burst, and readmit them at admission before the prefix match.
+The transfer ids are not padded to a power-of-two bucket as the
+reference's are: nothing is compiled per shape here.
+
+What the reference has and this engine refuses, naming its ROADMAP item:
+a device mesh and ``pipeline_depth > 1`` (A10). No step is a
 CUDA graph: a warm decode dispatch is a full eager step on the loop
 thread. ``HostGapTracker`` stamps a tick's dispatch before its launches,
 so ``serving_device_idle_ratio`` counts the gaps between ticks; inside an
@@ -130,6 +145,13 @@ from distkeras_tpu_torch.inference.generate import (
 )
 from distkeras_tpu_torch.models.bert import decode_cache
 from distkeras_tpu_torch.serving.constraints import TokenDFA
+from distkeras_tpu_torch.serving.kv_tier import HostKVTier
+from distkeras_tpu_torch.serving.kv_transfer import (
+    MAX_TOTAL_TRANSFER_BYTES,
+    KVTransferError,
+    deserialize_blocks,
+    serialize_blocks,
+)
 from distkeras_tpu_torch.serving.metrics import ServingMetrics
 from distkeras_tpu_torch.serving.prefix_cache import KVBlockPool, PrefixCache
 from distkeras_tpu_torch.serving.scheduler import (
@@ -143,17 +165,16 @@ from distkeras_tpu_torch.serving.scheduler import (
     Scheduler,
     ServingError,
 )
+from distkeras_tpu_torch.telemetry.device import publish_memory_gauges
 from distkeras_tpu_torch.telemetry.flight_recorder import FlightRecorder
 from distkeras_tpu_torch.telemetry.recompile import RecompileAuditor
 from distkeras_tpu_torch.telemetry.request_trace import TimelineRecord, TraceStore
 from distkeras_tpu_torch.telemetry.spans import span
 from distkeras_tpu_torch.telemetry.wide_events import WideEventStore
+from distkeras_tpu_torch.utils.bridge import as_state_dict
 from distkeras_tpu_torch.utils.device import resolve_device
 
 __all__ = ["ServingEngine"]
-
-_A8 = "ROADMAP.md §A item A8"
-
 
 @torch.inference_mode()
 def _prefill_fn(module, top_k, gen, params, cache, padded, start, true_len, temp):
@@ -554,48 +575,13 @@ class _ForkReady:
     tokens: list
 
 
-def _memory_rows(device: torch.device, registry, params_bytes: int) -> list[dict]:
-    """The reference's ``publish_memory_gauges`` for one torch device:
-    ``device_memory_stats_available`` always, the byte gauges only where
-    the device reports them (CUDA; the CPU is the typed "no data"
-    sentinel, never a fake 0), and ``model_params_bytes``."""
-    name = f"{device.type}:{device.index or 0}"
-    row = {"device": name, "available": device.type == "cuda",
-           "bytes_in_use": None, "bytes_limit": None, "peak_bytes_in_use": None}
-    if device.type == "cuda":
-        free, total = torch.cuda.mem_get_info(device)
-        row.update(bytes_in_use=int(torch.cuda.memory_allocated(device)),
-                   bytes_limit=int(total),
-                   peak_bytes_in_use=int(torch.cuda.max_memory_allocated(device)))
-        row["headroom_bytes"] = int(free)
-    registry.gauge(
-        "device_memory_stats_available",
-        help="1 when the backend publishes memory stats for this device; "
-             "0 = no data (byte gauges absent, not zero)",
-        device=name).set(1.0 if row["available"] else 0.0)
-    for key, metric, help_ in (
-            ("bytes_in_use", "device_bytes_in_use", "live device bytes in use"),
-            ("bytes_limit", "device_bytes_limit", "device memory capacity"),
-            ("peak_bytes_in_use", "device_peak_bytes_in_use", "high-water device bytes"),
-            ("headroom_bytes", "device_memory_headroom_bytes", "free device bytes")):
-        if row.get(key) is not None:
-            registry.gauge(metric, help=help_, device=name).set(row[key])
-    registry.gauge("model_params_bytes",
-                   help="bytes of the live model parameters").set(params_bytes)
-    return [row]
-
-
-def _host_params(variables) -> dict:
-    """A swap's weights as the port's flat ``state_dict`` on the host: a
-    flat dict of tensors passes through; a reference-layout tree (nested
-    dicts, or ``{"params": ...}`` as a weight file holds it) goes through
-    the weight bridge."""
-    if isinstance(variables, dict) and variables and all(
-            isinstance(v, torch.Tensor) for v in variables.values()):
-        return dict(variables)
-    from distkeras_tpu_torch.utils.bridge import params_from_jax
-
-    return params_from_jax(variables, device="cpu")
+def _kv_leaf_names(cache: dict) -> list[str]:
+    """The pool leaves of a paged cache in KVX1 leaf order: the
+    reference's ``jax.tree.leaves`` order, which sorts the nested dict
+    keys as strings (``layer_0, layer_1, layer_10, ..., layer_2``), so a
+    payload crosses between the packages leaf for leaf."""
+    return sorted((name for name, leaf in cache.items() if leaf.ndim > 1),
+                  key=lambda name: name.split("."))
 
 
 class ServingEngine:
@@ -647,9 +633,14 @@ class ServingEngine:
     ``flight_recorder``, ``wide_events`` (a capacity or a store; default
     4096), ``slo_s``; tenant weights and quotas through the scheduler.
 
-    The KV tiers (A8), a mesh and ``pipeline_depth > 1`` (A10) raise
-    naming their ROADMAP item (:meth:`_refuse_deferred`);
-    ``kv_tier_watermark`` only tunes the tiers and is accepted unused.
+    ``kv_host_tier_mb`` > 0 (paged only) adds the host KV tier under the
+    pool, with ``kv_disk_tier_dir``/``kv_disk_tier_mb`` a disk level under
+    it and ``kv_tier_watermark`` the fraction of a level's budget its
+    eviction bursts drain to. :meth:`request_kv_export` and
+    :meth:`request_kv_import` move block chains between paged engines.
+
+    A mesh and ``pipeline_depth > 1`` (A10) raise naming their ROADMAP
+    item (:meth:`_refuse_deferred`).
 
     Drive it with :meth:`submit` + :meth:`run` (asyncio).
     """
@@ -707,9 +698,7 @@ class ServingEngine:
                 f"dispatch+harvest), 1 (dispatch tick N+1 before consuming "
                 f"tick N), or >1 (micro-batched ticks overlapping pipeline "
                 f"stages; needs a pp mesh), got {pipeline_depth}")
-        self._refuse_deferred(
-            kv_host_tier_mb=kv_host_tier_mb, kv_disk_tier_dir=kv_disk_tier_dir,
-            kv_disk_tier_mb=kv_disk_tier_mb, mesh=mesh, pipeline_depth=pipeline_depth)
+        self._refuse_deferred(mesh=mesh, pipeline_depth=pipeline_depth)
         self.pipeline_depth = int(pipeline_depth)
         # Dispatched-but-unharvested ticks, oldest first (at most one), and
         # a bounded dispatch->harvest timeline (the tracez tick lane).
@@ -854,6 +843,28 @@ class ServingEngine:
             self._positions_dev = None
             self._mark_tables_dirty()
             self.scheduler.cache_probe = self.kv_pool.probe
+            # The pool leaves in KVX1 order, and the queued KV transfers
+            # (export/import) the loop services between iterations.
+            self._kv_names = _kv_leaf_names(self._cache)
+            self._pending_kv: list[tuple] = []
+            # Host-RAM (optionally disk-backed) spill tier under the pool:
+            # eviction victims spill D2H as KVX1 bytes (one gather per
+            # allocation burst through the batched hook) and readmit H2D
+            # during admission. Every allocation that can evict runs on
+            # the loop after a pipeline barrier, or in the executor while
+            # the loop awaits it.
+            if kv_host_tier_mb > 0:
+                self.kv_tier = HostKVTier(
+                    int(kv_host_tier_mb * 2**20), self.kv_block_tokens,
+                    disk_dir=kv_disk_tier_dir,
+                    disk_budget_bytes=int(kv_disk_tier_mb * 2**20),
+                    watermark=kv_tier_watermark,
+                    registry=self.metrics.registry)
+                self.kv_pool.spill_hook = self._spill_block
+                self.kv_pool.spill_many_hook = self._spill_blocks
+            # Trace context for spill exemplars: the admission driving
+            # allocations.
+            self._tier_trace_id: str | None = None
             if self._constrained_mode:
                 # Host truth [slots, V] (zero rows = unconstrained) and its
                 # device copy, re-uploaded under the dirty flag.
@@ -1010,19 +1021,9 @@ class ServingEngine:
             self._draft_admit = _draft_admit_fn
 
     @staticmethod
-    def _refuse_deferred(*, kv_host_tier_mb, kv_disk_tier_dir, kv_disk_tier_mb, mesh,
-                         pipeline_depth) -> None:
+    def _refuse_deferred(*, mesh, pipeline_depth) -> None:
         """Options of the reference's engine that this port does not have
-        yet raise here, each naming its ROADMAP item."""
-        tiers = [name for name, on in (
-            ("kv_host_tier_mb", kv_host_tier_mb > 0),
-            ("kv_disk_tier_dir", kv_disk_tier_dir),
-            ("kv_disk_tier_mb", kv_disk_tier_mb > 0)) if on]
-        if tiers:
-            raise NotImplementedError(
-                f"the host and disk KV tiers ({', '.join(tiers)}) are not ported yet: "
-                f"they store blocks in the fleet's KV transfer format and come with "
-                f"{_A8}")
+        yet raise here, naming their ROADMAP item."""
         if mesh is not None:
             raise NotImplementedError(
                 "a serving mesh (tensor- or pipeline-parallel serving) is not "
@@ -1049,17 +1050,26 @@ class ServingEngine:
         return log if n is None else log[-int(n):]
 
     def refresh_memory_metrics(self) -> list[dict]:
-        """Publish the device's memory gauges (``torch.cuda``'s allocator
-        on the card; the typed "no data" sentinel on the CPU) and this
-        engine's parameter bytes; return the per-device rows for healthz.
-        Host-only, called per metricsz/healthz scrape."""
-        if self.kv_pool is not None:
+        """Publish the device's memory gauges through
+        :func:`~distkeras_tpu_torch.telemetry.device.publish_memory_gauges`
+        (``torch.cuda``'s allocator on the card; the typed "no data"
+        sentinel on the CPU), this engine's parameter and KV pool bytes;
+        return the per-device rows for healthz. Host-only, called per
+        metricsz/healthz scrape."""
+        kv_bytes = kv_peak = None
+        if self.kv_pool is not None and self.kv_pool.bytes_per_block:
+            kv_bytes = self.kv_pool.capacity * self.kv_pool.bytes_per_block
+            kv_peak = self.kv_pool.peak_blocks_used * self.kv_pool.bytes_per_block
             self.metrics.set_kv_tier_resident_bytes(
                 self.kv_pool.blocks_used * self.kv_pool.bytes_per_block)
         try:
-            return _memory_rows(self.device, self.metrics.registry, self._params_bytes)
+            mems = publish_memory_gauges(
+                self.metrics.registry, devices=[self.device],
+                params_bytes=self._params_bytes, kv_pool_bytes=kv_bytes,
+                kv_pool_peak_bytes=kv_peak)
         except Exception:
             return []
+        return [m.to_dict() for m in mems]
 
     def tenant_snapshot(self) -> dict:
         """Per-tenant QoS rollup for healthz/debugz (refreshing the
@@ -1163,7 +1173,28 @@ class ServingEngine:
                 "blocks_free": self.kv_pool.blocks_free,
                 "preemptions": self.metrics.preemptions,
                 "oom_rejections": self.metrics.oom_rejections,
+                "kv_migrations": self.metrics.kv_migrations,
+                "kv_migration_fallbacks": self.metrics.kv_migration_fallbacks,
+                "kv_migration_bytes": self.metrics.kv_migration_bytes,
+                "kv_exports": self.metrics.kv_exports,
             }
+            if self.kv_tier is not None:
+                # Occupancy of the host/disk levels and the engine's
+                # traffic through them, with the device level's resident
+                # bytes, so the three tiers read off one dict.
+                resident = self.kv_pool.blocks_used * (self.kv_pool.bytes_per_block or 0)
+                self.metrics.set_kv_tier_resident_bytes(resident)
+                out["kv_tier"] = {
+                    **self.kv_tier.stats(),
+                    "resident_bytes": resident,
+                    "spills": self.metrics.kv_spills,
+                    "spill_bytes": self.metrics.kv_spill_bytes,
+                    "readmits": self.metrics.kv_readmits,
+                    "readmit_bytes": self.metrics.kv_readmit_bytes,
+                    "pushes": self.metrics.kv_pushes,
+                    "push_bytes": self.metrics.kv_push_bytes,
+                    "push_fallbacks": self.metrics.kv_push_fallbacks,
+                }
         if self.flight_recorder is not None:
             out["flight_recorder"] = self.flight_recorder.stats()
         if self.trace_store is not None:
@@ -1416,7 +1447,7 @@ class ServingEngine:
         ``result`` for ``"error"``."""
         if self._pending_swap is not None:
             raise RuntimeError("a parameter swap is already pending")
-        params = _host_params(variables)
+        params = as_state_dict(variables)
         if set(params) != set(self._params):
             missing = sorted(set(self._params) - set(params))[:4]
             extra = sorted(set(params) - set(self._params))[:4]
@@ -1452,18 +1483,331 @@ class ServingEngine:
             return True
         return False
 
+    # -- KV block migration (serving/kv_transfer.py) -------------------------
     def request_kv_export(self, prompt):
-        """The reference's KV block export (the fleet's disaggregated
-        prefill): not ported yet."""
-        raise NotImplementedError(
-            "KV block export (request_kv_export) is not ported yet: it comes "
-            f"with the fleet ({_A8})")
+        """Queue a KV block export: serialize the pool's longest
+        complete-block chain for ``prompt`` (a prefix-trie walk: a slot
+        that finished or was preempted has ADOPTED its blocks there, so
+        "export a slot's blocks" and "export a cached prefix" are one
+        walk), continued from the host tier where the device chain ends.
+        Serviced by the run loop between iterations; returns ``(event,
+        result)``: await the event, then read ``result`` (``payload`` bytes
+        and ``matched_tokens``, or ``error``). Raises
+        :class:`~distkeras_tpu_torch.serving.kv_transfer.KVTransferError`
+        at once on a dense engine (blocks only exist paged)."""
+        if not self._paged:
+            raise KVTransferError(
+                "KV export requires a paged engine (--paged / "
+                "--kv-pool-mb): dense caches have no block bookkeeping")
+        event: asyncio.Event = asyncio.Event()
+        result: dict = {}
+        self._pending_kv.append(("export", prompt, event, result))
+        self.scheduler.kick()
+        return event, result
 
     def request_kv_import(self, payload: bytes):
-        """The reference's KV block import: not ported yet."""
-        raise NotImplementedError(
-            "KV block import (request_kv_import) is not ported yet: it comes "
-            f"with the fleet ({_A8})")
+        """Queue a KV block import: validate a peer's KVX1 payload
+        (geometry and weight provenance), adopt its block chain into the
+        pool's trie and upload the rows, after which an admission of the
+        same prompt is a zero-copy prefix hit. Same ``(event, result)``
+        contract as :meth:`request_kv_export`; a dry pool adopts what fits
+        (possibly nothing) and reports it in ``result``: an import must
+        only ever help."""
+        if not self._paged:
+            raise KVTransferError(
+                "KV import requires a paged engine (--paged / "
+                "--kv-pool-mb)")
+        event: asyncio.Event = asyncio.Event()
+        result: dict = {}
+        self._pending_kv.append(("import", payload, event, result))
+        self.scheduler.kick()
+        return event, result
+
+    def _kv_gather(self, rows) -> list[torch.Tensor]:
+        """Pool rows ``rows`` of every KV leaf, in KVX1 leaf order, as host
+        tensors ``[len(rows), block_tokens, H, D]``: one ``index_select``
+        per leaf with a 1-d index tensor, copied into pinned memory on the
+        engine's stream, which is then waited for. Queued after every
+        dispatched tick, the gather reads what those ticks wrote."""
+        ids = self._upload(np.asarray(rows, np.int64))
+        out = []
+        with torch.inference_mode():
+            for name in self._kv_names:
+                rows_dev = self._cache[name].index_select(0, ids)
+                if self.device.type == "cuda":
+                    host = torch.empty(rows_dev.shape, dtype=rows_dev.dtype,
+                                       pin_memory=True)
+                    host.copy_(rows_dev, non_blocking=True)
+                    rows_dev = host
+                out.append(rows_dev)
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+        return out
+
+    def _kv_scatter(self, rows, leaves) -> None:
+        """Write host rows ``leaves`` (KVX1 leaf order, ``[n, ...]`` each)
+        into pool rows ``rows`` of every KV leaf: a pinned non-blocking
+        upload and one in-place ``index_copy_`` per leaf, queued on the
+        engine's stream behind every dispatched tick."""
+        ids = self._upload(np.asarray(rows, np.int64))
+        with torch.inference_mode():
+            for name, data in zip(self._kv_names, leaves):
+                pool = self._cache[name]
+                src = data.to(pool.dtype)
+                if self.device.type == "cuda":
+                    src = src.pin_memory().to(self.device, non_blocking=True)
+                pool.index_copy_(0, ids, src)
+
+    def _kv_export_sync(self, prompt) -> dict:
+        """Executor-thread export: pin the chain, gather its pool rows,
+        serialize. The pin only needs to span this call: the engine loop
+        serializes every pool mutation."""
+        tokens = [int(t) for t in prompt]
+        bt = self.kv_block_tokens
+        match = self.kv_pool.match_blocks(tokens)
+        try:
+            n = len(match.ids)
+            leaves = self._kv_gather(match.ids) if n else []
+            # Continue the chain from the host/disk tier where the device
+            # trie ends: an evicted-but-spilled family stays exportable.
+            n = self._extend_export_from_tier(tokens, n, leaves)
+            if n == 0:
+                return {"matched_tokens": 0, "blocks": 0, "payload": None}
+            payload = serialize_blocks(
+                tokens[:n * bt], leaves, block_tokens=bt,
+                provenance=self.weight_version)
+        finally:
+            self.kv_pool.release(match)
+        if len(payload) > MAX_TOTAL_TRANSFER_BYTES:
+            # Oversize chains split across sequenced KVBLK frames on the
+            # wire (kv_transfer.split_frames); only a chain past the TOTAL
+            # cap is refused.
+            raise KVTransferError(
+                f"serialized blocks ({len(payload)} bytes) exceed the "
+                f"transfer cap ({MAX_TOTAL_TRANSFER_BYTES}); receiver "
+                f"falls back to monolithic prefill")
+        self.metrics.record_kv_export(len(payload))
+        return {"matched_tokens": n * bt, "blocks": n,
+                "bytes": len(payload), "payload": payload}
+
+    def _check_kv_leaves(self, header) -> None:
+        """Typed rejects of a payload this pool cannot adopt: block
+        geometry, leaf count, per-leaf shape and dtype, weight
+        provenance."""
+        if int(header["block_tokens"]) != self.kv_block_tokens:
+            raise KVTransferError(
+                f"block geometry mismatch: peer blocks hold "
+                f"{header['block_tokens']} tokens, this pool "
+                f"{self.kv_block_tokens}")
+        theirs = header.get("leaves", [])
+        if len(theirs) != len(self._kv_names):
+            raise KVTransferError(
+                f"KV leaf count mismatch: payload has {len(theirs)}, "
+                f"this pool {len(self._kv_names)}")
+        for i, (meta, name) in enumerate(zip(theirs, self._kv_names)):
+            leaf = self._cache[name]
+            want = (tuple(int(d) for d in meta["shape"][1:]), str(meta["dtype"]))
+            have = (tuple(leaf.shape[1:]), str(leaf.dtype).removeprefix("torch."))
+            if want != have:
+                raise KVTransferError(
+                    f"KV leaf {i} geometry mismatch: payload "
+                    f"{want[1]}{want[0]}, this pool {have[1]}{have[0]}")
+        if not self._tier_provenance_ok(header):
+            # KV is a pure function of (weights, tokens): adopting blocks
+            # computed under other weights would poison every later hit.
+            prov = header.get("provenance") or {}
+            mine = self.weight_version
+            raise KVTransferError(
+                f"weight provenance mismatch: blocks computed under "
+                f"v{prov.get('version')}/{prov.get('digest')}, serving "
+                f"v{mine.get('version')}/{mine.get('digest')}")
+
+    def _kv_import_sync(self, payload) -> dict:
+        """Executor-thread import: validate geometry and provenance (typed
+        rejects), adopt the chain, scatter the new rows."""
+        header, leaves = deserialize_blocks(payload)
+        self._check_kv_leaves(header)
+        tokens = [int(t) for t in header.get("tokens", [])]
+        n_blocks = int(header.get("n_blocks") or 0)
+        uploads, resident = self.kv_pool.adopt_foreign(tokens, n_blocks)
+        if uploads:
+            idxs = torch.tensor([i for i, _ in uploads], dtype=torch.int64)
+            self._kv_scatter([r for _, r in uploads],
+                             [leaf.index_select(0, idxs) for leaf in leaves])
+        return {"adopted_blocks": len(uploads),
+                "resident_blocks": resident,
+                "matched_tokens": resident * self.kv_block_tokens,
+                "bytes": len(payload)}
+
+    # -- tiered KV cache (serving/kv_tier.py) --------------------------------
+    def _spill_block(self, chain_tokens, row: int) -> None:
+        """Pool spill hook: serialize ONE eviction victim's pool row into
+        the host tier as KVX1 bytes, keyed by its full root-to-block token
+        chain, so a spilled block is readmittable here and exportable to
+        the fleet."""
+        self._spill_blocks([(chain_tokens, row)])
+
+    def _spill_blocks(self, victims) -> None:
+        """Batched pool spill hook (``spill_many_hook``): serialize a whole
+        allocation burst's eviction victims from ONE device-to-host gather;
+        ``victims`` is the burst's ``(chain_tokens, row)`` list, rows still
+        holding their K/V. Each block's spill latency is recorded as its
+        share of the burst."""
+        tier = self.kv_tier
+        if tier is None or not victims:
+            return
+        t0 = time.monotonic()
+        bt = self.kv_block_tokens
+        n = len(victims)
+        leaves = self._kv_gather([int(r) for _, r in victims])
+        stored: list[int] = []
+        for i, (chain_tokens, _row) in enumerate(victims):
+            chain = [int(t) for t in chain_tokens]
+            payload = serialize_blocks(
+                chain[-bt:], [leaf[i:i + 1] for leaf in leaves],
+                block_tokens=bt, provenance=self.weight_version)
+            if tier.put(chain, payload):
+                stored.append(len(payload))
+        per_block_s = (time.monotonic() - t0) / n
+        for nbytes in stored:
+            self.metrics.record_kv_spill(nbytes, per_block_s,
+                                         trace_id=self._tier_trace_id)
+        if stored:
+            self.scheduler.note_kv_arrival()
+
+    def _tier_provenance_ok(self, header) -> bool:
+        prov = header.get("provenance") or {}
+        mine = self.weight_version
+        return (int(prov.get("version") or 0), prov.get("digest")) == (
+            int(mine.get("version") or 0), mine.get("digest"))
+
+    def _readmit_from_tier(self, tokens, trace_id: str | None = None) -> int:
+        """Extend the device trie along ``tokens`` from the host tier: for
+        each complete block past the device-resident prefix, fetch its
+        KVX1 payload, adopt a pool row (never preempting: adoption only
+        reclaims unreferenced leaves) and upload all the rows in ONE
+        batched scatter. Runs on the loop thread during admission, after
+        the pipeline barrier and BEFORE the trie match, so the readmitted
+        blocks count as the prefix hits they are. Returns the number of
+        blocks readmitted."""
+        tier, pool = self.kv_tier, self.kv_pool
+        if tier is None:
+            return 0
+        bt = self.kv_block_tokens
+        toks = [int(t) for t in tokens]
+        # Same last-block holdback as match(): prefill needs >= 1 uncached
+        # token, so a block match() will not use is a wasted row.
+        cap = max(0, (len(toks) - 1) // bt)
+        resident = pool.probe(toks) // bt
+        if resident >= cap or not tier.contains(toks[:(resident + 1) * bt]):
+            return 0
+        t0 = time.monotonic()
+        staged: list[tuple[int, list]] = []  # (pool row, per-leaf [1, bt, ...])
+        nbytes = 0
+        k = resident
+        while k < cap:
+            chain = toks[:(k + 1) * bt]
+            payload = tier.get(chain)
+            if payload is None:
+                break
+            try:
+                header, leaves = deserialize_blocks(payload)
+            except Exception:
+                break  # truncated or corrupt entry: stop, never raise
+            if (int(header.get("block_tokens") or 0) != bt
+                    or len(leaves) != len(self._kv_names)
+                    or not self._tier_provenance_ok(header)):
+                break
+            # adopt_foreign re-walks the chain from the root: the resident
+            # prefix is touched, block k gets a fresh row (or none on a dry
+            # pool: stop there, what fit is already a win).
+            uploads, _ = pool.adopt_foreign(chain, k + 1)
+            if not uploads:
+                break
+            staged.append((uploads[0][1], leaves))
+            nbytes += len(payload)
+            k += 1
+        if not staged:
+            return 0
+        self._kv_scatter(
+            [r for r, _ in staged],
+            [torch.cat([blk[li] for _, blk in staged]) for li in range(len(self._kv_names))])
+        self.metrics.record_kv_readmit(len(staged), nbytes,
+                                       time.monotonic() - t0, trace_id=trace_id)
+        self.scheduler.note_kv_arrival()
+        return len(staged)
+
+    def _extend_export_from_tier(self, tokens, n: int, leaves: list) -> int:
+        """Continue an export chain past the device-resident prefix with
+        host-tier payloads: deserialize each contiguous tier block and
+        append its rows to ``leaves`` (in place). Returns the new block
+        count. Export has NO last-block holdback (as ``match_blocks``): a
+        peer adopting the chain wants the whole spilled prefix."""
+        tier = self.kv_tier
+        if tier is None:
+            return n
+        bt = self.kv_block_tokens
+        n_total = len(tokens) // bt
+        extras, k = [], n
+        while k < n_total:
+            payload = tier.get(tokens[:(k + 1) * bt])
+            if payload is None:
+                break
+            try:
+                header, lv = deserialize_blocks(payload)
+            except Exception:
+                break
+            if (int(header.get("block_tokens") or 0) != bt
+                    or not self._tier_provenance_ok(header)):
+                break
+            want = len(leaves) if leaves else (
+                len(extras[0]) if extras else len(lv))
+            if len(lv) != want or not lv:
+                break
+            extras.append(lv)
+            k += 1
+        if not extras:
+            return n
+        if not leaves:
+            leaves.extend(torch.cat([e[i] for e in extras])
+                          for i in range(len(extras[0])))
+        else:
+            for i in range(len(leaves)):
+                leaves[i] = torch.cat([leaves[i]] + [e[i] for e in extras])
+        return k
+
+    def _tier_pending(self, req) -> bool:
+        """True when a parked request's next uncovered block sits in the
+        host tier (or a peer import is queued): it waits on a tier
+        arrival, not on a slot to free."""
+        if self._pending_kv:
+            return True
+        if self.kv_tier is None:
+            return False
+        toks = [int(t) for t in req.prompt]
+        bt = self.kv_block_tokens
+        resident = self.kv_pool.probe(toks) // bt
+        return self.kv_tier.contains(toks[:(resident + 1) * bt])
+
+    async def wait_for_kv(self, tokens, timeout_s: float) -> bool:
+        """Await KV residency of ``tokens``' first block in ANY local tier
+        (device pool or host tier): the decode side's wait behind a
+        router-scheduled push (``kv_wait``). True when resident, False on
+        timeout (the caller pulls or re-prefills: counted fallbacks, never
+        errors)."""
+        if not self._paged:
+            return False
+        toks = [int(t) for t in tokens]
+        loop = asyncio.get_running_loop()
+        deadline = loop.time() + timeout_s
+        while True:
+            if self.kv_pool.probe(toks) > 0 or (
+                    self.kv_tier is not None and self.kv_tier.probe(toks) > 0):
+                return True
+            remaining = deadline - loop.time()
+            if remaining <= 0:
+                return False
+            await self.scheduler.wait_for_kv_arrival(remaining)
 
     def _swap_sync(self, params) -> None:
         """Executor-thread half of the swap: transfer, flush, rewarm."""
@@ -1479,8 +1823,12 @@ class ServingEngine:
             self.prefix_cache.flush()
         if self.kv_pool is not None:
             # Zero active slots means zero slot-owned blocks: the flush
-            # only drops trie entries.
+            # only drops trie entries. flush() bypasses the allocator, so
+            # no old-weight block is spilled.
             self.kv_pool.flush()
+        if self.kv_tier is not None:
+            # The host/disk tiers hold K/V of the OLD weights too.
+            self.kv_tier.flush()
         # Rewarm: one decode tick over the all-free batch.
         self._decode_sync()
 
@@ -1578,6 +1926,28 @@ class ServingEngine:
                             if not res:
                                 res["error"] = ServingError("engine died mid-swap")
                             ev.set()
+                # 3c. KV block transfers (export to / import from a peer):
+                # serviced between iterations after a barrier, so a gather
+                # or scatter never interleaves with a tick over the same
+                # rows. Device work in the executor, event resolution on
+                # the loop thread.
+                if self._paged and self._pending_kv:
+                    await self._pipeline_barrier(loop)
+                    ops, self._pending_kv = self._pending_kv, []
+                    for kind, arg, ev, res in ops:
+                        with span("kv_transfer", kind=kind):
+                            try:
+                                res.update(await self._in_executor(
+                                    loop,
+                                    (self._kv_export_sync if kind == "export"
+                                     else self._kv_import_sync), arg))
+                            except Exception as e:
+                                res["error"] = e
+                            finally:
+                                ev.set()
+                    # Imported blocks ARE a tier arrival: wake a parked
+                    # admission and a decode-side wait_for_kv.
+                    self.scheduler.note_kv_arrival()
                 # 4. Admission: prefill queued requests into free slots.
                 # Admission writes into the batch (and, paged, reserves or
                 # preempts blocks): barrier first, unless the queue head
@@ -1692,8 +2062,14 @@ class ServingEngine:
                     if self._paged and self._parked_req is not None and self._parked_head():
                         # Fully parked: only an arrival, a cancel or a kick
                         # can change the picture; waiting for a request
-                        # would return at once on the non-empty queue.
-                        await self.scheduler.wait_for_wake(idle_poll_s)
+                        # would return at once on the non-empty queue. A
+                        # head whose next block sits in the host tier (or
+                        # behind a queued import) waits on the tier-arrival
+                        # event instead.
+                        if self._tier_pending(self._parked_req):
+                            await self.scheduler.wait_for_kv_arrival(idle_poll_s)
+                        else:
+                            await self.scheduler.wait_for_wake(idle_poll_s)
                     else:
                         await self.scheduler.wait_for_request(idle_poll_s)
                     continue
@@ -1751,6 +2127,13 @@ class ServingEngine:
                 self._pending_swap = None
                 res["error"] = err
                 ev.set()
+            # Same for pending KV transfers: a peer awaiting an export gets
+            # its typed failure now, not a hung timeout.
+            if self._paged and self._pending_kv:
+                ops, self._pending_kv = self._pending_kv, []
+                for _, _, ev, res in ops:
+                    res["error"] = err
+                    ev.set()
             self._stopping = True
             if self.flight_recorder is not None:
                 self.flight_recorder.crash_dump(error=repr(e))
@@ -2565,6 +2948,15 @@ class ServingEngine:
         lower-priority slots; growth may preempt within a class."""
         pool = self.kv_pool
         tokens = self._resident_tokens(req)
+        if self.kv_tier is not None:
+            # Host-tier readmission BEFORE the match: blocks the trie evicted
+            # (but the tier kept) scatter back and then count as the prefix
+            # hits they are. The spill exemplar points at this admission.
+            self._tier_trace_id = req.trace_id
+            try:
+                self._readmit_from_tier(tokens, trace_id=req.trace_id)
+            finally:
+                self._tier_trace_id = None
         # Scorelike requests skip the match: their point is the values the
         # prefill computes at every position.
         match = pool.match(tokens if req.kind not in SCORELIKE_KINDS else tokens[:0])
@@ -2866,6 +3258,10 @@ class ServingEngine:
             done_forks = [c for c in req.fork_completions if c is not None]
             forks = len(done_forks)
             out_tokens = sum(len(c) for c in done_forks)
+        migration = ""
+        kv_info = getattr(req, "kv_migration", None)
+        if isinstance(kv_info, dict):
+            migration = "fallback" if kv_info.get("fallback") else "imported"
         err_kind = ""
         if status != "ok":
             err_kind = (type(req.error).__name__
@@ -2891,7 +3287,7 @@ class ServingEngine:
             "forks": forks,
             "n": req.n,
             "preemptions": req.preemptions,
-            "migration": "",
+            "migration": migration,
             "queue_wait_s": req.queue_wait_s,
             "prefill_device_s": (req.prefill_device_s
                                  if req.prefill_chunks else None),

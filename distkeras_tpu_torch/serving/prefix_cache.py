@@ -31,9 +31,9 @@ trie: the engine's block pools are the paged decode module's cache leaves,
 slots address them through block tables, a prefix hit is zero-copy (the
 table points at the pinned trie blocks) and a finished or preempted
 slot's complete blocks are adopted into the trie in place. It owns no
-device tensors and is copied from the reference. Its spill hooks are
-ported; the host and disk tiers that attach to them come with the fleet
-(ROADMAP.md §A item A8).
+device tensors and is copied from the reference, with the fleet's
+:meth:`KVBlockPool.adopt_foreign` (the receiving half of a KV block
+transfer) and the spill hooks the host KV tier attaches to.
 
 NOT thread-safe: the trie and pool are mutated without locks, relying on
 the owning :class:`~distkeras_tpu_torch.serving.engine.ServingEngine`'s loop
@@ -631,8 +631,8 @@ class KVBlockPool(_BlockTrie):
     appends go to private blocks), so the copy-on-write refcount's only
     job is to keep shared rows from being evicted/reallocated under a
     reader; the one copy is a ``sample`` fork's partially filled tail
-    block (:meth:`fork`). Copied from the reference, without the fleet's
-    ``adopt_foreign`` (ROADMAP.md §A item A8).
+    block (:meth:`fork`). :meth:`adopt_foreign` chains a peer's (or the
+    host tier's) blocks into the trie. Copied from the reference.
 
     ``kv_pool_blocks_{total,used,free}`` gauges plus the shared
     ``prefix_cache_*`` hit/miss series publish into ``registry``.
@@ -831,6 +831,53 @@ class KVBlockPool(_BlockTrie):
                 self._metrics["inserts"].inc(adopted)
             self._note_occupancy()
         return adopted
+
+    def adopt_foreign(self, tokens, n_blocks: int):
+        """Receiving half of a KV block migration (kv_transfer): chain
+        the first ``n_blocks`` complete blocks of ``tokens`` into the
+        trie, allocating a fresh pool row for each block not already
+        resident. Returns ``(uploads, resident_blocks)``: ``uploads``
+        is the ``(block_index, pool_row)`` list the engine must scatter
+        the payload's data into (already-cached duplicates need no
+        upload — the resident copy is bit-identical by the provenance
+        contract), and ``resident_blocks`` is the contiguous prefix now
+        matchable. A dry pool stops the walk early — the contiguous
+        prefix adopted so far still serves, and adoption NEVER evicts a
+        decode slot's blocks or preempts local work (foreign blocks
+        must only ever help): only unreferenced trie leaves may be
+        reclaimed, exactly like a local insert."""
+        keys = list(self._blocks(tokens, int(n_blocks)))
+        node = self._root
+        now = next(self._clock)
+        uploads: list[tuple[int, int]] = []
+        resident = 0
+        opened = self._begin_spill_burst()
+        try:
+            for i, key in enumerate(keys):
+                child = node.children.get(key)
+                if child is None:
+                    slot = self._alloc(protect=node)
+                    if slot is None:
+                        break  # pool dry: keep the contiguous prefix
+                    child = _Node(slot, node, key)
+                    node.children[key] = child
+                    self._by_slot[slot] = child
+                    self.inserted_blocks += 1
+                    uploads.append((i, slot))
+                self._touch(child, now)
+                node = child
+                resident += 1
+        finally:
+            if opened:
+                self._flush_spill_burst()
+        if uploads:
+            self.peak_blocks_used = max(self.peak_blocks_used,
+                                        self.blocks_used)
+            self.version += 1
+            if self._metrics is not None:
+                self._metrics["inserts"].inc(len(uploads))
+                self._note_occupancy()
+        return uploads, resident
 
     def _note_occupancy(self) -> None:
         if self._metrics is not None:

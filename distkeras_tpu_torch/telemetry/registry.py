@@ -1,19 +1,30 @@
 """Counter/gauge/histogram metrics registry.
 
-Copy of the reference's ``distkeras_tpu/telemetry/registry.py`` (jax-free),
-cut to what the parameter server, its HA clients, the training-health
-layer, the trainers and the serving engine publish into: :class:`Counter`,
-:class:`Gauge`, :class:`Histogram` (with its bucket-interpolated
-percentile and the Prometheus cumulative series), :class:`MetricsRegistry`,
-the one exact :func:`percentile`, :func:`sanitize_metric_name`, and the
-fixed log-spaced layouts (:func:`log_buckets`) and state merge
-(:func:`merge_hist_states`) the wide-event store builds on. The fleet's
-delta surface comes with the fleet.
+Copy of the reference's ``distkeras_tpu/telemetry/registry.py``, which
+imports no JAX.
 
-Conventions (Prometheus-shaped): metric names ``[a-zA-Z_:][a-zA-Z0-9_:]*``,
-counters end in ``_total``; labels are a frozen kwargs dict at
-get-or-create time, and the same (name, labels) pair always returns the
-same metric object.
+The single sink the whole system publishes into — serving
+(:class:`~distkeras_tpu_torch.serving.metrics.ServingMetrics`, the scheduler),
+trainers, the PS/HA layer, and the recompile auditor — replacing the
+ad-hoc per-module lists each of those grew separately. One registry is a
+point-in-time queryable surface: :func:`~distkeras_tpu_torch.telemetry.
+exposition.prometheus_text` renders it as a Prometheus scrape page,
+``snapshot()`` as a JSON object for the serving server's ``metricsz``
+control verb.
+
+Conventions (Prometheus-shaped, dependency-free):
+
+- metric names ``[a-zA-Z_:][a-zA-Z0-9_:]*``; counters end in ``_total``,
+  durations are ``_seconds``;
+- labels are a frozen kwargs dict at get-or-create time; the same
+  (name, labels) pair always returns the same metric object;
+- histograms use fixed cumulative buckets (defaults tuned for
+  sub-second latencies) with linear-interpolated percentile estimation.
+
+Percentile semantics are defined ONCE here — :func:`percentile` (exact,
+over any sized sequence) and :meth:`Histogram.percentile` (bucket
+estimate) agree on the edge cases: empty input raises ``ValueError``,
+a single sample is returned exactly for every q.
 """
 
 from __future__ import annotations
@@ -34,6 +45,7 @@ __all__ = [
     "sanitize_metric_name",
     "DEFAULT_BUCKETS",
     "log_buckets",
+    "hist_state_delta",
     "hist_state_percentile",
     "merge_hist_states",
 ]
@@ -42,9 +54,10 @@ _NAME_RE = re.compile(r"^[a-zA-Z_:][a-zA-Z0-9_:]*$")
 
 
 def sanitize_metric_name(key: str) -> str:
-    """A history or stream key as a valid metric name (the rule ``_NAME_RE``
-    enforces): other characters become ``_``, and a leading digit gets a
-    ``_`` prefix."""
+    """Coerce an arbitrary metric key (a stream/history dict key) into a
+    valid registry metric name — the ONE encoding of the naming rule
+    ``_NAME_RE`` enforces. Invalid characters become ``_``; a leading
+    digit gets a ``_`` prefix."""
     out = "".join(c if c.isalnum() or c == "_" else "_" for c in str(key))
     if not out or out[0].isdigit():
         out = "_" + out
@@ -76,6 +89,39 @@ def log_buckets(lo: float, hi: float, per_decade: int = 4) -> tuple:
         out.append(float(f"{v:.6g}"))
         v *= step
     return tuple(out)
+
+
+def hist_state_delta(cur: dict, prev: dict | None) -> dict:
+    """Bucket-wise difference of two histogram ``state()`` snapshots of
+    the SAME metric (``cur`` observed after ``prev``): the compact
+    "what happened since the last push" payload a replica ships to the
+    router. ``prev=None`` means the full state IS the delta (first
+    push). The delta's min/max are the current snapshot's — bounded by
+    one bucket width of the true window extremes, which is exactly the
+    accuracy the bucket counts themselves carry. Exemplars ride the
+    current per-bucket worst (merge takes per-bucket max, so replaying
+    them is idempotent)."""
+    if prev is None:
+        return dict(cur)
+    if list(cur["buckets"]) != list(prev["buckets"]):
+        raise ValueError("histogram delta across different bucket layouts")
+    counts = [int(c) - int(p)
+              for c, p in zip(cur["counts"], prev["counts"])]
+    if any(c < 0 for c in counts):
+        # The source histogram was reset (replica restart): the full
+        # current state is the honest delta.
+        return dict(cur)
+    out = {
+        "buckets": list(cur["buckets"]),
+        "counts": counts,
+        "count": int(cur["count"]) - int(prev["count"]),
+        "sum": float(cur["sum"]) - float(prev["sum"]),
+        "min": cur["min"],
+        "max": cur["max"],
+    }
+    if cur.get("exemplars"):
+        out["exemplars"] = cur["exemplars"]
+    return out
 
 
 def merge_hist_states(*states: dict) -> dict:
@@ -122,9 +168,12 @@ def merge_hist_states(*states: dict) -> dict:
 
 
 def hist_state_percentile(state: dict, q: float) -> float:
-    """Bucket-interpolated percentile over a histogram ``state()`` dict.
-    Edge cases match :func:`percentile`: empty raises, a single sample is
-    returned exactly (the sum of one sample IS the sample)."""
+    """Bucket-interpolated percentile over a histogram ``state()`` dict
+    — the ONE estimator live histograms, fleet merges, and timeseries
+    windows all share, so a fleet p99 and a single-replica p99 disagree
+    only by what their bucket counts disagree by. Edge cases match
+    :func:`percentile`: empty raises, a single sample is returned
+    exactly (the sum of one sample IS the sample)."""
     if not 0.0 <= q <= 100.0:
         raise ValueError(f"q must be in [0, 100], got {q}")
     n = int(state["count"])
@@ -202,7 +251,7 @@ class Counter(_Metric):
 
 
 class Gauge(_Metric):
-    """Set/inc point-in-time value."""
+    """Set/inc/dec point-in-time value."""
 
     kind = "gauge"
 
@@ -217,6 +266,10 @@ class Gauge(_Metric):
     def inc(self, n: float = 1.0) -> None:
         with self._lock:
             self._value += n
+
+    def dec(self, n: float = 1.0) -> None:
+        with self._lock:
+            self._value -= n
 
     @property
     def value(self) -> float:
@@ -315,10 +368,14 @@ class Histogram(_Metric):
         returned exactly)."""
         return hist_state_percentile(self.state(exemplars=False), q)
 
+    # -- mergeable-histogram surface ----------------------------------------
     def state(self, exemplars: bool = True) -> dict:
-        """JSON-able snapshot: per-bucket counts (NON-cumulative),
-        count/sum/min/max, bucket layout, and (optionally) the per-bucket
-        worst-sample exemplars."""
+        """JSON-able full snapshot of the histogram's mergeable state:
+        per-bucket counts (NON-cumulative), count/sum/min/max, bucket
+        layout, and (optionally) the per-bucket worst-sample exemplars.
+        ``state()`` dicts are the unit of fleet telemetry: deltas
+        (:func:`hist_state_delta`) ship over the wire, merges
+        (:func:`merge_hist_states` / :meth:`merge_state`) fold them."""
         with self._lock:
             out = {
                 "buckets": list(self.bucket_bounds),
@@ -333,6 +390,40 @@ class Histogram(_Metric):
                     None if e is None else [e[0], e[1]]
                     for e in self._exemplars]
         return out
+
+    def merge_state(self, state: dict) -> None:
+        """Fold a ``state()``/delta dict into this histogram — the
+        bucket-exact merge the router applies to every pushed replica
+        delta. Requires an identical bucket layout (fleet mergeability
+        is why layouts are fixed at construction). Commutative and
+        associative over the bucket state: any fold order yields the
+        same counts/sum/min/max."""
+        if list(state["buckets"]) != list(self.bucket_bounds):
+            raise ValueError(
+                f"cannot merge {self.name!r}: bucket layout "
+                f"{state['buckets']} != {list(self.bucket_bounds)}")
+        exemplars = state.get("exemplars") or []
+        with self._lock:
+            for i, c in enumerate(state["counts"]):
+                self._counts[i] += int(c)
+            self._count += int(state["count"])
+            self._sum += float(state["sum"])
+            if state["count"]:
+                if state["min"] is not None:
+                    self._min = min(self._min, float(state["min"]))
+                if state["max"] is not None:
+                    self._max = max(self._max, float(state["max"]))
+            for i, ex in enumerate(exemplars):
+                if ex is None or i >= len(self._exemplars):
+                    continue
+                cur = self._exemplars[i]
+                if cur is None or float(ex[0]) > cur[0]:
+                    self._exemplars[i] = (float(ex[0]), ex[1])
+
+    def merge(self, other: "Histogram") -> None:
+        """Fold another histogram of the same bucket layout into this
+        one (see :meth:`merge_state`)."""
+        self.merge_state(other.state())
 
 
 class MetricsRegistry:

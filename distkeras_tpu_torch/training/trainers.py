@@ -14,8 +14,10 @@ windows on its own CUDA stream, exchange with one in-process parameter
 server every ``communication_window`` steps, with periodic PS checkpoints
 and resume. A recompile ``auditor`` signs each trainer's step, as the
 reference's ``Trainer._audit`` wraps it. Not ported yet, and refused with
-the ``ROADMAP.md`` item that brings them: multi-device islands and meshes
-and the weight ``publisher``.
+the ``ROADMAP.md`` item that brings them: multi-device islands and meshes.
+A weight ``publisher`` (:class:`~distkeras_tpu_torch.deploy.WeightPublisher`)
+publishes the live weights on its cadence: the step-loop trainers per
+step, the asynchronous family the PS center from a thread of its own.
 """
 
 from __future__ import annotations
@@ -55,7 +57,9 @@ from distkeras_tpu_torch.training.step import (
     make_train_step,
     make_window_train_step,
 )
+from distkeras_tpu_torch.utils.bridge import params_to_jax
 from distkeras_tpu_torch.utils.device import resolve_device
+from distkeras_tpu_torch.utils.pytree import to_host
 from distkeras_tpu_torch.utils.rng import worker_seed
 
 __all__ = [
@@ -136,7 +140,9 @@ class Trainer:
     (``train_step``, ``vmapped_step``, ``sync_train_step``,
     ``async_window_step``, ``async_cached_window_step``) and counts its
     abstract signatures: the state's tensors and the batch. ``publisher``
-    stays ``None`` until the deploy slice."""
+    (a :class:`~distkeras_tpu_torch.deploy.WeightPublisher`, None by
+    default) publishes the reference-layout weight tree on its cadence;
+    the replica trainers, as the reference's, never call it."""
 
     def __init__(
         self,
@@ -172,8 +178,10 @@ class Trainer:
         self.metric_stream = metric_stream
         self.registry = registry
         self.auditor = auditor
-        # The trainer side of continuous deployment (deploy/): not ported;
-        # train() refuses a publisher.
+        # Optional deploy.WeightPublisher: the trainer side of the
+        # continuous-deployment loop. Step-loop trainers call
+        # _maybe_publish per step; the async family publishes the PS
+        # center from a dedicated thread.
         self.publisher = None
         self.history: list[dict] = []
         self._training_start: float | None = None
@@ -241,10 +249,24 @@ class Trainer:
         except ValueError:  # name already wrapped (trainer re-used)
             return step_fn
 
-    def _refuse_publisher(self) -> None:
+    def _maybe_publish(self, step: int, variables_fn, loss_fn=None) -> None:
+        """Per-step publish hook (no-op without a publisher). Both callables
+        are lazy: an idle cadence costs two comparisons, no device sync and
+        no host copy."""
         if self.publisher is not None:
-            raise ValueError("a weight publisher needs deploy/, which is not ported yet "
-                             "(ROADMAP.md §A item 8)")
+            self.publisher.maybe_publish(variables_fn, step=step, loss_fn=loss_fn)
+
+    def _published_tree(self, variables: dict) -> dict:
+        """The reference-layout weight tree (``{"params": ...}``) of a flat
+        ``state_dict``, on the host: what a publish writes, so either
+        package's serving fleet loads it."""
+        return params_to_jax(to_host(variables), self.model.module)
+
+    def _publish_step(self, step_no: int, state, m: dict) -> None:
+        """:func:`_run_steps`'s per-step hook: the live weights and the
+        step's loss, both read only when the cadence fires."""
+        self._maybe_publish(step_no, lambda: self._published_tree(state.variables),
+                            loss_fn=lambda: float(m["loss"]))
 
     def _optimizer(self):
         return get_optimizer(self.worker_optimizer, self.learning_rate)
@@ -328,7 +350,6 @@ class SingleTrainer(Trainer):
         ``seed + epoch`` when ``shuffle``) and return the trained model, its
         weights on the trainer's device. ``history`` holds each step's
         metrics as floats, read from the device once, after the last step."""
-        self._refuse_publisher()
         self.record_training_start()
         step_fn = self._audit(make_train_step(
             self.model, self.loss, self.metrics, remat=self.remat,
@@ -342,7 +363,8 @@ class SingleTrainer(Trainer):
                 dataset, self.batch_size, self.features_col, self.label_col,
                 num_epoch=1, seed=(self.seed + epoch) if shuffle else None,
             )
-            state, _ = _run_steps(step_fn, state, batches, self.device, history)
+            state, _ = _run_steps(step_fn, state, batches, self.device, history,
+                                  step_no=len(history), publish=self._publish_step)
             if self.validation_data is not None:
                 with span("validation", epoch=epoch):
                     val = self.evaluate(
@@ -357,12 +379,14 @@ class SingleTrainer(Trainer):
         return TrainedModel(self.model, {k: v.detach() for k, v in state.variables.items()})
 
 
-def _run_steps(step_fn, state, batches, device, history: list, ck=None, step_no: int = 0):
+def _run_steps(step_fn, state, batches, device, history: list, ck=None, step_no: int = 0,
+               publish=None):
     """The one-device step loop: ``batches`` through :class:`DeviceFeed`
     onto ``device``, one ``step_fn`` a batch, each step's metrics appended
     to ``history``; with a :class:`_StepCheckpointer`, a timed save after
-    each step. ``step_no`` is the count of steps before ``batches``.
-    Returns the state and the count after them."""
+    each step, and with ``publish`` (``publish(step_no, state, metrics)``)
+    the trainer's publish hook. ``step_no`` is the count of steps before
+    ``batches``. Returns the state and the count after them."""
     for batch in DeviceFeed(batches, device, buffer_size=2):
         with span("train_step"):
             state, m = step_fn(state, batch)
@@ -370,6 +394,8 @@ def _run_steps(step_fn, state, batches, device, history: list, ck=None, step_no:
         step_no += 1
         if ck is not None:
             ck.maybe_save(step_no, state)
+        if publish is not None:
+            publish(step_no, state, m)
     return state, step_no
 
 
@@ -428,7 +454,6 @@ class _ReplicasTrainer(Trainer):
         self.dropped_batches: list[int] = []
 
     def _train_replicas(self, dataset: Dataset, shuffle: bool) -> list[TrainState]:
-        self._refuse_publisher()
         n = self.num_models
         step_fn = self._audit(make_train_step(self.model, self.loss, self.metrics),
                               "vmapped_step")
@@ -579,7 +604,6 @@ class SynchronousDistributedTrainer(Trainer):
         """Train ``num_epoch`` epochs (rows reshuffled each epoch with
         ``seed + epoch`` when ``shuffle``), resuming from ``checkpoint_dir``
         when asked, and return the trained model on the trainer's device."""
-        self._refuse_publisher()
         global_batch = self.batch_size * self._data_parallel_size()
         self.record_training_start()
         step_fn = self._audit(make_train_step(self.model, self.loss, self.metrics,
@@ -596,7 +620,7 @@ class SynchronousDistributedTrainer(Trainer):
         history = []
         try:
             state, step_no = _run_steps(step_fn, state, batches, self.device, history, ck,
-                                        ck.start_step)
+                                        ck.start_step, publish=self._publish_step)
             ck.finalize(step_no, state)
         finally:
             ck.close()
@@ -803,7 +827,6 @@ class AsynchronousDistributedTrainer(Trainer):
         """Train ``num_workers`` workers asynchronously against the PS and
         return the final center on the trainer's device. ``history`` holds
         every step of every worker, tagged with its ``worker``."""
-        self._refuse_publisher()
         self.record_training_start()
         optimizer = self.protocol.local_optimizer(self._optimizer())
         window_fn = self._audit(make_window_train_step(self.model, self.loss, self.metrics),
@@ -830,7 +853,37 @@ class AsynchronousDistributedTrainer(Trainer):
         del center_init
         stop_ckpt = threading.Event()
         ckpt_thread = None
+        pub_stop = threading.Event()
+        pub_thread = None
+        # The newest window's loss tensor (already synchronized by its
+        # worker): the publisher thread reads one float of it lazily.
+        self._publish_loss = None
+        svc = self.parameter_server if self.parameter_server is not None else ps
         try:
+            if self.publisher is not None:
+                # Continuous deployment: a dedicated thread publishes the PS
+                # CENTER on the publisher's cadence; the workers' loops only
+                # keep a reference to their newest window loss.
+                def publish_loss_now():
+                    arr = self._publish_loss
+                    return None if arr is None else float(arr.reshape(-1)[-1])
+
+                def publish_loop():
+                    while not pub_stop.wait(0.2):
+                        try:
+                            self.publisher.maybe_publish(
+                                lambda: self._published_tree(svc.get_model()),
+                                step=svc.num_commits, loss_fn=publish_loss_now)
+                        except Exception:
+                            # The publisher swallows its own failures; this
+                            # guards the PS accessors, so one surprise does
+                            # not end publishing for the rest of the run.
+                            logging.getLogger(__name__).exception(
+                                "weight-publisher tick failed")
+
+                pub_thread = threading.Thread(target=publish_loop, name="weight-publisher",
+                                              daemon=True)
+                pub_thread.start()
             if ckpt_mgr is not None:
                 ckpt_thread = threading.Thread(target=self._periodic_checkpoint,
                                                args=(ckpt_mgr, ps, stop_ckpt),
@@ -864,13 +917,25 @@ class AsynchronousDistributedTrainer(Trainer):
             for t in threads:
                 t.join()
             center = ps.get_model()
+            if pub_thread is not None:
+                pub_stop.set()
+                pub_thread.join(timeout=10)
+                # Final snapshot: the publish directory ends on the run's
+                # final center, even for runs shorter than one cadence.
+                loss = self._publish_loss
+                self.publisher.publish(
+                    self._published_tree(center), step=int(svc.num_commits),
+                    loss=None if loss is None else float(loss.reshape(-1)[-1]))
             if ckpt_mgr is not None:
                 stop_ckpt.set()
                 ckpt_thread.join(timeout=10)
                 self._save_center(ckpt_mgr, ps, center)
         finally:
-            # Also when anything above raised: no snapshot thread, writer
-            # or PS loop outlives train().
+            # Also when anything above raised: no snapshot or publisher
+            # thread, writer or PS loop outlives train().
+            pub_stop.set()
+            if pub_thread is not None:
+                pub_thread.join(timeout=10)
             stop_ckpt.set()
             if ckpt_thread is not None:
                 ckpt_thread.join(timeout=10)
@@ -990,6 +1055,8 @@ class AsynchronousDistributedTrainer(Trainer):
                     if stream is not None:
                         stream.synchronize()
                 win_history.append((ms, wsize, time.time()))
+                if self.publisher is not None:
+                    self._publish_loss = ms["loss"]
                 if health is not None:
                     health.record_window(widx, wsize)
                 if pending is not None:

@@ -30,8 +30,8 @@ from torch import nn
 from distkeras_tpu_torch.checkpoint import load_weights_file
 from distkeras_tpu_torch.utils.device import resolve_device
 
-__all__ = ["params_from_jax", "params_to_jax", "cache_from_jax", "cache_to_jax",
-           "load_weights_file"]
+__all__ = ["params_from_jax", "params_to_jax", "as_state_dict", "cache_from_jax",
+           "cache_to_jax", "load_weights_file"]
 
 _RENAMED = {"kernel": "weight", "scale": "weight", "embedding": "weight"}
 
@@ -69,6 +69,21 @@ def params_from_jax(tree: dict, device: str | torch.device | None = None) -> dic
         for path, leaf in _flatten(tree.get("batch_stats", {})):
             out[".".join(path)] = _as_tensor(leaf).to(dev)
     return out
+
+
+def as_state_dict(variables, device: str | torch.device | None = None) -> dict[str, torch.Tensor]:
+    """Weights of either layout as the port's flat ``state_dict``: a flat
+    dict of tensors passes through (moved to ``device`` when one is given);
+    a reference-layout tree (``{"params": ...}`` as a weight file holds it,
+    or the params tree itself) goes through :func:`params_from_jax`, onto
+    ``device`` or the host."""
+    if isinstance(variables, dict) and variables and all(
+            isinstance(v, torch.Tensor) for v in variables.values()):
+        if device is None:
+            return dict(variables)
+        dev = resolve_device(device)
+        return {k: v.to(dev) for k, v in variables.items()}
+    return params_from_jax(variables, device="cpu" if device is None else device)
 
 
 def params_to_jax(state_dict: dict[str, torch.Tensor], module: nn.Module) -> dict:

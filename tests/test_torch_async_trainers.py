@@ -203,12 +203,26 @@ def test_unported_arguments_raise(kwargs, item):
         dk.DOWNPOUR(_port_mlp(), device="cpu", **kwargs)
 
 
-def test_publisher_raises():
-    tr = dk.DynSGD(_port_mlp(), device="cpu")
-    tr.publisher = object()
-    x, y = _toy(32)
-    with pytest.raises(ValueError, match="item 8"):
-        tr.train(dk.Dataset.from_arrays(features=x, label=y))
+@time_limited
+def test_publisher_raises(tmp_path):
+    """The weight publisher is ported: an async trainer publishes the PS
+    center from its publisher thread and once more at the end, the
+    manifest names the final center, and the reference reads the file as
+    its own weight tree."""
+    from distkeras_tpu.checkpoint import load_weights_file as ref_load
+    from distkeras_tpu.checkpoint import read_manifest as ref_manifest
+    from distkeras_tpu_torch.deploy import PublishPolicy, WeightPublisher
+
+    tr = dk.DynSGD(_port_mlp(), device="cpu", num_workers=1, communication_window=2)
+    tr.publisher = WeightPublisher(str(tmp_path), PublishPolicy(every_steps=1))
+    x, y = _toy(64)
+    trained = tr.train(dk.Dataset.from_arrays(features=x, label=y))
+    manifest = ref_manifest(str(tmp_path))
+    assert manifest is not None and tr.publisher.stats()["published"] >= 1
+    tree = ref_load(manifest["path"])
+    got = _bridge(tree["params"])
+    for name, want in trained.variables.items():
+        assert torch.equal(got[name], want.cpu()), name
 
 
 def test_constructor_defaults_match_reference():

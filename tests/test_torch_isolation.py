@@ -16,6 +16,7 @@ import torch
 
 import distkeras_tpu_torch
 from distkeras_tpu_torch.data.feed import DeviceFeed
+from distkeras_tpu_torch.deploy.harness import make_score_fn
 from distkeras_tpu_torch.inference.generate import Generator, beam_search, generate
 from distkeras_tpu_torch.inference.predictors import ModelPredictor
 from distkeras_tpu_torch.models.bert import bert_tiny_mlm, decode_cache, gpt_tiny
@@ -54,7 +55,11 @@ def test_port_imports_neither_jax_nor_reference():
               "telemetry.flight_recorder", "telemetry.exposition", "serving",
               "serving.scheduler", "serving.metrics", "serving.prefix_cache",
               "serving.engine", "serving.wire", "serving.server", "serving.client",
-              "serving.constraints", "ops.attention"):
+              "serving.constraints", "ops.attention", "serving.kv_transfer",
+              "serving.kv_tier", "serving.slo", "serving.debugz", "serving.cluster",
+              "serving.cluster.replicas", "serving.cluster.supervisor",
+              "serving.cluster.router", "telemetry.timeseries", "telemetry.device",
+              "deploy", "deploy.publisher", "deploy.controller", "deploy.harness", "run"):
         assert f"distkeras_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -158,7 +163,7 @@ def test_resolve_device():
                                    "mlp_init", "resnet_init", "sync_trainer",
                                    "ensemble_trainer", "generate", "beam_search",
                                    "generator", "serving_engine", "prefix_cache",
-                                   "paged_engine"])
+                                   "paged_engine", "tiered_engine", "score_fn"])
 def test_entry_points_raise_without_cuda(entry):
     _no_cuda()
     model = bert_tiny_mlm(seq_len=16, vocab_size=64)
@@ -181,9 +186,37 @@ def test_entry_points_raise_without_cuda(entry):
         "generator": lambda: Generator(gpt, gpt_weights),
         "serving_engine": lambda: ServingEngine(gpt, gpt_weights, slots=2),
         "paged_engine": lambda: ServingEngine(gpt, gpt_weights, slots=2, kv_pool_blocks=8),
+        "tiered_engine": lambda: ServingEngine(gpt, gpt_weights, slots=2, kv_pool_blocks=8,
+                                               kv_host_tier_mb=1.0),
+        "score_fn": lambda: make_score_fn(gpt, 64),
         "prefix_cache": lambda: PrefixCache(decode_cache(
             dataclasses.replace(gpt.config, decode=True, decode_slots=True), 1, "meta"),
             block_tokens=4, budget_bytes=1 << 16),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
+
+
+BLOCKED_CHILD = (
+    "import sys\n"
+    "for m in ('jax', 'jaxlib', 'flax', 'optax', 'ml_dtypes', 'distkeras_tpu'):\n"
+    "    sys.modules[m] = None\n"
+    "from distkeras_tpu_torch.run import main\n"
+    "sys.exit(main(sys.argv[1:]))\n"
+)
+
+
+@pytest.mark.parametrize("sub", ["serve", "cluster", "deploy"])
+def test_cli_and_replica_child_refuse_without_cuda(sub, tmp_path):
+    """``run.py`` and a replica child (``run serve``, what ``ProcessReplica``
+    spawns) exit naming the missing device unless ``--device cpu`` is given,
+    with JAX and the reference unimportable."""
+    _no_cuda()
+    argv = [sub, "--port", "0", "--model", "gpt_tiny"]
+    if sub == "deploy":
+        argv += ["--watch-dir", str(tmp_path)]
+    proc = subprocess.run([sys.executable, "-c", BLOCKED_CHILD, *argv], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert "no CUDA device" in proc.stderr, proc.stderr[-2000:]
+    assert "--device" in proc.stderr

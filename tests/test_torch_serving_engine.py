@@ -441,10 +441,6 @@ def test_metrics_summary_and_metricsz_keys_match_reference(lm):
 # -- options of later slices ------------------------------------------------------
 
 @pytest.mark.parametrize("kw,exc,item", [
-    ({"kv_host_tier_mb": 8.0}, NotImplementedError, "A8"),
-    ({"kv_disk_tier_dir": "/nonexistent"}, NotImplementedError, "A8"),
-    ({"kv_disk_tier_mb": 8.0}, NotImplementedError, "A8"),
-    ({"paged": True, "kv_host_tier_mb": 8.0}, NotImplementedError, "A8"),
     ({"mesh": object()}, NotImplementedError, "A10"),
     ({"pipeline_depth": 2}, ValueError, "A10"),
 ])
@@ -453,13 +449,23 @@ def test_deferred_options_raise_naming_item(lm, kw, exc, item):
         _port(lm, **kw)
 
 
-@pytest.mark.parametrize("call,exc,item", [
-    (lambda e: e.request_kv_export([1, 2]), NotImplementedError, "A8"),
-    (lambda e: e.request_kv_import(b""), NotImplementedError, "A8"),
-])
-def test_deferred_engine_methods_raise_naming_item(lm, call, exc, item):
-    with pytest.raises(exc, match=rf"item {item}\b"):
+@pytest.mark.parametrize("call", [
+    lambda e: e.request_kv_export([1, 2]),
+    lambda e: e.request_kv_import(b""),
+], ids=["export", "import"])
+def test_deferred_engine_methods_raise_naming_item(lm, call):
+    """KV export and import are ported; a dense engine, which keeps no
+    blocks, refuses them with the reference's typed ``KVTransferError``
+    naming the paged engine it needs."""
+    from distkeras_tpu.serving.kv_transfer import KVTransferError as RefKVTransferError
+    from distkeras_tpu_torch.serving.kv_transfer import KVTransferError
+
+    with pytest.raises(KVTransferError, match="paged engine") as port_info:
         call(_port(lm, slots=1))
+    with pytest.raises(RefKVTransferError) as ref_info:
+        call(_ref(lm, slots=1))
+    assert str(port_info.value) == str(ref_info.value)
+    assert port_info.value.code == ref_info.value.code == "kv_transfer"
 
 
 @pytest.mark.parametrize("kw", [{"kind": "score"}, {"kind": "embed"},

@@ -158,8 +158,45 @@ def test_bad_request_and_overflow_codes_equal_reference(lm):
     assert port_toks == _want(lm, [1, 2], 2)
 
 
+async def _fleet_verbs(server, kvblk_payload=b"KVX1") -> dict:
+    """The fleet's verbs on a dense engine's server, one reply each: the
+    KV verbs over JSONL, a request with a ``kv_from`` hint at a dead peer,
+    the telemetry pull, and a KVBLK frame over bin1."""
+    out = {}
+    reader, writer = await asyncio.open_connection("127.0.0.1", server.port)
+    for cmd in ("kv_prefill", "kv_push", "kv_export", "telemetryz", "telemetry_start",
+                "tracez"):
+        writer.write((json.dumps({"cmd": cmd}) + "\n").encode())
+        await writer.drain()
+        out[cmd] = json.loads(await reader.readline())
+    writer.write(b'{"prompt": [1, 2], "max_new_tokens": 2, '
+                 b'"kv_from": {"host": "127.0.0.1", "port": 1}}\n')
+    await writer.drain()
+    while True:
+        rec = json.loads(await reader.readline())
+        if "token" not in rec:
+            out["kv_from"] = rec
+            break
+    writer.close()
+    # bin1: a KVBLK frame answers on its stream.
+    reader, writer = await asyncio.open_connection("127.0.0.1", server.port)
+    writer.write(port_wire.hello_line())
+    await writer.drain()
+    await reader.readline()
+    writer.write(port_wire.encode_frame(port_wire.T_KVBLK, 5, kvblk_payload))
+    await writer.drain()
+    frames = port_wire.FrameDecoder().feed(await reader.read(4096))
+    out["kvblk"] = (frames[0][1], port_wire.decode_json(frames[0][2]))
+    writer.close()
+    return out
+
+
 @time_limited
 def test_control_verbs_answer_and_deferred_verbs_name_their_item(lm):
+    """The control verbs answer; the fleet's verbs, which the port now
+    serves, answer a dense engine's server as the reference server does:
+    the same error codes, the same keys of the telemetry delta, and a
+    ``kv_from`` hint at a dead peer served with a recorded fallback."""
     async def go():
         server = _port_server(lm, slots=2)
         await server.start()
@@ -174,30 +211,22 @@ def test_control_verbs_answer_and_deferred_verbs_name_their_item(lm):
                 out["queryz"] = await c.queryz(group_by=["tenant"], aggs=["count"])
                 out["inject"] = await c._control({"cmd": "inject_latency",
                                                   "decode_delay_s": 0.0})
-                for cmd in ("kv_prefill", "kv_push", "kv_export",
-                            "telemetryz", "telemetry_start", "tracez"):
-                    c._writer.write((json.dumps({"cmd": cmd}) + "\n").encode())
-                    await c._writer.drain()
-                    out[cmd] = json.loads(await c._reader.readline())
-                c._writer.write(b'{"prompt": [1, 2], "max_new_tokens": 2, '
-                                b'"kv_from": {"host": "h", "port": 1}}\n')
-                await c._writer.drain()
-                out["kv_from"] = json.loads(await c._reader.readline())
-            # bin1: a KVBLK frame answers with the typed error on its stream.
-            reader, writer = await asyncio.open_connection("127.0.0.1", server.port)
-            writer.write(port_wire.hello_line())
-            await writer.drain()
-            await reader.readline()
-            writer.write(port_wire.encode_frame(port_wire.T_KVBLK, 5, b"KVX1"))
-            await writer.drain()
-            frames = port_wire.FrameDecoder().feed(await reader.read(4096))
-            out["kvblk"] = (frames[0][1], port_wire.decode_json(frames[0][2]))
-            writer.close()
+            out.update(await _fleet_verbs(server))
         finally:
             await server.stop(drain=True)
         return out
 
+    async def go_ref():
+        ref, variables = lm[0], lm[1]
+        server = RefServer(RefEngine(ref, variables, slots=2), port=0)
+        await server.start()
+        try:
+            return await _fleet_verbs(server)
+        finally:
+            await server.stop(drain=True)
+
     out = asyncio.run(go())
+    theirs = asyncio.run(go_ref())
     snap, health = out["snap"], out["health"]
     assert snap["serving_requests_completed_total"]["value"] == 1
     assert snap["serving_ttft_seconds"]["count"] == 1
@@ -209,14 +238,20 @@ def test_control_verbs_answer_and_deferred_verbs_name_their_item(lm):
     assert out["debugz"]["decode_compile_count"] == 1
     assert out["queryz"]["groups"][0]["count"] == 1
     assert out["inject"] == {"inject_latency": {"decode_delay_s": 0.0}}
-    items = {"kv_prefill": "A8", "kv_push": "A8", "kv_export": "A8",
-             "telemetryz": "A8", "telemetry_start": "A8", "kv_from": "A8"}
-    for cmd, item in items.items():
-        assert out[cmd]["code"] == "bad_request", cmd
-        assert f"item {item}" in out[cmd]["error"], cmd
+    for cmd in ("kv_prefill", "kv_push", "kv_export", "telemetry_start", "tracez"):
+        assert "item A8" not in str(out[cmd]), cmd
+        assert out[cmd].get("code") == theirs[cmd].get("code"), (cmd, out[cmd], theirs[cmd])
+    assert sorted(out["telemetryz"]) == sorted(theirs["telemetryz"]) == ["telemetryz"]
     assert out["tracez"]["code"] == "bad_request"  # no trace store, as the reference
+    # A dense engine cannot adopt blocks: the hint is a counted fallback and
+    # the request is served, on both servers.
+    assert out["kv_from"]["done"] and theirs["kv_from"]["done"]
+    assert out["kv_from"]["tokens"] == _want(lm, [1, 2], 2)
+    assert "fallback" in out["kv_from"]["kv_migration"]
+    assert "fallback" in theirs["kv_from"]["kv_migration"]
     sid, rec = out["kvblk"]
-    assert sid == 5 and rec["code"] == "bad_request" and "item A8" in rec["error"]
+    assert sid == theirs["kvblk"][0] == 5
+    assert rec.get("code") == theirs["kvblk"][1].get("code") and "item A8" not in str(rec)
 
 
 @time_limited
