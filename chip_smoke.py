@@ -171,12 +171,36 @@ Phases, each of which must pass or the script exits non-zero:
    renders the fleet page, sloz lists its objectives, the replicas' memory
    rows show bytes in use on cuda:0, SIGINT exits 0. No kernel of ours
    launches.
-17. Print the kernels line, the card's name and power limit, and last the
+17. Data parallelism over torch.distributed, in spawned ranks that load
+   phase 1's kernels and meet through a file store under
+   build/chip_smoke/dp/ (a rank that fails or has not ended in
+   DP_CHILD_LIMIT_S fails the phase). 17a: one rank over NCCL:
+   SynchronousDistributedTrainer(num_workers=1) on bert_base_mlm (seq 128,
+   batch 32, flash on, fused loss, adam, dropout 0) for 3 steps of phase
+   5's copy task ends on SingleTrainer's weights on the same rows, and so
+   does zero1=True (each tensor within 1e-6 of its norm; the largest gap
+   logged); 3 x 12 launches of K1-K3 and 3 of K4-K6; the two trainers'
+   train_step spans in 3 rounds taking turns, and the step alone with the
+   group and without, 5 rounds of 8 steps taking turns. 17b: two gloo ranks
+   sharing the card, global batch 64: the first step's all-reduced
+   gradients against one process's step on the 64 rows within phase 5's
+   bound (GRAD_REL_TOL, or GRAD_NOISE_FACTOR x the one-process bf16 step's
+   distance from the float32 one, both on the card); each rank's launches
+   12 of K1-K3 and 1 of K4-K6 a step; the 3 losses finite, falling and
+   equal on both ranks; zero1 on the plain run's weights within 1e-6;
+   ModelPredictor(mesh=) over both ranks the same on each, and within
+   LOGITS_ATOL of one process's bf16 logits on the 64 rows. 17c: resnet50,
+   9a's weights, 8 images a rank: the train-mode logits over both ranks and
+   one data-parallel step's BatchNorm statistics within phase 9a's bound
+   of one process on the 16 images. Logged: ms per step per rank from the
+   train_step span and the grad_all_reduce span's share of it, the phase's
+   wall time, with the card. Two ranks sharing one card give no scaling
+   figure, and none is printed.
+18. Print the kernels line, the card's name and power limit, and last the
    result line {"ok": true, "device": {...}}.
 
-Phases 9-11, 15f and 16 write their checkpoints and weight files under
-build/chip_smoke/ (git-ignored)
-and remove them.
+Phases 9-11, 15f, 16 and 17 write their checkpoints, weight files and
+stores under build/chip_smoke/ (git-ignored) and remove them.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
@@ -189,6 +213,7 @@ import json
 import math
 import os
 import shutil
+import statistics
 import subprocess
 import sys
 import threading
@@ -816,19 +841,26 @@ def card_vs_cpu_step(model, cfg, tokens):
 # -- phases 7 and 8: the asynchronous parameter-server trainers ---------------
 
 
-def span_totals(tracer) -> dict:
-    """{(span name, worker): [count, seconds]} from a tracer's B/E events
-    (each lane a stack)."""
-    out: dict = {}
-    stacks: dict = {}
+def span_intervals(tracer) -> list:
+    """(span name, worker, start, end) of each span a tracer recorded, in
+    the order they closed (each lane a stack)."""
+    out, stacks = [], {}
     for ph, name, t, lane, _, attrs in tracer.events():
         if ph == "B":
             stacks.setdefault(lane, []).append((name, t, (attrs or {}).get("worker")))
         else:
             name, t0, worker = stacks[lane].pop()
-            entry = out.setdefault((name, worker), [0, 0.0])
-            entry[0] += 1
-            entry[1] += t - t0
+            out.append((name, worker, t0, t))
+    return out
+
+
+def span_totals(tracer) -> dict:
+    """{(span name, worker): [count, seconds]} from a tracer's B/E events."""
+    out: dict = {}
+    for name, worker, t0, t1 in span_intervals(tracer):
+        entry = out.setdefault((name, worker), [0, 0.0])
+        entry[0] += 1
+        entry[1] += t1 - t0
     return out
 
 
@@ -1204,15 +1236,15 @@ def resnet_aeasgd(batch=32, window=4, windows=3, size=224):
 # -- phases 10 and 11: checkpoints and the replica trainers -------------------
 
 
-def bert_copy_task(seq, rows, seed=SEED):
+def bert_copy_task(seq, rows, seed=SEED, name="bert_base_mlm"):
     import numpy as np
 
     from distkeras_tpu_torch import Dataset
     from distkeras_tpu_torch.models import bert
 
-    base = bert.bert_base_mlm(seq_len=seq)
+    base = getattr(bert, name)(seq_len=seq)
     cfg = dataclasses.replace(base.config, use_flash_attention=True, dropout_rate=0.0)
-    model = bert._make(cfg, seq, "bert_base_mlm")
+    model = bert._make(cfg, seq, name)
     tokens = np.random.default_rng(seed).integers(0, cfg.vocab_size,
                                                   size=(rows, seq)).astype(np.int32)
     return model, cfg, Dataset.from_arrays(features=tokens, label=tokens)
@@ -2750,6 +2782,425 @@ def fleet_phase(served, slots=8, chunk=128, top_k=50, pool_mb=256, long_len=496,
     return counts
 
 
+# -- phase 17: data parallelism over torch.distributed -------------------------
+
+# A rank of phase 17 that has not ended this long after its spawn fails the
+# phase (and is killed).
+DP_CHILD_LIMIT_S = 300
+# 17a and 17b: final weights of two runs that take the same float32 steps
+# (one NCCL rank against SingleTrainer, zero1 against the plain optimizer),
+# each tensor's difference in norm relative to its norm.
+DP_EQUAL_RTOL = 1e-6
+
+
+def dp_spawn(root: str, tag: str, backend, world: int, task: str, **kwargs) -> list[dict]:
+    """Run ``task`` (a function of this script) on ``world`` spawned ranks,
+    which join one process group through a file store under
+    build/chip_smoke/dp/; returns each rank's report. The ranks load the
+    kernels phase 1 built."""
+    import multiprocessing
+
+    work = os.path.join(CKPT_ROOT, "dp", tag)
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=dp_child, args=(root, work, r, world, backend, task, kwargs),
+                         name=f"dp-{tag}-{r}", daemon=True) for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + DP_CHILD_LIMIT_S
+    for p in procs:
+        p.join(max(0.0, deadline - time.monotonic()))
+    hung = [p.name for p in procs if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    reports = []
+    for r, p in enumerate(procs):
+        path = os.path.join(work, f"report-{r}.json")
+        rep = json.load(open(path)) if os.path.exists(path) else {}
+        check(not hung, f"{tag}: ranks {hung} still running after {DP_CHILD_LIMIT_S} s")
+        check(p.exitcode == 0 and "error" not in rep,
+              f"{tag}: rank {r} exited {p.exitcode}: {rep.get('error', 'no report')}")
+        reports.append(rep)
+    shutil.rmtree(work, ignore_errors=True)
+    return reports
+
+
+def dp_child(root, work, rank, world, backend, task, kwargs):
+    """A rank of phase 17: joins the group, runs ``task``, writes its report."""
+    sys.path.insert(0, root)
+    import traceback
+
+    import torch
+
+    from distkeras_tpu_torch.parallel import distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    code = 1
+    try:
+        distributed.initialize("file://" + os.path.join(work, "store"), world, rank,
+                               backend=backend)
+        report = globals()[task](rank, world, **kwargs)
+        code = 0
+    except BaseException:
+        report = {"error": traceback.format_exc()}
+    with open(os.path.join(work, f"report-{rank}.json"), "w") as f:
+        json.dump(report, f)
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()
+    sys.exit(code)
+
+
+def _synchronize(device) -> None:
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _dp_spans(tracer) -> dict:
+    totals = span_totals(tracer)
+    step_n, step_s = totals.get(("train_step", None), [0, 0.0])
+    _, reduce_s = totals.get(("grad_all_reduce", None), [0, 0.0])
+    return {"steps": step_n, "ms_per_step": step_s / max(step_n, 1) * 1e3,
+            "all_reduce_share": reduce_s / step_s if step_s else 0.0,
+            "step_ms": [(t1 - t0) * 1e3 for name, _, t0, t1 in span_intervals(tracer)
+                        if name == "train_step"]}
+
+
+def _tensor_gaps(got: dict, want: dict) -> float:
+    """The largest ||got - want|| / ||want|| over the tensors."""
+    return max(((got[k].double() - want[k].double()).norm()
+                / want[k].double().norm().clamp_min(1e-30)).item() for k in want)
+
+
+def _sync_trainer(model, batch, device, **kw):
+    from distkeras_tpu_torch import SynchronousDistributedTrainer
+
+    return SynchronousDistributedTrainer(model, "adam", loss="fused_categorical_crossentropy",
+                                         batch_size=batch, seed=SEED, device=device, **kw)
+
+
+def dp_nccl_task(rank, world, seq=128, batch=32, steps=3, model_name="bert_base_mlm",
+                 device="cuda", rounds=3) -> dict:
+    """17a: one rank over NCCL: SynchronousDistributedTrainer(num_workers=1)
+    against SingleTrainer on the same rows, then with zero1. After a
+    one-step warm-up of each, the two trainers take turns over ``rounds``
+    rounds (each round the other first), their ``train_step`` spans timed;
+    the dp trainer's first run is the main path's. Then the step alone, as
+    phase 5 times it, with the process group and without."""
+    import torch
+
+    from distkeras_tpu_torch import SingleTrainer
+    from distkeras_tpu_torch.telemetry.spans import Tracer, disable_tracing, enable_tracing
+
+    model, cfg, data = bert_copy_task(seq, batch * steps, name=model_name)
+    makers = {
+        "dp": lambda: _sync_trainer(model, batch, device, num_workers=1),
+        "single": lambda: SingleTrainer(model, "adam", loss="fused_categorical_crossentropy",
+                                        batch_size=batch, seed=SEED, device=device)}
+    for make in makers.values():
+        make().train(data.take(batch))  # warm-up
+    _synchronize(device)
+    timings, trained = {name: [] for name in makers}, {}
+    for r in range(rounds):
+        for name in list(makers)[::1 if r % 2 == 0 else -1]:
+            main_path = r == 0 and name == "dp"
+            if main_path:
+                reset_counts()
+            tracer = enable_tracing(Tracer())
+            t0 = time.perf_counter()
+            trained[name] = makers[name]().train(data)
+            _synchronize(device)
+            wall = time.perf_counter() - t0
+            disable_tracing()
+            if main_path:
+                counts = read_counts()
+            timings[name].append({"wall_s": wall, **_dp_spans(tracer)})
+    zero1 = _sync_trainer(model, batch, device, num_workers=1, zero1=True).train(data)
+    return {"backend": torch.distributed.get_backend(), "counts": counts, **timings,
+            "steady_ms": dp_steady_ms(model, data, batch, device),
+            "gap_single": _tensor_gaps(trained["dp"].variables, trained["single"].variables),
+            "gap_zero1": _tensor_gaps(zero1.variables, trained["single"].variables)}
+
+
+def dp_steady_ms(model, data, batch, device, rounds=5, steps=8) -> dict:
+    """Phase 5's steady step, without the process group and with it: each
+    on a state of its own and on batches already on the device, ``rounds``
+    rounds of ``steps`` steps timed by the host clock between two
+    synchronizations, the two taking turns (each round the other first);
+    returns each one's ms per step in every round. On the card, 4 more
+    steps of each under the profiler."""
+    import torch
+
+    from distkeras_tpu_torch.data.feed import DeviceFeed, minibatches
+    from distkeras_tpu_torch.ops.losses import get_optimizer
+    from distkeras_tpu_torch.training.step import TrainState, make_train_step
+
+    batches = list(DeviceFeed(minibatches(data, batch), device))
+    runs = {name: [TrainState.create(model, get_optimizer("adam"), SEED, device),
+                   make_train_step(model, "fused_categorical_crossentropy", process_group=group)]
+            for name, group in (("single", None), ("dp", torch.distributed.group.WORLD))}
+
+    def run(name, n):
+        state, step = runs[name]
+        for i in range(n):
+            state, _ = step(state, batches[i % len(batches)])
+        runs[name][0] = state
+
+    out = {name: [] for name in runs}
+    for name in runs:
+        run(name, 2)
+    for r in range(rounds):
+        for name in list(runs)[::1 if r % 2 == 0 else -1]:
+            _synchronize(device)
+            t0 = time.perf_counter()
+            run(name, steps)
+            _synchronize(device)
+            out[name].append((time.perf_counter() - t0) / steps * 1e3)
+    if device == "cuda":
+        for name in runs:
+            profile(f"4 steps, {'with' if name == 'dp' else 'without'} the group",
+                    lambda: run(name, 4))
+    return out
+
+
+def dp_gloo_task(rank, world, seq=128, batch=32, steps=3, images=8, size=224,
+                 model_name="bert_base_mlm", resnet_name="resnet50", device="cuda") -> dict:
+    """17b and 17c on two gloo ranks that share the card."""
+    import numpy as np
+    import torch
+    from torch.optim.optimizer import register_optimizer_step_pre_hook
+
+    from distkeras_tpu_torch import Dataset, ModelPredictor, TrainedModel
+    from distkeras_tpu_torch.parallel.mesh import best_mesh
+    from distkeras_tpu_torch.telemetry.spans import Tracer, disable_tracing, enable_tracing
+
+    report = {"backend": torch.distributed.get_backend()}
+    group = torch.distributed.group.WORLD
+    global_batch = batch * world
+    model, cfg, data = bert_copy_task(seq, global_batch * steps, name=model_name)
+    _sync_trainer(model, batch, device).train(data.take(global_batch))  # warm-up
+
+    # 17b: three steps; the first step's all-reduced gradients, as the
+    # optimizer receives them.
+    tapped = []
+
+    def tap(optimizer, args, kwargs):
+        if not tapped:
+            tapped.extend(p.grad.detach().float().clone()
+                          for g in optimizer.param_groups for p in g["params"])
+
+    hook = register_optimizer_step_pre_hook(tap)
+    reset_counts()
+    tracer = enable_tracing(Tracer())
+    t0 = time.perf_counter()
+    tr = _sync_trainer(model, batch, device)
+    plain = tr.train(data)
+    _synchronize(device)
+    report["wall_s"] = time.perf_counter() - t0
+    disable_tracing()
+    hook.remove()
+    report["counts"] = read_counts()
+    report.update(_dp_spans(tracer))
+    report["losses"] = [h["loss"] for h in tr.history]
+    zero1 = _sync_trainer(model, batch, device, zero1=True).train(data)
+    report["gap_zero1"] = _tensor_gaps(zero1.variables, plain.variables)
+    del zero1
+
+    weights = model.init(SEED, device=device)
+    rows = data["features"][:global_batch]
+    pred = ModelPredictor(TrainedModel(model, weights), batch_size=global_batch,
+                          mesh=best_mesh(), device=device).predict(
+        Dataset.from_arrays(features=rows))["prediction"]
+    pred = torch.from_numpy(np.asarray(pred))
+    report["pred_sums"] = [pred.sum(dtype=torch.float64).item(),
+                           pred.square().sum(dtype=torch.float64).item()]
+
+    # 17c: resnet50, one train step over both ranks' images.
+    report.update(dp_resnet_step(rank, world, images, size, resnet_name, device, group))
+
+    # The one-process references, on rank 0 only.
+    if rank == 0:
+        names = [n for n, _ in model.module.named_parameters()]
+        got = dict(zip(names, tapped))
+        want, exact = bert_grads(model, cfg, weights, rows, device)
+        norms = {k: want[k].norm().item() for k in want}
+        floor = 1e-3 * max(norms.values())
+        rel = {k: (got[k] - want[k]).norm().item() / max(norms[k], floor) for k in want}
+        noise = {k: (want[k] - exact[k]).norm().item() / max(norms[k], floor) for k in want}
+        allowed = {k: max(GRAD_REL_TOL, GRAD_NOISE_FACTOR * noise[k]) for k in want}
+        worst = max(rel, key=lambda k: rel[k] / allowed[k])
+        report["grads"] = {"tensors": len(rel), "median": sorted(rel.values())[len(rel) // 2],
+                           "max": max(rel.values()), "worst": worst, "worst_rel": rel[worst],
+                           "worst_allowed": allowed[worst]}
+        one = ModelPredictor(TrainedModel(model, weights), batch_size=global_batch,
+                             device=device).predict(Dataset.from_arrays(features=rows))
+        one = torch.from_numpy(np.asarray(one["prediction"]))
+        report["pred_max_abs"] = (pred - one).abs().max().item()
+    return report
+
+
+def bert_grads(model, cfg, weights, rows, device) -> tuple[dict, dict]:
+    """The loss's gradients on ``rows`` in one process: the model as it is
+    (bf16, flash on) and in float32 with dense attention (the exact step)."""
+    import torch
+
+    from distkeras_tpu_torch.models import bert
+    from distkeras_tpu_torch.ops.fused_xent import fused_softmax_xent
+
+    exact_model = bert._make(dataclasses.replace(cfg, dtype=torch.float32,
+                                                 use_flash_attention=False),
+                             model.input_shape[0], model.name)
+    out = []
+    for m in (model, exact_model):
+        params = {k: v.detach().clone().requires_grad_() for k, v in weights.items()}
+        x = torch.from_numpy(rows).to(device)
+        logits, _ = m.apply(params, x, True, 0)
+        grads = torch.autograd.grad(fused_softmax_xent(logits, x), list(params.values()))
+        out.append({k: g.float() for k, g in zip(params, grads)})
+    return out[0], out[1]
+
+
+def dp_resnet_step(rank, world, images, size, name, device, group) -> dict:
+    """17c: resnet50 (9a's weights), ``images`` per rank: the train-mode
+    logits over both ranks and one data-parallel train step's running
+    statistics, against one process on all the images (rank 0)."""
+    import numpy as np
+    import torch
+
+    from distkeras_tpu_torch.models import resnet
+    from distkeras_tpu_torch.ops.losses import get_optimizer
+    from distkeras_tpu_torch.models.core import cross_replica_batch_stats
+    from distkeras_tpu_torch.training.step import TrainState, make_train_step
+
+    model = getattr(resnet, name)(image_size=size)
+    weights = model.init(SEED, device=device)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    with torch.no_grad():
+        for k, v in weights.items():  # as 9a: every residual branch live
+            if k.endswith(".weight") and v.ndim == 1:
+                v.copy_(1 + 0.2 * torch.randn(v.shape, device=device, generator=gen))
+            elif k.endswith(".mean"):
+                v.copy_(0.1 * torch.randn(v.shape, device=device, generator=gen))
+            elif k.endswith(".var"):
+                v.copy_(0.5 + torch.rand(v.shape, device=device, generator=gen))
+    rng = np.random.default_rng(SEED)
+    x = rng.normal(size=(images * world, size, size, 3)).astype(np.float32)
+    y = rng.integers(0, 1000, size=(images * world,)).astype(np.int32)
+    mine = slice(rank * images, (rank + 1) * images)
+    with torch.no_grad(), cross_replica_batch_stats(group):
+        logits, _ = model.apply(weights, torch.from_numpy(x[mine]).to(device), train=True)
+    parts = [torch.empty_like(logits) for _ in range(world)]
+    torch.distributed.all_gather(parts, logits.contiguous(), group=group)
+    dp_logits = torch.cat(parts).float().cpu()
+
+    model.init = lambda seed=0, device=None: {k: v.clone() for k, v in weights.items()}
+    state = TrainState.create(model, get_optimizer("sgd"), SEED, device)
+    step = make_train_step(model, "sparse_categorical_crossentropy", process_group=group)
+    t0 = time.perf_counter()
+    state, m = step(state, {"features": torch.from_numpy(x[mine]).to(device),
+                            "label": torch.from_numpy(y[mine]).to(device)})
+    loss = float(m["loss"])
+    step_ms = (time.perf_counter() - t0) * 1e3
+    out = {"resnet_step_ms": step_ms, "resnet_loss": loss}
+    if rank == 0:
+        stats = {k: v.float().cpu() - weights[k].float().cpu() for k, v in state.model_state.items()}
+        exact_model = getattr(resnet, name)(image_size=size, dtype=torch.float32)
+        ref = {}
+        for tag, m_ in (("want", model), ("exact", exact_model)):
+            with torch.no_grad():
+                lg, st = m_.apply(weights, torch.from_numpy(x).to(device), train=True)
+            ref[tag] = (lg.float().cpu(),
+                        {k: v.float().cpu() - weights[k].float().cpu() for k, v in st.items()})
+        for what, got, want, exact in (("logits", dp_logits, ref["want"][0], ref["exact"][0]),
+                                       ("stats", stats, ref["want"][1], ref["exact"][1])):
+            rel, noise = rel_norm(got, want), rel_norm(want, exact)
+            out[f"resnet_{what}"] = {"rel": rel, "noise": noise, "max_abs": max_abs(got, want),
+                                     "allowed": max(RESNET_REL_TOL, RESNET_NOISE_FACTOR * noise),
+                                     "count": len(got) if isinstance(got, dict) else 1}
+    return out
+
+
+def dp_phase(root=REPO, seq=128, batch=32, steps=3, images=8, size=224,
+             model_name="bert_base_mlm", resnet_name="resnet50", device="cuda") -> dict:
+    """17: data parallelism over torch.distributed, in spawned ranks; returns
+    the launch counts of 17a's and 17b's timed runs, every rank's summed."""
+    card = card_line()
+    t_phase = time.perf_counter()
+    cfg = bert_copy_task(seq, batch, name=model_name)[1]
+    counting = device == "cuda"  # the plain versions of the kernels count nothing
+
+    # 17a: one rank over NCCL (the default backend).
+    (a,) = dp_spawn(root, "17a", None if counting else "gloo", 1, "dp_nccl_task", seq=seq,
+                    batch=batch, steps=steps, model_name=model_name, device=device)
+    steady = a["steady_ms"]
+
+    def rounds(runs):
+        return (f"{', '.join(f'{t['ms_per_step']:.2f}' for t in runs)} ms/step (median "
+                f"{statistics.median(t['ms_per_step'] for t in runs):.2f}; steps "
+                f"{', '.join(f'{x:.2f}' for x in runs[0]['step_ms'])} in the first)")
+
+    log(f"  17a ({a['backend']}, 1 rank): {a['dp'][0]['steps']} steps a run, the train_step "
+        f"span, {len(a['dp'])} rounds taking turns: SynchronousDistributedTrainer "
+        f"{rounds(a['dp'])}, the all-reduce {a['dp'][0]['all_reduce_share']:.1%} of it; "
+        f"SingleTrainer on the same rows {rounds(a['single'])}; the step alone, median of "
+        f"{len(steady['dp'])} rounds of 8 steps taking turns: "
+        f"{statistics.median(steady['dp']):.2f} ms with the group, "
+        f"{statistics.median(steady['single']):.2f} ms without (rounds "
+        f"{', '.join(f'{x:.2f}' for x in steady['dp'])} and "
+        f"{', '.join(f'{x:.2f}' for x in steady['single'])}) ({card})")
+    log(f"  17a: weights vs SingleTrainer: largest per-tensor relative gap "
+        f"{a['gap_single']:.3g}, zero1 {a['gap_zero1']:.3g} (bound {DP_EQUAL_RTOL}); "
+        f"launches {a['counts']}")
+    check(a["backend"] == ("nccl" if counting else "gloo"), f"17a: backend {a['backend']}")
+    check(a["gap_single"] <= DP_EQUAL_RTOL, f"17a: {a['gap_single']} off SingleTrainer")
+    check(a["gap_zero1"] <= DP_EQUAL_RTOL, f"17a: zero1 {a['gap_zero1']} off SingleTrainer")
+    if counting:
+        check(a["counts"] == train_launches(cfg, steps), f"17a: launches {a['counts']}")
+    log(f"  17a: {time.perf_counter() - t_phase:.2f} s into the phase")
+
+    # 17b and 17c: two gloo ranks on the one card.
+    ranks = dp_spawn(root, "17b", "gloo", 2, "dp_gloo_task", seq=seq, batch=batch,
+                     steps=steps, images=images, size=size, model_name=model_name,
+                     resnet_name=resnet_name, device=device)
+    r0 = ranks[0]
+    for r, rep in enumerate(ranks):
+        log(f"  17b rank {r} (gloo, 2 ranks sharing one card: a check, not a scaling figure): "
+            f"{rep['steps']} steps, {rep['ms_per_step']:.2f} ms/step, all-reduce "
+            f"{rep['all_reduce_share']:.1%} of it, train() {rep['wall_s']:.2f} s; losses "
+            f"{', '.join(f'{x:.4f}' for x in rep['losses'])}; launches {rep['counts']}; 17c "
+            f"step {rep['resnet_step_ms']:.1f} ms ({card})")
+        check(rep["losses"] == r0["losses"], f"17b: rank {r} losses {rep['losses']}")
+        check(all(math.isfinite(x) for x in rep["losses"]) and rep["losses"][-1]
+              < rep["losses"][0], f"17b: losses {rep['losses']}")
+        check(rep["pred_sums"] == r0["pred_sums"], f"17b: rank {r} predicted otherwise")
+        check(rep["gap_zero1"] <= DP_EQUAL_RTOL, f"17b: zero1 {rep['gap_zero1']} off plain")
+        if counting:
+            check(rep["counts"] == train_launches(cfg, steps),
+                  f"17b: rank {r} launches {rep['counts']}")
+    g = r0["grads"]
+    log(f"  17b: first step's all-reduced gradients against one process on the "
+        f"{batch * 2} rows: relative difference median {g['median']:.3g}, max {g['max']:.3g} "
+        f"over {g['tensors']} tensors; nearest its bound {g['worst']} {g['worst_rel']:.3g} "
+        f"(allowed {g['worst_allowed']:.3g}); zero1 vs plain {r0['gap_zero1']:.3g}; "
+        f"ModelPredictor(mesh=) vs one process max abs {r0['pred_max_abs']:.3g}")
+    check(g["worst_rel"] <= g["worst_allowed"],
+          f"17b: gradient {g['worst']} {g['worst_rel']} > {g['worst_allowed']}")
+    check(r0["pred_max_abs"] <= LOGITS_ATOL, f"17b: predictor {r0['pred_max_abs']}")
+    for what in ("logits", "stats"):
+        c = r0[f"resnet_{what}"]
+        log(f"  17c {resnet_name} {what} ({c['count']} tensors) over 2 ranks of {images} images "
+            f"vs one process: relative norm {c['rel']:.4g} (allowed {c['allowed']:.4g}; the "
+            f"one-process bf16 run {c['noise']:.4g} from float32), max abs {c['max_abs']:.4g}")
+        check(c["rel"] <= c["allowed"], f"17c: {what} {c['rel']} > {c['allowed']}")
+    log(f"  17: phase wall {time.perf_counter() - t_phase:.2f} s ({card})")
+    return {k: a["counts"][k] + sum(rep["counts"][k] for rep in ranks) for k in a["counts"]}
+
+
 async def _kv_export(engine, prompt) -> dict:
     ev, res = engine.request_kv_export(prompt)
     await ev.wait()
@@ -2868,6 +3319,9 @@ def main(argv=None) -> int:
         "tiers, faults and rolling reload, deploy, the command line) at full width")
     runs.append(fleet_phase(served))
     del served
+    log("phase 17: data parallelism over torch.distributed (one NCCL rank; two gloo ranks "
+        "sharing the card): bert_base_mlm and resnet50 at full width")
+    runs.append(dp_phase(root))
     launches = {k: sum(r[k] for r in runs) for k in runs[0]}
     for k, n in launches.items():
         check(n > 0, f"kernel {k} was not launched on the main path")

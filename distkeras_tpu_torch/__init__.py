@@ -2,7 +2,9 @@
 
 This package exports what the port has so far: training through
 ``SingleTrainer``, ``EnsembleTrainer``, ``AveragingTrainer``,
-``SynchronousDistributedTrainer`` and the asynchronous parameter-server
+``SynchronousDistributedTrainer`` (data parallelism over the ranks of a
+``torch.distributed`` process group: ``parallel.distributed.initialize``,
+``parallel.mesh.make_mesh``) and the asynchronous parameter-server
 trainers (DOWNPOUR, ADAG, AEASGD, EAMSGD, DynSGD) over an in-process or
 gRPC parameter server, with step checkpoints and resume; ``TrainerConfig``;
 generation with KV caches (``generate``, ``beam_search``, ``Generator``);
@@ -16,6 +18,7 @@ cross-entropy forward and backward (Triton) as hand-written kernels.
 imports it, nor JAX.
 """
 
+from distkeras_tpu_torch import parallel
 from distkeras_tpu_torch.checkpoint import (
     CheckpointManager,
     load_weights_file,
@@ -118,6 +121,7 @@ __all__ = [
     "load_weights_meta",
     "mnist_cnn",
     "mnist_mlp",
+    "parallel",
     "params_from_jax",
     "params_to_jax",
     "publish_weights",

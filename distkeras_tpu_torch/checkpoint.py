@@ -256,15 +256,38 @@ def _optimizer_params(optimizer: torch.optim.Optimizer) -> list[torch.Tensor]:
     return [p for group in optimizer.param_groups for p in group["params"]]
 
 
+def _saved_states(optimizer: torch.optim.Optimizer) -> dict:
+    """Each parameter's optimizer state by the parameter's index in the
+    optimizer. A ``ZeroRedundancyOptimizer`` (zero1) keeps each rank's
+    shard: its whole state comes from the state dict that
+    ``consolidate_state_dict(to=this rank)``, called on every rank, gathered."""
+    if hasattr(optimizer, "consolidate_state_dict"):
+        return dict(optimizer.state_dict()["state"])
+    return {i: optimizer.state.get(p) for i, p in enumerate(_optimizer_params(optimizer))}
+
+
+def _live_states(optimizer: torch.optim.Optimizer):
+    """``(index, parameter, its live state)`` for each parameter whose
+    optimizer state this process keeps: all of them, or a
+    ``ZeroRedundancyOptimizer``'s shard (its local optimizer's)."""
+    local = getattr(optimizer, "optim", None) if hasattr(
+        optimizer, "consolidate_state_dict") else None
+    owned = None if local is None else {id(p) for p in _optimizer_params(local)}
+    for i, p in enumerate(_optimizer_params(optimizer)):
+        if owned is None:
+            yield i, p, optimizer.state[p]
+        elif id(p) in owned:
+            yield i, p, local.state[p]
+
+
 def _state_tree(state) -> dict:
     """A :class:`~distkeras_tpu_torch.training.step.TrainState` as a tree:
     ``params``, ``model_state``, ``opt_state`` (each parameter's optimizer
-    tensors, keyed by its index in the optimizer) and ``step``/``seed``.
-    The optimizer's hyperparameters come from its construction, not the
-    file."""
+    tensors, keyed by its index in the optimizer, so that a zero1 file and
+    a plain one have the same layout) and ``step``/``seed``. The
+    optimizer's hyperparameters come from its construction, not the file."""
     opt_state = {}
-    for i, p in enumerate(_optimizer_params(state.optimizer)):
-        entry = state.optimizer.state.get(p)
+    for i, entry in _saved_states(state.optimizer).items():
         if not entry:
             continue
         for k, v in entry.items():
@@ -278,7 +301,8 @@ def _state_tree(state) -> dict:
 
 def _restore_state(state, tree: dict):
     """Write a saved :func:`_state_tree` into ``state``'s own tensors: the
-    parameters and the optimizer's moments are copied in place (an
+    parameters and the optimizer's moments (of a zero1 optimizer, this
+    rank's shard of them) are copied in place (an
     optimizer state not made yet is created on its parameter's device, a
     0-dim ``step`` on the CPU as torch keeps it), so the optimizer stays
     attached to the trainer's parameters. Returns ``state``."""
@@ -289,11 +313,10 @@ def _restore_state(state, tree: dict):
             p.copy_(tree["params"][k])
         state.model_state = {k: saved_model_state[k].to(v.device, v.dtype)
                              for k, v in state.model_state.items()}
-        for i, p in enumerate(_optimizer_params(state.optimizer)):
+        for i, p, live in _live_states(state.optimizer):
             saved = opt_state.get(str(i))
             if saved is None:
                 continue
-            live = state.optimizer.state[p]
             for k, v in saved.items():
                 if isinstance(live.get(k), torch.Tensor):
                     live[k].copy_(v)

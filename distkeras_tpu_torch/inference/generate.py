@@ -100,8 +100,8 @@ def _check_context(model, dec_cfg, prompt, max_new_tokens: int):
 def _refuse_mesh(mesh) -> None:
     if mesh is not None:
         raise NotImplementedError(
-            "batch-parallel decoding over a mesh is not ported yet: it comes with the "
-            "multi-device slice (ROADMAP.md §A item A10)")
+            "batch-parallel decoding over a mesh is not ported yet: it comes with "
+            "multi-device serving and generation (ROADMAP.md §A item A10e)")
 
 
 def _empty_cache(dec_cfg: BertConfig, batch_size: int, device) -> dict[str, torch.Tensor]:

@@ -1,6 +1,6 @@
 """Batch inference: counterpart of ``distkeras_tpu/inference/predictors.py``
-``ModelPredictor``. The ensemble predictor and mesh sharding come with later
-slices."""
+``ModelPredictor``, with its ``mesh=`` (the batch split over the ranks of
+a process group). The ensemble predictor comes with a later slice."""
 
 from __future__ import annotations
 
@@ -27,7 +27,14 @@ class ModelPredictor(Predictor):
     The weights move to ``device`` once (CUDA unless ``"cpu"`` is asked
     for). Every batch runs at ``batch_size`` rows: the last one is padded
     with zero rows and trimmed, as the reference pads to its compiled
-    shape."""
+    shape.
+
+    With ``mesh`` (a :class:`~distkeras_tpu_torch.parallel.mesh.Mesh` over
+    the ranks of a process group; every rank calls :meth:`predict` on the
+    same dataset), each batch is split over the mesh's ``dp`` axis, as the
+    reference shards it: rank ``r`` runs rows ``[r·b, (r+1)·b)`` of the
+    padded batch (``b = batch_size / dp``) and an ``all_gather`` puts the
+    rows back in order, so every rank returns the whole prediction."""
 
     def __init__(
         self,
@@ -35,6 +42,7 @@ class ModelPredictor(Predictor):
         features_col: str = "features",
         output_col: str = "prediction",
         batch_size: int = 1024,
+        mesh=None,
         device: str | torch.device | None = None,
     ):
         if not isinstance(keras_model, TrainedModel):
@@ -46,6 +54,15 @@ class ModelPredictor(Predictor):
         self.features_col = features_col
         self.output_col = output_col
         self.batch_size = int(batch_size)
+        self.mesh = mesh
+        if mesh is not None:
+            model_axes = {a: n for a, n in mesh.shape.items() if a != "dp" and n > 1}
+            if model_axes:
+                raise ValueError(f"mesh axes {model_axes} need model parallelism, which is "
+                                 f"not ported yet (ROADMAP.md §A item A10b)")
+            if self.batch_size % mesh.shape["dp"]:
+                raise ValueError(f"batch_size {self.batch_size} is not divisible by the "
+                                 f"mesh's dp={mesh.shape['dp']}")
 
     @torch.inference_mode()
     def predict(self, dataset: Dataset) -> Dataset:
@@ -54,12 +71,25 @@ class ModelPredictor(Predictor):
         device = self.trained.device
         outs = []
         bs = self.batch_size
+        group = self.mesh.group("dp") if self.mesh is not None else None
+        if group is not None:
+            dp = torch.distributed.get_world_size(group)
+            share = bs // dp
+            r = torch.distributed.get_rank(group)
+            mine = slice(r * share, (r + 1) * share)
         for lo in range(0, x.shape[0], bs):
             chunk = x[lo : lo + bs]
             pad = bs - chunk.shape[0]
             if pad:
                 chunk = np.concatenate([chunk, np.zeros((pad, *chunk.shape[1:]), chunk.dtype)])
-            out = model.apply(variables, torch.from_numpy(chunk).to(device), train=False)[0]
+            if group is None:
+                out = model.apply(variables, torch.from_numpy(chunk).to(device), train=False)[0]
+            else:
+                part = model.apply(variables, torch.from_numpy(chunk[mine]).to(device),
+                                   train=False)[0].contiguous()
+                parts = [torch.empty_like(part) for _ in range(dp)]
+                torch.distributed.all_gather(parts, part, group=group)
+                out = torch.cat(parts)
             out = out.cpu().numpy()
             outs.append(out[: bs - pad] if pad else out)
         preds = np.concatenate(outs) if outs else np.zeros((0,))

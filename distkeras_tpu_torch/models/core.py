@@ -10,10 +10,16 @@ module for the length of the call, so each thread applies its own meta
 instance: worker threads of the async trainers (and autograd's recompute
 under remat) run the same :class:`Model` at once. :class:`TrainedModel` bundles the two for
 inference. ``from_flax``/``from_keras`` are not ported.
+
+:func:`cross_replica_batch_stats` names the process group over which a
+model's BatchNorm takes its batch moments while a data-parallel step runs,
+so that they are the global batch's, as XLA computes them in the reference.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import threading
 from collections.abc import Callable
 
@@ -23,9 +29,28 @@ from torch import nn
 
 from distkeras_tpu_torch.utils.device import resolve_device
 
-__all__ = ["Model", "TrainedModel"]
+__all__ = ["Model", "TrainedModel", "batch_stats_group", "cross_replica_batch_stats"]
 
 Variables = dict[str, torch.Tensor]
+
+_BATCH_STATS_GROUP: contextvars.ContextVar = contextvars.ContextVar(
+    "distkeras_tpu_torch_batch_stats_group", default=None)
+
+
+@contextlib.contextmanager
+def cross_replica_batch_stats(group):
+    """While this is entered, BatchNorm takes its train-mode moments over
+    every rank of ``group`` (None: this rank's batch alone)."""
+    token = _BATCH_STATS_GROUP.set(group)
+    try:
+        yield
+    finally:
+        _BATCH_STATS_GROUP.reset(token)
+
+
+def batch_stats_group():
+    """The process group BatchNorm reduces its moments over, or None."""
+    return _BATCH_STATS_GROUP.get()
 
 
 class Model:

@@ -23,7 +23,13 @@ numerics are the reference's:
   batch`` with the biased batch variance (``nn.BatchNorm2d`` would use the
   unbiased one); the last BatchNorm of each block starts with a zero scale;
 - the residual add and everything after the stem's BatchNorm run in
-  float32, and the head is a float32 ``Dense``.
+  float32, and the head is a float32 ``Dense``;
+- under a data-parallel step
+  (:func:`~distkeras_tpu_torch.models.core.cross_replica_batch_stats`)
+  the batch moments E[x] and E[x^2] are averaged over the group's ranks by
+  an all-reduce that autograd differentiates, so that they, the running
+  statistics and the gradients are the global batch's, as XLA computes
+  them over the reference's sharded batch.
 
 In train mode the forward returns ``(logits, new_stats)``, the updated
 running statistics under their ``state_dict`` names, which
@@ -39,7 +45,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from distkeras_tpu_torch.models.bert import Dense
-from distkeras_tpu_torch.models.core import Model
+from distkeras_tpu_torch.models.core import Model, batch_stats_group
 
 __all__ = ["BasicBlock", "BatchNorm", "BottleneckBlock", "ResNet", "resnet18", "resnet50"]
 
@@ -116,8 +122,16 @@ class BatchNorm(nn.Module):
         if updates is None:
             mean, var = self.mean, self.var
         else:
-            mean = x.mean(dim=(0, 2, 3))
-            var = torch.clamp_min((x * x).mean(dim=(0, 2, 3)) - mean * mean, 0.0)
+            mean, sq = x.mean(dim=(0, 2, 3)), (x * x).mean(dim=(0, 2, 3))
+            group = batch_stats_group()
+            if group is not None:
+                # torch.distributed.all_reduce would give the right moments
+                # and no gradient through the other ranks' rows.
+                from torch.distributed.nn.functional import all_reduce
+
+                moments = all_reduce(torch.stack([mean, sq]), group=group)
+                mean, sq = (moments / torch.distributed.get_world_size(group)).unbind()
+            var = torch.clamp_min(sq - mean * mean, 0.0)
             with torch.no_grad():
                 updates[f"{self.path}.mean"] = _MOMENTUM * self.mean + (1 - _MOMENTUM) * mean
                 updates[f"{self.path}.var"] = _MOMENTUM * self.var + (1 - _MOMENTUM) * var

@@ -17,7 +17,7 @@ import torch.nn.functional as F
 
 from distkeras_tpu_torch.ops.fused_xent import fused_softmax_xent
 
-__all__ = ["get_loss", "get_optimizer", "LOSSES", "NesterovTrace"]
+__all__ = ["get_loss", "get_optimizer", "optimizer_spec", "LOSSES", "NesterovTrace"]
 
 LossFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 
@@ -188,3 +188,18 @@ def get_optimizer(optimizer: str | OptimizerFactory,
         raise ValueError(f"unknown optimizer {optimizer!r}") from None
     lr = default_lr if learning_rate is None else learning_rate
     return functools.partial(cls, lr=lr, **kwargs)
+
+
+def optimizer_spec(factory: OptimizerFactory) -> tuple[type, dict]:
+    """The optimizer class and keyword arguments of a factory that
+    :func:`get_optimizer` (or a protocol, for ``NesterovTrace``) made, a
+    ``functools.partial`` over the class: what
+    ``torch.distributed.optim.ZeroRedundancyOptimizer`` builds each rank's
+    shard of the optimizer from. Raises ``TypeError`` for any other
+    callable, whose class cannot be read."""
+    if isinstance(factory, functools.partial) and isinstance(factory.func, type) \
+            and issubclass(factory.func, torch.optim.Optimizer) and not factory.args:
+        return factory.func, dict(factory.keywords)
+    raise TypeError(
+        f"zero1 needs an optimizer given by name or as functools.partial(OptimizerClass, "
+        f"**kwargs), not {factory!r}")

@@ -1,0 +1,27 @@
+"""Parallelism: meshes over process ranks (``mesh``), the process group
+(``distributed``), sharding rules (``sharding``), and the parameter-server
+protocols, services and transports. The mesh helpers import eagerly;
+``distributed`` and ``sharding`` resolve on first use, as in
+``distkeras_tpu/parallel/__init__.py``."""
+
+from distkeras_tpu_torch.parallel.mesh import (
+    best_mesh,
+    data_parallel_shardings,
+    make_mesh,
+)
+
+_LAZY_MODULES = {
+    "distributed": "distkeras_tpu_torch.parallel.distributed",
+    "sharding": "distkeras_tpu_torch.parallel.sharding",
+}
+
+
+def __getattr__(name):
+    import importlib
+
+    if name in _LAZY_MODULES:
+        return importlib.import_module(_LAZY_MODULES[name])
+    raise AttributeError(name)
+
+
+__all__ = ["make_mesh", "best_mesh", "data_parallel_shardings"]

@@ -7,7 +7,8 @@ Counterpart of ``distkeras_tpu/parallel/ps.py:47-291``:
   queue, so data races on PS state are impossible by construction.
 - **Transport-agnostic.** :class:`InProcessClient` (queue-based) serves
   workers in the same process: worker threads, each driving its own CUDA
-  stream. The cross-host gRPC transport is not ported.
+  stream; :mod:`distkeras_tpu_torch.parallel.ps_grpc` serves the same
+  service across processes and hosts over gRPC.
 - The center lives as host (CPU) tensors and the commit arithmetic is torch
   on the CPU: the loop never touches device memory. Workers' device trees
   become host trees on the worker's side of the queue (:func:`_host_payload`),

@@ -1,0 +1,106 @@
+"""Logical-axis to mesh-axis sharding rules: counterpart of
+``distkeras_tpu/parallel/sharding.py``.
+
+A tensor annotated with logical axes (``("batch", "seq", "embed")``)
+resolves against these rules to a partition spec over the mesh's axes, and
+that spec to DTensor placements (:attr:`NamedSharding.placements`). The
+model annotations that :func:`infer_variable_shardings` reads in the
+reference come with model parallelism (``ROADMAP.md`` §A item A10b).
+"""
+
+from __future__ import annotations
+
+from collections.abc import Sequence
+
+from distkeras_tpu_torch.parallel.mesh import Mesh, NamedSharding
+
+__all__ = [
+    "DEFAULT_RULES",
+    "kv_pytree_shardings",
+    "logical_axis_rules",
+    "logical_sharding",
+    "infer_variable_shardings",
+    "replicated",
+]
+
+# logical axis -> mesh axis (None = replicate)
+DEFAULT_RULES: tuple[tuple[str, str | None], ...] = (
+    ("batch", "dp"),
+    ("seq", "sp"),
+    ("embed", None),     # keep the residual stream replicated
+    ("heads", "tp"),
+    ("mlp", "tp"),
+    ("kv", None),
+    ("vocab", "tp"),
+    ("expert", "ep"),
+)
+
+
+def logical_axis_rules(mesh: Mesh, overrides=None):
+    """Filter DEFAULT_RULES down to axes the mesh actually has."""
+    rules = []
+    seen = set()
+    for logical, phys in tuple(overrides or ()) + DEFAULT_RULES:
+        if logical in seen:
+            continue
+        seen.add(logical)
+        rules.append((logical, phys if phys in mesh.axis_names else None))
+    return tuple(rules)
+
+
+def logical_sharding(mesh: Mesh, logical_axes: Sequence[str | None],
+                     overrides=None) -> NamedSharding:
+    """The sharding of a tensor whose dimensions carry ``logical_axes``
+    (None for an unnamed one), resolved as flax's ``logical_to_mesh_axes``
+    resolves them: the rules of :func:`logical_axis_rules` in order of
+    precedence, each giving its dimension its mesh axis unless an earlier
+    rule took that axis; a dimension no rule assigns is replicated."""
+    names = list(logical_axes)
+    dups = tuple(dict.fromkeys(n for n in names if isinstance(n, str) and names.count(n) > 1))
+    if dups:
+        raise ValueError(f"Unsupported: Dimensions {dups} occur more than once in array names.")
+    spec: list = [None] * len(names)
+    for logical, phys in logical_axis_rules(mesh, overrides):
+        if logical in names and phys is not None and phys not in spec:
+            spec[names.index(logical)] = phys
+    return NamedSharding(mesh, tuple(spec))
+
+
+def infer_variable_shardings(mesh: Mesh, abstract_variables, overrides=None):
+    """The reference resolves a variables tree of logically annotated
+    leaves to shardings; the port's models carry no such annotations yet."""
+    raise NotImplementedError(
+        "infer_variable_shardings needs the logical-axis annotated models of "
+        "model parallelism, which is not ported yet (ROADMAP.md §A item A10b)")
+
+
+def replicated(mesh: Mesh) -> NamedSharding:
+    return NamedSharding(mesh, ())
+
+
+def kv_pytree_shardings(mesh: Mesh, tree, axis: str = "tp"):
+    """Shardings for a decode KV cache/pool tree: every K/V leaf (the
+    ``ndim >= 3`` tensors: dense caches ``[B, L, H, D]``, prefill rows and
+    paged pools ``[C, block_tokens, H, D]``, heads at axis ``-2``) is sharded
+    over its heads, and only when the head count divides the mesh axis;
+    everything else is replicated. ``tree`` is a dict/list/tuple tree of
+    anything with a ``shape``."""
+    n = mesh.shape.get(axis, 1)
+
+    def rule(leaf):
+        shape = tuple(getattr(leaf, "shape", ()))
+        if (axis in mesh.axis_names and n > 1 and len(shape) >= 3
+                and shape[-2] % n == 0):
+            spec = [None] * len(shape)
+            spec[-2] = axis
+            return NamedSharding(mesh, tuple(spec))
+        return NamedSharding(mesh, ())
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v) for v in node)
+        return rule(node)
+
+    return walk(tree)

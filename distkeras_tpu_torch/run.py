@@ -27,7 +27,7 @@ Every command runs on the card: ``--device`` defaults to ``cuda``, and
 without one the command fails unless ``--device cpu`` is given (replica
 children inherit the flag). A serving mesh (``--mesh``, ``--mesh-shape``),
 ``--force-host-devices`` and ``--pipeline-depth`` above 1 are refused,
-naming ROADMAP.md §A item A10.
+naming ROADMAP.md §A item A10e.
 """
 
 from __future__ import annotations
@@ -77,7 +77,7 @@ def load_data(path: str, features_col: str, label_col: str):
     )
 
 
-_A10 = "the multi-device slice (ROADMAP.md §A item A10)"
+_A10 = "multi-device serving (ROADMAP.md §A item A10e)"
 
 
 def _refuse_multi_device(args) -> None:
@@ -236,11 +236,11 @@ def serve_main(argv=None, prog="serve", default_replicas=1) -> int:
                     help="draft tokens proposed per speculative tick")
     ap.add_argument("--mesh", action="store_true",
                     help="sharded serving over a device mesh: refused, "
-                         "it comes with ROADMAP.md §A item A10")
+                         "it comes with ROADMAP.md §A item A10e")
     ap.add_argument("--mesh-shape", default=None, metavar="AXIS=N[,..]",
-                    help="explicit serving mesh shape: refused (A10)")
+                    help="explicit serving mesh shape: refused (A10e)")
     ap.add_argument("--force-host-devices", type=int, default=None,
-                    metavar="N", help="virtual host devices: refused (A10)")
+                    metavar="N", help="virtual host devices: refused (A10e)")
     ap.add_argument("--wire", default="auto",
                     choices=["auto", "bin1", "jsonl"],
                     help="front-door protocol policy: 'auto'/'bin1' "
@@ -853,11 +853,11 @@ def deploy_main(argv=None) -> int:
     ap.add_argument("--spec-k", type=int, default=4)
     ap.add_argument("--mesh", action="store_true",
                     help="sharded replicas: refused, it comes with "
-                         "ROADMAP.md §A item A10")
+                         "ROADMAP.md §A item A10e")
     ap.add_argument("--mesh-shape", default=None, metavar="AXIS=N[,..]",
-                    help="per-replica serving mesh shape: refused (A10)")
+                    help="per-replica serving mesh shape: refused (A10e)")
     ap.add_argument("--force-host-devices", type=int, default=None,
-                    metavar="N", help="virtual host devices: refused (A10)")
+                    metavar="N", help="virtual host devices: refused (A10e)")
     ap.add_argument("--golden", type=int, default=4,
                     help="golden prompt count the canary replica must "
                          "serve (twice each, identical greedy output, "

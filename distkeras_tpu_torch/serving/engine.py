@@ -113,7 +113,7 @@ The transfer ids are not padded to a power-of-two bucket as the
 reference's are: nothing is compiled per shape here.
 
 What the reference has and this engine refuses, naming its ROADMAP item:
-a device mesh and ``pipeline_depth > 1`` (A10). No step is a
+a device mesh and ``pipeline_depth > 1`` (A10e). No step is a
 CUDA graph: a warm decode dispatch is a full eager step on the loop
 thread. ``HostGapTracker`` stamps a tick's dispatch before its launches,
 so ``serving_device_idle_ratio`` counts the gaps between ticks; inside an
@@ -639,7 +639,7 @@ class ServingEngine:
     eviction bursts drain to. :meth:`request_kv_export` and
     :meth:`request_kv_import` move block chains between paged engines.
 
-    A mesh and ``pipeline_depth > 1`` (A10) raise naming their ROADMAP
+    A mesh and ``pipeline_depth > 1`` (A10e) raise naming their ROADMAP
     item (:meth:`_refuse_deferred`).
 
     Drive it with :meth:`submit` + :meth:`run` (asyncio).
@@ -1027,14 +1027,14 @@ class ServingEngine:
         if mesh is not None:
             raise NotImplementedError(
                 "a serving mesh (tensor- or pipeline-parallel serving) is not "
-                "ported yet: it comes with the multi-device slice (ROADMAP.md §A "
-                "item A10)")
+                "ported yet: it comes with multi-device serving (ROADMAP.md §A "
+                "item A10e)")
         if pipeline_depth > 1:
             raise ValueError(
                 f"pipeline_depth={pipeline_depth} needs a pp>=2 serving mesh "
                 f"(micro-batched ticks only overlap across pipeline stages; "
                 f"--mesh-shape tp=N,pp=M), which is not ported yet (ROADMAP.md "
-                f"§A item A10)")
+                f"§A item A10e)")
 
     def decode_compile_count(self) -> int:
         """Number of abstract signatures the decode step has seen (must

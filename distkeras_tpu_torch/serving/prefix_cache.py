@@ -446,7 +446,7 @@ class PrefixCache(_BlockTrie):
     :class:`~distkeras_tpu_torch.telemetry.registry.MetricsRegistry` for
     the hit/miss/eviction counters and occupancy gauges. ``mesh`` and
     ``stage_meshes`` (the sharded engines' pools) wait for ROADMAP.md §A
-    item A10 and raise.
+    item A10e and raise.
     """
 
     def __init__(self, template, *, block_tokens: int = 16,
@@ -455,7 +455,7 @@ class PrefixCache(_BlockTrie):
         if mesh is not None or stage_meshes is not None:
             raise NotImplementedError(
                 "a sharded prefix cache (mesh/stage_meshes) is not ported yet: it "
-                "comes with the multi-device slice (ROADMAP.md §A item A10)")
+                "comes with multi-device serving (ROADMAP.md §A item A10e)")
         if block_tokens < 1:
             raise ValueError(f"block_tokens must be >= 1, got {block_tokens}")
         kv = _kv_names(template)

@@ -3,7 +3,7 @@
 Copy of the reference's ``distkeras_tpu/serving/server.py`` over the
 port's :class:`~distkeras_tpu_torch.serving.engine.ServingEngine`; only its
 imports differ, and the pipeline-stage and mesh rows of ``healthz``, which
-come with the multi-device slice (ROADMAP.md §A item A10), are left out.
+come with multi-device serving (ROADMAP.md §A item A10e), are left out.
 
 Wire protocol: newline-delimited JSON, one request object per line in,
 a stream of single-line events out:

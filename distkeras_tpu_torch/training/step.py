@@ -11,6 +11,19 @@ buys. The step returns the same state object.
 Metrics come back as 0-dim tensors on the weights' device; the step never
 waits for the device (no ``.item()``), so the host can queue the next step
 while this one runs.
+
+Data parallelism (``process_group=``): each rank runs the step on its
+share of the global batch, then the gradients are averaged over the group
+by :func:`all_reduce_mean_`: one ``all_reduce`` of each dtype's ``.grad``
+tensors, flattened, then a divide by the group's size (the reference's
+XLA inserts the same all-reduce over its ``dp`` axis). There is no
+``nn.Module`` for DDP to own, as the step is functional over
+``state.params``. Every parameter has a gradient before the reduction (an
+unused one a zero), so every rank reduces the same tensors in the same
+order; under ``grad_accum_steps > 1`` the reduction waits for the last
+micro-step. The metrics are averaged over the group too, so they are the
+global batch's, and BatchNorm takes its moments over the group
+(:func:`~distkeras_tpu_torch.models.core.cross_replica_batch_stats`).
 """
 
 from __future__ import annotations
@@ -21,13 +34,15 @@ from collections.abc import Callable
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from distkeras_tpu_torch.models.core import Model
+from distkeras_tpu_torch.models.core import Model, cross_replica_batch_stats
 from distkeras_tpu_torch.ops.losses import OptimizerFactory, get_loss
 from distkeras_tpu_torch.ops.metrics import accuracy as accuracy_metric
+from distkeras_tpu_torch.telemetry.spans import span
 from distkeras_tpu_torch.utils.rng import fold_in
 
 __all__ = [
     "TrainState",
+    "all_reduce_mean_",
     "apply_aux_loss",
     "make_cached_window_train_step",
     "make_eval_step",
@@ -55,6 +70,25 @@ def apply_aux_loss(task_loss, new_model_state: dict, weight: float):
     if aux is not None:
         task_loss = task_loss + weight * sum(torch.sum(leaf) for leaf in _leaves(aux))
     return task_loss, new_model_state
+
+
+def all_reduce_mean_(tensors: list[torch.Tensor], group) -> None:
+    """Average ``tensors`` over the ranks of ``group``, in place: the
+    tensors of each dtype are flattened into one buffer, summed with one
+    ``all_reduce`` and divided by the group's size. Every rank must pass
+    the same shapes in the same order. Traced as the span
+    ``grad_all_reduce``."""
+    world = torch.distributed.get_world_size(group)
+    by_dtype: dict[torch.dtype, list[torch.Tensor]] = {}
+    for t in tensors:
+        by_dtype.setdefault(t.dtype, []).append(t)
+    with span("grad_all_reduce"):
+        for bucket in by_dtype.values():
+            flat = torch.cat([t.reshape(-1) for t in bucket])
+            torch.distributed.all_reduce(flat, group=group)
+            flat.div_(world)
+            parts = flat.split([t.numel() for t in bucket])
+            torch._foreach_copy_(bucket, [v.view_as(t) for t, v in zip(bucket, parts)])
 
 
 @dataclasses.dataclass
@@ -97,6 +131,7 @@ def make_train_step(
     remat: bool = False,
     aux_loss_weight: float = 0.01,
     grad_accum_steps: int = 1,
+    process_group=None,
 ):
     """Build ``step(state, batch) -> (state, metrics_dict)``.
 
@@ -108,15 +143,27 @@ def make_train_step(
     from the same seeds, so they match). ``grad_accum_steps=k`` splits the
     batch into k micro-batches, sums their gradients, divides by k and makes
     ONE optimizer update: a k times larger batch at 1/k of the activation
-    memory.
+    memory. With ``process_group`` (a ``torch.distributed`` group) the step
+    is this rank's part of a data-parallel step over the group: ``batch`` is
+    this rank's rows, and the gradients, the metrics and BatchNorm's batch
+    moments are the whole group's (see the module's docstring).
     """
     loss_fn = get_loss(loss)
     accum = max(1, int(grad_accum_steps))
+    # Rank r > 0 draws its dropout masks from its own seeds: the same seed
+    # on every rank would repeat rank 0's masks over each share of the batch.
+    rank = torch.distributed.get_rank(process_group) if process_group is not None else 0
+
+    def run(variables, features, rng):
+        # Entered inside the checkpointed function, so that a recomputed
+        # forward takes its BatchNorm moments over the group as well.
+        with cross_replica_batch_stats(process_group):
+            return model.apply(variables, features, True, rng)
 
     def apply(variables, features, rng):
         if remat:
-            return checkpoint(model.apply, variables, features, True, rng, use_reentrant=False)
-        return model.apply(variables, features, True, rng)
+            return checkpoint(run, variables, features, rng, use_reentrant=False)
+        return run(variables, features, rng)
 
     def forward(variables, features, labels, rng):
         outputs, new_model_state = apply(variables, features, rng)
@@ -127,6 +174,8 @@ def make_train_step(
     def step(state: TrainState, batch: dict) -> tuple[TrainState, dict]:
         features, labels = batch["features"], batch["label"]
         step_seed = fold_in(state.seed, state.step)
+        if rank:
+            step_seed = fold_in(step_seed, rank)
         if accum == 1:
             loss_value, outputs, new_model_state = forward(
                 state.variables, features, labels, step_seed)
@@ -164,6 +213,12 @@ def make_train_step(
         for p in state.params.values():
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        if process_group is not None:
+            # One reduction: the metrics join the float32 gradients' buffer.
+            keys = list(out)
+            stacked = torch.stack([out[k].float() for k in keys])
+            all_reduce_mean_([p.grad for p in state.params.values()] + [stacked], process_group)
+            out = dict(zip(keys, stacked.unbind()))
         state.optimizer.step()
         state.optimizer.zero_grad(set_to_none=True)
         if new_model_state:

@@ -6,7 +6,8 @@ step history, the telemetry surface: a per-step ``metric_stream`` and the
 :class:`SingleTrainer` (one step loop on one device);
 :class:`EnsembleTrainer` and :class:`AveragingTrainer` (N replicas, each
 with its own state, stepped in turn); :class:`SynchronousDistributedTrainer`
-(data parallelism, on one device here, with step checkpoints and resume);
+(data parallelism over the ranks of a ``torch.distributed`` process group,
+with zero1, step checkpoints and resume);
 and the asynchronous parameter-server family,
 :class:`AsynchronousDistributedTrainer` with ``DOWNPOUR``, ``ADAG``,
 ``AEASGD``, ``EAMSGD`` and ``DynSGD``: worker threads, each running its
@@ -14,7 +15,8 @@ windows on its own CUDA stream, exchange with one in-process parameter
 server every ``communication_window`` steps, with periodic PS checkpoints
 and resume. A recompile ``auditor`` signs each trainer's step, as the
 reference's ``Trainer._audit`` wraps it. Not ported yet, and refused with
-the ``ROADMAP.md`` item that brings them: multi-device islands and meshes.
+the ``ROADMAP.md`` item that brings them: model axes of a mesh, and the
+async trainers' multi-device islands.
 A weight ``publisher`` (:class:`~distkeras_tpu_torch.deploy.WeightPublisher`)
 publishes the live weights on its cadence: the step-loop trainers per
 step, the asynchronous family the PS center from a thread of its own.
@@ -23,6 +25,7 @@ step, the asynchronous family the PS center from a thread of its own.
 from __future__ import annotations
 
 import contextlib
+import functools
 import logging
 import threading
 import time
@@ -35,8 +38,10 @@ from distkeras_tpu_torch.checkpoint import CheckpointManager
 from distkeras_tpu_torch.data.dataset import Dataset
 from distkeras_tpu_torch.data.feed import DeviceFeed, index_windows, minibatches, window_batches
 from distkeras_tpu_torch.models.core import Model, TrainedModel
-from distkeras_tpu_torch.ops.losses import get_loss, get_optimizer
+from distkeras_tpu_torch.ops.losses import get_loss, get_optimizer, optimizer_spec
+from distkeras_tpu_torch.parallel.distributed import process_count
 from distkeras_tpu_torch.parallel.ha import CompressingClient, RetryingClient, StampingClient
+from distkeras_tpu_torch.parallel.mesh import Mesh, best_mesh, make_mesh
 from distkeras_tpu_torch.parallel.protocols import (
     ADAGProtocol,
     AEASGDProtocol,
@@ -81,13 +86,25 @@ class _StepCheckpointer:
     """Save and resume for the step-loop trainers (reference ``trainers.py:87-138``):
     restore the latest step into the live state, timed ``wait=False`` saves
     during the loop, a final blocking save, and a ``close()`` safe to call
-    from ``finally``, so a crash mid-train still finishes an in-flight save."""
+    from ``finally``, so a crash mid-train still finishes an in-flight save.
 
-    def __init__(self, directory, interval_s, resume, like):
+    Under a data-parallel ``group`` every rank restores and only rank 0
+    writes. A zero1 optimizer (``ZeroRedundancyOptimizer``) first gathers
+    its shards to rank 0, which every rank must join: so its ranks take
+    rank 0's decision to save, broadcast every ``ZERO1_POLL_STEPS`` steps
+    (a broadcast of a Python object waits for the device under NCCL), and a
+    timed zero1 save comes up to that many steps after it is due."""
+
+    ZERO1_POLL_STEPS = 16
+
+    def __init__(self, directory, interval_s, resume, like, group=None):
         self.mgr = None
         self.start_step = 0
         self.state = None
         self.interval_s = float(interval_s)
+        self.group = group
+        self.writer = group is None or torch.distributed.get_rank(group) == 0
+        self.zero1 = hasattr(like.optimizer, "consolidate_state_dict")
         if directory is None:
             return
         self.mgr = CheckpointManager(directory)
@@ -96,19 +113,36 @@ class _StepCheckpointer:
             self.start_step = self.mgr.latest_step()
         self._last = time.monotonic()
 
-    def maybe_save(self, step, state):
-        if self.mgr is not None and time.monotonic() - self._last >= self.interval_s:
+    def _save(self, step, state, wait):
+        if self.zero1:
+            state.optimizer.consolidate_state_dict(to=0)
+        if self.writer:
             with span("checkpoint_save", step=step):
-                self.mgr.save(step, state=state, wait=False)
+                self.mgr.save(step, state=state, wait=wait)
+
+    def maybe_save(self, step, state):
+        if self.mgr is None:
+            return
+        if self.zero1 and step % self.ZERO1_POLL_STEPS:
+            return
+        due = [time.monotonic() - self._last >= self.interval_s]
+        if self.zero1:
+            torch.distributed.broadcast_object_list(
+                due, src=torch.distributed.get_global_rank(self.group, 0), group=self.group)
+        if due[0]:
+            self._save(step, state, wait=False)
             self._last = time.monotonic()
 
     def finalize(self, step, state):
         if self.mgr is not None and step > self.start_step:
             # Skipped when maybe_save already saved this very step in the
             # background; then the wait is for that write.
-            with span("checkpoint_save", step=step):
-                self.mgr.save(step, state=state)
+            self._save(step, state, wait=True)
             self.mgr.wait_until_finished()
+        if self.mgr is not None and self.group is not None:
+            # No rank returns before rank 0's file is whole: a run that
+            # resumes next must find the same latest step on every rank.
+            torch.distributed.barrier(self.group)
 
     def close(self):
         if self.mgr is not None:
@@ -520,18 +554,35 @@ class AveragingTrainer(_ReplicasTrainer):
 
 class SynchronousDistributedTrainer(Trainer):
     """Synchronous data parallelism (reference
-    ``SynchronousDistributedTrainer``, ``trainers.py:565-709``, its
-    data-parallel branch): the global batch is ``batch_size`` times the
-    data-parallel size, which on the one device the port trains on is 1.
-    ``num_workers`` above the devices in use raises as the reference's
-    ``best_mesh`` does. Checkpoints: with ``checkpoint_dir`` the state is
-    saved every ``checkpoint_interval_s`` (in the background) and at the
-    end; ``resume=True`` restores the latest step into the state and
+    ``SynchronousDistributedTrainer``, ``trainers.py:565-709``) over the
+    ranks of a ``torch.distributed`` process group: run the same script on
+    every rank after :func:`~distkeras_tpu_torch.parallel.distributed.initialize`
+    (without a process group, one rank trains alone).
+
+    The global batch is ``batch_size`` times the mesh's ``dp`` size. Every
+    rank draws the same global batch and trains on its rows ``[r·B,
+    (r+1)·B)``, where the reference's ``P("dp")`` places them; the step
+    averages the gradients and the metrics over the ranks (so ``history``
+    holds the global batch's numbers) and BatchNorm takes the global batch's
+    moments (:func:`~distkeras_tpu_torch.training.step.make_train_step`).
+    ``num_workers`` is the ``dp`` size: None means every rank of the process
+    group; more than its ranks raises the reference's message, and so does a
+    mesh over fewer of them (every rank trains). ``mesh`` is a
+    :class:`~distkeras_tpu_torch.parallel.mesh.Mesh` or a mapping of axis
+    sizes, as the reference's ``make_mesh`` takes (``{"dp": 2}``). With
+    ``zero1`` the optimizer's state is sharded over the ranks
+    (``torch.distributed.optim.ZeroRedundancyOptimizer``; the reference's
+    ZeRO-1 moments sharded over ``dp``); with one rank and no process group
+    there is nothing to shard, as in the reference at ``dp=1``.
+
+    Checkpoints: with ``checkpoint_dir`` the state is saved every
+    ``checkpoint_interval_s`` (in the background) and at the end, by rank 0
+    alone; ``resume=True`` restores the latest step on every rank and
     fast-forwards the deterministic batch stream past it, so a resumed run
-    reproduces the uninterrupted one. Model axes in ``mesh``, ``zero1``,
-    ``shard_sequence`` and a process group of more than one rank are
-    multi-device work and raise; ``mesh`` is a mapping of axis sizes
-    (``{"dp": 1}``), as the reference's ``make_mesh`` takes."""
+    reproduces the uninterrupted one. A zero1 state is gathered to rank 0
+    for each save and saved as a plain one. Only rank 0 publishes. Model
+    axes in ``mesh`` (tp, fsdp, ep: ROADMAP.md §A item A10b; sp: A10c; pp:
+    A10d) and ``shard_sequence`` (A10c) are not ported yet and raise."""
 
     def __init__(
         self,
@@ -576,51 +627,72 @@ class SynchronousDistributedTrainer(Trainer):
         self.checkpoint_interval_s = float(checkpoint_interval_s)
         self.resume = bool(resume)
 
-    def _data_parallel_size(self) -> int:
-        """The data-parallel size, 1: what else the reference's mesh paths
-        do is refused (ROADMAP.md §A item A10)."""
-        later = "multi-device training, which is not ported yet (ROADMAP.md §A item A10)"
-        if self.zero1:
-            raise ValueError(f"zero1 needs {later}")
+    _MODEL_AXIS_ITEMS = {"sp": "A10c", "pp": "A10d"}  # the others: A10b
+
+    def _data_parallel_mesh(self) -> Mesh:
+        """The mesh to train over: refuses what is not ported yet (model
+        axes, ``shard_sequence``) and a mesh that leaves ranks out."""
         if self.shard_sequence:
-            raise ValueError(f"shard_sequence needs {later}")
-        if (torch.distributed.is_available() and torch.distributed.is_initialized()
-                and torch.distributed.get_world_size() > 1):
-            raise ValueError(f"a process group of more than one rank needs {later}")
-        devices = 1
-        if self.num_workers is not None and self.num_workers > devices:
-            raise ValueError(f"requested {self.num_workers} devices but only {devices} "
-                             f"are attached; reduce num_workers or run on more chips")
-        if self.mesh is not None:
-            sizes = dict(self.mesh)
-            model_axes = {a: n for a, n in sizes.items() if a != "dp" and n > 1}
-            if model_axes:
-                raise ValueError(f"mesh axes {model_axes} need {later}")
-            if sizes.get("dp", 1) > devices:
-                raise ValueError(f"mesh dp={sizes['dp']} but only {devices} device is used")
-        return 1
+            raise ValueError("shard_sequence needs sequence parallelism, which is not "
+                             "ported yet (ROADMAP.md §A item A10c)")
+        world = process_count()
+        mesh = self.mesh
+        if mesh is None:
+            mesh = best_mesh(self.num_workers if self.num_workers is not None else world)
+        sizes = mesh.shape if isinstance(mesh, Mesh) else dict(mesh)
+        model_axes = {a: n for a, n in sizes.items() if a != "dp" and n > 1}
+        if model_axes:
+            items = sorted({self._MODEL_AXIS_ITEMS.get(a, "A10b") for a in model_axes})
+            raise ValueError(f"mesh axes {model_axes} are not ported yet "
+                             f"(ROADMAP.md §A item {', '.join(items)})")
+        if not isinstance(mesh, Mesh):
+            if sizes.get("dp", 1) > world:
+                raise ValueError(f"mesh dp={sizes['dp']} but the process group has "
+                                 f"{world} rank(s)")
+            mesh = make_mesh(sizes)
+        if mesh.size != world:
+            raise ValueError(
+                f"a mesh of {mesh.size} of the process group's {world} ranks: every rank "
+                f"trains, so start {mesh.size} rank(s) or give num_workers={world}")
+        return mesh
 
     def train(self, dataset: Dataset, shuffle: bool = False) -> TrainedModel:
         """Train ``num_epoch`` epochs (rows reshuffled each epoch with
         ``seed + epoch`` when ``shuffle``), resuming from ``checkpoint_dir``
-        when asked, and return the trained model on the trainer's device."""
-        global_batch = self.batch_size * self._data_parallel_size()
+        when asked, and return the trained model on the trainer's device
+        (the same weights on every rank)."""
+        mesh = self._data_parallel_mesh()
+        dp = mesh.shape["dp"]
+        group = mesh.group("dp")
+        rank = torch.distributed.get_rank(group) if group is not None else 0
         self.record_training_start()
         step_fn = self._audit(make_train_step(self.model, self.loss, self.metrics,
-                                              aux_loss_weight=self.aux_loss_weight),
+                                              aux_loss_weight=self.aux_loss_weight,
+                                              process_group=group),
                               "sync_train_step")
-        state = TrainState.create(self.model, self._optimizer(), self.seed, self.device)
+        optimizer = self._optimizer()
+        if self.zero1 and group is not None:
+            from torch.distributed.optim import ZeroRedundancyOptimizer
+
+            cls, kwargs = optimizer_spec(optimizer)
+            optimizer = functools.partial(ZeroRedundancyOptimizer, optimizer_class=cls,
+                                          process_group=group, **kwargs)
+        state = TrainState.create(self.model, optimizer, self.seed, self.device)
         ck = _StepCheckpointer(self.checkpoint_dir, self.checkpoint_interval_s, self.resume,
-                               like=state)
+                               like=state, group=group)
         if ck.state is not None:
             state = ck.state
-        batches = minibatches(dataset, global_batch, self.features_col, self.label_col,
-                              num_epoch=self.num_epoch, seed=self.seed if shuffle else None,
-                              start_batch=ck.start_step)
+        batches = minibatches(dataset, self.batch_size * dp, self.features_col,
+                              self.label_col, num_epoch=self.num_epoch,
+                              seed=self.seed if shuffle else None, start_batch=ck.start_step)
+        if dp > 1:
+            rows = slice(rank * self.batch_size, (rank + 1) * self.batch_size)
+            batches = ({k: v[rows] for k, v in b.items()} for b in batches)
         history = []
         try:
             state, step_no = _run_steps(step_fn, state, batches, self.device, history, ck,
-                                        ck.start_step, publish=self._publish_step)
+                                        ck.start_step,
+                                        publish=self._publish_step if rank == 0 else None)
             ck.finalize(step_no, state)
         finally:
             ck.close()
@@ -721,7 +793,7 @@ class AsynchronousDistributedTrainer(Trainer):
             _import_grpc()  # fail here, not inside a worker thread
         if int(devices_per_worker) != 1:
             raise ValueError("devices_per_worker > 1 (multi-device islands) is not ported "
-                             "yet (ROADMAP.md §A item 10)")
+                             "yet (ROADMAP.md §A item A10f)")
         self.num_workers = int(num_workers)
         self.devices_per_worker = 1
         self.batch_size = int(batch_size)

@@ -69,8 +69,8 @@ class TrainerConfig:
         import distkeras_tpu_torch as dk
 
         if self.trainer == "PipelineTrainer":
-            raise ValueError("PipelineTrainer is multi-device training, which is not ported "
-                             "yet (ROADMAP.md §A item A10)")
+            raise ValueError("PipelineTrainer is pipeline parallelism, which is not ported "
+                             "yet (ROADMAP.md §A item A10d)")
         cls = getattr(dk, self.trainer)
         kwargs: dict[str, Any] = {
             "worker_optimizer": self.worker_optimizer,

@@ -195,7 +195,7 @@ def test_feed_compression_and_over_partitioning():
 
 
 @pytest.mark.parametrize("kwargs, item", [
-    ({"devices_per_worker": 2}, "item 10"),
+    ({"devices_per_worker": 2}, "item A10f"),
     ({"transport": "smoke-signals"}, "unknown transport"),
 ])
 def test_unported_arguments_raise(kwargs, item):

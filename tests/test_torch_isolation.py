@@ -23,6 +23,7 @@ from distkeras_tpu_torch.models.bert import bert_tiny_mlm, decode_cache, gpt_tin
 from distkeras_tpu_torch.models.core import TrainedModel
 from distkeras_tpu_torch.models.mlp import mnist_mlp
 from distkeras_tpu_torch.models.resnet import resnet18
+from distkeras_tpu_torch.parallel import distributed
 from distkeras_tpu_torch.serving import PrefixCache, ServingEngine
 from distkeras_tpu_torch.training.trainers import (
     DynSGD,
@@ -59,7 +60,8 @@ def test_port_imports_neither_jax_nor_reference():
               "serving.kv_tier", "serving.slo", "serving.debugz", "serving.cluster",
               "serving.cluster.replicas", "serving.cluster.supervisor",
               "serving.cluster.router", "telemetry.timeseries", "telemetry.device",
-              "deploy", "deploy.publisher", "deploy.controller", "deploy.harness", "run"):
+              "deploy", "deploy.publisher", "deploy.controller", "deploy.harness", "run",
+              "parallel.distributed", "parallel.mesh", "parallel.sharding"):
         assert f"distkeras_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -163,7 +165,8 @@ def test_resolve_device():
                                    "mlp_init", "resnet_init", "sync_trainer",
                                    "ensemble_trainer", "generate", "beam_search",
                                    "generator", "serving_engine", "prefix_cache",
-                                   "paged_engine", "tiered_engine", "score_fn"])
+                                   "paged_engine", "tiered_engine", "score_fn",
+                                   "initialize"])
 def test_entry_points_raise_without_cuda(entry):
     _no_cuda()
     model = bert_tiny_mlm(seq_len=16, vocab_size=64)
@@ -189,6 +192,8 @@ def test_entry_points_raise_without_cuda(entry):
         "tiered_engine": lambda: ServingEngine(gpt, gpt_weights, slots=2, kv_pool_blocks=8,
                                                kv_host_tier_mb=1.0),
         "score_fn": lambda: make_score_fn(gpt, 64),
+        # NCCL unless gloo is named: no CUDA device, no quiet switch to gloo
+        "initialize": lambda: distributed.initialize("localhost:1", 2, 0),
         "prefix_cache": lambda: PrefixCache(decode_cache(
             dataclasses.replace(gpt.config, decode=True, decode_slots=True), 1, "meta"),
             block_tokens=4, budget_bytes=1 << 16),

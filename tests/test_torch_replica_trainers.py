@@ -146,7 +146,7 @@ def test_uneven_partitions_report_the_reference_drop_count(models):
 @pytest.mark.parametrize("kwargs, match", [
     ({"mesh": {"dp": 1, "tp": 2}}, "A10"),
     ({"mesh": {"dp": 1, "fsdp": 2}}, "A10"),
-    ({"zero1": True}, "A10"),
+    ({"mesh": {"dp": 1, "sp": 2}}, "A10"),
     ({"shard_sequence": True}, "A10"),
     ({"num_workers": 2}, "requested 2 devices but only 1"),
     ({"mesh": {"dp": 2}}, "dp=2"),
@@ -160,12 +160,15 @@ def test_sync_trainer_refuses_multi_device(models, kwargs, match):
 
 
 def test_sync_trainer_refuses_a_multi_rank_process_group(models, monkeypatch):
+    """Every rank of the process group trains: a mesh over fewer of its
+    ranks (num_workers below the group's size) is refused. Multi-rank
+    training itself runs in tests/test_torch_data_parallel.py."""
     _, port_model = models
     monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
     monkeypatch.setattr(torch.distributed, "get_world_size", lambda *a, **k: 2)
     x, y = _toy(32)
-    with pytest.raises(ValueError, match="process group.*A10"):
-        dk.SynchronousDistributedTrainer(port_model, device="cpu").train(
+    with pytest.raises(ValueError, match="1 of the process group's 2 ranks"):
+        dk.SynchronousDistributedTrainer(port_model, num_workers=1, device="cpu").train(
             dk.Dataset.from_arrays(features=x, label=y))
 
 

@@ -441,8 +441,8 @@ def test_metrics_summary_and_metricsz_keys_match_reference(lm):
 # -- options of later slices ------------------------------------------------------
 
 @pytest.mark.parametrize("kw,exc,item", [
-    ({"mesh": object()}, NotImplementedError, "A10"),
-    ({"pipeline_depth": 2}, ValueError, "A10"),
+    ({"mesh": object()}, NotImplementedError, "A10e"),
+    ({"pipeline_depth": 2}, ValueError, "A10e"),
 ])
 def test_deferred_options_raise_naming_item(lm, kw, exc, item):
     with pytest.raises(exc, match=rf"item {item}\b"):

@@ -11,8 +11,9 @@ import threading
 
 
 def time_limited(test=None, *, timeout: float = 120.0):
-    """Decorator: run the test on a daemon thread, re-raise what it raises,
-    and fail when it is still running after ``timeout`` seconds."""
+    """Decorator: run the test on a daemon thread, re-raise what it raises
+    or return what it returns, and fail when it is still running after
+    ``timeout`` seconds."""
     if test is None:
         return functools.partial(time_limited, timeout=timeout)
 
@@ -22,7 +23,7 @@ def time_limited(test=None, *, timeout: float = 120.0):
 
         def run():
             try:
-                test(*args, **kwargs)
+                out["value"] = test(*args, **kwargs)
             except BaseException as e:  # re-raised on the test's thread
                 out["error"] = e
 
@@ -32,5 +33,6 @@ def time_limited(test=None, *, timeout: float = 120.0):
         assert not t.is_alive(), f"{test.__name__} did not end within {timeout} s"
         if "error" in out:
             raise out["error"]
+        return out.get("value")
 
     return wrapper
