@@ -196,10 +196,30 @@ Phases, each of which must pass or the script exits non-zero:
    train_step span and the grad_all_reduce span's share of it, the phase's
    wall time, with the card. Two ranks sharing one card give no scaling
    figure, and none is printed.
-18. Print the kernels line, the card's name and power limit, and last the
+18. Model parallelism, in ranks spawned as phase 17's. 18a: one NCCL rank:
+   make_sharded_train_step over sharded_train_state on a mesh of size 1
+   (bert_base_mlm, seq 128, batch 32, flash on, fused loss, adam, dropout
+   0), 3 steps of phase 5's copy task, ends on SingleTrainer's weights
+   (each tensor within 1e-6 of its norm); 3 x 12 launches of K1-K3 and 3 of
+   K4-K6. 18b: SynchronousDistributedTrainer(mesh={"tp": 2}) on two gloo
+   ranks sharing the card (Megatron's layout: each rank 6 of the 12 heads,
+   K1-K3 at BH = 192, K4-K6 on the gathered [4096, 30522] logits): the
+   first step's gradients, gathered whole, within phase 5's bound of one
+   process's on the same 32 rows; the replicated leaves (LayerNorms,
+   biases, pos_embed) equal on both ranks after 3 steps; the returned
+   weights whole; the tp forward on them within LOGITS_ATOL of one
+   process's; the losses finite, falling and equal on both ranks; 12 of
+   each of K1-K3 and 1 of each of K4-K6 a step on each rank. 18c:
+   mesh={"fsdp": 2}, global batch 64: each rank holds half of every split
+   leaf, its resident parameter bytes logged beside the whole model's; the
+   first step's gradients within the same bound of one process on the 64
+   rows. Logged: ms per step per rank (train_step span) and the shares of
+   the tp_all_reduce, tp_gather, fsdp_gather and fsdp_reduce_scatter
+   spans, the phase's wall time, with the card. No scaling figure.
+19. Print the kernels line, the card's name and power limit, and last the
    result line {"ok": true, "device": {...}}.
 
-Phases 9-11, 15f, 16 and 17 write their checkpoints, weight files and
+Phases 9-11, 15f, 16, 17 and 18 write their checkpoints, weight files and
 stores under build/chip_smoke/ (git-ignored) and remove them.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
@@ -3201,6 +3221,223 @@ def dp_phase(root=REPO, seq=128, batch=32, steps=3, images=8, size=224,
     return {k: a["counts"][k] + sum(rep["counts"][k] for rep in ranks) for k in a["counts"]}
 
 
+# -- phase 18: model parallelism (tp and fsdp) --------------------------------
+
+
+def _mp_spans(tracer) -> dict:
+    """ms per step (the ``train_step`` span) and each collective span's
+    share of it."""
+    totals = span_totals(tracer)
+    step_n, step_s = totals.get(("train_step", None), [0, 0.0])
+    out = {"steps": step_n, "ms_per_step": step_s / max(step_n, 1) * 1e3}
+    for name in ("tp_all_reduce", "tp_gather", "fsdp_gather", "fsdp_reduce_scatter",
+                 "grad_all_reduce"):
+        out[f"{name}_share"] = totals.get((name, None), [0, 0.0])[1] / step_s if step_s else 0.0
+    return out
+
+
+def mp_nccl_task(rank, world, seq=128, batch=32, steps=3, model_name="bert_base_mlm",
+                 device="cuda") -> dict:
+    """18a: one NCCL rank: ``make_sharded_train_step`` over
+    ``sharded_train_state`` on a mesh of size 1, ``steps`` steps, against
+    SingleTrainer on the same rows."""
+    from distkeras_tpu_torch import SingleTrainer
+    from distkeras_tpu_torch.data.feed import DeviceFeed, minibatches
+    from distkeras_tpu_torch.ops.losses import get_optimizer
+    from distkeras_tpu_torch.parallel.gspmd import make_sharded_train_step, sharded_train_state
+    from distkeras_tpu_torch.parallel.mesh import make_mesh
+
+    import torch
+
+    model, cfg, data = bert_copy_task(seq, batch * steps, name=model_name)
+    mesh = make_mesh({"dp": 1})
+    loss = "fused_categorical_crossentropy"
+    step = make_sharded_train_step(model, loss, mesh)
+    batches = list(DeviceFeed(minibatches(data, batch), device))
+    warm, _ = sharded_train_state(model, get_optimizer("adam"), mesh, SEED, device=device)
+    step(warm, batches[0])  # warm-up: cuBLAS handles, the allocator
+    del warm
+    state, _ = sharded_train_state(model, get_optimizer("adam"), mesh, SEED, device=device)
+    _synchronize(device)
+    reset_counts()
+    t0 = time.perf_counter()
+    for b in batches:
+        state, m = step(state, b)
+    _synchronize(device)
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    single = SingleTrainer(model, "adam", loss=loss, batch_size=batch, seed=SEED,
+                           device=device).train(data)
+    return {"backend": torch.distributed.get_backend(), "counts": counts,
+            "ms_per_step": wall / steps * 1e3,
+            "gap_single": _tensor_gaps(state.variables, single.variables)}
+
+
+def mp_gloo_task(rank, world, axes, seq=128, batch=32, steps=3, model_name="bert_base_mlm",
+                 device="cuda") -> dict:
+    """18b (``axes={"tp": 2}``) and 18c (``{"fsdp": 2}``) on two gloo ranks
+    that share the card: SynchronousDistributedTrainer on the mesh for
+    ``steps`` steps on one global batch of the copy task repeated (three
+    random batches of 32 rows do not show a falling loss in three steps),
+    the first step's gradients as the optimizer receives them (this rank's
+    parts), gathered whole; rank 0 also trains the one-process
+    SingleTrainer on the same rows."""
+    import numpy as np
+    import torch
+    from torch.optim.optimizer import register_optimizer_step_pre_hook
+
+    from distkeras_tpu_torch import Dataset, SingleTrainer
+    from distkeras_tpu_torch.models.bert import with_tp_mesh
+    from distkeras_tpu_torch.parallel import gspmd
+    from distkeras_tpu_torch.parallel.mesh import make_mesh
+    from distkeras_tpu_torch.telemetry.spans import Tracer, disable_tracing, enable_tracing
+
+    mesh = make_mesh(axes)
+    data_ranks = axes.get("dp", 1) * axes.get("fsdp", 1)
+    global_batch = batch * data_ranks
+    model, cfg, one = bert_copy_task(seq, global_batch, name=model_name)
+    data = Dataset.from_arrays(**{k: np.concatenate([one[k]] * steps) for k in ("features",
+                                                                           "label")})
+    _sync_trainer(model, batch, device, mesh=axes).train(one)  # warm-up
+    names = [n for n, _ in model.module.named_parameters()]
+    meta = model.module.state_dict()  # shapes only: the spec's module is on "meta"
+    shapes = {k: v.shape for k, v in meta.items()}
+    shardings = gspmd.variable_shardings(model, mesh, meta)
+    tapped = []
+
+    def tap(optimizer, args, kwargs):
+        if not tapped:
+            tapped.extend(p.grad.detach().float().clone()
+                          for g in optimizer.param_groups for p in g["params"])
+
+    hook = register_optimizer_step_pre_hook(tap)
+    reset_counts()
+    tracer = enable_tracing(Tracer())
+    t0 = time.perf_counter()
+    tr = _sync_trainer(model, batch, device, mesh=axes)
+    trained = tr.train(data)
+    _synchronize(device)
+    report = {"backend": torch.distributed.get_backend(), "wall_s": time.perf_counter() - t0}
+    disable_tracing()
+    hook.remove()
+    report["counts"] = read_counts()
+    report.update(_mp_spans(tracer))
+    report["losses"] = [h["loss"] for h in tr.history]
+    local = dict(zip(names, tapped))
+    split = [k for k in names if not shardings[k].is_replicated]
+    report["split"] = len(split)
+    report["halves"] = all(local[k].numel() * 2 == math.prod(shapes[k]) for k in split)
+    report["resident_bytes"] = sum(v.numel() * 4 for v in local.values())
+    report["whole_bytes"] = sum(math.prod(shapes[k]) * 4 for k in names)
+    report["whole"] = all(tuple(trained.variables[k].shape) == tuple(shapes[k]) for k in names)
+    kept = [k for k in names if shardings[k].is_replicated]
+    report["replicated_sums"] = [[trained.variables[k].double().sum().item(),
+                                  trained.variables[k].double().square().sum().item()]
+                                 for k in kept]
+    got = gspmd.gather_whole(local, shardings)
+    weights = model.init(SEED, device=device)
+    rows = data["features"][:global_batch]
+    if axes.get("tp", 1) > 1:  # the tp forward on the trained weights, every rank
+        tp_model = with_tp_mesh(model, mesh)
+        placed = gspmd.place_sharded(trained.variables, shardings, device)
+        with torch.no_grad():
+            tp_logits = tp_model.apply(placed, torch.from_numpy(rows).to(device))[0].float()
+    if rank == 0:
+        single = SingleTrainer(model, "adam", loss="fused_categorical_crossentropy",
+                               batch_size=global_batch, seed=SEED, device=device)
+        single.train(data)
+        report["single_losses"] = [h["loss"] for h in single.history]
+        want, exact = bert_grads(model, cfg, weights, rows, device)
+        norms = {k: want[k].norm().item() for k in want}
+        floor = 1e-3 * max(norms.values())
+        rel = {k: (got[k] - want[k]).norm().item() / max(norms[k], floor) for k in want}
+        noise = {k: (want[k] - exact[k]).norm().item() / max(norms[k], floor) for k in want}
+        allowed = {k: max(GRAD_REL_TOL, GRAD_NOISE_FACTOR * noise[k]) for k in want}
+        worst = max(rel, key=lambda k: rel[k] / allowed[k])
+        report["grads"] = {"tensors": len(rel), "median": sorted(rel.values())[len(rel) // 2],
+                           "max": max(rel.values()), "worst": worst, "worst_rel": rel[worst],
+                           "worst_allowed": allowed[worst]}
+        if axes.get("tp", 1) > 1:
+            with torch.no_grad():
+                one = model.apply(trained.variables, torch.from_numpy(rows).to(device))[0]
+            report["logits_max_abs"] = (tp_logits - one.float()).abs().max().item()
+            report["logits_finite"] = bool(torch.isfinite(tp_logits).all().item())
+    return report
+
+
+def mp_phase(root=REPO, seq=128, batch=32, steps=3, model_name="bert_base_mlm",
+             device="cuda") -> dict:
+    """18: tp and fsdp training in spawned ranks; returns the launch counts
+    of 18a's run and 18b's and 18c's timed runs, every rank's summed."""
+    card = card_line()
+    t_phase = time.perf_counter()
+    cfg = bert_copy_task(seq, batch, name=model_name)[1]
+    counting = device == "cuda"  # the plain versions of the kernels count nothing
+
+    (a,) = dp_spawn(root, "18a", None if counting else "gloo", 1, "mp_nccl_task", seq=seq,
+                    batch=batch, steps=steps, model_name=model_name, device=device)
+    log(f"  18a ({a['backend']}, 1 rank, mesh of size 1): make_sharded_train_step "
+        f"{a['ms_per_step']:.2f} ms/step over {steps} steps (host clock, synchronized); "
+        f"weights vs SingleTrainer: largest per-tensor relative gap {a['gap_single']:.3g} "
+        f"(bound {DP_EQUAL_RTOL}); launches {a['counts']} ({card})")
+    check(a["backend"] == ("nccl" if counting else "gloo"), f"18a: backend {a['backend']}")
+    check(a["gap_single"] <= DP_EQUAL_RTOL, f"18a: {a['gap_single']} off SingleTrainer")
+    if counting:
+        check(a["counts"] == train_launches(cfg, steps), f"18a: launches {a['counts']}")
+    log(f"  18a: {time.perf_counter() - t_phase:.2f} s into the phase")
+    counts = [a["counts"]]
+    for tag, axes in (("18b", {"tp": 2}), ("18c", {"fsdp": 2})):
+        ranks = dp_spawn(root, tag, "gloo", 2, "mp_gloo_task", axes=axes, seq=seq, batch=batch,
+                         steps=steps, model_name=model_name, device=device)
+        r0 = ranks[0]
+        rows = batch * axes.get("fsdp", 1)
+        for r, rep in enumerate(ranks):
+            shares = ", ".join(f"{k[:-6]} {rep[k]:.1%}" for k in rep
+                               if k.endswith("_share") and rep[k])
+            log(f"  {tag} {axes} rank {r} (gloo, 2 ranks sharing one card: a check, not a "
+                f"scaling figure): {rep['steps']} steps, {rep['ms_per_step']:.2f} ms/step "
+                f"(train_step span), of it {shares or 'no collective span'}; train() "
+                f"{rep['wall_s']:.2f} s; losses {', '.join(f'{x:.4f}' for x in rep['losses'])}; "
+                f"launches {rep['counts']}; parameters resident "
+                f"{rep['resident_bytes'] / 2**20:.1f} MiB of the whole model's "
+                f"{rep['whole_bytes'] / 2**20:.1f} MiB ({rep['split']} leaves split) ({card})")
+            check(rep["losses"] == r0["losses"], f"{tag}: rank {r} losses {rep['losses']}")
+            check(all(math.isfinite(x) for x in rep["losses"]) and all(
+                b < a for a, b in zip(rep["losses"], rep["losses"][1:])),
+                f"{tag}: losses {rep['losses']} do not fall")
+            check(rep["whole"], f"{tag}: rank {r} returned weights that are not whole")
+            check(rep["halves"] and rep["split"] > 0,
+                  f"{tag}: rank {r} does not hold half of each split leaf")
+            check(rep["replicated_sums"] == r0["replicated_sums"],
+                  f"{tag}: rank {r}'s replicated leaves differ from rank 0's")
+            if counting:
+                check(rep["counts"] == train_launches(cfg, steps),
+                      f"{tag}: rank {r} launches {rep['counts']}")
+            counts.append(rep["counts"])
+        gap = max(abs(a - b) / abs(b) for a, b in zip(r0["losses"], r0["single_losses"]))
+        log(f"  {tag}: losses against SingleTrainer's on the same rows "
+            f"{', '.join(f'{x:.4f}' for x in r0['single_losses'])}: largest relative gap "
+            f"{gap:.3g} (bound {LOSS_RTOL})")
+        check(gap <= LOSS_RTOL, f"{tag}: losses {gap} off SingleTrainer's")
+        g = r0["grads"]
+        log(f"  {tag}: first step's gradients, gathered whole, against one process on the "
+            f"{rows} rows: relative difference median {g['median']:.3g}, max {g['max']:.3g} "
+            f"over {g['tensors']} tensors; nearest its bound {g['worst']} "
+            f"{g['worst_rel']:.3g} (allowed {g['worst_allowed']:.3g}); "
+            f"{len(r0['replicated_sums'])} replicated leaves equal on both ranks")
+        check(g["worst_rel"] <= g["worst_allowed"],
+              f"{tag}: gradient {g['worst']} {g['worst_rel']} > {g['worst_allowed']}")
+        if "logits_max_abs" in r0:
+            log(f"  {tag}: the tp forward on the trained weights vs one process on {rows} rows: "
+                f"max abs {r0['logits_max_abs']:.3g} (bound {LOGITS_ATOL}), BH = "
+                f"{batch * cfg.num_heads // axes['tp']} a rank in K1-K3")
+            check(r0["logits_finite"] and r0["logits_max_abs"] <= LOGITS_ATOL,
+                  f"{tag}: tp logits {r0['logits_max_abs']}")
+        log(f"  {tag}: {time.perf_counter() - t_phase:.2f} s into the phase")
+    log(f"  18: phase wall {time.perf_counter() - t_phase:.2f} s ({card})")
+    return {k: sum(c[k] for c in counts) for k in counts[0]}
+
+
 async def _kv_export(engine, prompt) -> dict:
     ev, res = engine.request_kv_export(prompt)
     await ev.wait()
@@ -3264,13 +3501,15 @@ def main(argv=None) -> int:
     log("phase 2: kernels against their plain versions on the card")
     k1 = [flash_case(32, 128, 12, 64, False, 0, gen),
           flash_case(8, 512, 12, 64, True, 0, gen),
-          flash_case(8, 512, 12, 64, True, 1, gen)]
+          flash_case(8, 512, 12, 64, True, 1, gen),
+          flash_case(32, 128, 6, 64, False, 0, gen)]  # a tp=2 rank's heads (phase 18b)
     k4 = [xent_case(4096, 30522, torch.float32, gen),
           xent_case(4096, 30522, torch.bfloat16, gen),
           xent_case(4096, 50257, torch.float32, gen)]
     k23 = [flash_bwd_cases(32, 128, 12, 64, False, 0, gen),
            flash_bwd_cases(8, 512, 12, 64, True, 0, gen),
-           flash_bwd_cases(8, 512, 12, 64, True, 1, gen)]
+           flash_bwd_cases(8, 512, 12, 64, True, 1, gen),
+           flash_bwd_cases(32, 128, 6, 64, False, 0, gen)]
     k56 = [xent_bwd_cases(4096, 30522, torch.float32, gen),
            xent_bwd_cases(4096, 30522, torch.bfloat16, gen),
            xent_bwd_cases(4096, 50257, torch.float32, gen)]
@@ -3322,6 +3561,9 @@ def main(argv=None) -> int:
     log("phase 17: data parallelism over torch.distributed (one NCCL rank; two gloo ranks "
         "sharing the card): bert_base_mlm and resnet50 at full width")
     runs.append(dp_phase(root))
+    log("phase 18: model parallelism (one NCCL rank at mesh size 1; tp=2 and fsdp=2 on two "
+        "gloo ranks sharing the card): bert_base_mlm at full width")
+    runs.append(mp_phase(root))
     launches = {k: sum(r[k] for r in runs) for k in runs[0]}
     for k, n in launches.items():
         check(n > 0, f"kernel {k} was not launched on the main path")

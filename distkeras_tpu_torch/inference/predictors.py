@@ -34,7 +34,9 @@ class ModelPredictor(Predictor):
     same dataset), each batch is split over the mesh's ``dp`` axis, as the
     reference shards it: rank ``r`` runs rows ``[r·b, (r+1)·b)`` of the
     padded batch (``b = batch_size / dp``) and an ``all_gather`` puts the
-    rows back in order, so every rank returns the whole prediction."""
+    rows back in order, so every rank returns the whole prediction. The
+    mesh's other axes hold replicated weights, as the reference's
+    predictor keeps them: their ranks run the same rows."""
 
     def __init__(
         self,
@@ -56,10 +58,6 @@ class ModelPredictor(Predictor):
         self.batch_size = int(batch_size)
         self.mesh = mesh
         if mesh is not None:
-            model_axes = {a: n for a, n in mesh.shape.items() if a != "dp" and n > 1}
-            if model_axes:
-                raise ValueError(f"mesh axes {model_axes} need model parallelism, which is "
-                                 f"not ported yet (ROADMAP.md §A item A10b)")
             if self.batch_size % mesh.shape["dp"]:
                 raise ValueError(f"batch_size {self.batch_size} is not divisible by the "
                                  f"mesh's dp={mesh.shape['dp']}")

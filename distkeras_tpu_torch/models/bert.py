@@ -56,27 +56,54 @@ every layer.
 from __future__ import annotations
 
 import dataclasses
+import re
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from distkeras_tpu_torch.models.core import Model
-from distkeras_tpu_torch.ops.attention import PagedPlan, dot_product_attention
+from distkeras_tpu_torch.ops.attention import PagedPlan, constrain_heads, dot_product_attention
 from distkeras_tpu_torch.ops.flash_attention import flash_attention
+from distkeras_tpu_torch.parallel.mesh import Mesh
+from distkeras_tpu_torch.telemetry.spans import span
 from distkeras_tpu_torch.utils.rng import fold_in
 
 __all__ = [
     "BertConfig", "Bert", "EncoderLayer", "SelfAttention", "dropout", "decode_cache",
+    "PARAM_AXES", "param_axes", "with_tp_mesh",
     "bert_base_mlm", "bert_tiny_mlm", "gpt_tiny", "gpt_small",
 ]
 
-# Config fields of later slices: a set value raises, naming the slice.
+# Config fields of later slices: a set value raises, naming the item.
 _LATER_SLICES = {
-    "tp_mesh": "the multi-device slice",
-    "ring_mesh": "the multi-device slice",
-    "moe_experts": "the remaining-models slice",
+    "ring_mesh": "sequence parallelism (ROADMAP.md §A item A10c)",
+    "moe_experts": "MoE (ROADMAP.md §A item A12)",
 }
+
+# The logical axes of each weight (reference ``nn.with_logical_partitioning``
+# at ``distkeras_tpu/models/bert.py:224-227, :294, :437-439, :485, :506,
+# :594``), by ``state_dict`` name. A torch ``Linear.weight`` is ``[out, in]``,
+# the transpose of flax's kernel, so its axes are the reference's reversed.
+# Every other leaf (biases, LayerNorms) has none: it is replicated.
+PARAM_AXES: tuple[tuple[str, tuple], ...] = (
+    (r"layer_\d+\.attention\.(query|key|value)\.weight", ("heads", "embed")),
+    (r"layer_\d+\.attention\.out\.weight", ("embed", "heads")),
+    (r"layer_\d+\.mlp_in\.weight", ("mlp", "embed")),
+    (r"layer_\d+\.mlp_out\.weight", ("embed", "mlp")),
+    (r"token_embed\.weight", ("vocab", "embed")),
+    (r"pos_embed", (None, "seq", "embed")),
+    (r"mlm_bias", ("vocab",)),
+)
+
+
+def param_axes(name: str) -> tuple | None:
+    """The logical axes of the weight ``name`` (:data:`PARAM_AXES`), or
+    None for a leaf without any."""
+    for pattern, axes in PARAM_AXES:
+        if re.fullmatch(pattern, name):
+            return axes
+    return None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,6 +136,89 @@ class BertConfig:
             if getattr(self, name):
                 raise NotImplementedError(
                     f"BertConfig.{name} is not ported yet: it comes with {where}")
+        if self.tp_mesh is not None:
+            if not isinstance(self.tp_mesh, Mesh):
+                raise TypeError(f"BertConfig.tp_mesh must be a distkeras_tpu_torch Mesh, "
+                                f"not {type(self.tp_mesh).__name__}")
+            tp = _tp_size(self)
+            if self.num_heads % tp:
+                raise ValueError(f"num_heads {self.num_heads} does not divide over tp={tp}")
+
+
+def _tp_size(cfg: BertConfig) -> int:
+    return 1 if cfg.tp_mesh is None else cfg.tp_mesh.shape.get("tp", 1)
+
+
+def _tp(cfg: BertConfig):
+    """``(size, rank, group)`` of ``cfg.tp_mesh``'s tp axis, or None when
+    there is no such axis above 1."""
+    n = _tp_size(cfg)
+    if n == 1:
+        return None
+    group = cfg.tp_mesh.group("tp")
+    if group is None:
+        raise RuntimeError(f"BertConfig.tp_mesh with tp={n} needs a process group over its "
+                           f"ranks (distkeras_tpu_torch.parallel.distributed.initialize)")
+    return n, torch.distributed.get_rank(group), group
+
+
+def _all_reduce(x, group):
+    out = x.contiguous().clone()
+    with span("tp_all_reduce"):
+        torch.distributed.all_reduce(out, group=group)
+    return out
+
+
+class _CopyToTP(torch.autograd.Function):
+    """The input of a tp-split region: the identity forward; backward, the
+    ranks' gradients (each through its own shard) summed over tp."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_reduce(grad, ctx.group), None
+
+
+class _ReduceFromTP(torch.autograd.Function):
+    """The ranks' partial sums added over tp; backward, the identity (every
+    rank holds the same loss, so each partial takes the whole gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _GatherFromTP(torch.autograd.Function):
+    """The ranks' ``[..., W]`` slices gathered along the last dimension, in
+    rank order; backward, this rank's slice of the gradient (the ranks
+    compute the same loss on the gathered rows: a summing backward would
+    give tp times the gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, group, rank, n):
+        ctx.slice = (rank * x.shape[-1], (rank + 1) * x.shape[-1])
+        parts = [torch.empty_like(x) for _ in range(n)]
+        with span("tp_gather"):
+            torch.distributed.all_gather(parts, x.contiguous(), group=group)
+        return torch.cat(parts, dim=-1)
+
+    @staticmethod
+    def backward(ctx, grad):
+        lo, hi = ctx.slice
+        return grad[..., lo:hi], None, None, None
+
+
+def _tp_input(cfg: BertConfig, x):
+    tp = _tp(cfg)
+    return x if tp is None else _CopyToTP.apply(x, tp[2])
 
 
 def dropout(x, rate: float, seed: int | None):
@@ -151,19 +261,64 @@ class Dense(nn.Linear):
         return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
 
 
-class _F32AccumDense(Dense):
+class _SplitDense(Dense):
+    """A ``Dense`` that splits over ``cfg.tp_mesh``'s tp axis, when it has
+    one above 1."""
+
+    def __init__(self, in_features: int, out_features: int, cfg: BertConfig):
+        super().__init__(in_features, out_features, cfg.dtype)
+        self.cfg = cfg
+
+
+class _ColumnDense(_SplitDense):
+    """Output features split over tp: this rank's weight holds its rows.
+    The bias is whole (the reference replicates it); the rank adds its
+    slice, and the slice's gradient is summed over tp into the whole bias,
+    so the ranks' biases stay equal."""
+
+    def forward(self, x):
+        tp = _tp(self.cfg)
+        if tp is None:
+            return super().forward(x)
+        n, rank, group = tp
+        width = self.bias.shape[0] // n
+        bias = _CopyToTP.apply(self.bias, group)[rank * width:(rank + 1) * width]
+        dt = self.compute_dtype
+        return F.linear(x.to(dt), self.weight.to(dt), bias.to(dt))
+
+
+class _RowDense(_SplitDense):
+    """Input features split over tp: the ranks' partial products are summed
+    over tp, then the whole bias is added once."""
+
+    def forward(self, x):
+        tp = _tp(self.cfg)
+        if tp is None:
+            return super().forward(x)
+        dt = self.compute_dtype
+        y = _ReduceFromTP.apply(F.linear(x.to(dt), self.weight.to(dt)), tp[2])
+        return y + self.bias.to(dt)
+
+
+class _F32AccumDense(_RowDense):
     """The decode-mode ``attention.out`` and ``mlp_out`` projections
     (reference ``_F32AccumDense``): the product accumulates in float32 and
     is rounded once to the compute dtype, and the bias is added after, in
-    that dtype. Names and shapes are ``Dense``'s, so weights carry over."""
+    that dtype. Under tp the ranks' float32 partial products are summed
+    before that one rounding, so a sharded decode rounds as the whole one
+    does. Names and shapes are ``Dense``'s, so weights carry over."""
 
     def forward(self, x):
         dt = self.compute_dtype
-        return F.linear(x.to(dt), self.weight.to(dt)) + self.bias.to(dt)
+        tp = _tp(self.cfg)
+        if tp is None:
+            return F.linear(x.to(dt), self.weight.to(dt)) + self.bias.to(dt)
+        y = F.linear(x.to(dt).float(), self.weight.to(dt).float())
+        return _ReduceFromTP.apply(y, tp[2]).to(dt) + self.bias.to(dt)
 
 
 def _reduce_dense(cfg: "BertConfig", in_features: int, out_features: int) -> Dense:
-    return (_F32AccumDense if cfg.decode else Dense)(in_features, out_features, cfg.dtype)
+    return (_F32AccumDense if cfg.decode else _RowDense)(in_features, out_features, cfg)
 
 
 def _cache_leaf(module: nn.Module, name: str, shape, dtype, device) -> torch.Tensor:
@@ -199,9 +354,9 @@ class SelfAttention(nn.Module):
         super().__init__()
         self.cfg = cfg
         h = cfg.hidden_size
-        self.query = Dense(h, h, cfg.dtype)
-        self.key = Dense(h, h, cfg.dtype)
-        self.value = Dense(h, h, cfg.dtype)
+        self.query = _ColumnDense(h, h, cfg)
+        self.key = _ColumnDense(h, h, cfg)
+        self.value = _ColumnDense(h, h, cfg)
         self.out = _reduce_dense(cfg, h, h)
         if cfg.decode and cfg.paged_blocks > 0:
             _register_cache(self, "pool_key", "pool_value")
@@ -215,7 +370,10 @@ class SelfAttention(nn.Module):
         of this apply."""
         cfg = self.cfg
         B, S = x.shape[0], x.shape[1]
-        shape = (B, S, cfg.num_heads, cfg.hidden_size // cfg.num_heads)
+        heads = cfg.num_heads // _tp_size(cfg)  # this rank's
+        D = cfg.hidden_size // cfg.num_heads
+        shape = (B, S, heads, D)
+        x = _tp_input(cfg, x)
         q = self.query(x).reshape(shape)
         k = self.key(x).reshape(shape)
         v = self.value(x).reshape(shape)
@@ -227,7 +385,13 @@ class SelfAttention(nn.Module):
             out = flash_attention(q, k, v, causal=cfg.causal)
         else:
             out = dot_product_attention(q, k, v, mask=mask, causal=cfg.causal)
-        return self.out(out.reshape(B, S, cfg.hidden_size))
+        return self.out(out.reshape(B, S, heads * D))
+
+    def _kv_leaf(self, name: str, shape, device):
+        """A K/V cache leaf (``shape`` holds this rank's heads), checked to
+        hold this rank's heads under ``tp_mesh``."""
+        leaf = _cache_leaf(self, name, shape, self.cfg.dtype, device)
+        return constrain_heads(leaf, self.cfg.tp_mesh, self.cfg.num_heads)
 
     def _paged_attention(self, q, k, v, new_cache: dict, plan: PagedPlan):
         """Paged branch of the reference's ``_decode_attention``: the new
@@ -238,8 +402,8 @@ class SelfAttention(nn.Module):
         cfg = self.cfg
         H, D = q.shape[2], q.shape[3]
         shape = (cfg.paged_blocks, cfg.page_tokens, H, D)
-        pk = plan.write(_cache_leaf(self, "pool_key", shape, cfg.dtype, q.device), k)
-        pv = plan.write(_cache_leaf(self, "pool_value", shape, cfg.dtype, q.device), v)
+        pk = plan.write(self._kv_leaf("pool_key", shape, q.device), k)
+        pv = plan.write(self._kv_leaf("pool_value", shape, q.device), v)
         new_cache["pool_key"] = pk
         new_cache["pool_value"] = pv
         return plan.attend(q, pk, pv)
@@ -257,8 +421,8 @@ class SelfAttention(nn.Module):
         B, S, H, D = q.shape
         L = cfg.decode_cache_len or cfg.max_seq_len
         dev = q.device
-        ck = _cache_leaf(self, "cached_key", (B, L, H, D), cfg.dtype, dev)
-        cv = _cache_leaf(self, "cached_value", (B, L, H, D), cfg.dtype, dev)
+        ck = self._kv_leaf("cached_key", (B, L, H, D), dev)
+        cv = self._kv_leaf("cached_value", (B, L, H, D), dev)
         idx = _cache_leaf(self, "cache_index", (B,) if cfg.decode_slots else (),
                           torch.int32, dev)
         steps = torch.arange(S, device=dev)
@@ -289,7 +453,7 @@ class EncoderLayer(nn.Module):
         self.ln_attn = _layer_norm(cfg.hidden_size)
         self.attention = SelfAttention(cfg)
         self.ln_mlp = _layer_norm(cfg.hidden_size)
-        self.mlp_in = Dense(cfg.hidden_size, cfg.mlp_dim, cfg.dtype)
+        self.mlp_in = _ColumnDense(cfg.hidden_size, cfg.mlp_dim, cfg)
         self.mlp_out = _reduce_dense(cfg, cfg.mlp_dim, cfg.hidden_size)
 
     def forward(self, x, mask=None, train: bool = False, rng: int | None = None,
@@ -298,7 +462,7 @@ class EncoderLayer(nn.Module):
         y = self.attention(self.ln_attn(x.float()), mask=mask, new_cache=new_cache,
                            paged=paged)
         x = x + dropout(y, p, None if rng is None else fold_in(rng, 0))
-        y = self.mlp_in(self.ln_mlp(x.float()))
+        y = self.mlp_in(_tp_input(self.cfg, self.ln_mlp(x.float())))
         y = self.mlp_out(F.gelu(y, approximate="tanh"))
         return x + dropout(y, p, None if rng is None else fold_in(rng, 1)).to(x.dtype)
 
@@ -350,8 +514,17 @@ class Bert(nn.Module):
         in place of the logits."""
         cfg = self.cfg
         B, S = token_ids.shape[0], token_ids.shape[1]
-        table = self.token_embed.weight
-        x = F.embedding(token_ids.long(), table).to(cfg.dtype)
+        table = self.token_embed.weight  # this rank's vocab rows under tp
+        tp = _tp(cfg)
+        if tp is None:
+            x = F.embedding(token_ids.long(), table)
+        else:
+            rows = table.shape[0]
+            ids = token_ids.long() - tp[1] * rows
+            inside = (ids >= 0) & (ids < rows)
+            x = torch.where(inside[..., None], F.embedding(ids.clamp(0, rows - 1), table), 0.0)
+            x = _ReduceFromTP.apply(x, tp[2])
+        x = x.to(cfg.dtype)
         new_cache = plan = None
         if cfg.decode and cfg.paged_blocks > 0:
             # Position-stateless: the positional window comes from the
@@ -396,24 +569,31 @@ class Bert(nn.Module):
         if return_hidden:
             return x if new_cache is None else (x, new_cache)
         x = self.ln_final(x.float())
+        if tp is not None:
+            x = _CopyToTP.apply(x, tp[2])
         # The vocab rows are padded to a multiple of 8 so that the product's
         # rows stay 16-byte aligned: with 30522 or 50257 columns cuBLAS
         # otherwise takes an unaligned kernel several times slower. The pad
         # columns are dropped before the bias.
-        w = F.pad(table.to(cfg.dtype), (0, 0, 0, -cfg.vocab_size % 8))
-        logits = torch.matmul(x.to(cfg.dtype), w.t())[..., : cfg.vocab_size]
+        rows = table.shape[0]
+        w = F.pad(table.to(cfg.dtype), (0, 0, 0, -rows % 8))
+        logits = torch.matmul(x.to(cfg.dtype), w.t())[..., :rows]
         logits = torch.add(logits, self.mlm_bias)  # widens to float32 in the add
+        if tp is not None:  # [B, S, V/tp] -> [B, S, V]: the loss takes whole rows
+            logits = _GatherFromTP.apply(logits, tp[2], tp[1], tp[0])
         return logits if new_cache is None else (logits, new_cache)
 
 
 def decode_cache(cfg: BertConfig, batch_size: int, device) -> dict[str, torch.Tensor]:
     """The zero decode cache of ``cfg`` for ``batch_size`` rows, keyed as
-    :class:`Bert` reads and returns it. A paged config's cache is its
-    block pools alone, whatever ``batch_size``."""
+    :class:`Bert` reads and returns it (this rank's heads under
+    ``tp_mesh``). A paged config's cache is its block pools alone, whatever
+    ``batch_size``."""
     L = cfg.decode_cache_len or cfg.max_seq_len
     D = cfg.hidden_size // cfg.num_heads
+    H = cfg.num_heads // _tp_size(cfg)  # this rank's heads under tp_mesh
     if cfg.paged_blocks > 0:
-        shape = (cfg.paged_blocks, cfg.page_tokens, cfg.num_heads, D)
+        shape = (cfg.paged_blocks, cfg.page_tokens, H, D)
         return {f"layer_{i}.attention.{name}": torch.zeros(shape, dtype=cfg.dtype,
                                                            device=device)
                 for i in range(cfg.num_layers) for name in ("pool_key", "pool_value")}
@@ -422,7 +602,7 @@ def decode_cache(cfg: BertConfig, batch_size: int, device) -> dict[str, torch.Te
     for i in range(cfg.num_layers):
         prefix = f"layer_{i}.attention."
         for name in ("cached_key", "cached_value"):
-            cache[prefix + name] = torch.zeros((batch_size, L, cfg.num_heads, D),
+            cache[prefix + name] = torch.zeros((batch_size, L, H, D),
                                                dtype=cfg.dtype, device=device)
         cache[prefix + "cache_index"] = torch.zeros(idx_shape, dtype=torch.int32, device=device)
     return cache
@@ -444,7 +624,15 @@ def _make(cfg: BertConfig, seq_len: int, name: str) -> Model:
         flops_per_example=_bert_flops(cfg, seq_len),
     )
     m.config = cfg
+    m.param_axes = param_axes  # annotated: the reference's boxed_init
     return m
+
+
+def with_tp_mesh(model: Model, mesh: Mesh | None) -> Model:
+    """The bert-family ``model`` with ``mesh`` as its config's ``tp_mesh``:
+    its forward computes on this rank's tp shards of the weights."""
+    cfg = dataclasses.replace(model.config, tp_mesh=mesh)
+    return _make(cfg, model.input_shape[0], model.name)
 
 
 def bert_base_mlm(seq_len: int = 128, vocab_size: int = 30522) -> Model:

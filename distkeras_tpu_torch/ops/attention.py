@@ -3,13 +3,36 @@
 mask is given) and the paged serving engine's ``paged_kv_update`` and
 ``paged_attention``. Neither paged op is a Pallas kernel in the reference
 (they are plain gathers and scatters), so they are plain torch ops here.
-Ring attention comes with the multi-device slice."""
+:func:`constrain_heads` is the reference's head-layout pin for tensor
+parallel decode. Ring attention comes with sequence parallelism
+(``ROADMAP.md`` §A item A10c)."""
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["PagedPlan", "dot_product_attention", "paged_attention", "paged_kv_update"]
+__all__ = ["PagedPlan", "constrain_heads", "dot_product_attention", "paged_attention",
+           "paged_kv_update"]
+
+
+def constrain_heads(x, mesh, num_heads: int, axis: str = "tp", dim: int = -2):
+    """Reference ``constrain_heads``: there it pins ``x``'s heads dimension
+    to the mesh's tp axis. Here every rank holds its own heads explicitly,
+    so there is nothing to pin; this checks that ``x`` holds this rank's
+    share of the model's ``num_heads`` heads at ``dim`` and raises
+    ``ValueError`` otherwise. ``x`` passes unchanged without a mesh, without
+    the axis, at one rank or when the heads do not divide over the axis
+    (reference ``:52-56``)."""
+    if mesh is None or axis not in mesh.axis_names:
+        return x
+    n = mesh.shape[axis]
+    if n <= 1 or num_heads % n:
+        return x
+    if x.shape[dim] != num_heads // n:
+        raise ValueError(f"a K/V leaf of shape {tuple(x.shape)} holds {x.shape[dim]} heads at "
+                         f"dimension {dim}; this rank's share of {num_heads} over {axis}={n} "
+                         f"is {num_heads // n}")
+    return x
 
 
 def dot_product_attention(q, k, v, mask=None, causal: bool = False):

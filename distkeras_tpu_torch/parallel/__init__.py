@@ -1,7 +1,8 @@
 """Parallelism: meshes over process ranks (``mesh``), the process group
-(``distributed``), sharding rules (``sharding``), and the parameter-server
-protocols, services and transports. The mesh helpers import eagerly;
-``distributed`` and ``sharding`` resolve on first use, as in
+(``distributed``), sharding rules (``sharding``), model-parallel training
+(``gspmd``), and the parameter-server protocols, services and transports.
+The mesh helpers import eagerly; ``distributed``, ``sharding`` and
+``gspmd`` resolve on first use, as in
 ``distkeras_tpu/parallel/__init__.py``."""
 
 from distkeras_tpu_torch.parallel.mesh import (
@@ -12,6 +13,7 @@ from distkeras_tpu_torch.parallel.mesh import (
 
 _LAZY_MODULES = {
     "distributed": "distkeras_tpu_torch.parallel.distributed",
+    "gspmd": "distkeras_tpu_torch.parallel.gspmd",
     "sharding": "distkeras_tpu_torch.parallel.sharding",
 }
 

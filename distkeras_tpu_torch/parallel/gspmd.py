@@ -1,0 +1,339 @@
+"""Model-parallel training: counterpart of ``distkeras_tpu/parallel/gspmd.py``.
+
+The reference lays each weight out by its logical axes and lets XLA insert
+every collective. Here each rank holds its own part of each weight as a
+plain tensor (the part :meth:`NamedSharding.index` names), and the
+collectives are explicit:
+
+- ``tp``: the bert family computes on its local shards
+  (:func:`distkeras_tpu_torch.models.bert.with_tp_mesh`, Megatron's
+  layout: the activation sums and the logits' gather are in the model);
+- ``fsdp``: a leaf split over ``fsdp`` is gathered whole once a step before
+  the forward, and its whole gradient is reduce-scattered back to this
+  rank's part (a sum over the ranks' rows, then the mean);
+- the data axes (``dp`` and ``fsdp``): the other gradients and the metrics
+  are averaged over the ranks that hold other rows.
+
+The step body is :func:`~distkeras_tpu_torch.training.step.make_train_step`'s
+(:class:`Sharded` is its gather and reduction). The weights are drawn whole
+from the seed and then placed, so a sharded init is the unsharded one.
+An annotated model's leaves follow its logical axes
+(:func:`~distkeras_tpu_torch.parallel.sharding.infer_variable_shardings`);
+on an ``fsdp`` mesh every trainable leaf those leave whole (every one of an
+un-annotated model's) takes :func:`fsdp_sharding_for`. The reference's
+rules name no ``fsdp`` axis, so there an annotated model's weights stay
+replicated on an ``fsdp`` mesh; the numbers are the same either way.
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+from collections.abc import Callable
+
+import numpy as np
+import torch
+
+from distkeras_tpu_torch.models.bert import with_tp_mesh
+from distkeras_tpu_torch.models.core import Model
+from distkeras_tpu_torch.parallel.distributed import process_index
+from distkeras_tpu_torch.parallel.mesh import Mesh, NamedSharding, shard_batch_spec
+from distkeras_tpu_torch.parallel.sharding import infer_variable_shardings, replicated
+from distkeras_tpu_torch.telemetry.spans import span
+from distkeras_tpu_torch.training.step import (
+    DataParallel,
+    TrainState,
+    all_reduce_mean_,
+    train_step,
+)
+from distkeras_tpu_torch.utils.device import resolve_device
+
+__all__ = [
+    "Sharded",
+    "batch_sharding",
+    "fsdp_sharding_for",
+    "gather_whole",
+    "local_state_tree",
+    "make_sharded_train_step",
+    "place_sharded",
+    "shard_batch",
+    "sharded_train_state",
+    "whole_state_tree",
+    "zero1_optimizer",
+]
+
+
+def place_sharded(tree: dict, shardings, device: str | torch.device | None = None) -> dict:
+    """This rank's part of every leaf of ``tree`` (name -> tensor or array),
+    on ``device`` (CUDA unless ``"cpu"`` is asked for): ``shardings`` is a
+    name -> :class:`NamedSharding` dict, one sharding for every leaf, or
+    None to keep every leaf whole. No rank keeps more than its part."""
+    dev = resolve_device(device)
+    rank = process_index()
+    out = {}
+    for name, leaf in tree.items():
+        t = torch.as_tensor(np.asarray(leaf) if not isinstance(leaf, torch.Tensor) else leaf)
+        sharding = shardings.get(name) if isinstance(shardings, dict) else shardings
+        if sharding is not None:
+            t = t[sharding.index(t.shape, rank)]
+        out[name] = t.to(dev).clone(memory_format=torch.contiguous_format)
+    return out
+
+
+def batch_sharding(mesh: Mesh, batch_rank: int = 2, seq_dim: int | None = 1) -> NamedSharding:
+    """The sharding of a ``[B, ...]`` batch: ``B`` over the data axes (dp
+    and, when present, fsdp). Splitting ``seq_dim`` over ``sp`` comes with
+    sequence parallelism and raises."""
+    if seq_dim is not None and mesh.shape.get("sp", 1) > 1:
+        raise NotImplementedError("a sequence split over sp is not ported yet "
+                                  "(ROADMAP.md §A item A10c)")
+    spec: list = [None] * batch_rank
+    batch_spec = shard_batch_spec(mesh)
+    if batch_spec:
+        spec[0] = batch_spec[0]
+    return NamedSharding(mesh, tuple(spec))
+
+
+def shard_batch(mesh: Mesh, batch: dict, seq_dim: int | None = None,
+                device: str | torch.device | None = None) -> dict:
+    """This rank's rows of every array of ``batch``, on ``device``."""
+    return {k: place_sharded({k: v}, batch_sharding(mesh, max(1, np.ndim(v)), seq_dim),
+                             device)[k]
+            for k, v in batch.items()}
+
+
+def fsdp_sharding_for(mesh: Mesh, shape: tuple[int, ...], dtype=None,
+                      axis: str = "fsdp") -> NamedSharding:
+    """Largest-divisible-dimension sharding of an un-annotated tensor over
+    ``axis`` (the first such dimension on a tie); replicated without the
+    axis, without a dimension that divides, or under 2^14 elements, where
+    the gather would cost more than the memory saved."""
+    if axis not in mesh.axis_names:
+        return replicated(mesh)
+    n = mesh.shape[axis]
+    if math.prod(shape or (1,)) < (1 << 14):
+        return replicated(mesh)
+    for d in sorted(range(len(shape)), key=lambda i: -shape[i]):
+        if shape[d] % n == 0:
+            spec = [None] * len(shape)
+            spec[d] = axis
+            return NamedSharding(mesh, tuple(spec))
+    return replicated(mesh)
+
+
+def _annotated(model: Model) -> bool:
+    return getattr(model, "param_axes", None) is not None
+
+
+def variable_shardings(model: Model, mesh: Mesh, variables: dict) -> dict:
+    """Each variable's sharding (see the module's docstring); buffers are
+    replicated."""
+    out = infer_variable_shardings(mesh, variables, getattr(model, "param_axes", None))
+    if mesh.shape.get("fsdp", 1) > 1:
+        trainable = {name for name, _ in model.module.named_parameters()}
+        out = {k: fsdp_sharding_for(mesh, tuple(variables[k].shape))
+               if k in trainable and s.is_replicated else s for k, s in out.items()}
+    return out
+
+
+def zero1_optimizer(optimizer, group):
+    """The factory ``optimizer`` as a ``ZeroRedundancyOptimizer`` over
+    ``group``: each rank keeps its share of the optimizer's state."""
+    from torch.distributed.optim import ZeroRedundancyOptimizer
+
+    from distkeras_tpu_torch.ops.losses import optimizer_spec
+
+    cls, kwargs = optimizer_spec(optimizer)
+    return functools.partial(ZeroRedundancyOptimizer, optimizer_class=cls,
+                             process_group=group, **kwargs)
+
+
+def sharded_train_state(model: Model, optimizer, mesh: Mesh, seed: int = 0,
+                        zero1: bool = False, device: str | torch.device | None = None):
+    """``(TrainState, shardings)``: the weights drawn whole from ``seed``
+    (``model.init``) and placed (:func:`place_sharded`), so that gathered
+    they equal the unsharded init; the optimizer (a factory) over this
+    rank's parts, sharded over ``dp`` with ``zero1`` (on one ``dp`` rank
+    there is nothing to shard). Every rank of the mesh calls this."""
+    variables = model.init(seed, device=device)
+    shardings = variable_shardings(model, mesh, variables)
+    local = place_sharded(variables, shardings, device)
+    del variables
+    trainable = {name for name, _ in model.module.named_parameters()}
+    params = {k: v.requires_grad_() for k, v in local.items() if k in trainable}
+    model_state = {k: v for k, v in local.items() if k not in trainable}
+    for axis in mesh.axis_names:  # every rank builds the groups together
+        mesh.group(axis)
+    if zero1 and mesh.shape.get("dp", 1) > 1 and mesh.group("dp") is not None:
+        optimizer = zero1_optimizer(optimizer, mesh.group("dp"))
+    state = TrainState(params, model_state, optimizer(list(params.values())), 0, int(seed),
+                       shardings=shardings)
+    return state, shardings
+
+
+def _axis(sharding: NamedSharding) -> tuple[int, str] | None:
+    """``(dim, axis)`` of a leaf split along one dimension over one axis;
+    None for a replicated leaf."""
+    split = [(d, e) for d, e in enumerate(sharding.spec) if e]
+    if not split:
+        return None
+    if len(split) > 1 or not isinstance(split[0][1], str):
+        raise NotImplementedError(f"a leaf split as {sharding.spec}: one dimension over one "
+                                  f"axis is supported")
+    return split[0]
+
+
+def _by_group(names, tensors: dict, shardings: dict):
+    """The split leaves of ``names`` grouped by (axis, dtype), in order."""
+    groups: dict[tuple[str, torch.dtype], list] = {}
+    for name in names:
+        split = _axis(shardings[name])
+        if split is not None:
+            groups.setdefault((split[1], tensors[name].dtype), []).append((name, split[0]))
+    return groups
+
+
+def _members(group) -> list[int]:
+    """The global ranks of ``group``, in group-rank order."""
+    return [torch.distributed.get_global_rank(group, r)
+            for r in range(torch.distributed.get_world_size(group))]
+
+
+@torch.no_grad()
+def gather_whole(tensors: dict, shardings: dict, span_name: str = "gather_whole") -> dict:
+    """Every leaf of ``tensors`` (this rank's parts) whole, without grad:
+    each split leaf gathered over its axis, one ``all_gather`` for each axis
+    and dtype. Every rank of the mesh calls this, with the same names in the
+    same order."""
+    out = dict(tensors)
+    for (axis, _), leaves in _by_group(tensors, tensors, shardings).items():
+        mesh = shardings[leaves[0][0]].mesh
+        group = mesh.group(axis)
+        flat = torch.cat([tensors[name].reshape(-1) for name, _ in leaves])
+        parts = torch.empty(mesh.shape[axis] * flat.numel(), dtype=flat.dtype,
+                            device=flat.device)
+        with span(span_name):
+            torch.distributed.all_gather_into_tensor(parts, flat, group=group)
+        parts = parts.view(mesh.shape[axis], -1)
+        for r, member in enumerate(_members(group)):
+            offset = 0
+            for name, _ in leaves:
+                local = tensors[name]
+                if r == 0:
+                    shape = [s * (mesh.shape[axis] if d == _axis(shardings[name])[0] else 1)
+                             for d, s in enumerate(local.shape)]
+                    out[name] = torch.empty(shape, dtype=local.dtype, device=local.device)
+                whole = out[name]
+                whole[shardings[name].index(whole.shape, member)] = parts[
+                    r, offset:offset + local.numel()].view(local.shape)
+                offset += local.numel()
+    return out
+
+
+class Sharded(DataParallel):
+    """The gather and reduction of a model-parallel step over ``mesh``
+    (see the module's docstring). ``rank`` is the rank's place among the
+    data shards: the ranks of one tp group take the same rows and draw the
+    same dropout masks."""
+
+    def __init__(self, mesh: Mesh):
+        self.mesh = mesh
+        coord = mesh.coords(process_index())
+        self.rank = coord.get("dp", 0) * mesh.shape.get("fsdp", 1) + coord.get("fsdp", 0)
+        data = tuple(a for a in ("dp", "fsdp") if mesh.shape.get(a, 1) > 1)
+        self.stats_group = mesh.group(data if len(data) > 1 else data[0]) if data else None
+
+    def _fsdp(self, state) -> list[str]:
+        return [k for k in state.params
+                if (split := _axis(state.shardings[k])) is not None and split[1] == "fsdp"]
+
+    def variables(self, state: TrainState):
+        names = self._fsdp(state)
+        if not names:
+            return state.variables, state.params
+        whole = gather_whole({k: state.params[k].detach() for k in names}, state.shardings,
+                             "fsdp_gather")
+        params = {k: whole[k].requires_grad_() if k in whole else p
+                  for k, p in state.params.items()}
+        return {**params, **state.model_state}, params
+
+    def reduce(self, state: TrainState, params: dict, out: dict) -> dict:
+        mesh = self.mesh
+        keys = list(out)
+        stacked = torch.stack([out[k].float() for k in keys])
+        fsdp = self._fsdp(state)
+        if mesh.shape.get("fsdp", 1) > 1:
+            group = mesh.group("fsdp")
+            n = mesh.shape["fsdp"]
+            with span("fsdp_reduce_scatter"):
+                for _, leaves in _by_group(fsdp, state.params, state.shardings).items():
+                    members = _members(group)
+                    flat = torch.cat([params[name].grad[state.shardings[name].index(
+                        params[name].shape, m)].reshape(-1) for m in members
+                        for name, _ in leaves])
+                    mine = torch.empty(flat.numel() // n, dtype=flat.dtype, device=flat.device)
+                    torch.distributed.reduce_scatter_tensor(mine, flat, group=group)
+                    mine.div_(n)
+                    offset = 0
+                    for name, _ in leaves:
+                        p = state.params[name]
+                        p.grad = mine[offset:offset + p.numel()].view_as(p)
+                        offset += p.numel()
+            rest = [p.grad for k, p in state.params.items() if k not in fsdp]
+            all_reduce_mean_(rest + [stacked], group)
+        if mesh.shape.get("dp", 1) > 1:
+            all_reduce_mean_([p.grad for p in state.params.values()] + [stacked],
+                             mesh.group("dp"))
+        return dict(zip(keys, stacked.unbind()))
+
+
+def make_sharded_train_step(model: Model, loss: str | Callable, mesh: Mesh,
+                            metrics: tuple[str, ...] = ("accuracy",),
+                            aux_loss_weight: float = 0.01):
+    """``step(state, batch) -> (state, metrics)`` over a
+    :func:`sharded_train_state`: :func:`make_train_step`'s body, this
+    rank's rows of the global batch in ``batch``, the gradients and metrics
+    those of the global batch. An annotated model on a tp mesh computes on
+    its tp shards."""
+    if mesh.shape.get("tp", 1) > 1 and _annotated(model):
+        model = with_tp_mesh(model, mesh)
+    return train_step(model, loss, Sharded(mesh), metrics, aux_loss_weight=aux_loss_weight)
+
+
+def whole_state_tree(state: TrainState) -> dict:
+    """The checkpoint tree of a sharded ``state`` with every leaf whole:
+    the weights and each optimizer tensor of a weight's shape gathered like
+    the weight. Every rank calls this."""
+    from distkeras_tpu_torch.checkpoint import _state_tree
+
+    tree = _state_tree(state)
+    tree["params"] = gather_whole(tree["params"], state.shardings)
+    names = list(state.params)
+    moments, shardings = {}, {}
+    for i, entry in sorted(tree["opt_state"].items(), key=lambda kv: int(kv[0])):
+        p = state.params[names[int(i)]]
+        for k, v in entry.items():
+            if v.shape == p.shape and v.ndim:
+                moments[(i, k)] = v
+                shardings[(i, k)] = state.shardings[names[int(i)]]
+    for (i, k), v in gather_whole(moments, shardings).items():
+        tree["opt_state"][i][k] = v
+    return tree
+
+
+def local_state_tree(tree: dict, state: TrainState) -> dict:
+    """The inverse of :func:`whole_state_tree` for this rank: each whole
+    leaf of a saved ``tree`` cut to the part ``state`` holds."""
+    rank = process_index()
+    names = list(state.params)
+    out = dict(tree)
+    out["params"] = {k: v[state.shardings[k].index(v.shape, rank)]
+                     for k, v in tree["params"].items()}
+    opt = {}
+    for i, entry in tree.get("opt_state", {}).items():
+        sharding = state.shardings[names[int(i)]]
+        whole = tree["params"][names[int(i)]].shape
+        opt[i] = {k: v[sharding.index(v.shape, rank)] if v.shape == whole and v.ndim else v
+                  for k, v in entry.items()}
+    out["opt_state"] = opt
+    return out

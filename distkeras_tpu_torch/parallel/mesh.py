@@ -71,6 +71,7 @@ class Mesh:
         if self.devices.ndim != len(self.axis_names):
             raise ValueError(f"mesh of shape {self.devices.shape} given "
                              f"{len(self.axis_names)} axis names {self.axis_names}")
+        self._joint_groups: dict[tuple[str, ...], object] = {}
 
     @property
     def shape(self) -> dict[str, int]:
@@ -91,18 +92,47 @@ class Mesh:
         return DeviceMesh("cuda" if backend == "nccl" else "cpu",
                           torch.as_tensor(self.devices), mesh_dim_names=self.axis_names)
 
-    def group(self, axis: str):
-        """The process group of ``axis``: None without a process group (one
-        rank, no collective to make), the default group when the axis holds
-        every rank, else this rank's group of the ``DeviceMesh`` along it.
-        A rank's place in the group orders what it holds of a sharded
-        dimension (its rows of a batch)."""
+    def coords(self, rank: int) -> dict[str, int]:
+        """``rank``'s index along each axis."""
+        where = np.argwhere(self.devices == rank)
+        if not len(where):
+            raise ValueError(f"rank {rank} is not in the mesh's ranks {self.devices.tolist()}")
+        return dict(zip(self.axis_names, (int(i) for i in where[0])))
+
+    def group(self, axis):
+        """The process group of ``axis`` (a name, or a tuple of names for
+        the ranks that differ along those axes alone, major first): None
+        without a process group (one rank, no collective to make), the
+        default group when the axes hold every rank, else this rank's group
+        of the ``DeviceMesh`` along one axis, or of the groups made once
+        (by every rank) for several. A rank's place in the group orders
+        what it holds of a sharded dimension (its rows of a batch)."""
         dist = torch.distributed
         if not (dist.is_available() and dist.is_initialized()):
             return None
-        if self.shape[axis] == self.size == dist.get_world_size():
+        axes = (axis,) if isinstance(axis, str) else tuple(axis)
+        if math.prod(self.shape[a] for a in axes) == self.size == dist.get_world_size():
             return dist.group.WORLD
-        return self.device_mesh.get_group(axis)
+        if len(axes) == 1:
+            return self.device_mesh.get_group(axes[0])
+        return self._joint_group(axes)
+
+    def _joint_group(self, axes: tuple[str, ...]):
+        # One group per setting of the other axes, made once, in the same
+        # order on every rank, as new_group requires; this rank keeps its own.
+        if axes in self._joint_groups:
+            return self._joint_groups[axes]
+        order = [self.axis_names.index(a) for a in axes]
+        rest = [i for i in range(len(self.axis_names)) if i not in order]
+        blocks = self.devices.transpose(rest + order).reshape(-1, math.prod(
+            self.devices.shape[i] for i in order))
+        mine = None
+        for ranks in blocks.tolist():
+            group = torch.distributed.new_group(ranks)
+            if torch.distributed.get_rank() in ranks:
+                mine = group
+        self._joint_groups[axes] = mine
+        return mine
 
 
 @dataclasses.dataclass(frozen=True)
@@ -120,9 +150,36 @@ class NamedSharding:
 
         out = [Replicate()] * len(self.mesh.axis_names)
         for dim, entry in enumerate(self.spec):
-            for axis in (entry,) if isinstance(entry, str) else (entry or ()):
+            for axis in _spec_axes(entry):
                 out[self.mesh.axis_names.index(axis)] = Shard(dim)
         return out
+
+    def index(self, shape: Sequence[int], rank: int) -> tuple[slice, ...]:
+        """The part of a tensor of ``shape`` that ``rank`` holds, one slice
+        per dimension (jax's ``devices_indices_map``): a dimension split
+        over several axes is split over the first one first. Raises
+        ``ValueError`` when a split dimension does not divide."""
+        coord = self.mesh.coords(rank)
+        out = []
+        for dim, size in enumerate(shape):
+            axes = _spec_axes(self.spec[dim] if dim < len(self.spec) else None)
+            n = math.prod(self.mesh.shape[a] for a in axes)
+            if size % n:
+                raise ValueError(f"dimension {dim} of size {size} does not divide over "
+                                 f"{'x'.join(axes)}={n}")
+            i = 0
+            for a in axes:
+                i = i * self.mesh.shape[a] + coord[a]
+            out.append(slice(i * (size // n), (i + 1) * (size // n)))
+        return tuple(out)
+
+    @property
+    def is_replicated(self) -> bool:
+        return not any(_spec_axes(entry) for entry in self.spec)
+
+
+def _spec_axes(entry) -> tuple[str, ...]:
+    return (entry,) if isinstance(entry, str) else tuple(entry or ())
 
 
 def _axis_order(sizes: dict[str, int]) -> list[str]:

@@ -3,9 +3,12 @@
 
 A tensor annotated with logical axes (``("batch", "seq", "embed")``)
 resolves against these rules to a partition spec over the mesh's axes, and
-that spec to DTensor placements (:attr:`NamedSharding.placements`). The
-model annotations that :func:`infer_variable_shardings` reads in the
-reference come with model parallelism (``ROADMAP.md`` §A item A10b).
+that spec to DTensor placements (:attr:`NamedSharding.placements`) or to
+the part each rank holds (:meth:`NamedSharding.index`). The reference's
+models carry their logical axes in flax boxes; the port's carry a table,
+name -> axes (``model.param_axes``, :data:`distkeras_tpu_torch.models.bert.PARAM_AXES`),
+which :func:`infer_variable_shardings` resolves for model parallelism
+(:mod:`distkeras_tpu_torch.parallel.gspmd`).
 """
 
 from __future__ import annotations
@@ -66,12 +69,36 @@ def logical_sharding(mesh: Mesh, logical_axes: Sequence[str | None],
     return NamedSharding(mesh, tuple(spec))
 
 
-def infer_variable_shardings(mesh: Mesh, abstract_variables, overrides=None):
-    """The reference resolves a variables tree of logically annotated
-    leaves to shardings; the port's models carry no such annotations yet."""
-    raise NotImplementedError(
-        "infer_variable_shardings needs the logical-axis annotated models of "
-        "model parallelism, which is not ported yet (ROADMAP.md §A item A10b)")
+# The config field behind each logical axis, for a refusal's message.
+_AXIS_FIELDS = {"vocab": "vocab_size", "heads": "hidden_size", "mlp": "mlp_dim",
+                "embed": "hidden_size", "seq": "max_seq_len"}
+
+
+def infer_variable_shardings(mesh: Mesh, abstract_variables, param_axes, overrides=None):
+    """Each variable's sharding: ``abstract_variables`` maps names to
+    anything with a ``shape``, ``param_axes(name)`` gives a name's logical
+    axes or None (a model's ``param_axes``; None for a model without
+    annotations). A leaf without axes is replicated, as the reference's
+    un-annotated leaves are. A split dimension that does not divide over
+    its mesh axis raises ``ValueError`` naming the leaf and its size (JAX
+    refuses such a placement)."""
+    out = {}
+    for name, leaf in abstract_variables.items():
+        axes = param_axes(name) if param_axes is not None else None
+        if axes is None:
+            out[name] = replicated(mesh)
+            continue
+        sharding = logical_sharding(mesh, axes, overrides)
+        shape = tuple(leaf.shape)
+        for dim, entry in enumerate(sharding.spec):
+            n = mesh.shape[entry] if entry is not None else 1
+            if shape[dim] % n:
+                field = _AXIS_FIELDS.get(axes[dim], axes[dim])
+                raise ValueError(
+                    f"{name}: its {axes[dim]!r} dimension {dim} has size {shape[dim]} "
+                    f"({field}), which does not divide over the mesh's {entry}={n}")
+        out[name] = sharding
+    return out
 
 
 def replicated(mesh: Mesh) -> NamedSharding:

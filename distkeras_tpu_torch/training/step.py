@@ -24,6 +24,10 @@ order; under ``grad_accum_steps > 1`` the reduction waits for the last
 micro-step. The metrics are averaged over the group too, so they are the
 global batch's, and BatchNorm takes its moments over the group
 (:func:`~distkeras_tpu_torch.models.core.cross_replica_batch_stats`).
+How a step gathers its weights and reduces its gradients is a
+:class:`DataParallel`'s: model parallelism
+(:mod:`distkeras_tpu_torch.parallel.gspmd`) brings another, over the same
+step body.
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ from distkeras_tpu_torch.telemetry.spans import span
 from distkeras_tpu_torch.utils.rng import fold_in
 
 __all__ = [
+    "DataParallel",
     "TrainState",
     "all_reduce_mean_",
     "apply_aux_loss",
@@ -48,6 +53,7 @@ __all__ = [
     "make_eval_step",
     "make_train_step",
     "make_window_train_step",
+    "train_step",
 ]
 
 
@@ -91,6 +97,34 @@ def all_reduce_mean_(tensors: list[torch.Tensor], group) -> None:
             torch._foreach_copy_(bucket, [v.view_as(t) for t, v in zip(bucket, parts)])
 
 
+class DataParallel:
+    """How a step over ``group`` (None: one rank alone) gets its weights and
+    reduces its gradients. ``rank`` is the rank's place among the data
+    shards (its dropout masks are its own); ``stats_group`` is the group
+    BatchNorm takes its moments over."""
+
+    def __init__(self, group=None):
+        self.group = self.stats_group = group
+        self.rank = torch.distributed.get_rank(group) if group is not None else 0
+
+    def variables(self, state: "TrainState"):
+        """``(variables, params)``: what the forward applies, and the leaves
+        among them whose ``.grad`` the backward fills."""
+        return state.variables, state.params
+
+    def reduce(self, state: "TrainState", params: dict, out: dict) -> dict:
+        """Bring every rank's gradients (``params``' ``.grad``, none None)
+        into ``state.params``' ``.grad`` and the metrics ``out`` to the
+        global batch's; returns the metrics."""
+        if self.group is None:
+            return out
+        # One reduction: the metrics join the float32 gradients' buffer.
+        keys = list(out)
+        stacked = torch.stack([out[k].float() for k in keys])
+        all_reduce_mean_([p.grad for p in params.values()] + [stacked], self.group)
+        return dict(zip(keys, stacked.unbind()))
+
+
 @dataclasses.dataclass
 class TrainState:
     """Everything a training step needs.
@@ -100,13 +134,17 @@ class TrainState:
     ``optimizer``: the ``torch.optim.Optimizer`` over ``params`` (its state
     is the reference's ``opt_state``); ``step``: steps taken; ``seed``: the
     run's seed, from which step ``i`` draws its dropout seed
-    ``fold_in(seed, i)``."""
+    ``fold_in(seed, i)``. ``shardings`` (name -> ``NamedSharding``): set
+    when the tensors are this rank's shards of the weights
+    (:func:`~distkeras_tpu_torch.parallel.gspmd.sharded_train_state`), None
+    when they are whole."""
 
     params: dict[str, torch.Tensor]
     model_state: dict[str, torch.Tensor]
     optimizer: torch.optim.Optimizer
     step: int = 0
     seed: int = 0
+    shardings: dict | None = None
 
     @property
     def variables(self) -> dict[str, torch.Tensor]:
@@ -148,16 +186,25 @@ def make_train_step(
     this rank's rows, and the gradients, the metrics and BatchNorm's batch
     moments are the whole group's (see the module's docstring).
     """
+    return train_step(model, loss, DataParallel(process_group), metrics, remat,
+                      aux_loss_weight, grad_accum_steps)
+
+
+def train_step(model: Model, loss: str | Callable, parallel: DataParallel,
+               metrics: tuple[str, ...] = ("accuracy",), remat: bool = False,
+               aux_loss_weight: float = 0.01, grad_accum_steps: int = 1):
+    """:func:`make_train_step`'s step, its weights and reductions those of
+    ``parallel``."""
     loss_fn = get_loss(loss)
     accum = max(1, int(grad_accum_steps))
     # Rank r > 0 draws its dropout masks from its own seeds: the same seed
     # on every rank would repeat rank 0's masks over each share of the batch.
-    rank = torch.distributed.get_rank(process_group) if process_group is not None else 0
+    rank = parallel.rank
 
     def run(variables, features, rng):
         # Entered inside the checkpointed function, so that a recomputed
         # forward takes its BatchNorm moments over the group as well.
-        with cross_replica_batch_stats(process_group):
+        with cross_replica_batch_stats(parallel.stats_group):
             return model.apply(variables, features, True, rng)
 
     def apply(variables, features, rng):
@@ -176,9 +223,10 @@ def make_train_step(
         step_seed = fold_in(state.seed, state.step)
         if rank:
             step_seed = fold_in(step_seed, rank)
+        variables, params = parallel.variables(state)
         if accum == 1:
             loss_value, outputs, new_model_state = forward(
-                state.variables, features, labels, step_seed)
+                variables, features, labels, step_seed)
             loss_value.backward()
             out = {"loss": loss_value.detach()}
             if "accuracy" in metrics:
@@ -196,29 +244,24 @@ def make_train_step(
             for i in range(accum):
                 part = slice(i * micro, (i + 1) * micro)
                 loss_value, outputs, ms = forward(
-                    {**state.variables, **new_model_state}, features[part], labels[part],
+                    {**variables, **new_model_state}, features[part], labels[part],
                     fold_in(step_seed, i))
                 loss_value.backward()  # gradients add up in .grad
                 loss_sum = loss_sum + loss_value.detach()
                 if "accuracy" in metrics:
                     acc_sum = acc_sum + accuracy_metric(outputs, labels[part])
                 new_model_state = ms or new_model_state
-            grads = [p.grad for p in state.params.values() if p.grad is not None]
+            grads = [p.grad for p in params.values() if p.grad is not None]
             torch._foreach_div_(grads, accum)
             out = {"loss": loss_sum / accum}
             if "accuracy" in metrics:
                 out["accuracy"] = acc_sum / accum
         # optax updates every parameter, an unused one with a zero gradient
         # (weight decay and momentum still move it); torch skips a None grad.
-        for p in state.params.values():
+        for p in params.values():
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        if process_group is not None:
-            # One reduction: the metrics join the float32 gradients' buffer.
-            keys = list(out)
-            stacked = torch.stack([out[k].float() for k in keys])
-            all_reduce_mean_([p.grad for p in state.params.values()] + [stacked], process_group)
-            out = dict(zip(keys, stacked.unbind()))
+        out = parallel.reduce(state, params, out)
         state.optimizer.step()
         state.optimizer.zero_grad(set_to_none=True)
         if new_model_state:

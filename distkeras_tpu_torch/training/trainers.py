@@ -14,9 +14,11 @@ and the asynchronous parameter-server family,
 windows on its own CUDA stream, exchange with one in-process parameter
 server every ``communication_window`` steps, with periodic PS checkpoints
 and resume. A recompile ``auditor`` signs each trainer's step, as the
-reference's ``Trainer._audit`` wraps it. Not ported yet, and refused with
-the ``ROADMAP.md`` item that brings them: model axes of a mesh, and the
-async trainers' multi-device islands.
+reference's ``Trainer._audit`` wraps it. The synchronous trainer also
+trains tensor-parallel and fully sharded
+(:mod:`~distkeras_tpu_torch.parallel.gspmd`). Not ported yet, and refused
+with the ``ROADMAP.md`` item that brings them: the sp, pp and ep axes of a
+mesh, and the async trainers' multi-device islands.
 A weight ``publisher`` (:class:`~distkeras_tpu_torch.deploy.WeightPublisher`)
 publishes the live weights on its cadence: the step-loop trainers per
 step, the asynchronous family the PS center from a thread of its own.
@@ -25,8 +27,8 @@ step, the asynchronous family the PS center from a thread of its own.
 from __future__ import annotations
 
 import contextlib
-import functools
 import logging
+import math
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -38,8 +40,15 @@ from distkeras_tpu_torch.checkpoint import CheckpointManager
 from distkeras_tpu_torch.data.dataset import Dataset
 from distkeras_tpu_torch.data.feed import DeviceFeed, index_windows, minibatches, window_batches
 from distkeras_tpu_torch.models.core import Model, TrainedModel
-from distkeras_tpu_torch.ops.losses import get_loss, get_optimizer, optimizer_spec
-from distkeras_tpu_torch.parallel.distributed import process_count
+from distkeras_tpu_torch.ops.losses import get_loss, get_optimizer
+from distkeras_tpu_torch.parallel.distributed import process_count, process_index
+from distkeras_tpu_torch.parallel.gspmd import (
+    batch_sharding,
+    gather_whole,
+    make_sharded_train_step,
+    sharded_train_state,
+    zero1_optimizer,
+)
 from distkeras_tpu_torch.parallel.ha import CompressingClient, RetryingClient, StampingClient
 from distkeras_tpu_torch.parallel.mesh import Mesh, best_mesh, make_mesh
 from distkeras_tpu_torch.parallel.protocols import (
@@ -89,11 +98,15 @@ class _StepCheckpointer:
     from ``finally``, so a crash mid-train still finishes an in-flight save.
 
     Under a data-parallel ``group`` every rank restores and only rank 0
-    writes. A zero1 optimizer (``ZeroRedundancyOptimizer``) first gathers
-    its shards to rank 0, which every rank must join: so its ranks take
-    rank 0's decision to save, broadcast every ``ZERO1_POLL_STEPS`` steps
-    (a broadcast of a Python object waits for the device under NCCL), and a
-    timed zero1 save comes up to that many steps after it is due."""
+    writes. A save that every rank must join is collective: a zero1
+    optimizer (``ZeroRedundancyOptimizer``) first gathers its shards to
+    rank 0, and a model-parallel state (``like.shardings``) is gathered
+    whole, its ranks' parts of each weight and moment (and a resume cuts
+    the whole saved tree to each rank's parts again). The ranks of a
+    collective save take rank 0's decision to save, broadcast every
+    ``ZERO1_POLL_STEPS`` steps (a broadcast of a Python object waits for the
+    device under NCCL), and a timed save comes up to that many steps after
+    it is due."""
 
     ZERO1_POLL_STEPS = 16
 
@@ -105,17 +118,34 @@ class _StepCheckpointer:
         self.group = group
         self.writer = group is None or torch.distributed.get_rank(group) == 0
         self.zero1 = hasattr(like.optimizer, "consolidate_state_dict")
+        self.sharded = like.shardings is not None
+        self.collective = self.zero1 or self.sharded
         if directory is None:
             return
+        if self.zero1 and self.sharded:
+            raise NotImplementedError(
+                "checkpoints of a zero1 optimizer over model-parallel weights are not "
+                "ported yet (ROADMAP.md §A, A10b's remainder)")
         self.mgr = CheckpointManager(directory)
         if resume and self.mgr.latest_step() is not None:
-            self.state = self.mgr.restore(like={"state": like})["state"]
+            if self.sharded:
+                from distkeras_tpu_torch.checkpoint import _restore_state
+                from distkeras_tpu_torch.parallel.gspmd import local_state_tree
+
+                self.state = _restore_state(like, local_state_tree(
+                    self.mgr.restore()["state"], like))
+            else:
+                self.state = self.mgr.restore(like={"state": like})["state"]
             self.start_step = self.mgr.latest_step()
         self._last = time.monotonic()
 
     def _save(self, step, state, wait):
         if self.zero1:
             state.optimizer.consolidate_state_dict(to=0)
+        if self.sharded:
+            from distkeras_tpu_torch.parallel.gspmd import whole_state_tree
+
+            state = whole_state_tree(state)
         if self.writer:
             with span("checkpoint_save", step=step):
                 self.mgr.save(step, state=state, wait=wait)
@@ -123,10 +153,10 @@ class _StepCheckpointer:
     def maybe_save(self, step, state):
         if self.mgr is None:
             return
-        if self.zero1 and step % self.ZERO1_POLL_STEPS:
+        if self.collective and step % self.ZERO1_POLL_STEPS:
             return
         due = [time.monotonic() - self._last >= self.interval_s]
-        if self.zero1:
+        if self.collective:
             torch.distributed.broadcast_object_list(
                 due, src=torch.distributed.get_global_rank(self.group, 0), group=self.group)
         if due[0]:
@@ -559,12 +589,22 @@ class SynchronousDistributedTrainer(Trainer):
     every rank after :func:`~distkeras_tpu_torch.parallel.distributed.initialize`
     (without a process group, one rank trains alone).
 
-    The global batch is ``batch_size`` times the mesh's ``dp`` size. Every
-    rank draws the same global batch and trains on its rows ``[r·B,
-    (r+1)·B)``, where the reference's ``P("dp")`` places them; the step
-    averages the gradients and the metrics over the ranks (so ``history``
-    holds the global batch's numbers) and BatchNorm takes the global batch's
-    moments (:func:`~distkeras_tpu_torch.training.step.make_train_step`).
+    The global batch is ``batch_size`` times the mesh's ``dp`` and
+    ``fsdp`` sizes. Every rank draws the same global batch and trains on its
+    rows ``[d·B, (d+1)·B)``, ``d`` its place among the data shards, where the
+    reference's ``P(("dp", "fsdp"))`` places them (the ranks of one tp
+    group take the same rows); the step averages the gradients and the
+    metrics over the data shards (so ``history`` holds the global batch's
+    numbers) and BatchNorm takes the global batch's moments
+    (:func:`~distkeras_tpu_torch.training.step.make_train_step`).
+
+    Model axes (reference ``trainers.py:634-665``): an annotated model (the
+    bert family, ``model.param_axes``) on a ``tp`` mesh trains
+    tensor-parallel, and any model on an ``fsdp`` mesh trains fully sharded,
+    through :mod:`~distkeras_tpu_torch.parallel.gspmd`; an un-annotated
+    model on a ``tp`` mesh trains replicated over ``tp``, as the
+    reference's does. What ``train()`` returns, and what checkpoints hold,
+    are the whole weights on every rank (gathered from the ranks' parts).
     ``num_workers`` is the ``dp`` size: None means every rank of the process
     group; more than its ranks raises the reference's message, and so does a
     mesh over fewer of them (every rank trains). ``mesh`` is a
@@ -580,9 +620,11 @@ class SynchronousDistributedTrainer(Trainer):
     alone; ``resume=True`` restores the latest step on every rank and
     fast-forwards the deterministic batch stream past it, so a resumed run
     reproduces the uninterrupted one. A zero1 state is gathered to rank 0
-    for each save and saved as a plain one. Only rank 0 publishes. Model
-    axes in ``mesh`` (tp, fsdp, ep: ROADMAP.md §A item A10b; sp: A10c; pp:
-    A10d) and ``shard_sequence`` (A10c) are not ported yet and raise."""
+    for each save and saved as a plain one. Only rank 0 publishes. Not
+    ported yet, and refused naming their ``ROADMAP.md`` §A item: the ``sp``
+    axis and ``shard_sequence`` (A10c), ``pp`` (A10d), ``ep`` (A12), and,
+    with model axes, a ``publisher`` and zero1 checkpoints (A10b's
+    remainder)."""
 
     def __init__(
         self,
@@ -627,11 +669,12 @@ class SynchronousDistributedTrainer(Trainer):
         self.checkpoint_interval_s = float(checkpoint_interval_s)
         self.resume = bool(resume)
 
-    _MODEL_AXIS_ITEMS = {"sp": "A10c", "pp": "A10d"}  # the others: A10b
+    _AXIS_ITEMS = {"sp": "A10c", "pp": "A10d", "ep": "A12"}
 
-    def _data_parallel_mesh(self) -> Mesh:
-        """The mesh to train over: refuses what is not ported yet (model
-        axes, ``shard_sequence``) and a mesh that leaves ranks out."""
+    def _training_mesh(self) -> Mesh:
+        """The mesh to train over: refuses what is not ported yet (the sp,
+        pp and ep axes, ``shard_sequence``) and a mesh that leaves ranks
+        out."""
         if self.shard_sequence:
             raise ValueError("shard_sequence needs sequence parallelism, which is not "
                              "ported yet (ROADMAP.md §A item A10c)")
@@ -640,15 +683,17 @@ class SynchronousDistributedTrainer(Trainer):
         if mesh is None:
             mesh = best_mesh(self.num_workers if self.num_workers is not None else world)
         sizes = mesh.shape if isinstance(mesh, Mesh) else dict(mesh)
-        model_axes = {a: n for a, n in sizes.items() if a != "dp" and n > 1}
-        if model_axes:
-            items = sorted({self._MODEL_AXIS_ITEMS.get(a, "A10b") for a in model_axes})
-            raise ValueError(f"mesh axes {model_axes} are not ported yet "
+        refused = {a: n for a, n in sizes.items() if a in self._AXIS_ITEMS and n > 1}
+        if refused:
+            items = sorted({self._AXIS_ITEMS[a] for a in refused})
+            raise ValueError(f"mesh axes {refused} are not ported yet "
                              f"(ROADMAP.md §A item {', '.join(items)})")
         if not isinstance(mesh, Mesh):
-            if sizes.get("dp", 1) > world:
-                raise ValueError(f"mesh dp={sizes['dp']} but the process group has "
-                                 f"{world} rank(s)")
+            if math.prod(sizes.values()) > world:
+                raise ValueError(
+                    f"mesh {' x '.join(f'{a}={n}' for a, n in sizes.items())} needs "
+                    f"{math.prod(sizes.values())} ranks but the process group has {world} "
+                    f"rank(s)")
             mesh = make_mesh(sizes)
         if mesh.size != world:
             raise ValueError(
@@ -660,33 +705,42 @@ class SynchronousDistributedTrainer(Trainer):
         """Train ``num_epoch`` epochs (rows reshuffled each epoch with
         ``seed + epoch`` when ``shuffle``), resuming from ``checkpoint_dir``
         when asked, and return the trained model on the trainer's device
-        (the same weights on every rank)."""
-        mesh = self._data_parallel_mesh()
-        dp = mesh.shape["dp"]
-        group = mesh.group("dp")
-        rank = torch.distributed.get_rank(group) if group is not None else 0
+        (the same whole weights on every rank)."""
+        mesh = self._training_mesh()
+        sizes = mesh.shape
+        data = sizes.get("dp", 1) * sizes.get("fsdp", 1)
+        sharded = sizes.get("fsdp", 1) > 1 or (
+            sizes.get("tp", 1) > 1 and getattr(self.model, "param_axes", None) is not None)
+        if sharded and self.publisher is not None:
+            raise NotImplementedError("a publisher during model-parallel training is not "
+                                      "ported yet (ROADMAP.md §A, A10b's remainder)")
+        rank = process_index()
         self.record_training_start()
-        step_fn = self._audit(make_train_step(self.model, self.loss, self.metrics,
-                                              aux_loss_weight=self.aux_loss_weight,
-                                              process_group=group),
-                              "sync_train_step")
         optimizer = self._optimizer()
-        if self.zero1 and group is not None:
-            from torch.distributed.optim import ZeroRedundancyOptimizer
-
-            cls, kwargs = optimizer_spec(optimizer)
-            optimizer = functools.partial(ZeroRedundancyOptimizer, optimizer_class=cls,
-                                          process_group=group, **kwargs)
-        state = TrainState.create(self.model, optimizer, self.seed, self.device)
+        if sharded:
+            state, _ = sharded_train_state(self.model, optimizer, mesh, self.seed, self.zero1,
+                                           self.device)
+            step = make_sharded_train_step(self.model, self.loss, mesh, self.metrics,
+                                           self.aux_loss_weight)
+        else:
+            group = mesh.group("dp")
+            step = make_train_step(self.model, self.loss, self.metrics,
+                                   aux_loss_weight=self.aux_loss_weight, process_group=group)
+            if self.zero1 and group is not None:
+                optimizer = zero1_optimizer(optimizer, group)
+            state = TrainState.create(self.model, optimizer, self.seed, self.device)
+        step_fn = self._audit(step, "sync_train_step")
+        world = torch.distributed.group.WORLD if process_count() > 1 else None
         ck = _StepCheckpointer(self.checkpoint_dir, self.checkpoint_interval_s, self.resume,
-                               like=state, group=group)
+                               like=state, group=world)
         if ck.state is not None:
             state = ck.state
-        batches = minibatches(dataset, self.batch_size * dp, self.features_col,
+        global_batch = self.batch_size * data
+        batches = minibatches(dataset, global_batch, self.features_col,
                               self.label_col, num_epoch=self.num_epoch,
                               seed=self.seed if shuffle else None, start_batch=ck.start_step)
-        if dp > 1:
-            rows = slice(rank * self.batch_size, (rank + 1) * self.batch_size)
+        if data > 1:
+            rows = batch_sharding(mesh, 1, seq_dim=None).index((global_batch,), rank)[0]
             batches = ({k: v[rows] for k, v in b.items()} for b in batches)
         history = []
         try:
@@ -699,7 +753,10 @@ class SynchronousDistributedTrainer(Trainer):
         self.history = _read_history(history)
         self._emit_history()
         self.record_training_stop()
-        return TrainedModel(self.model, {k: v.detach() for k, v in state.variables.items()})
+        variables = {k: v.detach() for k, v in state.variables.items()}
+        if state.shardings is not None:
+            variables = gather_whole(variables, state.shardings)
+        return TrainedModel(self.model, variables)
 
 
 def _on_stream(stream):

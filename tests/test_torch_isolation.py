@@ -23,7 +23,9 @@ from distkeras_tpu_torch.models.bert import bert_tiny_mlm, decode_cache, gpt_tin
 from distkeras_tpu_torch.models.core import TrainedModel
 from distkeras_tpu_torch.models.mlp import mnist_mlp
 from distkeras_tpu_torch.models.resnet import resnet18
-from distkeras_tpu_torch.parallel import distributed
+from distkeras_tpu_torch.ops.losses import get_optimizer
+from distkeras_tpu_torch.parallel import distributed, gspmd
+from distkeras_tpu_torch.parallel.mesh import make_mesh
 from distkeras_tpu_torch.serving import PrefixCache, ServingEngine
 from distkeras_tpu_torch.training.trainers import (
     DynSGD,
@@ -61,7 +63,8 @@ def test_port_imports_neither_jax_nor_reference():
               "serving.cluster.replicas", "serving.cluster.supervisor",
               "serving.cluster.router", "telemetry.timeseries", "telemetry.device",
               "deploy", "deploy.publisher", "deploy.controller", "deploy.harness", "run",
-              "parallel.distributed", "parallel.mesh", "parallel.sharding"):
+              "parallel.distributed", "parallel.mesh", "parallel.sharding",
+              "parallel.gspmd"):
         assert f"distkeras_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -166,7 +169,7 @@ def test_resolve_device():
                                    "ensemble_trainer", "generate", "beam_search",
                                    "generator", "serving_engine", "prefix_cache",
                                    "paged_engine", "tiered_engine", "score_fn",
-                                   "initialize"])
+                                   "initialize", "sharded_train_state", "place_sharded"])
 def test_entry_points_raise_without_cuda(entry):
     _no_cuda()
     model = bert_tiny_mlm(seq_len=16, vocab_size=64)
@@ -194,6 +197,9 @@ def test_entry_points_raise_without_cuda(entry):
         "score_fn": lambda: make_score_fn(gpt, 64),
         # NCCL unless gloo is named: no CUDA device, no quiet switch to gloo
         "initialize": lambda: distributed.initialize("localhost:1", 2, 0),
+        "sharded_train_state": lambda: gspmd.sharded_train_state(
+            model, get_optimizer("adam"), make_mesh(devices=[0])),
+        "place_sharded": lambda: gspmd.place_sharded({"w": np.zeros(2)}, None),
         "prefix_cache": lambda: PrefixCache(decode_cache(
             dataclasses.replace(gpt.config, decode=True, decode_slots=True), 1, "meta"),
             block_tokens=4, budget_bytes=1 << 16),

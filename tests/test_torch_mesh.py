@@ -201,8 +201,14 @@ def test_logical_sharding_refuses_repeated_axes():
 
 
 def test_infer_variable_shardings_names_its_item():
-    with pytest.raises(NotImplementedError, match="A10b"):
-        sharding.infer_variable_shardings(mesh.make_mesh(devices=[0]), {})
+    """A split leaf that does not divide names the leaf, its size and the
+    config field behind it; a leaf without axes is replicated."""
+    m = mesh.make_mesh({"tp": 2}, devices=[0, 1])
+    axes = {"w": ("mlp", "embed"), "b": None}.get
+    got = sharding.infer_variable_shardings(m, {"w": np.zeros((4, 3)), "b": np.zeros(3)}, axes)
+    assert got["w"].spec == ("tp", None) and got["b"].is_replicated
+    with pytest.raises(ValueError, match=r"^w: its 'mlp' dimension 0 has size 5 \(mlp_dim\)"):
+        sharding.infer_variable_shardings(m, {"w": np.zeros((5, 3))}, axes)
 
 
 KV_TREE = {

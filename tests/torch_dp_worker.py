@@ -1,13 +1,13 @@
-"""One rank of the port's two-rank data-parallel runs on the CPU.
+"""One rank of the port's multi-rank (data- and model-parallel) runs on the CPU.
 
     python tests/torch_dp_worker.py WORKDIR RANK WORLD
 
-``tests/test_torch_data_parallel.py`` starts WORLD of these. They join one
-gloo process group through a file store in WORKDIR, read the scenarios'
-inputs from ``WORKDIR/inputs.pkl`` (weights bridged from the reference's
-init, and the data), run every scenario in order and write what each
-produced to ``WORKDIR/result-RANK.pkl``. The worker imports the port and
-torch only.
+``tests/test_torch_data_parallel.py`` and ``tests/test_torch_model_parallel.py``
+start WORLD of these. They join one gloo process group through a file
+store in WORKDIR, read the scenarios' inputs from ``WORKDIR/inputs.pkl``
+(weights bridged from the reference's init, and the data), run every
+scenario in order and write what each produced to
+``WORKDIR/result-RANK.pkl``. The worker imports the port and torch only.
 """
 
 import dataclasses
@@ -36,7 +36,8 @@ def bert_model(cfg: dict) -> Model:
 
 
 def mlp_model(cfg: dict) -> Model:
-    return Model(lambda: MLP(cfg["dim"], (32,), 2, compute_dtype=torch.float32),
+    hidden = tuple(cfg.get("hidden", (32,)))
+    return Model(lambda: MLP(cfg["dim"], hidden, 2, compute_dtype=torch.float32),
                  input_shape=(cfg["dim"],), output_dim=2)
 
 
@@ -56,7 +57,7 @@ def with_weights(model: Model, weights: dict) -> Model:
 
 
 def host(variables: dict) -> dict:
-    return {k: v.detach().cpu().numpy() for k, v in variables.items()}
+    return {k: v.detach().cpu().numpy().copy() for k, v in variables.items()}
 
 
 def train(case: dict, workdir: str) -> dict:
@@ -79,7 +80,8 @@ def predict(case: dict, workdir: str) -> dict:
     trained = TrainedModel(model, model.init())
     data = dk.Dataset.from_arrays(features=case["features"])
     out = {}
-    for name, mesh in (("mesh", best_mesh()), ("plain", None)):
+    mesh = make_mesh(case["mesh"]) if "mesh" in case else best_mesh()
+    for name, mesh in (("mesh", mesh), ("plain", None)):
         pred = dk.ModelPredictor(trained, batch_size=case["batch_size"], mesh=mesh,
                                  device="cpu")
         out[name] = np.asarray(pred.predict(data)["prediction"])
@@ -109,7 +111,65 @@ def groups(case: dict, workdir: str) -> dict:
     return out
 
 
-RUNNERS = {"train": train, "predict": predict, "refuse": refuse, "groups": groups}
+def sharded_init(case: dict, workdir: str) -> dict:
+    """``sharded_train_state`` from ``Model.init`` (seed 3) on a model-axes
+    mesh: the state gathered whole, and each weight's part on this rank
+    before and after one step."""
+    from distkeras_tpu_torch.ops.losses import get_optimizer
+    from distkeras_tpu_torch.parallel import gspmd
+
+    model = MODELS[case["model"]](case["config"])
+    mesh = make_mesh(case["mesh"])
+    state, shardings = gspmd.sharded_train_state(model, get_optimizer("adam"), mesh, seed=3,
+                                                 device="cpu")
+    before = {k: tuple(v.shape) for k, v in state.params.items()}
+    whole = host(gspmd.gather_whole({k: v.detach() for k, v in state.params.items()},
+                                    shardings))
+    step = gspmd.make_sharded_train_step(model, case["loss"], mesh)
+    batch = gspmd.shard_batch(mesh, case["batch"], device="cpu")
+    state, _ = step(state, batch)
+    return {"whole": whole, "init": host(model.init(3, device="cpu")), "before": before,
+            "after": {k: tuple(v.shape) for k, v in state.params.items()},
+            "specs": {k: s.spec for k, s in shardings.items()}}
+
+
+def tp_decode(case: dict, workdir: str) -> dict:
+    """gpt_tiny's decode mode with ``tp_mesh``: a prefill, then greedy
+    one-token steps; every step's last-position logits, the tokens and the
+    K/V leaves' shapes."""
+    from distkeras_tpu_torch.inference.generate import greedy_ids
+    from distkeras_tpu_torch.parallel.gspmd import place_sharded
+    from distkeras_tpu_torch.parallel.sharding import infer_variable_shardings
+
+    mesh = make_mesh(case["mesh"])
+    base = bert.gpt_tiny(seq_len=case["seq"], vocab_size=case["vocab"])
+    cfg = dataclasses.replace(base.config, dtype=torch.float32, decode=True, tp_mesh=mesh)
+    model = bert._make(cfg, case["seq"], "gpt_tiny")
+    whole = {k: torch.as_tensor(v) for k, v in case["weights"].items()}
+    weights = place_sharded(whole, infer_variable_shardings(mesh, whole, bert.param_axes), "cpu")
+    tokens = torch.as_tensor(case["prompt"])
+    logits, cache = model.apply(weights, tokens)
+    steps, out = [logits[:, -1]], []
+    for _ in range(case["steps"]):
+        tok = greedy_ids(logits[:, -1])
+        out.append(tok)
+        logits, cache = model.apply({**weights, **cache}, tok[:, None])
+        steps.append(logits[:, -1])
+    return {"logits": torch.stack(steps).numpy(), "tokens": torch.stack(out, 1).numpy(),
+            "kv": {k: tuple(v.shape) for k, v in cache.items() if v.ndim == 4}}
+
+
+def joint_group(case: dict, workdir: str) -> dict:
+    """The group of several mesh axes: its size and the sum of its ranks'
+    rank + 1."""
+    group = make_mesh(case["mesh"]).group(tuple(case["axes"]))
+    t = torch.tensor([distributed.process_index() + 1.0])
+    torch.distributed.all_reduce(t, group=group)
+    return [torch.distributed.get_world_size(group), t.item()]
+
+
+RUNNERS = {"train": train, "predict": predict, "refuse": refuse, "groups": groups,
+           "sharded_init": sharded_init, "tp_decode": tp_decode, "joint_group": joint_group}
 
 
 def main(workdir: str, rank: int, world: int) -> int:
