@@ -20,7 +20,9 @@ Phases, each of which must pass or the script exits non-zero:
    one PyTorch call that computes the same function (scaled_dot_product_attention
    and its backward, with a float additive mask under the strict causal mask;
    cross_entropy and its backward, logsumexp), with the bound the card's
-   published rates put on it, and the flash wrappers' host time per call.
+   published rates put on it, and the flash wrappers' host time per call;
+   K1-K3 also at a tp rank's shape (phase 18b) and at a ring hop's (phase
+   19: B=8 S=256 H=12 D=64, causal, full and strict causal).
 3. Inference at full width: bert_base_mlm (seq 128, flash attention on,
    random weights from a seed) through ModelPredictor (64 rows, batch 32)
    and Trainer.evaluate with fused_categorical_crossentropy (512 rows,
@@ -216,10 +218,32 @@ Phases, each of which must pass or the script exits non-zero:
    rows. Logged: ms per step per rank (train_step span) and the shares of
    the tp_all_reduce, tp_gather, fsdp_gather and fsdp_reduce_scatter
    spans, the phase's wall time, with the card. No scaling figure.
-19. Print the kernels line, the card's name and power limit, and last the
+19. Sequence parallelism, in ranks spawned as phase 17's. 19a: one NCCL
+   rank: SynchronousDistributedTrainer(mesh={"sp": 1}, shard_sequence=True)
+   on gpt_small (seq 512, batch 8, flash on, fused loss, adam, dropout 0)
+   with a ring_mesh of sp=1 and sp_impl "ring" (K1 and an exact float32
+   merge per layer), 3 steps of the copy task, against SingleTrainer on the
+   same rows (each tensor within 1e-6 of its norm; whether the weights are
+   bitwise equal is logged); 3 x 12 launches of K1-K3 and 3 of K4-K6. 19b-19d
+   on two gloo ranks sharing the card, mesh {"sp": 2}, shard_sequence=True,
+   3 steps on one global batch repeated, each rank on its columns: 19b
+   gpt_small 8 x 512 with "ring" (contiguous; rank 0 skips its later hop:
+   36 launches of K1-K3, rank 1 72), 19c the same with "ring_stripe"
+   (every hop runs, the later one at causal shift 1: 72 each), 19d
+   bert_base_mlm 32 x 128 with "ulysses" and flash (K1-K3 on the local head
+   group, BH = 192: 36 each); K4-K6 3 a rank on the rank's own logits. Each:
+   the losses finite, falling, equal on both ranks and within LOSS_RTOL of
+   SingleTrainer's on the same rows; the first step's gradients, gathered
+   whole, within phase 5's bound of one process's; the replicated leaves
+   equal on both ranks; pos_embed the one split leaf; the returned weights
+   whole. Logged: ms per step per rank (train_step span), the shares of the
+   sp_permute, sp_all_to_all, sp_gather (pos_embed), sp_reduce_scatter and
+   grad_all_reduce spans, whether the P2P went through the host, with the
+   card. No scaling figure.
+20. Print the kernels line, the card's name and power limit, and last the
    result line {"ok": true, "device": {...}}.
 
-Phases 9-11, 15f, 16, 17 and 18 write their checkpoints, weight files and
+Phases 9-11, 15f, 16, 17, 18 and 19 write their checkpoints, weight files and
 stores under build/chip_smoke/ (git-ignored) and remove them.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
@@ -3438,6 +3462,222 @@ def mp_phase(root=REPO, seq=128, batch=32, steps=3, model_name="bert_base_mlm",
     return {k: sum(c[k] for c in counts) for k in counts[0]}
 
 
+# -- phase 19: sequence parallelism -------------------------------------------
+
+# 19b-19d: (tag, model, seq, global batch, sp_impl)
+SP_CASES = (("19b", "gpt_small", 512, 8, "ring"), ("19c", "gpt_small", 512, 8, "ring_stripe"),
+            ("19d", "bert_base_mlm", 128, 32, "ulysses"))
+
+
+def _sp_spans(tracer) -> dict:
+    """ms per step (the ``train_step`` span), each sequence-parallel
+    collective span's share of it, and whether any P2P went through the
+    host (the ``sp_permute`` span's ``staged`` attribute)."""
+    totals = span_totals(tracer)
+    step_n, step_s = totals.get(("train_step", None), [0, 0.0])
+    out = {"steps": step_n, "ms_per_step": step_s / max(step_n, 1) * 1e3,
+           "staged": any((attrs or {}).get("staged") for ph, name, *_, attrs in tracer.events()
+                         if ph == "B" and name == "sp_permute")}
+    for name in ("sp_permute", "sp_all_to_all", "sp_gather", "sp_reduce_scatter",
+                 "grad_all_reduce"):
+        out[f"{name}_share"] = totals.get((name, None), [0, 0.0])[1] / step_s if step_s else 0.0
+    return out
+
+
+def sp_model(model, mesh, sp_impl):
+    from distkeras_tpu_torch.models import bert
+
+    cfg = dataclasses.replace(model.config, ring_mesh=mesh, sp_impl=sp_impl)
+    return bert._make(cfg, model.input_shape[0], model.name)
+
+
+def sp_nccl_task(rank, world, seq=512, batch=8, steps=3, model_name="gpt_small",
+                 device="cuda") -> dict:
+    """19a: one NCCL rank: SynchronousDistributedTrainer(mesh={"sp": 1},
+    shard_sequence=True) on the model with a ring_mesh of sp=1 ("ring": K1
+    and an exact float32 merge per layer) against SingleTrainer on the
+    same rows."""
+    import torch
+
+    from distkeras_tpu_torch import SingleTrainer
+    from distkeras_tpu_torch.parallel.mesh import make_mesh
+
+    model, cfg, data = bert_copy_task(seq, batch * steps, name=model_name)
+    mesh = make_mesh({"sp": 1})
+    ring = sp_model(model, mesh, "ring")
+    _sync_trainer(ring, batch, device, mesh=mesh, shard_sequence=True).train(data.take(batch))
+    _synchronize(device)
+    reset_counts()
+    t0 = time.perf_counter()
+    trained = _sync_trainer(ring, batch, device, mesh=mesh, shard_sequence=True).train(data)
+    _synchronize(device)
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    single = SingleTrainer(model, "adam", loss="fused_categorical_crossentropy", batch_size=batch,
+                           seed=SEED, device=device).train(data)
+    got, want = trained.variables, single.variables
+    return {"backend": torch.distributed.get_backend(), "counts": counts,
+            "ms_per_step": wall / steps * 1e3, "gap_single": _tensor_gaps(got, want),
+            "max_abs": max((got[k].float() - want[k].float()).abs().max().item() for k in want)}
+
+
+def sp_gloo_task(rank, world, cases=SP_CASES, steps=3, device="cuda", axes=None) -> dict:
+    """19b-19d on two gloo ranks that share the card, one case after the
+    other: SynchronousDistributedTrainer(mesh={"sp": 2}, shard_sequence=True)
+    for ``steps`` steps on one global batch of the copy task repeated, each
+    rank on its columns; the first step's gradients as the optimizer
+    receives them, gathered whole; rank 0 also trains SingleTrainer on the
+    same rows and takes one process's gradients on them. ``axes``: another
+    mesh (``{"dp": 2, "sp": 2}``, say; ``batch`` rows a data rank), as on
+    several cards over NCCL."""
+    import numpy as np
+    import torch
+    from torch.optim.optimizer import register_optimizer_step_pre_hook
+
+    from distkeras_tpu_torch import Dataset, SingleTrainer
+    from distkeras_tpu_torch.parallel import gspmd
+    from distkeras_tpu_torch.parallel.mesh import make_mesh
+    from distkeras_tpu_torch.telemetry.spans import Tracer, disable_tracing, enable_tracing
+
+    mesh = make_mesh(axes or {"sp": world})
+    out = {"backend": torch.distributed.get_backend()}
+    for tag, model_name, seq, batch, impl in cases:
+        global_batch = batch * mesh.shape.get("dp", 1)
+        model, cfg, one = bert_copy_task(seq, global_batch, name=model_name)
+        ring = sp_model(model, mesh, impl)
+        data = Dataset.from_arrays(**{k: np.concatenate([one[k]] * steps)
+                                      for k in ("features", "label")})
+        _sync_trainer(ring, batch, device, mesh=mesh, shard_sequence=True).train(one)  # warm-up
+        names = [n for n, _ in model.module.named_parameters()]
+        meta = model.module.state_dict()  # shapes only: the spec's module is on "meta"
+        shardings = gspmd.variable_shardings(ring, mesh, meta)
+        tapped = []
+
+        def tap(optimizer, args, kwargs):
+            if not tapped:
+                tapped.extend(p.grad.detach().float().clone()
+                              for g in optimizer.param_groups for p in g["params"])
+
+        hook = register_optimizer_step_pre_hook(tap)
+        reset_counts()
+        tracer = enable_tracing(Tracer())
+        t0 = time.perf_counter()
+        tr = _sync_trainer(ring, batch, device, mesh=mesh, shard_sequence=True)
+        trained = tr.train(data)
+        _synchronize(device)
+        rep = {"wall_s": time.perf_counter() - t0}
+        disable_tracing()
+        hook.remove()
+        rep["counts"] = read_counts()
+        rep.update(_sp_spans(tracer))
+        rep["losses"] = [h["loss"] for h in tr.history]
+        rep["whole"] = all(tuple(trained.variables[k].shape) == tuple(meta[k].shape)
+                           for k in names)
+        rep["split"] = sorted(k for k in names if not shardings[k].is_replicated)
+        kept = [k for k in names if shardings[k].is_replicated]
+        rep["replicated_sums"] = [[trained.variables[k].double().sum().item(),
+                                   trained.variables[k].double().square().sum().item()]
+                                  for k in kept]
+        got = gspmd.gather_whole(dict(zip(names, tapped)), shardings)
+        if rank == 0:
+            single = SingleTrainer(model, "adam", loss="fused_categorical_crossentropy",
+                                   batch_size=global_batch, seed=SEED, device=device)
+            single.train(data)
+            rep["single_losses"] = [h["loss"] for h in single.history]
+            weights = model.init(SEED, device=device)
+            want, exact = bert_grads(model, cfg, weights, one["features"], device)
+            norms = {k: want[k].norm().item() for k in want}
+            floor = 1e-3 * max(norms.values())
+            rel = {k: (got[k] - want[k]).norm().item() / max(norms[k], floor) for k in want}
+            noise = {k: (want[k] - exact[k]).norm().item() / max(norms[k], floor) for k in want}
+            allowed = {k: max(GRAD_REL_TOL, GRAD_NOISE_FACTOR * noise[k]) for k in want}
+            worst = max(rel, key=lambda k: rel[k] / allowed[k])
+            rep["grads"] = {"tensors": len(rel), "median": sorted(rel.values())[len(rel) // 2],
+                            "max": max(rel.values()), "worst": worst,
+                            "worst_rel": rel[worst], "worst_allowed": allowed[worst]}
+            del weights, want, exact
+        out[tag] = rep
+        del trained, tr, got, tapped
+        torch.cuda.empty_cache() if device == "cuda" else None
+    return out
+
+
+def sp_launches(cfg, steps, hops) -> dict:
+    """A rank's launches over ``steps`` steps: K1-K3 once a layer a hop
+    that runs, K4-K6 once a step."""
+    L = cfg.num_layers
+    return expected(flash_attention_fwd=L * steps * hops, flash_attention_dq=L * steps * hops,
+                    flash_attention_dkv=L * steps * hops, fused_xent_fwd=steps,
+                    fused_xent_stats=steps, fused_xent_grad=steps)
+
+
+def sp_phase(root=REPO, steps=3, cases=SP_CASES, nccl=("gpt_small", 512, 8),
+             device="cuda") -> dict:
+    """19: sequence parallelism in spawned ranks; returns the launch counts
+    of 19a's and 19b-19d's timed runs, every rank's summed."""
+    card = card_line()
+    t_phase = time.perf_counter()
+    counting = device == "cuda"  # the plain versions of the kernels count nothing
+    name, seq, batch = nccl
+    (a,) = dp_spawn(root, "19a", None if counting else "gloo", 1, "sp_nccl_task", seq=seq,
+                    batch=batch, steps=steps, model_name=name, device=device)
+    cfg = bert_copy_task(seq, batch, name=name)[1]
+    log(f"  19a ({a['backend']}, 1 rank, ring_mesh sp=1, \"ring\"): {name} {batch} x {seq}, "
+        f"{a['ms_per_step']:.2f} ms/step over {steps} steps (host clock, synchronized); "
+        f"weights vs SingleTrainer: largest per-tensor relative gap {a['gap_single']:.3g}, "
+        f"largest element difference {a['max_abs']:.3g} "
+        f"({'bitwise' if a['max_abs'] == 0 else 'not bitwise'}; bound {DP_EQUAL_RTOL}); "
+        f"launches {a['counts']} ({card})")
+    check(a["backend"] == ("nccl" if counting else "gloo"), f"19a: backend {a['backend']}")
+    check(a["gap_single"] <= DP_EQUAL_RTOL, f"19a: {a['gap_single']} off SingleTrainer")
+    if counting:
+        check(a["counts"] == sp_launches(cfg, steps, 1), f"19a: launches {a['counts']}")
+    counts = [a["counts"]]
+    ranks = dp_spawn(root, "19b", "gloo", 2, "sp_gloo_task", cases=cases, steps=steps,
+                     device=device)
+    for tag, name, seq, batch, impl in cases:
+        cfg = bert_copy_task(seq, batch, name=name)[1]
+        r0 = ranks[0][tag]
+        for r, rep in enumerate(ranks):
+            rep = rep[tag]
+            shares = ", ".join(f"{k[:-6]} {rep[k]:.1%}" for k in rep
+                               if k.endswith("_share") and rep[k])
+            log(f"  {tag} {name} {batch} x {seq}, sp=2, {impl!r}, rank {r} (gloo, 2 ranks "
+                f"sharing one card: a check, not a scaling figure): {rep['steps']} steps, "
+                f"{rep['ms_per_step']:.2f} ms/step (train_step span), of it "
+                f"{shares or 'no collective span'}; P2P staged through the host: "
+                f"{rep['staged']}; train() {rep['wall_s']:.2f} s; losses "
+                f"{', '.join(f'{x:.4f}' for x in rep['losses'])}; launches {rep['counts']} "
+                f"({card})")
+            check(rep["losses"] == r0["losses"], f"{tag}: rank {r} losses {rep['losses']}")
+            check(all(math.isfinite(x) for x in rep["losses"]) and all(
+                b < a for a, b in zip(rep["losses"], rep["losses"][1:])),
+                f"{tag}: losses {rep['losses']} do not fall")
+            check(rep["whole"], f"{tag}: rank {r} returned weights that are not whole")
+            check(rep["split"] == ["pos_embed"], f"{tag}: split leaves {rep['split']}")
+            check(rep["replicated_sums"] == r0["replicated_sums"],
+                  f"{tag}: rank {r}'s replicated leaves differ from rank 0's")
+            if counting:
+                hops = {"ring": 1 + r, "ring_stripe": 2, "ulysses": 1}[impl]
+                check(rep["counts"] == sp_launches(cfg, steps, hops),
+                      f"{tag}: rank {r} launches {rep['counts']}")
+            counts.append(rep["counts"])
+        gap = max(abs(a - b) / abs(b) for a, b in zip(r0["losses"], r0["single_losses"]))
+        g = r0["grads"]
+        log(f"  {tag}: losses against SingleTrainer's on the same rows "
+            f"{', '.join(f'{x:.4f}' for x in r0['single_losses'])}: largest relative gap "
+            f"{gap:.3g} (bound {LOSS_RTOL}); first step's gradients, gathered whole, against "
+            f"one process: relative difference median {g['median']:.3g}, max {g['max']:.3g} "
+            f"over {g['tensors']} tensors; nearest its bound {g['worst']} {g['worst_rel']:.3g} "
+            f"(allowed {g['worst_allowed']:.3g}); {len(r0['replicated_sums'])} replicated "
+            f"leaves equal on both ranks")
+        check(gap <= LOSS_RTOL, f"{tag}: losses {gap} off SingleTrainer's")
+        check(g["worst_rel"] <= g["worst_allowed"],
+              f"{tag}: gradient {g['worst']} {g['worst_rel']} > {g['worst_allowed']}")
+    log(f"  19: phase wall {time.perf_counter() - t_phase:.2f} s ({card})")
+    return {k: sum(c[k] for c in counts) for k in counts[0]}
+
+
 async def _kv_export(engine, prompt) -> dict:
     ev, res = engine.request_kv_export(prompt)
     await ev.wait()
@@ -3502,14 +3742,21 @@ def main(argv=None) -> int:
     k1 = [flash_case(32, 128, 12, 64, False, 0, gen),
           flash_case(8, 512, 12, 64, True, 0, gen),
           flash_case(8, 512, 12, 64, True, 1, gen),
-          flash_case(32, 128, 6, 64, False, 0, gen)]  # a tp=2 rank's heads (phase 18b)
+          flash_case(32, 128, 6, 64, False, 0, gen),  # a tp=2 rank's heads (phase 18b)
+          # a ring hop at sp=2 on gpt_small (phase 19): own shard, earlier, striped later
+          flash_case(8, 256, 12, 64, True, 0, gen),
+          flash_case(8, 256, 12, 64, False, 0, gen),
+          flash_case(8, 256, 12, 64, True, 1, gen)]
     k4 = [xent_case(4096, 30522, torch.float32, gen),
           xent_case(4096, 30522, torch.bfloat16, gen),
           xent_case(4096, 50257, torch.float32, gen)]
     k23 = [flash_bwd_cases(32, 128, 12, 64, False, 0, gen),
            flash_bwd_cases(8, 512, 12, 64, True, 0, gen),
            flash_bwd_cases(8, 512, 12, 64, True, 1, gen),
-           flash_bwd_cases(32, 128, 6, 64, False, 0, gen)]
+           flash_bwd_cases(32, 128, 6, 64, False, 0, gen),
+           flash_bwd_cases(8, 256, 12, 64, True, 0, gen),
+           flash_bwd_cases(8, 256, 12, 64, False, 0, gen),
+           flash_bwd_cases(8, 256, 12, 64, True, 1, gen)]
     k56 = [xent_bwd_cases(4096, 30522, torch.float32, gen),
            xent_bwd_cases(4096, 30522, torch.bfloat16, gen),
            xent_bwd_cases(4096, 50257, torch.float32, gen)]
@@ -3564,6 +3811,9 @@ def main(argv=None) -> int:
     log("phase 18: model parallelism (one NCCL rank at mesh size 1; tp=2 and fsdp=2 on two "
         "gloo ranks sharing the card): bert_base_mlm at full width")
     runs.append(mp_phase(root))
+    log("phase 19: sequence parallelism (one NCCL rank at sp=1; ring, ring_stripe and ulysses "
+        "at sp=2 on two gloo ranks sharing the card): gpt_small and bert_base_mlm at full width")
+    runs.append(sp_phase(root))
     launches = {k: sum(r[k] for r in runs) for k in runs[0]}
     for k, n in launches.items():
         check(n > 0, f"kernel {k} was not launched on the main path")

@@ -23,8 +23,28 @@ caller passes, one derived seed per dropout site, so a recompute under
 
 Attention takes the flash kernel (:mod:`distkeras_tpu_torch.ops.flash_attention`)
 when ``use_flash_attention`` is set and no mask is given, else dense
-attention. Sequence and tensor parallelism and MoE come with later slices
-and raise here.
+attention. Tensor parallelism (``tp_mesh``) splits the heads, the MLP and
+the vocabulary over a mesh's tp axis (Megatron's layout, explicit
+autograd-aware collectives). MoE comes with a later slice and raises here.
+
+Sequence parallelism (``ring_mesh``, ``ring_axis``, ``sp_impl``; reference
+``bert.py:235-280``): every attention layer runs across the ranks of
+``ring_mesh``'s ``ring_axis`` (size ``p``) through the flash ring
+(``"ring"``; ``"ring_stripe"``, causal only, in the striped token layout:
+:mod:`~distkeras_tpu_torch.ops.ring_flash`) or Ulysses' all-to-all
+(``"ulysses"``, flash on the local head group with ``use_flash_attention``:
+:mod:`~distkeras_tpu_torch.ops.ulysses`). A rank holds its own tokens: the
+forward takes its ``[B, S/p]`` shard of the ids and returns its
+``[B, S/p, V]`` logits (rank ``m`` holds columns ``m·S/p … (m+1)·S/p − 1``,
+or under ``"ring_stripe"`` columns ``m, m+p, m+2p, …``; ``stripe_shard``
+then the contiguous split). Its positional rows, ``m·S/p + j`` or
+``j·p + m``, come from the whole ``pos_embed``. So the reference's
+stripe/unstripe bracket around the trunk (``bert.py:556-580``) has nothing
+to do here: the tokens arrive striped and the logits leave striped. An
+axis above 1 needs a process group over the mesh's ranks
+(``RuntimeError`` otherwise). Decode mode ignores ``ring_mesh``, as the
+reference's ``generate`` drops it. ``ring_mesh`` with ``tp_mesh`` is not
+ported.
 
 Decode mode (``decode=True``, reference ``bert.py:297-404, :527-551``) keeps
 dense K/V caches ``[B, L, H, D]`` (``L = decode_cache_len or max_seq_len``)
@@ -65,19 +85,21 @@ from torch import nn
 from distkeras_tpu_torch.models.core import Model
 from distkeras_tpu_torch.ops.attention import PagedPlan, constrain_heads, dot_product_attention
 from distkeras_tpu_torch.ops.flash_attention import flash_attention
+from distkeras_tpu_torch.ops.ring_flash import ring_flash_attention
+from distkeras_tpu_torch.ops.ulysses import ulysses_self_attention
+from distkeras_tpu_torch.parallel.distributed import axis_ring
 from distkeras_tpu_torch.parallel.mesh import Mesh
 from distkeras_tpu_torch.telemetry.spans import span
 from distkeras_tpu_torch.utils.rng import fold_in
 
 __all__ = [
     "BertConfig", "Bert", "EncoderLayer", "SelfAttention", "dropout", "decode_cache",
-    "PARAM_AXES", "param_axes", "with_tp_mesh",
+    "PARAM_AXES", "param_axes", "with_ring_mesh", "with_tp_mesh",
     "bert_base_mlm", "bert_tiny_mlm", "gpt_tiny", "gpt_small",
 ]
 
 # Config fields of later slices: a set value raises, naming the item.
 _LATER_SLICES = {
-    "ring_mesh": "sequence parallelism (ROADMAP.md §A item A10c)",
     "moe_experts": "MoE (ROADMAP.md §A item A12)",
 }
 
@@ -143,6 +165,17 @@ class BertConfig:
             tp = _tp_size(self)
             if self.num_heads % tp:
                 raise ValueError(f"num_heads {self.num_heads} does not divide over tp={tp}")
+        if self.ring_mesh is not None:
+            if not isinstance(self.ring_mesh, Mesh):
+                raise TypeError(f"BertConfig.ring_mesh must be a distkeras_tpu_torch Mesh, "
+                                f"not {type(self.ring_mesh).__name__}")
+            if self.ring_axis not in self.ring_mesh.axis_names:
+                raise ValueError(f"BertConfig.ring_axis {self.ring_axis!r} is not an axis of "
+                                 f"ring_mesh {self.ring_mesh.axis_names}")
+            if self.tp_mesh is not None:
+                raise NotImplementedError(
+                    "BertConfig.ring_mesh with tp_mesh is not ported yet: sequence and tensor "
+                    "parallelism together are A10c's remainder (ROADMAP.md §A)")
 
 
 def _tp_size(cfg: BertConfig) -> int:
@@ -381,6 +414,8 @@ class SelfAttention(nn.Module):
             out = self._paged_attention(q, k, v, new_cache, paged)
         elif cfg.decode:
             out = self._decode_attention(q, k, v, new_cache)
+        elif cfg.ring_mesh is not None and mask is None:
+            out = _sp_attention(cfg, q, k, v)
         elif cfg.use_flash_attention and mask is None:
             out = flash_attention(q, k, v, causal=cfg.causal)
         else:
@@ -446,6 +481,38 @@ class SelfAttention(nn.Module):
         return dot_product_attention(q, ck, cv, mask=mask)
 
 
+def _sp_attention(cfg: BertConfig, q, k, v):
+    """Attention across ``cfg.ring_mesh``'s ``ring_axis`` by ``cfg.sp_impl``
+    (reference ``SelfAttention`` under ``ring_mesh``)."""
+    if cfg.sp_impl == "ulysses":
+        attn_fn = flash_attention if cfg.use_flash_attention else None
+        return ulysses_self_attention(q, k, v, cfg.ring_mesh, cfg.ring_axis, cfg.causal,
+                                      attn_fn)
+    if cfg.sp_impl in ("ring", "ring_stripe"):
+        stripe = cfg.sp_impl == "ring_stripe"
+        if stripe and not cfg.causal:
+            raise ValueError("sp_impl='ring_stripe' is causal-only (striping balances the "
+                             "causal triangle; non-causal rings are already balanced — use "
+                             "sp_impl='ring')")
+        return ring_flash_attention(q, k, v, cfg.ring_mesh, cfg.ring_axis, cfg.causal,
+                                    stripe=stripe)
+    raise ValueError(f"unknown sp_impl {cfg.sp_impl!r}: expected 'ring', 'ring_stripe', "
+                     f"or 'ulysses'")
+
+
+def _sp_positions(cfg: BertConfig, S: int, device):
+    """The positions of this rank's ``S`` tokens under ``ring_mesh``:
+    ``m·S + j`` contiguous, ``j·p + m`` striped (rank ``m`` of ``p``)."""
+    ring = axis_ring(cfg.ring_mesh, cfg.ring_axis)
+    if S * ring.size > cfg.max_seq_len:
+        raise ValueError(f"{ring.size} shards of {S} tokens exceed max_seq_len "
+                         f"{cfg.max_seq_len}")
+    j = torch.arange(S, device=device)
+    if cfg.sp_impl == "ring_stripe":
+        return j * ring.size + ring.index
+    return ring.index * S + j
+
+
 class EncoderLayer(nn.Module):
     def __init__(self, cfg: BertConfig):
         super().__init__()
@@ -471,7 +538,8 @@ class Bert(nn.Module):
     """BERT encoder with a tied-embedding MLM head.
 
     Input: integer token ids ``[B, S]``. Output: float32 vocab logits
-    ``[B, S, V]``. Submodules are named as the reference's flax modules
+    ``[B, S, V]`` (under ``ring_mesh`` this rank's ``[B, S/p]`` shard and its
+    ``[B, S/p, V]`` logits). Submodules are named as the reference's flax modules
     (``token_embed``, ``pos_embed``, ``layer_{i}``, ``ln_final``,
     ``mlm_bias``)."""
 
@@ -554,6 +622,8 @@ class Bert(nn.Module):
                 pos = self.pos_embed[:, start + torch.arange(S, device=x.device)]
                 new_cache["pos_index"] = pi + S
             x = x + pos.to(cfg.dtype)
+        elif cfg.ring_mesh is not None:
+            x = x + self.pos_embed[0][_sp_positions(cfg, S, x.device)].to(cfg.dtype)
         else:
             x = x + self.pos_embed[:, :S].to(cfg.dtype)
 
@@ -632,6 +702,13 @@ def with_tp_mesh(model: Model, mesh: Mesh | None) -> Model:
     """The bert-family ``model`` with ``mesh`` as its config's ``tp_mesh``:
     its forward computes on this rank's tp shards of the weights."""
     cfg = dataclasses.replace(model.config, tp_mesh=mesh)
+    return _make(cfg, model.input_shape[0], model.name)
+
+
+def with_ring_mesh(model: Model, mesh: Mesh | None) -> Model:
+    """The bert-family ``model`` with ``mesh`` as its config's ``ring_mesh``
+    (its ``ring_axis`` and ``sp_impl`` kept)."""
+    cfg = dataclasses.replace(model.config, ring_mesh=mesh)
     return _make(cfg, model.input_shape[0], model.name)
 
 

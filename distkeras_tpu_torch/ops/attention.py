@@ -4,15 +4,20 @@ mask is given) and the paged serving engine's ``paged_kv_update`` and
 ``paged_attention``. Neither paged op is a Pallas kernel in the reference
 (they are plain gathers and scatters), so they are plain torch ops here.
 :func:`constrain_heads` is the reference's head-layout pin for tensor
-parallel decode. Ring attention comes with sequence parallelism
-(``ROADMAP.md`` §A item A10c)."""
+parallel decode. :func:`ring_attention` is the reference's dense ring for
+sequence parallelism: plain torch (the reference has no Pallas body
+there), its K/V moving one hop per step with an autograd-aware permute
+whose backward moves the cotangents the other way; the flash ring is
+:mod:`~distkeras_tpu_torch.ops.ring_flash`."""
 
 from __future__ import annotations
 
 import torch
 
+from distkeras_tpu_torch.parallel.distributed import AxisRing, axis_ring, sp_permute_grad
+
 __all__ = ["PagedPlan", "constrain_heads", "dot_product_attention", "paged_attention",
-           "paged_kv_update"]
+           "paged_kv_update", "ring_attention", "ring_self_attention", "sp_batch_spec"]
 
 
 def constrain_heads(x, mesh, num_heads: int, axis: str = "tp", dim: int = -2):
@@ -33,6 +38,16 @@ def constrain_heads(x, mesh, num_heads: int, axis: str = "tp", dim: int = -2):
                          f"dimension {dim}; this rank's share of {num_heads} over {axis}={n} "
                          f"is {num_heads // n}")
     return x
+
+
+def sp_batch_spec(mesh, seq_axis: str, batch_size: int) -> tuple:
+    """The ``[B, S, H, D]`` partition spec every sequence-parallel wrapper
+    shares (reference ``sp_batch_spec``): the sequence over ``seq_axis``,
+    the batch over ``dp`` when the batch divides it. A rank's part of a
+    whole tensor is ``NamedSharding(mesh, spec).index(shape, rank)``."""
+    batch_axis = ("dp" if "dp" in mesh.axis_names and batch_size % mesh.shape["dp"] == 0
+                  else None)
+    return (batch_axis, seq_axis, None, None)
 
 
 def dot_product_attention(q, k, v, mask=None, causal: bool = False):
@@ -150,3 +165,63 @@ def paged_attention(q, pool_k, pool_v, tables, positions):
     ``k_pos <= q_pos`` rule (:class:`PagedPlan`)."""
     plan = PagedPlan(tables, positions, q.shape[1], pool_k.shape[0], pool_k.shape[1])
     return plan.attend(q, pool_k, pool_v)
+
+
+def _block_attn_update(q, k_blk, v_blk, acc, m, denom, scale: float, mask=None):
+    """One online-softmax step against a K/V block (reference
+    ``_block_attn_update``). ``acc``: the running numerator ``[B, S, H, D]``
+    (float32); ``m``: the running max ``[B, H, S, 1]``; ``denom``: the running
+    sum of exps ``[B, H, S, 1]``; ``mask`` broadcasts to ``[B, H, S_q, S_k]``,
+    True where a query attends."""
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k_blk).float() * scale
+    if mask is not None:
+        scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
+    new_m = torch.maximum(m, scores.amax(dim=-1, keepdim=True))
+    correction = torch.exp(m - new_m)
+    p = torch.exp(scores - new_m)
+    new_denom = denom * correction + p.sum(dim=-1, keepdim=True)
+    p_v = torch.einsum("bhqk,bkhd->bqhd", p.to(v_blk.dtype), v_blk).float()
+    return acc * correction.transpose(1, 2) + p_v, new_m, new_denom
+
+
+def ring_attention(q, k, v, ring: AxisRing, causal: bool = False, stripe: bool = False):
+    """Dense ring attention on this rank's ``[B, S/p, H, D]`` shards of the
+    axis ``ring`` (:func:`~distkeras_tpu_torch.parallel.distributed.axis_ring`;
+    the reference's ``axis_name``): each of the ``p`` steps adds the
+    visiting K/V shard's block with an online softmax, then K and V move one
+    hop. ``stripe=True`` (causal only) takes the striped token layout
+    (:func:`~distkeras_tpu_torch.ops.ring_flash.stripe_shard`)."""
+    if stripe and not causal:
+        raise ValueError("stripe=True only changes causal masking; "
+                         "non-causal rings are already balanced")
+    p, my = ring.size, ring.index
+    B, S, H, _ = q.shape
+    scale = q.shape[-1] ** -0.5
+    acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    m = torch.full((B, H, S, 1), float("-inf"), dtype=torch.float32, device=q.device)
+    denom = torch.zeros((B, H, S, 1), dtype=torch.float32, device=q.device)
+    pos = torch.arange(S, device=q.device)
+    k_cur, v_cur = k, v
+    for step in range(p):
+        mask = None
+        if causal:
+            src = (my - step) % p  # the rank whose shard visits at this step
+            if stripe:  # local index j of rank m is global token j*p + m
+                rows, cols = pos[:, None] * p + my, pos[None, :] * p + src
+            else:
+                rows, cols = my * S + pos[:, None], src * S + pos[None, :]
+            mask = (rows >= cols)[None, None]
+        acc, m, denom = _block_attn_update(q, k_cur, v_cur, acc, m, denom, scale, mask)
+        if step < p - 1:
+            k_cur, v_cur = sp_permute_grad([k_cur, v_cur], ring)
+    return (acc / denom.transpose(1, 2).clamp_min(1e-30)).to(q.dtype)
+
+
+def ring_self_attention(q, k, v, mesh, seq_axis: str = "sp", causal: bool = False,
+                        stripe: bool = False):
+    """:func:`ring_attention` over ``mesh``'s ``seq_axis`` on this rank's
+    ``[B, S/p, H, D]`` shards (the reference's wrapper, whose ``shard_map``
+    split is here the caller's)."""
+    if stripe and not causal:
+        raise ValueError("stripe=True only changes causal masking")
+    return ring_attention(q, k, v, axis_ring(mesh, seq_axis), causal, stripe)

@@ -35,7 +35,7 @@ import torch
 from distkeras_tpu_torch.ops.launches import count_launch
 
 __all__ = [
-    "dkv_call", "dq_call", "flash_attention", "flash_dkv_reference",
+    "dkv_call", "dq_call", "flash_attention", "fwd_call", "flash_dkv_reference",
     "flash_dq_reference", "flash_forward", "flash_forward_reference",
 ]
 
@@ -168,6 +168,17 @@ def _flash_forward_cuda(q, k, v, causal: bool, causal_shift: int):
             float(D**-0.5))
     count_launch(flash_forward)
     return out, lse
+
+
+def fwd_call(q, k, v, causal: bool, causal_shift: int = 0):
+    """``(out, lse)`` of :func:`flash_forward` outside autograd, for a
+    caller that owns the backward (the ring of :mod:`~distkeras_tpu_torch.ops.ring_flash`
+    calls K2 and K3 itself): the plain version for CPU tensors, the CUDA
+    kernel (K1, counted in ``flash_forward.launches``) for CUDA tensors."""
+    _check_shift(causal_shift)
+    if _on_cpu(q):
+        return flash_forward_reference(q, k, v, causal, causal_shift)
+    return _flash_forward_cuda(q, k, v, causal, causal_shift)
 
 
 def _check_backward_shapes(q, k, v, do, lse, delta) -> None:

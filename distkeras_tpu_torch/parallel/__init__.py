@@ -1,9 +1,10 @@
 """Parallelism: meshes over process ranks (``mesh``), the process group
-(``distributed``), sharding rules (``sharding``), model-parallel training
-(``gspmd``), and the parameter-server protocols, services and transports.
-The mesh helpers import eagerly; ``distributed``, ``sharding`` and
-``gspmd`` resolve on first use, as in
-``distkeras_tpu/parallel/__init__.py``."""
+and the sequence-parallel collectives (``distributed``), sharding rules
+(``sharding``), model- and sequence-parallel training (``gspmd``), and the
+parameter-server protocols, services and transports. The mesh helpers
+import eagerly; ``distributed``, ``sharding`` and ``gspmd`` (and the
+collectives ``axis_ring``, ``sp_permute``, ``sp_all_to_all``) resolve on
+first use, as in ``distkeras_tpu/parallel/__init__.py``."""
 
 from distkeras_tpu_torch.parallel.mesh import (
     best_mesh,
@@ -18,11 +19,17 @@ _LAZY_MODULES = {
 }
 
 
+_LAZY_NAMES = {name: "distkeras_tpu_torch.parallel.distributed"
+               for name in ("axis_ring", "sp_permute", "sp_all_to_all")}
+
+
 def __getattr__(name):
     import importlib
 
     if name in _LAZY_MODULES:
         return importlib.import_module(_LAZY_MODULES[name])
+    if name in _LAZY_NAMES:
+        return getattr(importlib.import_module(_LAZY_NAMES[name]), name)
     raise AttributeError(name)
 
 

@@ -11,6 +11,20 @@ reads), then ``SynchronousDistributedTrainer`` trains data-parallel over
 :class:`IslandSpec` and :func:`local_island` carry the wiring of an async
 island (a group of ranks that trains synchronously and speaks to a remote
 parameter server over gRPC).
+
+The sequence-parallel collectives (the reference's ``lax.ppermute`` and
+``lax.all_to_all`` over a mesh axis) work on an :class:`AxisRing`, one mesh
+axis seen from this rank (:func:`axis_ring`): :func:`sp_permute` moves
+tensors one hop along the ring with ``batch_isend_irecv`` (a send to the
+next rank, a receive from the previous one), :func:`sp_all_to_all`
+exchanges the chunks of a tensor's leading dimension with
+``all_to_all_single``, and :func:`sp_permute_grad` and
+:func:`sp_all_to_all_grad` are their autograd-aware twins. At an axis of
+size 1 each is the identity and communicates nothing. Under gloo a CUDA
+tensor's P2P traffic is staged through host memory inside
+:func:`sp_permute` (gloo sends from host memory); NCCL never stages.
+Their spans are ``sp_permute`` (its ``staged`` attribute says whether
+the bytes went through the host) and ``sp_all_to_all``.
 """
 
 from __future__ import annotations
@@ -18,12 +32,21 @@ from __future__ import annotations
 import dataclasses
 import os
 
+import numpy as np
 import torch
 
 from distkeras_tpu_torch.parallel.mesh import Mesh, make_mesh
+from distkeras_tpu_torch.telemetry.spans import span
 from distkeras_tpu_torch.utils.device import resolve_device
 
 __all__ = [
+    "AxisRing",
+    "axis_ring",
+    "sp_all_to_all",
+    "sp_all_to_all_grad",
+    "sp_permute",
+    "sp_permute_grad",
+    "sp_permute_start",
     "initialize",
     "global_mesh",
     "IslandSpec",
@@ -134,3 +157,160 @@ def local_island(ps_host: str, ps_port: int, num_islands: int = 1) -> IslandSpec
         ps_host=ps_host,
         ps_port=ps_port,
     )
+
+
+@dataclasses.dataclass(frozen=True)
+class AxisRing:
+    """One mesh axis seen from this rank: ``size`` ranks along it, this
+    rank at ``index``, ``next`` and ``prev`` the global ranks at ``index + 1``
+    and ``index - 1`` (mod ``size``), ``group`` the axis's process group
+    (None at size 1, where nothing is communicated)."""
+
+    size: int
+    index: int = 0
+    next: int = 0
+    prev: int = 0
+    group: object = None
+
+
+def axis_ring(mesh: Mesh, axis: str) -> AxisRing:
+    """This rank's :class:`AxisRing` along ``mesh``'s ``axis``. An axis above
+    1 needs a process group over the mesh's ranks (``RuntimeError``
+    otherwise); every rank of the mesh must ask for it together the first
+    time, as :meth:`Mesh.group` builds the groups."""
+    if axis not in mesh.axis_names:
+        raise ValueError(f"mesh axes {mesh.axis_names} have no {axis!r}")
+    n = mesh.shape[axis]
+    if n == 1:
+        return AxisRing(1)
+    group = mesh.group(axis)
+    if group is None:
+        raise RuntimeError(f"a mesh with {axis}={n} needs a process group over its ranks "
+                           f"(distkeras_tpu_torch.parallel.distributed.initialize)")
+    where = list(np.argwhere(mesh.devices == process_index())[0])
+    dim = mesh.axis_names.index(axis)
+    i = int(where[dim])
+
+    def at(j):
+        where[dim] = j % n
+        return int(mesh.devices[tuple(where)])
+
+    return AxisRing(n, i, at(i + 1), at(i - 1), group)
+
+
+def _pack(tensors) -> tuple[torch.Tensor, list]:
+    """The tensors' bytes in one flat uint8 buffer, and how to cut it."""
+    layout = [(t.shape, t.dtype, t.numel() * t.element_size()) for t in tensors]
+    flat = torch.cat([t.contiguous().reshape(-1).view(torch.uint8) for t in tensors])
+    return flat, layout
+
+
+def _unpack(flat: torch.Tensor, layout) -> list[torch.Tensor]:
+    parts = flat.split([nbytes for _, _, nbytes in layout])
+    return [part.view(dtype).reshape(shape) for part, (shape, dtype, _) in zip(parts, layout)]
+
+
+def _staged(x: torch.Tensor, group) -> bool:
+    return x.is_cuda and torch.distributed.get_backend(group) == "gloo"
+
+
+class _Rotation:
+    """A :func:`sp_permute_start` in flight; :meth:`wait` returns the
+    tensors received."""
+
+    def __init__(self, tensors=None, works=(), send=None, recv=None, layout=None, device=None):
+        self._done, self._works = tensors, works
+        self._send, self._recv, self._layout, self._device = send, recv, layout, device
+
+    def wait(self) -> list[torch.Tensor]:
+        if self._done is None:
+            with span("sp_permute"):
+                for work in self._works:
+                    work.wait()
+                recv = self._recv.to(self._device)  # a no-op unless staged
+                self._done = _unpack(recv, self._layout)
+                self._send = self._recv = None
+        return self._done
+
+
+def sp_permute_start(tensors, ring: AxisRing, reverse: bool = False) -> _Rotation:
+    """Start moving ``tensors`` one hop along ``ring``: each rank sends to
+    ``ring.next`` and receives from ``ring.prev`` (``reverse``: the other
+    way), the reference's ``ppermute`` with ``perm = [(i, (i + 1) % p)]``.
+    The tensors travel as one buffer of their bytes. Returns a handle whose
+    ``wait()`` gives the received tensors, in order; the caller may queue
+    device work in between."""
+    tensors = list(tensors)
+    if ring.size == 1:
+        return _Rotation(tensors)
+    dist = torch.distributed
+    flat, layout = _pack(tensors)
+    staged = _staged(flat, ring.group)
+    with span("sp_permute", staged=staged):
+        send = flat.cpu() if staged else flat
+        recv = torch.empty_like(send)
+        to, frm = (ring.prev, ring.next) if reverse else (ring.next, ring.prev)
+        works = dist.batch_isend_irecv([dist.P2POp(dist.isend, send, to, ring.group),
+                                        dist.P2POp(dist.irecv, recv, frm, ring.group)])
+    return _Rotation(None, works, send, recv, layout, flat.device)
+
+
+def sp_permute(tensors, ring: AxisRing, reverse: bool = False) -> list[torch.Tensor]:
+    """:func:`sp_permute_start` and wait: the tensors of the previous rank
+    along ``ring`` (of the next one with ``reverse``)."""
+    return sp_permute_start(tensors, ring, reverse).wait()
+
+
+def sp_all_to_all(x: torch.Tensor, ring: AxisRing) -> torch.Tensor:
+    """``x`` (leading dimension ``ring.size``) with chunk ``j`` sent to the
+    ``j``-th rank of the ring and chunk ``j`` of the result received from
+    it: ``all_to_all_single`` over the ring's group."""
+    if ring.size == 1:
+        return x
+    if x.shape[0] != ring.size:
+        raise ValueError(f"sp_all_to_all takes a leading dimension of {ring.size}, "
+                         f"got {tuple(x.shape)}")
+    with span("sp_all_to_all"):
+        x = x.contiguous()
+        out = torch.empty_like(x)
+        torch.distributed.all_to_all_single(out, x, group=ring.group)
+    return out
+
+
+class _Permute(torch.autograd.Function):
+    """:func:`sp_permute`; backward, the cotangents one hop the other way."""
+
+    @staticmethod
+    def forward(ctx, ring, reverse, *tensors):
+        ctx.ring, ctx.reverse = ring, reverse
+        return tuple(sp_permute(tensors, ring, reverse))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, None, *sp_permute(grads, ctx.ring, not ctx.reverse))
+
+
+class _AllToAll(torch.autograd.Function):
+    """:func:`sp_all_to_all`; it is its own adjoint, so the backward is the
+    same exchange of the cotangent."""
+
+    @staticmethod
+    def forward(ctx, ring, x):
+        ctx.ring = ring
+        return sp_all_to_all(x, ring)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return None, sp_all_to_all(grad, ctx.ring)
+
+
+def sp_permute_grad(tensors, ring: AxisRing) -> list[torch.Tensor]:
+    """:func:`sp_permute`, differentiable in each tensor."""
+    if ring.size == 1:
+        return list(tensors)
+    return list(_Permute.apply(ring, False, *tensors))
+
+
+def sp_all_to_all_grad(x: torch.Tensor, ring: AxisRing) -> torch.Tensor:
+    """:func:`sp_all_to_all`, differentiable in ``x``."""
+    return x if ring.size == 1 else _AllToAll.apply(ring, x)

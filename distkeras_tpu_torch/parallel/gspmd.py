@@ -11,8 +11,22 @@ collectives are explicit:
 - ``fsdp``: a leaf split over ``fsdp`` is gathered whole once a step before
   the forward, and its whole gradient is reduce-scattered back to this
   rank's part (a sum over the ranks' rows, then the mean);
-- the data axes (``dp`` and ``fsdp``): the other gradients and the metrics
-  are averaged over the ranks that hold other rows.
+- ``sp``: a model with ``BertConfig.ring_mesh``
+  (:func:`distkeras_tpu_torch.models.bert.with_ring_mesh`) takes this rank's
+  columns of the batch (:func:`batch_sharding` with ``seq_dim``) and runs
+  its attention across the sp ranks; a leaf split over ``sp``
+  (``pos_embed``'s sequence dimension, by the ``("seq", "sp")`` rule) is
+  gathered whole once a step, as an fsdp leaf is, since a rank's tokens
+  need rows outside its part (all of them striped, or past the trained
+  length), and its gradient is reduce-scattered back;
+- the reduction axes (``dp``, ``fsdp`` and ``sp``): the other gradients
+  and the metrics are averaged over the ranks that hold other rows or
+  other columns. Every sp rank holds ``B·S/p`` tokens, so the mean of the
+  ranks' mean losses is the global batch's mean, and the mean of their
+  gradients is its gradient: a rank's gradient already holds what the
+  other ranks' losses send back through its K and V (the ring's and
+  Ulysses' backward), so the sum over the ranks of their gradients is the
+  gradient of the sum of their losses.
 
 The step body is :func:`~distkeras_tpu_torch.training.step.make_train_step`'s
 (:class:`Sharded` is its gather and reduction). The weights are drawn whole
@@ -34,9 +48,10 @@ from collections.abc import Callable
 import numpy as np
 import torch
 
-from distkeras_tpu_torch.models.bert import with_tp_mesh
+from distkeras_tpu_torch.models.bert import with_ring_mesh, with_tp_mesh
 from distkeras_tpu_torch.models.core import Model
-from distkeras_tpu_torch.parallel.distributed import process_index
+from distkeras_tpu_torch.ops.ring_flash import stripe_shard, stripe_unshard
+from distkeras_tpu_torch.parallel.distributed import axis_ring, process_index
 from distkeras_tpu_torch.parallel.mesh import Mesh, NamedSharding, shard_batch_spec
 from distkeras_tpu_torch.parallel.sharding import infer_variable_shardings, replicated
 from distkeras_tpu_torch.telemetry.spans import span
@@ -50,8 +65,10 @@ from distkeras_tpu_torch.utils.device import resolve_device
 
 __all__ = [
     "Sharded",
+    "batch_part",
     "batch_sharding",
     "fsdp_sharding_for",
+    "gather_sequence",
     "gather_whole",
     "local_state_tree",
     "make_sharded_train_step",
@@ -82,24 +99,51 @@ def place_sharded(tree: dict, shardings, device: str | torch.device | None = Non
 
 def batch_sharding(mesh: Mesh, batch_rank: int = 2, seq_dim: int | None = 1) -> NamedSharding:
     """The sharding of a ``[B, ...]`` batch: ``B`` over the data axes (dp
-    and, when present, fsdp). Splitting ``seq_dim`` over ``sp`` comes with
-    sequence parallelism and raises."""
-    if seq_dim is not None and mesh.shape.get("sp", 1) > 1:
-        raise NotImplementedError("a sequence split over sp is not ported yet "
-                                  "(ROADMAP.md §A item A10c)")
+    and, when present, fsdp), and ``seq_dim`` over ``sp`` when the mesh has
+    that axis and the batch that dimension."""
     spec: list = [None] * batch_rank
     batch_spec = shard_batch_spec(mesh)
     if batch_spec:
         spec[0] = batch_spec[0]
+    if seq_dim is not None and "sp" in mesh.axis_names and seq_dim < batch_rank:
+        spec[seq_dim] = "sp"
     return NamedSharding(mesh, tuple(spec))
 
 
+def batch_part(mesh: Mesh, x, rank: int, seq_dim: int | None = None, stripe: bool = False):
+    """``rank``'s part of a global batch array ``x`` (numpy or torch): its
+    rows over the data axes and, with ``seq_dim``, its columns over ``sp``.
+    ``stripe``: the columns of the striped token layout
+    (:func:`~distkeras_tpu_torch.ops.ring_flash.stripe_shard` before the
+    contiguous split), as ``sp_impl="ring_stripe"`` takes them."""
+    if stripe and seq_dim is not None and x.ndim > seq_dim:
+        x = stripe_shard(x, mesh.shape.get("sp", 1), seq_dim)
+    return x[batch_sharding(mesh, max(1, x.ndim), seq_dim).index(x.shape, rank)]
+
+
 def shard_batch(mesh: Mesh, batch: dict, seq_dim: int | None = None,
-                device: str | torch.device | None = None) -> dict:
-    """This rank's rows of every array of ``batch``, on ``device``."""
-    return {k: place_sharded({k: v}, batch_sharding(mesh, max(1, np.ndim(v)), seq_dim),
-                             device)[k]
+                device: str | torch.device | None = None, stripe: bool = False) -> dict:
+    """This rank's part (:func:`batch_part`) of every array of ``batch``, on
+    ``device``."""
+    rank = process_index()
+    return {k: place_sharded({k: batch_part(mesh, np.asarray(v), rank, seq_dim, stripe)},
+                             None, device)[k]
             for k, v in batch.items()}
+
+
+def gather_sequence(x: torch.Tensor, mesh: Mesh, seq_dim: int = 1,
+                    stripe: bool = False) -> torch.Tensor:
+    """The inverse of :func:`shard_batch`'s column split for one tensor:
+    the sp ranks' ``x`` (logits ``[B, S/p, V]``, say) gathered along
+    ``seq_dim`` in natural token order (``stripe``: from the striped
+    layout), without grad. Every sp rank calls this."""
+    if mesh.shape.get("sp", 1) == 1:
+        return x.detach()
+    ring = axis_ring(mesh, "sp")
+    parts = [torch.empty_like(x) for _ in range(ring.size)]
+    torch.distributed.all_gather(parts, x.detach().contiguous(), group=ring.group)
+    whole = torch.cat(parts, dim=seq_dim)
+    return stripe_unshard(whole, ring.size, seq_dim) if stripe else whole
 
 
 def fsdp_sharding_for(mesh: Mesh, shape: tuple[int, ...], dtype=None,
@@ -173,8 +217,9 @@ def sharded_train_state(model: Model, optimizer, mesh: Mesh, seed: int = 0,
 
 def _axis(sharding: NamedSharding) -> tuple[int, str] | None:
     """``(dim, axis)`` of a leaf split along one dimension over one axis;
-    None for a replicated leaf."""
-    split = [(d, e) for d, e in enumerate(sharding.spec) if e]
+    None for a replicated leaf (an axis of size 1 splits nothing)."""
+    split = [(d, e) for d, e in enumerate(sharding.spec)
+             if e and not (isinstance(e, str) and sharding.mesh.shape[e] == 1)]
     if not split:
         return None
     if len(split) > 1 or not isinstance(split[0][1], str):
@@ -230,29 +275,50 @@ def gather_whole(tensors: dict, shardings: dict, span_name: str = "gather_whole"
     return out
 
 
+# The axes whose split leaves a step gathers whole (the tp leaves stay split:
+# the model computes on them), and the axes its reduction averages over.
+_GATHERED = ("fsdp", "sp")
+_REDUCED = ("dp", "fsdp", "sp")
+
+
 class Sharded(DataParallel):
     """The gather and reduction of a model-parallel step over ``mesh``
     (see the module's docstring). ``rank`` is the rank's place among the
-    data shards: the ranks of one tp group take the same rows and draw the
-    same dropout masks."""
+    data and sequence shards, which its dropout seed folds in: the ranks
+    of one tp group take the same rows and columns and draw the same
+    dropout masks."""
 
     def __init__(self, mesh: Mesh):
         self.mesh = mesh
         coord = mesh.coords(process_index())
-        self.rank = coord.get("dp", 0) * mesh.shape.get("fsdp", 1) + coord.get("fsdp", 0)
+        data = coord.get("dp", 0) * mesh.shape.get("fsdp", 1) + coord.get("fsdp", 0)
+        self.rank = data * mesh.shape.get("sp", 1) + coord.get("sp", 0)
         data = tuple(a for a in ("dp", "fsdp") if mesh.shape.get(a, 1) > 1)
-        self.stats_group = mesh.group(data if len(data) > 1 else data[0]) if data else None
+        self.stats_group = self._group(data)
+        self.reduced = tuple(a for a in _REDUCED if mesh.shape.get(a, 1) > 1)
 
-    def _fsdp(self, state) -> list[str]:
-        return [k for k in state.params
-                if (split := _axis(state.shardings[k])) is not None and split[1] == "fsdp"]
+    def _group(self, axes: tuple[str, ...]):
+        return self.mesh.group(axes if len(axes) > 1 else axes[0]) if axes else None
+
+    def _gathered(self, state) -> dict[str, str]:
+        """name -> axis of each leaf the step gathers whole."""
+        out = {}
+        for k in state.params:
+            split = _axis(state.shardings[k])
+            if split is not None and split[1] in _GATHERED:
+                out[k] = split[1]
+        return out
 
     def variables(self, state: TrainState):
-        names = self._fsdp(state)
-        if not names:
+        gathered = self._gathered(state)
+        if not gathered:
             return state.variables, state.params
-        whole = gather_whole({k: state.params[k].detach() for k in names}, state.shardings,
-                             "fsdp_gather")
+        whole = {}
+        for axis in _GATHERED:
+            names = [k for k, a in gathered.items() if a == axis]
+            if names:
+                whole.update(gather_whole({k: state.params[k].detach() for k in names},
+                                          state.shardings, f"{axis}_gather"))
         params = {k: whole[k].requires_grad_() if k in whole else p
                   for k, p in state.params.items()}
         return {**params, **state.model_state}, params
@@ -261,29 +327,31 @@ class Sharded(DataParallel):
         mesh = self.mesh
         keys = list(out)
         stacked = torch.stack([out[k].float() for k in keys])
-        fsdp = self._fsdp(state)
-        if mesh.shape.get("fsdp", 1) > 1:
-            group = mesh.group("fsdp")
-            n = mesh.shape["fsdp"]
-            with span("fsdp_reduce_scatter"):
-                for _, leaves in _by_group(fsdp, state.params, state.shardings).items():
-                    members = _members(group)
-                    flat = torch.cat([params[name].grad[state.shardings[name].index(
-                        params[name].shape, m)].reshape(-1) for m in members
-                        for name, _ in leaves])
-                    mine = torch.empty(flat.numel() // n, dtype=flat.dtype, device=flat.device)
-                    torch.distributed.reduce_scatter_tensor(mine, flat, group=group)
-                    mine.div_(n)
-                    offset = 0
-                    for name, _ in leaves:
-                        p = state.params[name]
-                        p.grad = mine[offset:offset + p.numel()].view_as(p)
-                        offset += p.numel()
-            rest = [p.grad for k, p in state.params.items() if k not in fsdp]
-            all_reduce_mean_(rest + [stacked], group)
-        if mesh.shape.get("dp", 1) > 1:
-            all_reduce_mean_([p.grad for p in state.params.values()] + [stacked],
-                             mesh.group("dp"))
+        gathered = self._gathered(state)
+        for (axis, _), leaves in _by_group(gathered, state.params, state.shardings).items():
+            group, n = mesh.group(axis), mesh.shape[axis]
+            with span(f"{axis}_reduce_scatter"):
+                flat = torch.cat([params[name].grad[state.shardings[name].index(
+                    params[name].shape, m)].reshape(-1) for m in _members(group)
+                    for name, _ in leaves])
+                mine = torch.empty(flat.numel() // n, dtype=flat.dtype, device=flat.device)
+                torch.distributed.reduce_scatter_tensor(mine, flat, group=group)
+                mine.div_(n)
+            offset = 0
+            for name, _ in leaves:
+                p = state.params[name]
+                p.grad = mine[offset:offset + p.numel()].view_as(p)
+                offset += p.numel()
+        # Each gradient averaged over the reduction axes its leaf is not
+        # split over; the metrics over all of them, with the whole leaves.
+        buckets: dict[tuple[str, ...], list] = {self.reduced: []}
+        for k, p in state.params.items():
+            rest = tuple(a for a in self.reduced if a != gathered.get(k))
+            buckets.setdefault(rest, []).append(p.grad)
+        buckets[self.reduced].append(stacked)
+        for axes, tensors in buckets.items():
+            if axes:
+                all_reduce_mean_(tensors, self._group(axes))
         return dict(zip(keys, stacked.unbind()))
 
 
@@ -294,9 +362,12 @@ def make_sharded_train_step(model: Model, loss: str | Callable, mesh: Mesh,
     :func:`sharded_train_state`: :func:`make_train_step`'s body, this
     rank's rows of the global batch in ``batch``, the gradients and metrics
     those of the global batch. An annotated model on a tp mesh computes on
-    its tp shards."""
+    its tp shards; a model with ``ring_mesh`` runs its attention over this
+    mesh's sp axis, on this rank's columns in ``batch``."""
     if mesh.shape.get("tp", 1) > 1 and _annotated(model):
         model = with_tp_mesh(model, mesh)
+    if getattr(getattr(model, "config", None), "ring_mesh", None) is not None:
+        model = with_ring_mesh(model, mesh)
     return train_step(model, loss, Sharded(mesh), metrics, aux_loss_weight=aux_loss_weight)
 
 

@@ -15,9 +15,9 @@ windows on its own CUDA stream, exchange with one in-process parameter
 server every ``communication_window`` steps, with periodic PS checkpoints
 and resume. A recompile ``auditor`` signs each trainer's step, as the
 reference's ``Trainer._audit`` wraps it. The synchronous trainer also
-trains tensor-parallel and fully sharded
+trains tensor-parallel, fully sharded and sequence-parallel
 (:mod:`~distkeras_tpu_torch.parallel.gspmd`). Not ported yet, and refused
-with the ``ROADMAP.md`` item that brings them: the sp, pp and ep axes of a
+with the ``ROADMAP.md`` item that brings them: the pp and ep axes of a
 mesh, and the async trainers' multi-device islands.
 A weight ``publisher`` (:class:`~distkeras_tpu_torch.deploy.WeightPublisher`)
 publishes the live weights on its cadence: the step-loop trainers per
@@ -43,7 +43,7 @@ from distkeras_tpu_torch.models.core import Model, TrainedModel
 from distkeras_tpu_torch.ops.losses import get_loss, get_optimizer
 from distkeras_tpu_torch.parallel.distributed import process_count, process_index
 from distkeras_tpu_torch.parallel.gspmd import (
-    batch_sharding,
+    batch_part,
     gather_whole,
     make_sharded_train_step,
     sharded_train_state,
@@ -603,7 +603,15 @@ class SynchronousDistributedTrainer(Trainer):
     tensor-parallel, and any model on an ``fsdp`` mesh trains fully sharded,
     through :mod:`~distkeras_tpu_torch.parallel.gspmd`; an un-annotated
     model on a ``tp`` mesh trains replicated over ``tp``, as the
-    reference's does. What ``train()`` returns, and what checkpoints hold,
+    reference's does. A model with ``BertConfig.ring_mesh`` on an ``sp``
+    mesh trains sequence-parallel (reference ``trainers.py:615-618``): each
+    rank takes its rows over the data axes and its columns over ``sp``
+    (striped under ``sp_impl="ring_stripe"``), features and labels alike,
+    and the model runs its attention over the trainer's mesh, whose ``sp``
+    size its ``ring_mesh`` must have; ``shard_sequence`` asks for that
+    split and a ring model on an ``sp`` mesh always takes it (its forward
+    takes a rank's own tokens). A model without ``ring_mesh`` on an ``sp``
+    mesh trains replicated over ``sp``. What ``train()`` returns, and what checkpoints hold,
     are the whole weights on every rank (gathered from the ranks' parts).
     ``num_workers`` is the ``dp`` size: None means every rank of the process
     group; more than its ranks raises the reference's message, and so does a
@@ -621,9 +629,10 @@ class SynchronousDistributedTrainer(Trainer):
     fast-forwards the deterministic batch stream past it, so a resumed run
     reproduces the uninterrupted one. A zero1 state is gathered to rank 0
     for each save and saved as a plain one. Only rank 0 publishes. Not
-    ported yet, and refused naming their ``ROADMAP.md`` §A item: the ``sp``
-    axis and ``shard_sequence`` (A10c), ``pp`` (A10d), ``ep`` (A12), and,
-    with model axes, a ``publisher`` and zero1 checkpoints (A10b's
+    ported yet, and refused naming their ``ROADMAP.md`` §A item:
+    ``shard_sequence`` on a model without ``ring_mesh`` (the reference's
+    XLA sequence split, A10c's remainder), ``pp`` (A10d), ``ep`` (A12),
+    and, with model axes, a ``publisher`` and zero1 checkpoints (A10b's
     remainder)."""
 
     def __init__(
@@ -669,15 +678,17 @@ class SynchronousDistributedTrainer(Trainer):
         self.checkpoint_interval_s = float(checkpoint_interval_s)
         self.resume = bool(resume)
 
-    _AXIS_ITEMS = {"sp": "A10c", "pp": "A10d", "ep": "A12"}
+    _AXIS_ITEMS = {"pp": "A10d", "ep": "A12"}
 
     def _training_mesh(self) -> Mesh:
-        """The mesh to train over: refuses what is not ported yet (the sp,
-        pp and ep axes, ``shard_sequence``) and a mesh that leaves ranks
-        out."""
-        if self.shard_sequence:
-            raise ValueError("shard_sequence needs sequence parallelism, which is not "
-                             "ported yet (ROADMAP.md §A item A10c)")
+        """The mesh to train over: refuses what is not ported yet (the pp
+        and ep axes, ``shard_sequence`` without ``ring_mesh``) and a mesh
+        that leaves ranks out."""
+        if self.shard_sequence and _ring_config(self.model) is None:
+            raise ValueError(
+                "shard_sequence=True without BertConfig.ring_mesh is the reference's XLA "
+                "sequence split (attention over K/V gathered over sp), which is not ported "
+                "yet (ROADMAP.md §A, A10c's remainder); give the model a ring_mesh")
         world = process_count()
         mesh = self.mesh
         if mesh is None:
@@ -699,6 +710,11 @@ class SynchronousDistributedTrainer(Trainer):
             raise ValueError(
                 f"a mesh of {mesh.size} of the process group's {world} ranks: every rank "
                 f"trains, so start {mesh.size} rank(s) or give num_workers={world}")
+        cfg = _ring_config(self.model)
+        if cfg is not None and cfg.ring_mesh.shape[cfg.ring_axis] != mesh.shape.get("sp", 1):
+            raise ValueError(
+                f"the model's ring_mesh has {cfg.ring_axis}={cfg.ring_mesh.shape[cfg.ring_axis]} "
+                f"but the training mesh has sp={mesh.shape.get('sp', 1)}")
         return mesh
 
     def train(self, dataset: Dataset, shuffle: bool = False) -> TrainedModel:
@@ -709,7 +725,9 @@ class SynchronousDistributedTrainer(Trainer):
         mesh = self._training_mesh()
         sizes = mesh.shape
         data = sizes.get("dp", 1) * sizes.get("fsdp", 1)
-        sharded = sizes.get("fsdp", 1) > 1 or (
+        ring = _ring_config(self.model)
+        sp = sizes.get("sp", 1) if ring is not None else 1  # the columns' split
+        sharded = sizes.get("fsdp", 1) > 1 or sp > 1 or (
             sizes.get("tp", 1) > 1 and getattr(self.model, "param_axes", None) is not None)
         if sharded and self.publisher is not None:
             raise NotImplementedError("a publisher during model-parallel training is not "
@@ -739,9 +757,10 @@ class SynchronousDistributedTrainer(Trainer):
         batches = minibatches(dataset, global_batch, self.features_col,
                               self.label_col, num_epoch=self.num_epoch,
                               seed=self.seed if shuffle else None, start_batch=ck.start_step)
-        if data > 1:
-            rows = batch_sharding(mesh, 1, seq_dim=None).index((global_batch,), rank)[0]
-            batches = ({k: v[rows] for k, v in b.items()} for b in batches)
+        if data > 1 or sp > 1:
+            seq_dim, stripe = (1, ring.sp_impl == "ring_stripe") if sp > 1 else (None, False)
+            batches = ({k: batch_part(mesh, v, rank, seq_dim, stripe) for k, v in b.items()}
+                       for b in batches)
         history = []
         try:
             state, step_no = _run_steps(step_fn, state, batches, self.device, history, ck,
@@ -757,6 +776,12 @@ class SynchronousDistributedTrainer(Trainer):
         if state.shardings is not None:
             variables = gather_whole(variables, state.shardings)
         return TrainedModel(self.model, variables)
+
+
+def _ring_config(model):
+    """The bert-family config of ``model`` when it has a ``ring_mesh``."""
+    cfg = getattr(model, "config", None)
+    return cfg if getattr(cfg, "ring_mesh", None) is not None else None
 
 
 def _on_stream(stream):

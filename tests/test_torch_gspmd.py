@@ -150,9 +150,18 @@ def test_batch_sharding_matches_reference(axes):
 
 
 def test_batch_sharding_refuses_a_sequence_split():
+    """The sequence split over sp resolves now (the name is kept from when
+    it was refused): each rank's rows and columns are the reference's, on
+    sp=2 and dp=2 x sp=2, with and without ``seq_dim``; a rank-1 label
+    takes rows only."""
+    for axes in ({"sp": 2}, {"dp": 2, "sp": 2}):
+        got_mesh, want_mesh = _meshes(axes)
+        for shape, seq_dim in (((8, 16), 1), ((8, 16), None), ((8,), 1), ((8, 16, 3), 1)):
+            got = gspmd.batch_sharding(got_mesh, len(shape), seq_dim=seq_dim)
+            want = ref_gspmd.batch_sharding(want_mesh, len(shape), seq_dim=seq_dim)
+            _assert_same_parts(got, want, shape)
     m = make_mesh({"sp": 2}, devices=[0, 1])
-    with pytest.raises(NotImplementedError, match="A10c"):
-        gspmd.batch_sharding(m, 2, seq_dim=1)
+    assert gspmd.batch_sharding(m, 2, seq_dim=1).spec == ("dp", "sp")
     assert gspmd.batch_sharding(m, 2, seq_dim=None).spec == ("dp", None)
 
 
@@ -225,14 +234,21 @@ def test_sharded_train_state_on_one_rank_is_the_init(name):
         assert torch.equal(state.params[k], plain.params[k]), k
 
 
-@pytest.mark.parametrize("axis, item", [("sp", "A10c"), ("pp", "A10d"), ("ep", "A12")])
-def test_unported_axes_name_their_item(axis, item):
-    """The sync trainer refuses the axes of later items, naming each."""
+@pytest.mark.parametrize("kwargs, item", [
+    pytest.param({"mesh": {"sp": 2}, "shard_sequence": True}, "A10c's remainder",
+                 id="sp-A10c"),
+    pytest.param({"mesh": {"pp": 2}}, "item A10d", id="pp-A10d"),
+    pytest.param({"mesh": {"ep": 2}}, "item A12", id="ep-A12"),
+])
+def test_unported_axes_name_their_item(kwargs, item):
+    """The sync trainer refuses the axes of later items, naming each; the
+    sp axis is ported, and what stays refused there is the reference's XLA
+    sequence split (``shard_sequence`` on a model without ``ring_mesh``)."""
     from distkeras_tpu_torch import Dataset, SynchronousDistributedTrainer
 
     model = bert.bert_tiny_mlm(seq_len=16, vocab_size=64, dropout_rate=0.0)
     ids = np.zeros((4, 16), np.int32)
-    tr = SynchronousDistributedTrainer(model, mesh={axis: 2}, device="cpu",
-                                       loss="fused_categorical_crossentropy")
-    with pytest.raises(ValueError, match=f"item {item}"):
+    tr = SynchronousDistributedTrainer(model, device="cpu",
+                                       loss="fused_categorical_crossentropy", **kwargs)
+    with pytest.raises(ValueError, match=item):
         tr.train(Dataset.from_arrays(features=ids, label=ids))

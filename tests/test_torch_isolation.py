@@ -19,7 +19,7 @@ from distkeras_tpu_torch.data.feed import DeviceFeed
 from distkeras_tpu_torch.deploy.harness import make_score_fn
 from distkeras_tpu_torch.inference.generate import Generator, beam_search, generate
 from distkeras_tpu_torch.inference.predictors import ModelPredictor
-from distkeras_tpu_torch.models.bert import bert_tiny_mlm, decode_cache, gpt_tiny
+from distkeras_tpu_torch.models.bert import bert_tiny_mlm, decode_cache, gpt_tiny, with_ring_mesh
 from distkeras_tpu_torch.models.core import TrainedModel
 from distkeras_tpu_torch.models.mlp import mnist_mlp
 from distkeras_tpu_torch.models.resnet import resnet18
@@ -64,7 +64,7 @@ def test_port_imports_neither_jax_nor_reference():
               "serving.cluster.router", "telemetry.timeseries", "telemetry.device",
               "deploy", "deploy.publisher", "deploy.controller", "deploy.harness", "run",
               "parallel.distributed", "parallel.mesh", "parallel.sharding",
-              "parallel.gspmd"):
+              "parallel.gspmd", "ops.ring_flash", "ops.ulysses"):
         assert f"distkeras_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -81,8 +81,9 @@ def test_port_imports_neither_jax_nor_reference():
 
 def test_port_imports_with_jax_and_the_reference_blocked():
     """With ``jax`` and ``distkeras_tpu`` unimportable, every module of
-    the port imports, and the serving engine runs a request on the CPU,
-    dense and paged (constrained, speculative)."""
+    the port imports, the serving engine runs a request on the CPU, dense
+    and paged (constrained, speculative), and the sync trainer takes a
+    sequence-parallel step under each ``sp_impl`` (an sp mesh of one rank)."""
     code = (
         "import importlib, sys\n"
         "for m in ('jax', 'jaxlib', 'flax', 'optax', 'distkeras_tpu'):\n"
@@ -105,12 +106,25 @@ def test_port_imports_with_jax_and_the_reference_blocked():
         "                      device='cpu')\n"
         "dfa = {'start': 0, 'edges': [[0, 5, 1], [1, 6, 0]]}\n"
         "print('PAGED', asyncio.run(go(paged, constraint=dfa)))\n"
+        "import dataclasses, numpy as np\n"
+        "from distkeras_tpu_torch import Dataset, SynchronousDistributedTrainer\n"
+        "from distkeras_tpu_torch.models.bert import _make\n"
+        "from distkeras_tpu_torch.parallel.mesh import make_mesh\n"
+        "for impl in ('ring', 'ring_stripe', 'ulysses'):\n"
+        "    cfg = dataclasses.replace(lm.config, ring_mesh=make_mesh({'sp': 1}), sp_impl=impl)\n"
+        "    sp = _make(cfg, 16, 'gpt_tiny')\n"
+        "    ids = np.zeros((4, 16), np.int32)\n"
+        "    tr = SynchronousDistributedTrainer(sp, loss='fused_categorical_crossentropy',\n"
+        "        batch_size=4, mesh={'sp': 1}, shard_sequence=True, device='cpu')\n"
+        "    tr.train(Dataset.from_arrays(features=ids, label=ids))\n"
+        "    print('SP', impl, len(tr.history))\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "TOKENS 4" in proc.stdout
     assert "PAGED [5, 6, 5, 6]" in proc.stdout
+    assert all(f"SP {impl} 1" in proc.stdout for impl in ("ring", "ring_stripe", "ulysses"))
 
 
 def test_no_port_source_imports_the_reference():
@@ -169,7 +183,8 @@ def test_resolve_device():
                                    "ensemble_trainer", "generate", "beam_search",
                                    "generator", "serving_engine", "prefix_cache",
                                    "paged_engine", "tiered_engine", "score_fn",
-                                   "initialize", "sharded_train_state", "place_sharded"])
+                                   "initialize", "sharded_train_state", "place_sharded",
+                                   "sp_trainer"])
 def test_entry_points_raise_without_cuda(entry):
     _no_cuda()
     model = bert_tiny_mlm(seq_len=16, vocab_size=64)
@@ -200,6 +215,9 @@ def test_entry_points_raise_without_cuda(entry):
         "sharded_train_state": lambda: gspmd.sharded_train_state(
             model, get_optimizer("adam"), make_mesh(devices=[0])),
         "place_sharded": lambda: gspmd.place_sharded({"w": np.zeros(2)}, None),
+        "sp_trainer": lambda: SynchronousDistributedTrainer(
+            with_ring_mesh(gpt, make_mesh({"sp": 1}, devices=[0])), mesh={"sp": 1},
+            shard_sequence=True),
         "prefix_cache": lambda: PrefixCache(decode_cache(
             dataclasses.replace(gpt.config, decode=True, decode_slots=True), 1, "meta"),
             block_tokens=4, budget_bytes=1 << 16),

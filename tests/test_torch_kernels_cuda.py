@@ -205,6 +205,28 @@ def test_flash_attention_gradient_on_the_card(gen, B):
         _close(fold(got), w)
 
 
+@pytest.mark.parametrize("causal", [False, True])
+def test_ring_of_one_hop_is_flash_on_the_card(gen, causal):
+    """The flash ring at sp=1 (no process group): K1, the float32 merge into
+    (0, -inf) and K2/K3 give flash attention's output and gradients bit for
+    bit, one launch of each kernel."""
+    from distkeras_tpu_torch.ops.ring_flash import ring_flash_attention
+    from distkeras_tpu_torch.parallel.mesh import make_mesh
+
+    q, k, v = (torch.randn(2, 256, 4, 64, device="cuda", generator=gen).bfloat16()
+               .requires_grad_() for _ in range(3))
+    g = torch.randn(2, 256, 4, 64, device="cuda", generator=gen).bfloat16()
+    want = flash_attention(q, k, v, causal=causal)
+    want_grads = torch.autograd.grad(want, (q, k, v), g)
+    counts = [flash_forward.launches, dq_call.launches, dkv_call.launches]
+    got = ring_flash_attention(q, k, v, make_mesh({"sp": 1}, devices=[0]), causal=causal)
+    grads = torch.autograd.grad(got, (q, k, v), g)
+    assert [flash_forward.launches, dq_call.launches, dkv_call.launches] == [
+        n + 1 for n in counts]
+    assert torch.equal(got, want)
+    assert all(torch.equal(a, b) for a, b in zip(grads, want_grads))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("V", [30522, 50257, 100])
 def test_xent_backward_kernels_match_plain(gen, dtype, V):

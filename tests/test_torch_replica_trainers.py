@@ -144,10 +144,11 @@ def test_uneven_partitions_report_the_reference_drop_count(models):
 
 
 @pytest.mark.parametrize("kwargs, match", [
-    # tp and fsdp are ported: on one rank their two-rank meshes are too big
+    # tp, fsdp and sp are ported: on one rank their two-rank meshes are too big;
+    # shard_sequence on a model without ring_mesh names A10c's remainder
     pytest.param({"mesh": {"dp": 1, "tp": 2}}, "needs 2 ranks", id="kwargs0-A10"),
     pytest.param({"mesh": {"dp": 1, "fsdp": 2}}, "needs 2 ranks", id="kwargs1-A10"),
-    ({"mesh": {"dp": 1, "sp": 2}}, "A10"),
+    pytest.param({"mesh": {"dp": 1, "sp": 2}}, "needs 2 ranks", id="kwargs2-A10"),
     ({"shard_sequence": True}, "A10"),
     ({"num_workers": 2}, "requested 2 devices but only 1"),
     ({"mesh": {"dp": 2}}, "dp=2"),

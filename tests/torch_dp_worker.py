@@ -2,7 +2,8 @@
 
     python tests/torch_dp_worker.py WORKDIR RANK WORLD
 
-``tests/test_torch_data_parallel.py`` and ``tests/test_torch_model_parallel.py``
+``tests/test_torch_data_parallel.py``, ``tests/test_torch_model_parallel.py``,
+``tests/test_torch_sequence_parallel.py`` and ``tests/test_torch_ring_attention.py``
 start WORLD of these. They join one gloo process group through a file
 store in WORKDIR, read the scenarios' inputs from ``WORKDIR/inputs.pkl``
 (weights bridged from the reference's init, and the data), run every
@@ -45,7 +46,21 @@ def resnet_model(cfg: dict) -> Model:
     return resnet18(cfg["classes"], cfg["size"], dtype=torch.float32)
 
 
-MODELS = {"bert": bert_model, "mlp": mlp_model, "resnet": resnet_model}
+def sp_model(cfg: dict) -> Model:
+    """A small bert-family model whose attention runs over the ``sp`` axis
+    of ``make_mesh(cfg["ring_mesh"])`` by ``cfg["sp_impl"]`` (the plain
+    model when ``cfg["ring_mesh"]`` is None)."""
+    config = bert.BertConfig(
+        vocab_size=cfg["vocab"], hidden_size=cfg["hidden"], num_layers=2,
+        num_heads=cfg["heads"], mlp_dim=2 * cfg["hidden"], max_seq_len=cfg["max_seq_len"],
+        dropout_rate=0.0, causal=cfg["causal"], dtype=getattr(torch, cfg["dtype"]),
+        use_flash_attention=True,
+        ring_mesh=make_mesh(cfg["ring_mesh"]) if cfg["ring_mesh"] else None,
+        sp_impl=cfg["sp_impl"])
+    return bert._make(config, cfg["seq"], "bert_sp")
+
+
+MODELS = {"bert": bert_model, "mlp": mlp_model, "resnet": resnet_model, "sp": sp_model}
 
 
 def with_weights(model: Model, weights: dict) -> Model:
@@ -168,8 +183,63 @@ def joint_group(case: dict, workdir: str) -> dict:
     return [torch.distributed.get_world_size(group), t.item()]
 
 
+def _sp_attention_fns() -> dict:
+    import functools
+
+    from distkeras_tpu_torch.ops.attention import ring_self_attention
+    from distkeras_tpu_torch.ops.flash_attention import flash_attention
+    from distkeras_tpu_torch.ops.ring_flash import ring_flash_attention
+    from distkeras_tpu_torch.ops.ulysses import ulysses_self_attention
+
+    return {"ring_flash": ring_flash_attention, "ring": ring_self_attention,
+            "ulysses": ulysses_self_attention,
+            "ulysses_flash": functools.partial(ulysses_self_attention, attn_fn=flash_attention)}
+
+
+def sp_attention(case: dict, workdir: str) -> dict:
+    """Each sequence-parallel attention case over ``{"sp": world}``: this
+    rank's columns of the whole ``q``, ``k``, ``v`` (already in the layout
+    the function takes), its output and the gradients of its columns under
+    the cotangent ``cot``."""
+    fns = _sp_attention_fns()
+    mesh = make_mesh({"sp": distributed.process_count()})
+    rank, world = distributed.process_index(), distributed.process_count()
+    out = {}
+    for name, c in case["cases"].items():
+        dtype = getattr(torch, c["dtype"])
+        s = c["q"].shape[1] // world
+        mine = slice(rank * s, (rank + 1) * s)
+        q, k, v = (torch.as_tensor(c[x][:, mine]).to(dtype).requires_grad_() for x in "qkv")
+        kwargs = {"stripe": True} if c["stripe"] else {}
+        o = fns[c["fn"]](q, k, v, mesh, "sp", causal=c["causal"], **kwargs)
+        o.backward(torch.as_tensor(c["cot"][:, mine]).to(dtype))
+        out[name] = {"out": o.detach().float().numpy(),
+                     "grads": [t.grad.float().numpy() for t in (q, k, v)]}
+    return out
+
+
+def sp_forward(case: dict, workdir: str) -> dict:
+    """The sequence-parallel model on this rank's columns of the token ids
+    (``gspmd.shard_batch``, striped under ``ring_stripe``): its logits,
+    gathered whole in natural order (``gspmd.gather_sequence``)."""
+    from distkeras_tpu_torch.parallel import gspmd
+
+    out = {}
+    for name, c in case["cases"].items():
+        model = with_weights(sp_model(c["config"]), case["weights"])
+        mesh = model.config.ring_mesh
+        stripe = c["config"]["sp_impl"] == "ring_stripe"
+        ids = gspmd.shard_batch(mesh, {"ids": case["tokens"]}, 1, "cpu", stripe)["ids"]
+        with torch.no_grad():
+            logits, _ = model.apply(model.init(), ids)
+        out[name] = {"local": tuple(logits.shape),
+                     "whole": gspmd.gather_sequence(logits, mesh, 1, stripe).numpy()}
+    return out
+
+
 RUNNERS = {"train": train, "predict": predict, "refuse": refuse, "groups": groups,
-           "sharded_init": sharded_init, "tp_decode": tp_decode, "joint_group": joint_group}
+           "sharded_init": sharded_init, "tp_decode": tp_decode, "joint_group": joint_group,
+           "sp_attention": sp_attention, "sp_forward": sp_forward}
 
 
 def main(workdir: str, rank: int, world: int) -> int:
