@@ -22,7 +22,8 @@ Phases, each of which must pass or the script exits non-zero:
    cross_entropy and its backward, logsumexp), with the bound the card's
    published rates put on it, and the flash wrappers' host time per call;
    K1-K3 also at a tp rank's shape (phase 18b) and at a ring hop's (phase
-   19: B=8 S=256 H=12 D=64, causal, full and strict causal).
+   19: B=8 S=256 H=12 D=64, causal, full and strict causal); K4-K6 also at
+   a 1F1B microbatch's logits (phase 20d: T=1024 V=30522 float32).
 3. Inference at full width: bert_base_mlm (seq 128, flash attention on,
    random weights from a seed) through ModelPredictor (64 rows, batch 32)
    and Trainer.evaluate with fused_categorical_crossentropy (512 rows,
@@ -240,10 +241,29 @@ Phases, each of which must pass or the script exits non-zero:
    sp_permute, sp_all_to_all, sp_gather (pos_embed), sp_reduce_scatter and
    grad_all_reduce spans, whether the P2P went through the host, with the
    card. No scaling figure.
-20. Print the kernels line, the card's name and power limit, and last the
+20. Pipeline parallelism, in ranks spawned as phase 17's: PipelineTrainer on
+   bert_base_mlm (seq 128, global batch 32 in M=4 microbatches, flash on,
+   fused loss, adam, dropout 0), 3 steps on one global batch of the copy
+   task repeated. 20a: one NCCL rank, the pipe of one stage, gpipe and
+   1f1b, against the same process's unpipelined step with the pipeline's
+   float32 head (its 3 losses and its first gradients). 20b-20d on two gloo
+   ranks sharing the card, mesh {"pp": 2}, 6 layers a rank: 20b gpipe
+   (and with remat), 20c virtual_stages=2 (3 layers a chunk), 20d 1f1b,
+   each against 20a's one-process step: losses within LOSS_RTOL, the first
+   step's gradients (each rank's own tensors) with median relative
+   difference within 1e-2 and each within phase 19's bound; losses finite,
+   falling and equal on both ranks; weights returned whole, the replicated
+   leaves equal on both ranks; each rank's launches equal to
+   pp_launches' prediction (K4-K6 on the last rank alone). Logged: ms per
+   step per rank (pipeline_step span), the shares of the pp_p2p and
+   pp_grad_all_reduce spans, the P2P calls and bytes and whether they went
+   through the host; each rank's peak memory under gpipe, gpipe+remat and
+   1f1b at M=4 and M=8 (8 rows a microbatch), with the card. No scaling
+   figure.
+21. Print the kernels line, the card's name and power limit, and last the
    result line {"ok": true, "device": {...}}.
 
-Phases 9-11, 15f, 16, 17, 18 and 19 write their checkpoints, weight files and
+Phases 9-11, 15f, 16, 17, 18, 19 and 20 write their checkpoints, weight files and
 stores under build/chip_smoke/ (git-ignored) and remove them.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
@@ -3678,6 +3698,326 @@ def sp_phase(root=REPO, steps=3, cases=SP_CASES, nccl=("gpt_small", 512, 8),
     return {k: sum(c[k] for c in counts) for k in counts[0]}
 
 
+# -- phase 20: pipeline parallelism -------------------------------------------
+
+# 20b-20d on two gloo ranks, each at the same M as 20a: (tag, schedule, kwargs)
+PP_CASES = (("20b", "gpipe", {}), ("20b-remat", "gpipe", {"remat": True}),
+            ("20c", "gpipe", {"virtual_stages": 2}), ("20d", "1f1b", {}))
+# Peak memory per rank at 8 rows a microbatch: (schedule, kwargs) at each M.
+PP_MEMORY = (("gpipe", {}), ("gpipe+remat", {"remat": True}), ("1f1b", {}))
+PP_MEMORY_M = (4, 8)
+PP_MICROBATCHES = 4
+# Phase 19's gradient bounds, and the median of the per-tensor relative
+# differences held to 1e-2 besides.
+PP_GRAD_MEDIAN_TOL = 1e-2
+
+
+def _pp_spans(tracer) -> dict:
+    """ms per step (the ``pipeline_step`` span), the shares of the pp_p2p
+    and pp_grad_all_reduce spans, whether the P2P went through the host and
+    the bytes it moved so."""
+    totals = span_totals(tracer)
+    step_n, step_s = totals.get(("pipeline_step", None), [0, 0.0])
+    p2p = [attrs or {} for ph, name, *_, attrs in tracer.events()
+           if ph == "B" and name == "pp_p2p"]
+    calls = sorted((t1 - t0) * 1e3 for name, _, t0, t1 in span_intervals(tracer)
+                   if name == "pp_p2p")
+    out = {"steps": step_n, "ms_per_step": step_s / max(step_n, 1) * 1e3,
+           "step_ms": [(t1 - t0) * 1e3 for name, _, t0, t1 in span_intervals(tracer)
+                       if name == "pipeline_step"],
+           "p2p_calls": len(p2p), "staged": any(a.get("staged") for a in p2p),
+           "staged_bytes": sum(a.get("bytes", 0) for a in p2p if a.get("staged")),
+           "p2p_bytes": sum(a.get("bytes", 0) for a in p2p),
+           "p2p_call_ms": [calls[len(calls) // 2], calls[-1]] if calls else [0.0, 0.0]}
+    for name in ("pp_p2p", "pp_grad_all_reduce", "grad_all_reduce", "pp_join"):
+        out[f"{name}_share"] = totals.get((name, None), [0, 0.0])[1] / step_s if step_s else 0.0
+    return out
+
+
+def pp_launches(cfg, steps, M, P, index, schedule, remat=False) -> dict:
+    """A pp rank's launches over ``steps`` steps: K2 and K3 once a layer a
+    microbatch; K1 as often, twice under ``remat`` (the recompute) and on a
+    1F1B rank before the last (its forward tick and its backward tick's
+    recompute); K4-K6 on the last rank alone, once a step under GPipe and
+    once a microbatch under 1F1B."""
+    apps = cfg.num_layers // P * M * steps
+    last = index == P - 1
+    twice = remat if schedule == "gpipe" else not last
+    xent = (steps if schedule == "gpipe" else M * steps) if last else 0
+    return expected(flash_attention_fwd=apps * (2 if twice else 1), flash_attention_dq=apps,
+                    flash_attention_dkv=apps, fused_xent_fwd=xent, fused_xent_stats=xent,
+                    fused_xent_grad=xent)
+
+
+def pp_plain(model, cfg, rows, steps, device) -> dict:
+    """The pipeline's function in one process without the pipe: the
+    embedding, the layers, PipelineTrainer's float32 head and the fused
+    loss on ``rows`` (the copy task), ``steps`` adam steps; the losses, the
+    first step's gradients, and the same first gradients in float32 with
+    dense attention (the exact step) for the noise bound."""
+    import torch
+
+    from distkeras_tpu_torch.models import bert
+    from distkeras_tpu_torch.ops.fused_xent import fused_softmax_xent
+    from distkeras_tpu_torch.ops.losses import get_optimizer
+    from distkeras_tpu_torch.training.pipeline_trainer import PipelineTrainer
+
+    x = torch.from_numpy(rows).to(device)
+
+    def loss_of(m, params):
+        hidden, _ = m.apply(params, x, return_hidden=True)
+        return fused_softmax_xent(PipelineTrainer._head_logits(params, hidden), x)
+
+    weights = model.init(SEED, device=device)
+    exact = bert._make(dataclasses.replace(cfg, dtype=torch.float32, use_flash_attention=False),
+                       model.input_shape[0], model.name)
+    params = {k: v.clone().requires_grad_() for k, v in weights.items()}
+    grads = torch.autograd.grad(loss_of(exact, params), list(params.values()))
+    out = {"exact": {k: g.float() for k, g in zip(params, grads)}, "losses": []}
+    params = {k: v.requires_grad_() for k, v in weights.items()}
+    opt = get_optimizer("adam")(list(params.values()))
+    for i in range(steps):
+        loss = loss_of(model, params)
+        loss.backward()
+        if i == 0:
+            out["grads"] = {k: p.grad.detach().float().clone() for k, p in params.items()}
+        out["losses"].append(loss.item())
+        opt.step()
+        opt.zero_grad(set_to_none=True)
+    return out
+
+
+def pp_grad_gaps(got: dict, plain: dict) -> dict:
+    """Each tensor's relative difference from the one-process step's
+    gradient and its bound (phase 19's: GRAD_REL_TOL, or GRAD_NOISE_FACTOR x
+    the bf16 step's own distance from the exact one, relative to a floor of
+    1e-3 of the largest gradient norm)."""
+    want, exact = plain["grads"], plain["exact"]
+    floor = 1e-3 * max(w.norm().item() for w in want.values())
+    out = {}
+    for k, g in got.items():
+        norm = max(want[k].norm().item(), floor)
+        rel = (g - want[k]).norm().item() / norm
+        noise = (want[k] - exact[k]).norm().item() / norm
+        out[k] = (rel, max(GRAD_REL_TOL, GRAD_NOISE_FACTOR * noise))
+    return out
+
+
+def _pp_trainer(model, batch, device, **kw):
+    from distkeras_tpu_torch import PipelineTrainer
+
+    return PipelineTrainer(model, "adam", loss="fused_categorical_crossentropy", batch_size=batch,
+                           seed=SEED, device=device, **kw)
+
+
+def pp_run(tag, model, one, data, batch, steps, device, plain, **kw) -> dict:
+    """One timed PipelineTrainer run after a one-step warm-up: launches,
+    spans, losses, the first step's gradients against ``plain``'s, whether
+    the weights came back whole and the replicated leaves' sums."""
+    import torch
+    from torch.optim.optimizer import register_optimizer_step_pre_hook
+
+    from distkeras_tpu_torch.parallel.distributed import process_index
+    from distkeras_tpu_torch.telemetry.spans import Tracer, disable_tracing, enable_tracing
+
+    _pp_trainer(model, batch, device, **kw).train(one)  # warm-up
+    tapped = []
+
+    def tap(optimizer, args, kwargs):
+        if not tapped:
+            tapped.extend(p.grad.detach().float().clone()
+                          for g in optimizer.param_groups for p in g["params"])
+
+    hook = register_optimizer_step_pre_hook(tap)
+    _synchronize(device)
+    reset_counts()
+    tracer = enable_tracing(Tracer())
+    t0 = time.perf_counter()
+    tr = _pp_trainer(model, batch, device, **kw)
+    trained = tr.train(data)
+    _synchronize(device)
+    rep = {"wall_s": time.perf_counter() - t0}
+    disable_tracing()
+    hook.remove()
+    rep["counts"] = read_counts()
+    rep.update(_pp_spans(tracer))
+    rep["losses"] = [h["loss"] for h in tr.history]
+    meta = model.module.state_dict()
+    order = list(meta)
+    P = tr.mesh.shape["pp"]
+    index = process_index() % P  # make_mesh puts pp after dp: rank = dp index * P + pp index
+    split, _ = tr._split_params(meta, P, index)
+    mine = {id(v) for c in split["stages"] for sub in c.values() for v in sub.values()}
+    names = [k for k in order if id(meta[k]) in mine or not k.startswith("layer_")]
+    gaps = pp_grad_gaps(dict(zip(names, tapped)), plain)
+    rep["gaps"] = {k: list(v) for k, v in gaps.items()}
+    rep["whole"] = sorted(trained.variables) == sorted(order) and all(
+        tuple(trained.variables[k].shape) == tuple(meta[k].shape) for k in order)
+    rep["replicated_sums"] = [[trained.variables[k].double().sum().item(),
+                               trained.variables[k].double().square().sum().item()]
+                              for k in order if not k.startswith("layer_")]
+    del trained, tr, tapped
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    log(f"    {tag} rank {process_index()}: {rep['ms_per_step']:.2f} ms/step")
+    return rep
+
+
+def pp_peak_memory(model_name, seq, rows, device, mesh, memory_m=PP_MEMORY_M) -> dict:
+    """Peak device memory of this rank (``max_memory_allocated``) over a
+    two-step run of each PP_MEMORY schedule at each M, 8 rows a microbatch."""
+    import torch
+
+    out = {}
+    for name, kw in PP_MEMORY:
+        for M in memory_m:
+            model, cfg, one = bert_copy_task(seq, rows * M, name=model_name)
+            data = one.take(rows * M)
+            if device == "cuda":
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+            schedule = "1f1b" if name == "1f1b" else "gpipe"
+            _pp_trainer(model, rows * M, device, num_microbatches=M, schedule=schedule,
+                        mesh=mesh, **kw).train(data)
+            out[f"{name} M={M}"] = (torch.cuda.max_memory_allocated() if device == "cuda"
+                                    else 0)
+    return out
+
+
+def pp_nccl_task(rank, world, seq=128, batch=32, steps=3, model_name="bert_base_mlm",
+                 device="cuda", M=PP_MICROBATCHES) -> dict:
+    """20a: one NCCL rank, the pipe of one stage: PipelineTrainer under
+    gpipe and 1f1b against the same process's unpipelined step with the
+    pipeline's float32 head, on one global batch repeated."""
+    import numpy as np
+    import torch
+
+    from distkeras_tpu_torch import Dataset
+    from distkeras_tpu_torch.parallel.mesh import make_mesh
+
+    model, cfg, one = bert_copy_task(seq, batch, name=model_name)
+    data = Dataset.from_arrays(**{k: np.concatenate([one[k]] * steps)
+                                  for k in ("features", "label")})
+    plain = pp_plain(model, cfg, np.asarray(one["features"]), steps, device)
+    out = {"backend": torch.distributed.get_backend(), "plain_losses": plain["losses"]}
+    for tag, schedule in (("20a-gpipe", "gpipe"), ("20a-1f1b", "1f1b")):
+        out[tag] = pp_run(tag, model, one, data, batch, steps, device, plain,
+                          num_microbatches=M, schedule=schedule, mesh=make_mesh({"pp": 1}))
+    return out
+
+
+def pp_gloo_task(rank, world, seq=128, batch=32, steps=3, model_name="bert_base_mlm",
+                 device="cuda", M=PP_MICROBATCHES, cases=PP_CASES, memory_rows=8,
+                 memory_m=PP_MEMORY_M, axes=None) -> dict:
+    """20b-20d on ``world`` gloo ranks that share the card, mesh {"pp":
+    world}: each PP_CASES run on one global batch repeated, its first
+    gradients against the one-process step recomputed in the rank; then
+    the peak memory of each schedule at each M. ``axes``: another mesh
+    (``{"dp": 2, "pp": 2}``, say), as on several cards over NCCL. One mesh
+    serves every run, as a user's script would hold it: a mesh made anew
+    makes new process groups, whose first collectives set up their
+    communicators inside the timed steps."""
+    import numpy as np
+    import torch
+
+    from distkeras_tpu_torch import Dataset
+    from distkeras_tpu_torch.parallel.mesh import make_mesh
+
+    model, cfg, one = bert_copy_task(seq, batch, name=model_name)
+    data = Dataset.from_arrays(**{k: np.concatenate([one[k]] * steps)
+                                  for k in ("features", "label")})
+    plain = pp_plain(model, cfg, np.asarray(one["features"]), 1, device)
+    out = {"backend": torch.distributed.get_backend()}
+    mesh = make_mesh(axes or {"pp": world})
+    for tag, schedule, kw in cases:
+        out[tag] = pp_run(tag, model, one, data, batch, steps, device, plain,
+                          num_microbatches=M, schedule=schedule, mesh=mesh, **kw)
+    del plain
+    out["memory"] = pp_peak_memory(model_name, seq, memory_rows, device, mesh, memory_m)
+    return out
+
+
+def pp_phase(root=REPO, seq=128, batch=32, steps=3, model_name="bert_base_mlm",
+             device="cuda", cases=PP_CASES, memory_rows=8, memory_m=PP_MEMORY_M,
+             M=PP_MICROBATCHES) -> dict:
+    """20: pipeline parallelism in spawned ranks; returns the launch counts
+    of 20a's and 20b-20d's timed runs, every rank's summed."""
+    card = card_line()
+    t_phase = time.perf_counter()
+    counting = device == "cuda"  # the plain versions of the kernels count nothing
+    cfg = bert_copy_task(seq, batch, name=model_name)[1]
+    (a,) = dp_spawn(root, "20a", None if counting else "gloo", 1, "pp_nccl_task", seq=seq,
+                    batch=batch, steps=steps, model_name=model_name, device=device, M=M)
+    check(a["backend"] == ("nccl" if counting else "gloo"), f"20a: backend {a['backend']}")
+    plain_losses = a["plain_losses"]
+    counts = []
+
+    def judge(tag, rep, P, index, schedule, kw, r0):
+        shares = ", ".join(f"{k[:-6]} {rep[k]:.1%}" for k in rep
+                           if k.endswith("_share") and rep[k])
+        where = (a["backend"] if P == 1
+                 else "gloo, 2 ranks sharing one card: a check, not a scaling figure")
+        log(f"  {tag} {model_name} {batch} x {seq}, pp={P}, M={M}, {schedule} {kw or ''} "
+            f"rank {index} ({where}): "
+            f"{rep['steps']} steps, {rep['ms_per_step']:.2f} ms/step (pipeline_step span), of it "
+            f"{shares or 'no collective span'}; {rep['p2p_calls']} pp_p2p calls (median "
+            f"{rep['p2p_call_ms'][0]:.2f} ms, max {rep['p2p_call_ms'][1]:.2f} ms), "
+            f"{rep['p2p_bytes'] / 2**20:.1f} MiB, staged through the host: {rep['staged']} "
+            f"({rep['staged_bytes'] / 2**20:.1f} MiB); train() {rep['wall_s']:.2f} s; losses "
+            f"{', '.join(f'{x:.4f}' for x in rep['losses'])}; launches {rep['counts']} ({card})")
+        check(all(math.isfinite(x) for x in rep["losses"]) and all(
+            b < a for a, b in zip(rep["losses"], rep["losses"][1:])),
+            f"{tag}: losses {rep['losses']} do not fall")
+        check(rep["losses"] == r0["losses"], f"{tag}: rank {index} losses {rep['losses']}")
+        check(rep["whole"], f"{tag}: rank {index} returned weights that are not whole")
+        check(rep["replicated_sums"] == r0["replicated_sums"],
+              f"{tag}: rank {index}'s replicated leaves differ from rank 0's")
+        if P > 1:
+            check(rep["p2p_calls"] > 0, f"{tag}: rank {index} made no pp_p2p call")
+        if counting:
+            want = pp_launches(cfg, steps, M, P, index, schedule, kw.get("remat", False))
+            check(rep["counts"] == want, f"{tag}: rank {index} launches {rep['counts']}, "
+                                         f"predicted {want}")
+        counts.append(rep["counts"])
+
+    def against_plain(tag, ranks):
+        gaps = {}
+        for rep in ranks:
+            gaps.update({k: tuple(v) for k, v in rep["gaps"].items()})
+        rel = sorted(v[0] for v in gaps.values())
+        median = rel[len(rel) // 2]
+        worst = max(gaps, key=lambda k: gaps[k][0] / gaps[k][1])
+        gap = max(abs(x - y) / abs(y) for x, y in zip(ranks[0]["losses"], plain_losses))
+        log(f"  {tag}: losses against 20a's one-process step "
+            f"{', '.join(f'{x:.4f}' for x in plain_losses)}: largest relative gap {gap:.3g} "
+            f"(bound {LOSS_RTOL}); first step's gradients against it: relative difference "
+            f"median {median:.3g} (bound {PP_GRAD_MEDIAN_TOL}), max {rel[-1]:.3g} over "
+            f"{len(rel)} tensors; nearest its bound {worst} {gaps[worst][0]:.3g} "
+            f"(allowed {gaps[worst][1]:.3g})")
+        check(gap <= LOSS_RTOL, f"{tag}: losses {gap} off the one-process step's")
+        check(median <= PP_GRAD_MEDIAN_TOL, f"{tag}: gradient median {median}")
+        check(gaps[worst][0] <= gaps[worst][1],
+              f"{tag}: gradient {worst} {gaps[worst][0]} > {gaps[worst][1]}")
+
+    for tag, schedule in (("20a-gpipe", "gpipe"), ("20a-1f1b", "1f1b")):
+        judge(tag, a[tag], 1, 0, schedule, {}, a[tag])
+        against_plain(tag, [a[tag]])
+    log(f"  20a: {time.perf_counter() - t_phase:.2f} s into the phase")
+    ranks = dp_spawn(root, "20b", "gloo", 2, "pp_gloo_task", seq=seq, batch=batch, steps=steps,
+                     model_name=model_name, device=device, M=M, cases=cases,
+                     memory_rows=memory_rows, memory_m=memory_m)
+    for tag, schedule, kw in cases:
+        for r, rep in enumerate(ranks):
+            judge(tag, rep[tag], 2, r, schedule, kw, ranks[0][tag])
+        against_plain(tag, [rep[tag] for rep in ranks])
+    for r, rep in enumerate(ranks):
+        log(f"  20 peak memory, rank {r} of pp=2, {memory_rows} rows a microbatch "
+            f"(max_memory_allocated): " + "; ".join(
+                f"{k} {v / 2**20:.1f} MiB" for k, v in rep["memory"].items()) + f" ({card})")
+    log(f"  20: phase wall {time.perf_counter() - t_phase:.2f} s ({card})")
+    return {k: sum(c[k] for c in counts) for k in counts[0]}
+
+
 async def _kv_export(engine, prompt) -> dict:
     ev, res = engine.request_kv_export(prompt)
     await ev.wait()
@@ -3749,7 +4089,8 @@ def main(argv=None) -> int:
           flash_case(8, 256, 12, 64, True, 1, gen)]
     k4 = [xent_case(4096, 30522, torch.float32, gen),
           xent_case(4096, 30522, torch.bfloat16, gen),
-          xent_case(4096, 50257, torch.float32, gen)]
+          xent_case(4096, 50257, torch.float32, gen),
+          xent_case(1024, 30522, torch.float32, gen)]  # a 1F1B microbatch (phase 20d)
     k23 = [flash_bwd_cases(32, 128, 12, 64, False, 0, gen),
            flash_bwd_cases(8, 512, 12, 64, True, 0, gen),
            flash_bwd_cases(8, 512, 12, 64, True, 1, gen),
@@ -3759,7 +4100,8 @@ def main(argv=None) -> int:
            flash_bwd_cases(8, 256, 12, 64, True, 1, gen)]
     k56 = [xent_bwd_cases(4096, 30522, torch.float32, gen),
            xent_bwd_cases(4096, 30522, torch.bfloat16, gen),
-           xent_bwd_cases(4096, 50257, torch.float32, gen)]
+           xent_bwd_cases(4096, 50257, torch.float32, gen),
+           xent_bwd_cases(1024, 30522, torch.float32, gen)]
     torch.cuda.empty_cache()
     phase2 = {"flash_attention_fwd": k1, "flash_attention_dq": [c[0] for c in k23],
               "flash_attention_dkv": [c[1] for c in k23], "fused_xent_fwd": k4,
@@ -3814,6 +4156,9 @@ def main(argv=None) -> int:
     log("phase 19: sequence parallelism (one NCCL rank at sp=1; ring, ring_stripe and ulysses "
         "at sp=2 on two gloo ranks sharing the card): gpt_small and bert_base_mlm at full width")
     runs.append(sp_phase(root))
+    log("phase 20: pipeline parallelism (one NCCL rank at pp=1; gpipe, remat, virtual stages "
+        "and 1f1b at pp=2 on two gloo ranks sharing the card): bert_base_mlm at full width")
+    runs.append(pp_phase(root))
     launches = {k: sum(r[k] for r in runs) for k in runs[0]}
     for k, n in launches.items():
         check(n > 0, f"kernel {k} was not launched on the main path")

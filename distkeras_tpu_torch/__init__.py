@@ -4,7 +4,8 @@ This package exports what the port has so far: training through
 ``SingleTrainer``, ``EnsembleTrainer``, ``AveragingTrainer``,
 ``SynchronousDistributedTrainer`` (data parallelism over the ranks of a
 ``torch.distributed`` process group: ``parallel.distributed.initialize``,
-``parallel.mesh.make_mesh``) and the asynchronous parameter-server
+``parallel.mesh.make_mesh``), ``PipelineTrainer`` (the bert family's trunk
+pipelined over a ``pp`` axis: GPipe, interleaved virtual stages, 1F1B) and the asynchronous parameter-server
 trainers (DOWNPOUR, ADAG, AEASGD, EAMSGD, DynSGD) over an in-process or
 gRPC parameter server, with step checkpoints and resume; ``TrainerConfig``;
 generation with KV caches (``generate``, ``beam_search``, ``Generator``);
@@ -56,6 +57,7 @@ from distkeras_tpu_torch.models.core import Model, TrainedModel
 from distkeras_tpu_torch.models.mlp import higgs_mlp, mnist_mlp
 from distkeras_tpu_torch.models.resnet import ResNet, resnet18, resnet50
 from distkeras_tpu_torch.serving import ServingClient, ServingEngine, ServingServer
+from distkeras_tpu_torch.training.pipeline_trainer import PipelineTrainer
 from distkeras_tpu_torch.training.trainers import (
     ADAG,
     AEASGD,
@@ -94,6 +96,7 @@ __all__ = [
     "Model",
     "ModelPredictor",
     "OneHotTransformer",
+    "PipelineTrainer",
     "ReshapeTransformer",
     "ResNet",
     "ServingClient",

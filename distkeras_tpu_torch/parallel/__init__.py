@@ -1,10 +1,13 @@
 """Parallelism: meshes over process ranks (``mesh``), the process group
 and the sequence-parallel collectives (``distributed``), sharding rules
-(``sharding``), model- and sequence-parallel training (``gspmd``), and the
-parameter-server protocols, services and transports. The mesh helpers
-import eagerly; ``distributed``, ``sharding`` and ``gspmd`` (and the
-collectives ``axis_ring``, ``sp_permute``, ``sp_all_to_all``) resolve on
-first use, as in ``distkeras_tpu/parallel/__init__.py``."""
+(``sharding``), model- and sequence-parallel training (``gspmd``), pipeline
+parallelism (``pipeline``: GPipe and interleaved stages; ``pipeline_1f1b``),
+and the parameter-server protocols, services and transports. The mesh
+helpers import eagerly; ``distributed``, ``sharding``, ``gspmd``,
+``pipeline`` and ``pipeline_1f1b`` (and the collectives ``axis_ring``,
+``sp_permute``, ``sp_all_to_all``, ``pp_exchange``, and the engines
+``pipeline_apply`` and ``pipeline_1f1b_value_and_grad``) resolve on first
+use, as in ``distkeras_tpu/parallel/__init__.py``."""
 
 from distkeras_tpu_torch.parallel.mesh import (
     best_mesh,
@@ -16,11 +19,17 @@ _LAZY_MODULES = {
     "distributed": "distkeras_tpu_torch.parallel.distributed",
     "gspmd": "distkeras_tpu_torch.parallel.gspmd",
     "sharding": "distkeras_tpu_torch.parallel.sharding",
+    "pipeline": "distkeras_tpu_torch.parallel.pipeline",
+    "pipeline_1f1b": "distkeras_tpu_torch.parallel.pipeline_1f1b",
 }
 
 
-_LAZY_NAMES = {name: "distkeras_tpu_torch.parallel.distributed"
-               for name in ("axis_ring", "sp_permute", "sp_all_to_all")}
+_LAZY_NAMES = {
+    **{name: "distkeras_tpu_torch.parallel.distributed"
+       for name in ("axis_ring", "sp_permute", "sp_all_to_all", "pp_exchange")},
+    "pipeline_apply": "distkeras_tpu_torch.parallel.pipeline",
+    "pipeline_1f1b_value_and_grad": "distkeras_tpu_torch.parallel.pipeline_1f1b",
+}
 
 
 def __getattr__(name):

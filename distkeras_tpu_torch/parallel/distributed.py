@@ -25,6 +25,12 @@ tensor's P2P traffic is staged through host memory inside
 :func:`sp_permute` (gloo sends from host memory); NCCL never stages.
 Their spans are ``sp_permute`` (its ``staged`` attribute says whether
 the bytes went through the host) and ``sp_all_to_all``.
+
+A pipeline's neighbour traffic (the reference's per-tick ``ppermute`` over
+``pp``) is :func:`pp_exchange`: one tick's sends to the next and previous
+ranks of the pp ring and receives from them, in one ``batch_isend_irecv``
+of the same P2P (staged through the host likewise), under the span
+``pp_p2p`` (attributes ``staged`` and ``bytes``).
 """
 
 from __future__ import annotations
@@ -47,6 +53,8 @@ __all__ = [
     "sp_permute",
     "sp_permute_grad",
     "sp_permute_start",
+    "pp_exchange",
+    "pp_join",
     "initialize",
     "global_mesh",
     "IslandSpec",
@@ -259,6 +267,67 @@ def sp_permute(tensors, ring: AxisRing, reverse: bool = False) -> list[torch.Ten
     """:func:`sp_permute_start` and wait: the tensors of the previous rank
     along ``ring`` (of the next one with ``reverse``)."""
     return sp_permute_start(tensors, ring, reverse).wait()
+
+
+_JOINED: set = set()
+
+
+def pp_join(ring: AxisRing, device) -> None:
+    """Before a pipeline's first hop over ``ring``: one collective that
+    every rank of the ring's group takes part in (a one-element
+    ``all_reduce`` on ``device``), once a process and group (by the
+    group's unique name). NCCL requires a group's first
+    ``batch_isend_irecv`` to involve all its ranks, and a pipeline tick
+    posts hops between neighbours only."""
+    if ring.size == 1 or ring.group.group_name in _JOINED:
+        return
+    key = ring.group.group_name
+    with span("pp_join"):
+        torch.distributed.all_reduce(torch.zeros(1, device=device), group=ring.group)
+    _JOINED.add(key)
+
+
+def pp_exchange(ring: AxisRing, to_next=None, to_prev=None, from_prev=None, from_next=None):
+    """One tick of a pipeline's neighbour traffic along ``ring``: send
+    ``to_next`` to ``ring.next`` and ``to_prev`` to ``ring.prev``; receive
+    from ``ring.prev`` a tensor shaped like ``from_prev`` (a template: its
+    shape, dtype and device) and from ``ring.next`` one like ``from_next``.
+    A None posts nothing. The operations go out in one
+    ``batch_isend_irecv`` (sends to next then prev, receives from prev then
+    next, so that at a ring of 2, where next and prev are one rank, the two
+    messages a pair exchanges match in order) and are waited for. Both ranks
+    of a hop must post it in the same call, in the same order of calls as
+    every other hop between them. Returns ``(from_prev, from_next)``, the
+    received tensors (None where nothing was asked). At a ring of 1 a rank's
+    sends are its receives."""
+    if ring.size == 1:
+        return (to_next if from_prev is not None else None,
+                to_prev if from_next is not None else None)
+    if to_next is None and to_prev is None and from_prev is None and from_next is None:
+        return None, None
+    dist = torch.distributed
+    sends = [(peer, t.contiguous()) for peer, t in ((ring.next, to_next), (ring.prev, to_prev))
+             if t is not None]
+    wanted = [(peer, like) for peer, like in ((ring.prev, from_prev), (ring.next, from_next))]
+    first = sends[0][1] if sends else next(like for _, like in wanted if like is not None)
+    staged = _staged(first, ring.group)
+    nbytes = sum(t.numel() * t.element_size() for _, t in sends) + sum(
+        like.numel() * like.element_size() for _, like in wanted if like is not None)
+    with span("pp_p2p", staged=staged, bytes=nbytes):
+        ops = [dist.P2POp(dist.isend, t.cpu() if staged else t, peer, ring.group)
+               for peer, t in sends]
+        bufs = []
+        for peer, like in wanted:
+            buf = None
+            if like is not None:
+                buf = torch.empty(like.shape, dtype=like.dtype,
+                                  device="cpu" if staged else like.device)
+                ops.append(dist.P2POp(dist.irecv, buf, peer, ring.group))
+            bufs.append(buf)
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+        return tuple(None if buf is None else buf.to(like.device)
+                     for buf, (_, like) in zip(bufs, wanted))
 
 
 def sp_all_to_all(x: torch.Tensor, ring: AxisRing) -> torch.Tensor:

@@ -16,9 +16,11 @@ server every ``communication_window`` steps, with periodic PS checkpoints
 and resume. A recompile ``auditor`` signs each trainer's step, as the
 reference's ``Trainer._audit`` wraps it. The synchronous trainer also
 trains tensor-parallel, fully sharded and sequence-parallel
-(:mod:`~distkeras_tpu_torch.parallel.gspmd`). Not ported yet, and refused
-with the ``ROADMAP.md`` item that brings them: the pp and ep axes of a
-mesh, and the async trainers' multi-device islands.
+(:mod:`~distkeras_tpu_torch.parallel.gspmd`); on a ``pp`` axis it trains
+replicated over the axis, as the reference's does (pipeline parallelism is
+:class:`~distkeras_tpu_torch.training.pipeline_trainer.PipelineTrainer`'s).
+Not ported yet, and refused with the ``ROADMAP.md`` item that brings them:
+the ep axis of a mesh, and the async trainers' multi-device islands.
 A weight ``publisher`` (:class:`~distkeras_tpu_torch.deploy.WeightPublisher`)
 publishes the live weights on its cadence: the step-loop trainers per
 step, the asynchronous family the PS center from a thread of its own.
@@ -100,9 +102,11 @@ class _StepCheckpointer:
     Under a data-parallel ``group`` every rank restores and only rank 0
     writes. A save that every rank must join is collective: a zero1
     optimizer (``ZeroRedundancyOptimizer``) first gathers its shards to
-    rank 0, and a model-parallel state (``like.shardings``) is gathered
-    whole, its ranks' parts of each weight and moment (and a resume cuts
-    the whole saved tree to each rank's parts again). The ranks of a
+    rank 0, and a state held in parts is gathered whole by ``layout``'s
+    ``whole(state)`` (and a resume cuts the whole saved tree to each rank's
+    parts again by its ``local(tree, state)``): a model-parallel state
+    (``like.shardings``) by default, its ranks' parts of each weight and
+    moment. The ranks of a
     collective save take rank 0's decision to save, broadcast every
     ``ZERO1_POLL_STEPS`` steps (a broadcast of a Python object waits for the
     device under NCCL), and a timed save comes up to that many steps after
@@ -110,7 +114,7 @@ class _StepCheckpointer:
 
     ZERO1_POLL_STEPS = 16
 
-    def __init__(self, directory, interval_s, resume, like, group=None):
+    def __init__(self, directory, interval_s, resume, like, group=None, layout=None):
         self.mgr = None
         self.start_step = 0
         self.state = None
@@ -118,7 +122,12 @@ class _StepCheckpointer:
         self.group = group
         self.writer = group is None or torch.distributed.get_rank(group) == 0
         self.zero1 = hasattr(like.optimizer, "consolidate_state_dict")
-        self.sharded = like.shardings is not None
+        if layout is None and like.shardings is not None:
+            from distkeras_tpu_torch.parallel.gspmd import local_state_tree, whole_state_tree
+
+            layout = (whole_state_tree, local_state_tree)
+        self.layout = layout
+        self.sharded = layout is not None
         self.collective = self.zero1 or self.sharded
         if directory is None:
             return
@@ -130,9 +139,8 @@ class _StepCheckpointer:
         if resume and self.mgr.latest_step() is not None:
             if self.sharded:
                 from distkeras_tpu_torch.checkpoint import _restore_state
-                from distkeras_tpu_torch.parallel.gspmd import local_state_tree
 
-                self.state = _restore_state(like, local_state_tree(
+                self.state = _restore_state(like, self.layout[1](
                     self.mgr.restore()["state"], like))
             else:
                 self.state = self.mgr.restore(like={"state": like})["state"]
@@ -143,9 +151,7 @@ class _StepCheckpointer:
         if self.zero1:
             state.optimizer.consolidate_state_dict(to=0)
         if self.sharded:
-            from distkeras_tpu_torch.parallel.gspmd import whole_state_tree
-
-            state = whole_state_tree(state)
+            state = self.layout[0](state)
         if self.writer:
             with span("checkpoint_save", step=step):
                 self.mgr.save(step, state=state, wait=wait)
@@ -611,7 +617,10 @@ class SynchronousDistributedTrainer(Trainer):
     size its ``ring_mesh`` must have; ``shard_sequence`` asks for that
     split and a ring model on an ``sp`` mesh always takes it (its forward
     takes a rank's own tokens). A model without ``ring_mesh`` on an ``sp``
-    mesh trains replicated over ``sp``. What ``train()`` returns, and what checkpoints hold,
+    mesh trains replicated over ``sp``. Only ``dp`` and ``fsdp`` carry the
+    batch: on a ``pp`` axis every rank of a pp group trains the same rows
+    and weights, replicated, as the reference's trainer does (its
+    ``model_axes`` leave ``pp`` out). What ``train()`` returns, and what checkpoints hold,
     are the whole weights on every rank (gathered from the ranks' parts).
     ``num_workers`` is the ``dp`` size: None means every rank of the process
     group; more than its ranks raises the reference's message, and so does a
@@ -631,7 +640,7 @@ class SynchronousDistributedTrainer(Trainer):
     for each save and saved as a plain one. Only rank 0 publishes. Not
     ported yet, and refused naming their ``ROADMAP.md`` §A item:
     ``shard_sequence`` on a model without ``ring_mesh`` (the reference's
-    XLA sequence split, A10c's remainder), ``pp`` (A10d), ``ep`` (A12),
+    XLA sequence split, A10c's remainder), ``ep`` (A12),
     and, with model axes, a ``publisher`` and zero1 checkpoints (A10b's
     remainder)."""
 
@@ -678,11 +687,11 @@ class SynchronousDistributedTrainer(Trainer):
         self.checkpoint_interval_s = float(checkpoint_interval_s)
         self.resume = bool(resume)
 
-    _AXIS_ITEMS = {"pp": "A10d", "ep": "A12"}
+    _AXIS_ITEMS = {"ep": "A12"}
 
     def _training_mesh(self) -> Mesh:
-        """The mesh to train over: refuses what is not ported yet (the pp
-        and ep axes, ``shard_sequence`` without ``ring_mesh``) and a mesh
+        """The mesh to train over: refuses what is not ported yet (the ep
+        axis, ``shard_sequence`` without ``ring_mesh``) and a mesh
         that leaves ranks out."""
         if self.shard_sequence and _ring_config(self.model) is None:
             raise ValueError(

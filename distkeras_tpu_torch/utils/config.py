@@ -68,9 +68,6 @@ class TrainerConfig:
         """Instantiate the configured trainer for ``model``."""
         import distkeras_tpu_torch as dk
 
-        if self.trainer == "PipelineTrainer":
-            raise ValueError("PipelineTrainer is pipeline parallelism, which is not ported "
-                             "yet (ROADMAP.md §A item A10d)")
         cls = getattr(dk, self.trainer)
         kwargs: dict[str, Any] = {
             "worker_optimizer": self.worker_optimizer,

@@ -1,7 +1,7 @@
 """``TrainerConfig`` against the reference's: the same fields and JSON, and
 ``build()`` makes this package's trainer with the same accepted-keyword
-check (the cases of ``tests/test_config.py`` that need no pipeline
-trainer, whose build raises naming ROADMAP item A10)."""
+check (the cases of ``tests/test_config.py``; the pipeline trainer's
+training is ``tests/test_torch_pipeline_trainer.py``'s)."""
 
 import dataclasses
 import json
@@ -88,5 +88,19 @@ def test_build_checkpointing_sync_trainer(tmp_path):
 
 
 def test_build_pipeline_trainer_raises():
-    with pytest.raises(ValueError, match="A10"):
-        TrainerConfig(trainer="PipelineTrainer").build(_model())
+    """``build`` makes the port's PipelineTrainer with the configured
+    fields (reference ``tests/test_config.py::test_build_pipeline_trainer``),
+    and the trainer raises the reference's message for a model outside the
+    bert family."""
+    from distkeras_tpu_torch.models import bert
+
+    cfg = TrainerConfig(trainer="PipelineTrainer", worker_optimizer="adam", learning_rate=1e-3,
+                        batch_size=16, num_epoch=1, extra={"device": "cpu"})
+    model = bert._make(bert.BertConfig(vocab_size=32, hidden_size=32, num_layers=2, num_heads=2,
+                                       mlp_dim=64, max_seq_len=16, dropout_rate=0.0), 16, "bp_cfg")
+    trainer = cfg.build(model)
+    assert isinstance(trainer, dk.PipelineTrainer)
+    assert (trainer.worker_optimizer, trainer.learning_rate, trainer.batch_size) == (
+        "adam", 1e-3, 16)
+    with pytest.raises(ValueError, match="needs a transformer-family model"):
+        TrainerConfig(trainer="PipelineTrainer", extra={"device": "cpu"}).build(_model())

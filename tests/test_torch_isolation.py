@@ -64,7 +64,8 @@ def test_port_imports_neither_jax_nor_reference():
               "serving.cluster.router", "telemetry.timeseries", "telemetry.device",
               "deploy", "deploy.publisher", "deploy.controller", "deploy.harness", "run",
               "parallel.distributed", "parallel.mesh", "parallel.sharding",
-              "parallel.gspmd", "ops.ring_flash", "ops.ulysses"):
+              "parallel.gspmd", "ops.ring_flash", "ops.ulysses", "parallel.pipeline",
+              "parallel.pipeline_1f1b", "training.pipeline_trainer"):
         assert f"distkeras_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -82,8 +83,10 @@ def test_port_imports_neither_jax_nor_reference():
 def test_port_imports_with_jax_and_the_reference_blocked():
     """With ``jax`` and ``distkeras_tpu`` unimportable, every module of
     the port imports, the serving engine runs a request on the CPU, dense
-    and paged (constrained, speculative), and the sync trainer takes a
-    sequence-parallel step under each ``sp_impl`` (an sp mesh of one rank)."""
+    and paged (constrained, speculative), the sync trainer takes a
+    sequence-parallel step under each ``sp_impl`` (an sp mesh of one rank),
+    and the pipeline trainer a step under each schedule (a pipe of one
+    stage, dropout on)."""
     code = (
         "import importlib, sys\n"
         "for m in ('jax', 'jaxlib', 'flax', 'optax', 'distkeras_tpu'):\n"
@@ -118,6 +121,13 @@ def test_port_imports_with_jax_and_the_reference_blocked():
         "        batch_size=4, mesh={'sp': 1}, shard_sequence=True, device='cpu')\n"
         "    tr.train(Dataset.from_arrays(features=ids, label=ids))\n"
         "    print('SP', impl, len(tr.history))\n"
+        "from distkeras_tpu_torch import PipelineTrainer, bert_tiny_mlm\n"
+        "bt = bert_tiny_mlm(seq_len=16, vocab_size=64, dropout_rate=0.1)\n"
+        "for sched in ('gpipe', '1f1b'):\n"
+        "    tr = PipelineTrainer(bt, loss='fused_categorical_crossentropy', batch_size=4,\n"
+        "        num_microbatches=2, schedule=sched, device='cpu')\n"
+        "    tr.train(Dataset.from_arrays(features=ids, label=ids))\n"
+        "    print('PP', sched, len(tr.history))\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
@@ -125,6 +135,7 @@ def test_port_imports_with_jax_and_the_reference_blocked():
     assert "TOKENS 4" in proc.stdout
     assert "PAGED [5, 6, 5, 6]" in proc.stdout
     assert all(f"SP {impl} 1" in proc.stdout for impl in ("ring", "ring_stripe", "ulysses"))
+    assert all(f"PP {sched} 1" in proc.stdout for sched in ("gpipe", "1f1b"))
 
 
 def test_no_port_source_imports_the_reference():
@@ -184,7 +195,7 @@ def test_resolve_device():
                                    "generator", "serving_engine", "prefix_cache",
                                    "paged_engine", "tiered_engine", "score_fn",
                                    "initialize", "sharded_train_state", "place_sharded",
-                                   "sp_trainer"])
+                                   "sp_trainer", "pipeline_trainer"])
 def test_entry_points_raise_without_cuda(entry):
     _no_cuda()
     model = bert_tiny_mlm(seq_len=16, vocab_size=64)
@@ -218,6 +229,7 @@ def test_entry_points_raise_without_cuda(entry):
         "sp_trainer": lambda: SynchronousDistributedTrainer(
             with_ring_mesh(gpt, make_mesh({"sp": 1}, devices=[0])), mesh={"sp": 1},
             shard_sequence=True),
+        "pipeline_trainer": lambda: distkeras_tpu_torch.PipelineTrainer(model),
         "prefix_cache": lambda: PrefixCache(decode_cache(
             dataclasses.replace(gpt.config, decode=True, decode_slots=True), 1, "meta"),
             block_tokens=4, budget_bytes=1 << 16),

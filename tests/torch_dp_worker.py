@@ -3,7 +3,8 @@
     python tests/torch_dp_worker.py WORKDIR RANK WORLD
 
 ``tests/test_torch_data_parallel.py``, ``tests/test_torch_model_parallel.py``,
-``tests/test_torch_sequence_parallel.py`` and ``tests/test_torch_ring_attention.py``
+``tests/test_torch_sequence_parallel.py``, ``tests/test_torch_ring_attention.py``,
+``tests/test_torch_pipeline.py`` and ``tests/test_torch_pipeline_trainer.py``
 start WORLD of these. They join one gloo process group through a file
 store in WORKDIR, read the scenarios' inputs from ``WORKDIR/inputs.pkl``
 (weights bridged from the reference's init, and the data), run every
@@ -60,7 +61,19 @@ def sp_model(cfg: dict) -> Model:
     return bert._make(config, cfg["seq"], "bert_sp")
 
 
-MODELS = {"bert": bert_model, "mlp": mlp_model, "resnet": resnet_model, "sp": sp_model}
+def pp_model(cfg: dict) -> Model:
+    """A small bert-family model of ``cfg``'s widths and depth (flash on,
+    dropout ``cfg.get("dropout", 0)``), for the pipeline trainer."""
+    config = bert.BertConfig(
+        vocab_size=cfg["vocab"], hidden_size=cfg["hidden"], num_layers=cfg["layers"],
+        num_heads=cfg["heads"], mlp_dim=2 * cfg["hidden"], max_seq_len=cfg["seq"],
+        dropout_rate=cfg.get("dropout", 0.0), dtype=getattr(torch, cfg["dtype"]),
+        use_flash_attention=True)
+    return bert._make(config, cfg["seq"], "bert_pp")
+
+
+MODELS = {"bert": bert_model, "mlp": mlp_model, "resnet": resnet_model, "sp": sp_model,
+          "pp": pp_model}
 
 
 def with_weights(model: Model, weights: dict) -> Model:
@@ -237,9 +250,139 @@ def sp_forward(case: dict, workdir: str) -> dict:
     return out
 
 
+def pp_stage(chunk, x, seed=None):
+    """The pipeline tests' stage: ``tanh(x @ w + b)``; with a seed, dropout
+    at 0.25 from a generator seeded with it."""
+    y = torch.tanh(x @ chunk["w"] + chunk["b"])
+    if seed is None:
+        return y
+    keep = torch.rand(y.shape, generator=torch.Generator().manual_seed(seed)) >= 0.25
+    return torch.where(keep, y / 0.75, torch.zeros((), dtype=y.dtype))
+
+
+def pp_stage_aux(chunk, x):
+    y = pp_stage(chunk, x)
+    return y, (y * y).mean()
+
+
+def pp_last(chunk, head, x, labels, seed=None, with_aux=False):
+    """The pipeline tests' last stage with its head and loss: the squared
+    error of ``stage(x) @ hw + hb`` against the labels (and, as the metric
+    channel, the mean of the stage's output)."""
+    y = pp_stage(chunk, x, seed)
+    loss = ((y @ head["w"] + head["b"] - labels) ** 2).mean()
+    return (loss, y.mean()) if with_aux else loss
+
+
+def pp_engine(case: dict, workdir: str) -> dict:
+    """Each pipeline engine case over ``make_mesh(c["mesh"])``: this rank's
+    chunks of the logical stages ``c["w"]``/``c["b"]`` (``rank_stages``),
+    its dp slice of the microbatches; ``pipeline_apply`` under the cotangent
+    ``c["cot"]`` (and ``c["aux_cot"]``), or ``pipeline_1f1b_value_and_grad``."""
+    import functools
+
+    from distkeras_tpu_torch.parallel.pipeline import pipeline_apply, rank_stages
+    from distkeras_tpu_torch.parallel.pipeline_1f1b import pipeline_1f1b_value_and_grad
+
+    out = {}
+    for name, c in case["cases"].items():
+        mesh = make_mesh(c["mesh"])
+        where = mesh.coords(distributed.process_index())
+        d, k = where["pp"], where.get("dp", 0)
+        P, dp, V = mesh.shape["pp"], mesh.shape.get("dp", 1), c.get("V", 1)
+        stages = rank_stages(P, V, d)
+        chunks = [{"w": torch.tensor(c["w"][s]).requires_grad_(),
+                   "b": torch.tensor(c["b"][s]).requires_grad_()} for s in stages]
+        rows = c["mb"].shape[1] // dp
+        mine = slice(k * rows, (k + 1) * rows)
+        mb = torch.tensor(c["mb"][:, mine]).requires_grad_()
+        rep = {"d": d, "k": k, "stages": stages}
+        if c["engine"] == "gpipe":
+            aux = c.get("aux_cot") is not None
+            res = pipeline_apply(pp_stage_aux if aux else pp_stage, chunks, mb, mesh,
+                                 virtual_stages=V, with_aux=aux)
+            y, a = res if aux else (res, None)
+            obj = (y * torch.tensor(c["cot"][:, mine])).sum()
+            if aux:
+                obj = obj + a * c["aux_cot"]
+                rep["aux"] = a.item()
+            obj.backward()
+            rep["out"] = y.detach().numpy()
+            rep["g_mb"] = mb.grad.numpy()
+            rep["grads"] = [{n: t.grad.numpy() for n, t in ch.items()} for ch in chunks]
+        else:
+            head = {"w": torch.tensor(c["hw"]), "b": torch.tensor(c["hb"])}
+            last = functools.partial(pp_last, with_aux=c["with_aux"])
+            res = pipeline_1f1b_value_and_grad(
+                pp_stage, last, chunks, head, mb.detach(), torch.tensor(c["labels"][:, mine]),
+                mesh, rng=c.get("rng"), with_aux=c["with_aux"])
+            *values, g_stage, g_head, cot = res
+            rep["values"] = [v.item() for v in values]
+            rep["grads"] = [{n: t.numpy() for n, t in g_stage[0].items()}]
+            rep["head"] = {n: t.numpy() for n, t in g_head.items()}
+            rep["cot"] = cot.numpy()
+        out[name] = rep
+    return out
+
+
+def pp_train(case: dict, workdir: str) -> dict:
+    """``PipelineTrainer`` runs (``c["kwargs"]``, the mesh among them) of a
+    bert-family model from bridged weights; and the sync trainer's on a pp
+    mesh (``c["trainer"] == "sync"``)."""
+    out = {}
+    for name, c in case["cases"].items():
+        model = with_weights(MODELS[c["model"]](c["config"]), c["weights"])
+        data = dk.Dataset.from_arrays(**c["data"])
+        kwargs = dict(c["kwargs"])
+        if "checkpoint_dir" in kwargs:
+            kwargs["checkpoint_dir"] = os.path.join(workdir, kwargs["checkpoint_dir"])
+        cls = dk.SynchronousDistributedTrainer if c.get("trainer") == "sync" else \
+            dk.PipelineTrainer
+        trainer = cls(model, device="cpu", **kwargs)
+        trained = trainer.train(data.take(c["rows"]) if "rows" in c else data)
+        out[name] = {"history": trainer.history, "weights": host(trained.variables)}
+        if "checkpoint_dir" in kwargs:
+            out[name]["saved_steps"] = sorted(
+                int(n) for n in os.listdir(kwargs["checkpoint_dir"]) if n.isdigit())
+    return out
+
+
 RUNNERS = {"train": train, "predict": predict, "refuse": refuse, "groups": groups,
            "sharded_init": sharded_init, "tp_decode": tp_decode, "joint_group": joint_group,
-           "sp_attention": sp_attention, "sp_forward": sp_forward}
+           "sp_attention": sp_attention, "sp_forward": sp_forward, "pp_engine": pp_engine,
+           "pp_train": pp_train}
+
+
+def spawn_ranks(workdir: str, world: int, scenarios: dict, timeout: float = 280) -> list[dict]:
+    """Start ``world`` of these workers on ``scenarios`` (pickled into
+    ``workdir``), wait up to ``timeout`` seconds (killing them after) and
+    return each rank's results; a rank that fails fails the caller with its
+    log's tail."""
+    import subprocess
+
+    with open(os.path.join(workdir, "inputs.pkl"), "wb") as f:
+        pickle.dump(scenarios, f)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {**os.environ, "PYTHONPATH": repo + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), workdir, str(r),
+                               str(world)], cwd=repo, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in range(world)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        assert p.returncode == 0, f"rank {r} exited {p.returncode}:\n{log[-4000:]}"
+    results = []
+    for r in range(world):
+        with open(os.path.join(workdir, f"result-{r}.pkl"), "rb") as f:
+            results.append(pickle.load(f))
+    return results
 
 
 def main(workdir: str, rank: int, world: int) -> int:
