@@ -260,10 +260,31 @@ Phases, each of which must pass or the script exits non-zero:
    through the host; each rank's peak memory under gpipe, gpipe+remat and
    1f1b at M=4 and M=8 (8 rows a microbatch), with the card. No scaling
    figure.
-21. Print the kernels line, the card's name and power limit, and last the
+21. Multi-device serving and generation, in ranks spawned as phase 17's, on
+   gpt_small at full width (bf16, phase 14's weights from the seed), phase
+   14's engine configuration (8 slots, prefix cache, 128-token chunks) on
+   8 of its greedy prompts, 32 new tokens each. 21a: one NCCL rank: the
+   engine on a serving mesh of tp=1 and the plain engine on the same
+   requests give bitwise equal tokens. 21b-21f on two gloo ranks sharing
+   the card (the first leads and serves, the second follows): 21b tp=2
+   dense, 21c tp=2 paged (then its KVX1 export of the first prompt's
+   blocks, gathered to whole heads, imported by an unsharded engine on the
+   leader's card, exported again byte-equal, and that prompt served from
+   the imported blocks), 21d pp=2 at pipeline_depth 1, 21e pp=2 at
+   pipeline_depth 2 (two micro-batches of 4 a tick), 21f generate on a
+   dp=2 mesh: each request's greedy tokens equal to the plain engine's (or
+   generate()'s) or parting only at a bf16 tie of the full forward; the
+   decode step compiled once on every rank. Each serving case is timed
+   after a warm-up of two short requests. Logged per rank: tokens/s, ms
+   per decode tick, the share of the rank's wall in the collectives
+   (tp_all_reduce, tp_gather, pp_p2p, pp_broadcast, mesh_plan),
+   bubble_fraction (pp), peak memory, with the card. Decode runs dense
+   masked attention and computes no loss, so the phase launches none of
+   K1-K6. No scaling figure.
+22. Print the kernels line, the card's name and power limit, and last the
    result line {"ok": true, "device": {...}}.
 
-Phases 9-11, 15f, 16, 17, 18, 19 and 20 write their checkpoints, weight files and
+Phases 9-11, 15f, 16, 17, 18, 19, 20 and 21 write their checkpoints, weight files and
 stores under build/chip_smoke/ (git-ignored) and remove them.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
@@ -1827,6 +1848,28 @@ def _greedy_parts_at_ties(tag, model, variables, prompts, got, want) -> list:
     return matched
 
 
+def serving_requests(vocab, waves=4, per_wave=8, shared_len=128, min_len=16, max_len=256,
+                     temperature=0.8) -> tuple:
+    """Phase 14's seeded prompts and temperatures: ``waves * per_wave``
+    prompts of ``min_len``-``max_len`` tokens, two in each wave (one greedy,
+    one sampled) sharing a ``shared_len``-token prefix so that later waves
+    can hit what the first stored; even requests greedy. Returns
+    ``(prompts, temps, shared_ids)``."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 14)
+    n = waves * per_wave
+    lengths = rng.integers(min_len, max_len + 1, size=n)
+    prompts = [rng.integers(0, vocab, size=int(L)).tolist() for L in lengths]
+    shared = rng.integers(0, vocab, size=shared_len).tolist()
+    shared_ids = [w * per_wave + j for w in range(waves) for j in (0, 1)]
+    for i in shared_ids:
+        tail = int(rng.integers(1, max_len - shared_len + 1))
+        prompts[i] = shared + rng.integers(0, vocab, size=tail).tolist()
+    temps = [0.0 if i % 2 == 0 else temperature for i in range(n)]
+    return prompts, temps, shared_ids
+
+
 def serving_phase(slots=8, waves=4, per_wave=8, new=64, shared_len=128, min_len=16,
                   max_len=256, temperature=0.8, top_k=50, chunk=128, server_requests=4) -> dict:
     """14: the port's ServingEngine on gpt_small at full width (bf16, random
@@ -1845,18 +1888,9 @@ def serving_phase(slots=8, waves=4, per_wave=8, new=64, shared_len=128, min_len=
     model = bert.gpt_small()
     cfg = model.config
     variables = model.init(SEED)
-    rng = np.random.default_rng(SEED + 14)
     n = waves * per_wave
-    lengths = rng.integers(min_len, max_len + 1, size=n)
-    prompts = [rng.integers(0, cfg.vocab_size, size=int(L)).tolist() for L in lengths]
-    # 8 prompts share a 128-token prefix, two in each wave, one greedy and
-    # one sampled, so that later waves can hit what the first stored.
-    shared = rng.integers(0, cfg.vocab_size, size=shared_len).tolist()
-    shared_ids = [w * per_wave + j for w in range(waves) for j in (0, 1)]
-    for i in shared_ids:
-        tail = int(rng.integers(1, max_len - shared_len + 1))
-        prompts[i] = shared + rng.integers(0, cfg.vocab_size, size=tail).tolist()
-    temps = [0.0 if i % 2 == 0 else temperature for i in range(n)]
+    prompts, temps, shared_ids = serving_requests(cfg.vocab_size, waves, per_wave, shared_len,
+                                                  min_len, max_len, temperature)
     greedy_ids = [i for i in range(n) if temps[i] <= 0]
     kw = dict(slots=slots, max_queue=64, prefix_cache_mb=64, prefix_block_tokens=16,
               prefill_chunk=chunk, top_k=top_k, seed=SEED)
@@ -4018,6 +4052,292 @@ def pp_phase(root=REPO, seq=128, batch=32, steps=3, model_name="bert_base_mlm",
     return {k: sum(c[k] for c in counts) for k in counts[0]}
 
 
+# -- phase 21: multi-device serving and generation ------------------------------
+
+MESH_NEW = 32
+MESH_COLLECTIVES = ("tp_all_reduce", "tp_gather", "pp_p2p", "pp_broadcast", "mesh_plan",
+                    "pp_join")
+# gpt_small's vocabulary, 50257, splits over no tp: the reference's engine and
+# this one refuse it typed, as Megatron's layout does. The tp cases serve
+# gpt_small with the vocabulary padded to 50304 (a multiple of 64, as GPT-2
+# trainers pad it); the pp cases the published 50257.
+MESH_TP_VOCAB = 50304
+# (tag, serving mesh, engine options over phase 14's, vocabulary or None)
+MESH_CASES = (
+    ("21b", {"tp": 2}, {}, MESH_TP_VOCAB),
+    ("21c", {"tp": 2}, {"prefix_cache_mb": 0, "kv_pool_mb": 256, "kv_block_tokens": 16},
+     MESH_TP_VOCAB),
+    ("21d", {"tp": 1, "pp": 2}, {}, None),
+    ("21e", {"tp": 1, "pp": 2}, {"pipeline_depth": 2}, None),
+)
+
+
+def _mesh_model(spec, vocab, device, cache, only=True) -> tuple:
+    """The phase's model of ``spec`` (name, arguments) at ``vocab`` (None:
+    its own) and its weights from the seed, made once; ``only``: drop the
+    models made before."""
+    from distkeras_tpu_torch.models import bert
+
+    if vocab not in cache:
+        if only:
+            # One model at a time: a rank's peak memory then counts the
+            # whole weights of the model it serves, not of every one.
+            cache.clear()
+        model = getattr(bert, spec[0])(**({**spec[1], "vocab_size": vocab} if vocab
+                                          else spec[1]))
+        cache[vocab] = (model, model.init(SEED, device=device))
+    return cache[vocab]
+
+
+def _mesh_kw(kw, extra) -> dict:
+    out = {**kw, **extra}
+    if out.get("kv_pool_mb"):
+        out.pop("prefix_cache_mb", None)
+        out.pop("prefix_block_tokens", None)
+    return out
+
+
+def _mesh_report(engine, tracer, outs, wall, device) -> dict:
+    """A rank's figures for one serving case: tokens/s and ms per decode
+    tick (leader: the decode_tick span, which on a mesh holds the tick's
+    collectives), the share of its wall in the collective spans, peak
+    memory."""
+    import torch
+
+    totals = span_totals(tracer)
+    ticks, tick_s = totals.get(("decode_tick", None), [0, 0.0])
+    coll = {name: totals.get((name, None), [0, 0.0])[1] for name in MESH_COLLECTIVES}
+    tokens = sum(len(o) for o in outs) if outs else 0
+    return {"tokens": tokens, "wall_s": wall, "tokens_per_s": tokens / wall if wall else 0.0,
+            "ticks": ticks, "ms_per_tick": tick_s / ticks * 1e3 if ticks else 0.0,
+            "collective_s": coll, "collective_share": sum(coll.values()) / wall if wall else 0.0,
+            "peak_mib": (torch.cuda.max_memory_allocated() / 2**20
+                         if torch.device(device).type == "cuda" else 0.0)}
+
+
+def mesh_tp1_task(rank, world, prompts, new=MESH_NEW, kw=None, device="cuda",
+                  model=("gpt_small", {})) -> dict:
+    """21a: one NCCL rank: the engine on a serving mesh of tp=1 and the
+    plain engine, on the same requests."""
+    import torch
+
+    from distkeras_tpu_torch.models import bert
+    from distkeras_tpu_torch.parallel.mesh import serving_mesh
+    from distkeras_tpu_torch.serving import ServingEngine
+
+    model, variables = _mesh_model(model, None, device, {})
+    wave = [[(p, new, 0.0) for p in prompts]]
+    plain = ServingEngine(model, variables, device=device, **kw)
+    _run_requests(plain, wave)  # warm-up
+    plain.reopen()
+    got_plain, wall_plain = _run_requests(plain, wave)
+    del plain
+    reset_counts()
+    engine = ServingEngine(model, variables, mesh=serving_mesh({"tp": 1}), device=device, **kw)
+    got_mesh, wall_mesh = _run_requests(engine, wave)
+    counts = read_counts()
+    out = {"backend": torch.distributed.get_backend(), "plain": got_plain, "mesh": got_mesh,
+           "wall_plain": wall_plain, "wall_mesh": wall_mesh,
+           "compiles": engine.decode_compile_counts(), "counts": counts,
+           "link": engine._link.stats()}
+    engine.close()
+    return out
+
+
+def mesh_gloo_task(rank, world, prompts, gen_prompt, new=MESH_NEW, kw=None, cases=MESH_CASES,
+                   device="cuda", model=("gpt_small", {})) -> dict:
+    """21b-21f on ``world`` gloo ranks sharing the card: each serving case
+    on its mesh (the first rank serves, the others follow), the KVX1 hop
+    of 21c, then generate on a dp mesh."""
+    import torch
+
+    from distkeras_tpu_torch.inference.generate import generate
+    from distkeras_tpu_torch.models import bert
+    from distkeras_tpu_torch.parallel.mesh import make_mesh, serving_mesh
+    from distkeras_tpu_torch.serving import ServingEngine
+    from distkeras_tpu_torch.telemetry.spans import disable_tracing, enable_tracing
+
+    spec, models = model, {}
+    wave = [[(p, new, 0.0) for p in prompts]]
+    out = {"backend": torch.distributed.get_backend(), "counts": None}
+    reset_counts()
+    for tag, shape, extra, vocab in cases:
+        model, variables = _mesh_model(spec, vocab, device, models)
+        opts = _mesh_kw(kw, extra)
+        engine = ServingEngine(model, variables, mesh=serving_mesh(shape), device=device, **opts)
+        _synchronize(device)
+        if torch_device_type(device) == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        tracer = enable_tracing()
+        t0 = time.perf_counter()
+        rep = {}
+        if engine.is_leader:
+            # Warm-up (the groups' first collectives, cuBLAS at these
+            # shapes), then the timed run under a fresh tracer; a
+            # follower's figures span both.
+            _run_requests(engine, [[(p, 4, 0.0) for p in prompts[:2]]])
+            engine.reopen()
+            tracer = enable_tracing()
+            outs, wall = _run_requests(engine, wave)
+            rep["outs"] = outs
+            rep["bubble"] = engine.metrics.bubble.fraction
+        else:
+            rep["ops"] = engine.follow()
+            outs, wall = None, time.perf_counter() - t0
+        _synchronize(device)
+        disable_tracing()
+        rep.update(_mesh_report(engine, tracer, outs, wall, device))
+        if engine.is_leader:
+            rep["compiles"] = engine.decode_compile_counts()
+            if opts.get("kv_pool_mb"):
+                rep["kvx1"] = _mesh_kv_hop(engine, model, variables, opts, prompts[0], new,
+                                           device)
+            engine.close()
+        out[tag] = rep
+        del engine
+        if torch_device_type(device) == "cuda":
+            torch.cuda.empty_cache()
+    model, variables = _mesh_model(spec, None, device, models)
+    t0 = time.perf_counter()
+    toks = generate(model, variables, gen_prompt, new, greedy=True,
+                    mesh=make_mesh({"dp": world}), device=device)
+    out["21f"] = {"tokens": toks.tolist(), "wall_s": time.perf_counter() - t0}
+    out["counts"] = read_counts()
+    return out
+
+
+def _mesh_kv_hop(engine, model, variables, opts, prompt, new, device) -> dict:
+    """21c's KVX1 hop: the tp=2 engine's export of ``prompt``'s blocks
+    (whole heads), imported by an unsharded engine on this rank's card,
+    exported again, and ``prompt`` served there from the imported blocks."""
+    import asyncio
+
+    from distkeras_tpu_torch.serving import ServingEngine
+
+    async def export(e):
+        task = asyncio.create_task(e.run())
+        try:
+            return await _kv_export(e, prompt)
+        finally:
+            e.shutdown(drain=True)
+            await task
+
+    engine.reopen()
+    first = asyncio.run(export(engine))
+    plain = ServingEngine(model, variables, device=device, **opts)
+
+    async def hop():
+        task = asyncio.create_task(plain.run())
+        try:
+            imported = await _kv_import(plain, first["payload"])
+            again = await _kv_export(plain, prompt)
+            toks = await plain.submit(prompt, new).result()
+            return imported, again, toks
+        finally:
+            plain.shutdown(drain=True)
+            await task
+
+    imported, again, toks = asyncio.run(hop())
+    return {"bytes": len(first["payload"]), "blocks": first["blocks"],
+            "adopted": imported["adopted_blocks"], "equal": first["payload"] == again["payload"],
+            "tokens": toks, "prefix_hit_tokens": plain.metrics.summary().get(
+                "prefix_hit_rate", 0.0)}
+
+
+def mesh_phase(served, root=REPO, requests=8, new=MESH_NEW, device="cuda",
+               cases=MESH_CASES, model_spec=("gpt_small", {}), kw=None) -> dict:
+    """21: multi-device serving and generation in spawned ranks on phase
+    14's model, weights, engine configuration and greedy prompts. Returns
+    the parent's launch counts (the phase launches none of K1-K6)."""
+    import numpy as np
+
+    from distkeras_tpu_torch.inference.generate import generate
+    from distkeras_tpu_torch.serving import ServingEngine
+
+    card = card_line()
+    t_phase = time.perf_counter()
+    model, variables = served["model"], served["variables"]
+    greedy = [p for p, t in zip(served["prompts"], served["temps"]) if t <= 0][:requests]
+    kw = kw or dict(slots=8, max_queue=64, prefix_cache_mb=64, prefix_block_tokens=16,
+                    prefill_chunk=128, top_k=50, seed=SEED)
+    wave = [[(p, new, 0.0) for p in greedy]]
+    models = {None: (model, variables)}
+    want = {}
+    for vocab in {c[3] for c in cases} | {None}:
+        m, v = _mesh_model(model_spec, vocab, device, models, only=False)
+        want[vocab], _ = _run_requests(ServingEngine(m, v, device=device, **kw), wave)
+    gen_len = min(len(p) for p in greedy)
+    gen_prompt = np.asarray([p[:gen_len] for p in greedy], np.int32)
+    gen_want = generate(model, variables, gen_prompt, new, greedy=True, device=device)
+    counting = torch_device_type(device) == "cuda"
+    reset_counts()
+    (a,) = dp_spawn(root, "21a", None if counting else "gloo", 1, "mesh_tp1_task",
+                    prompts=greedy, new=new, kw=kw, device=device, model=model_spec)
+    check(a["backend"] == ("nccl" if counting else "gloo"), f"21a: backend {a['backend']}")
+    check(a["mesh"] == a["plain"], "21a: tp=1 mesh engine's tokens differ from the plain "
+                                   "engine's on the same requests")
+    check(a["compiles"] == [1], f"21a: decode compile counts {a['compiles']}")
+    log(f"  21a {model_spec[0]}, {len(greedy)} greedy requests x {new} tokens, 8 slots, mesh tp=1, "
+        f"one {a['backend']} rank: tokens bitwise equal to the plain engine's: True; "
+        f"{sum(map(len, a['mesh'])) / a['wall_mesh']:.1f} tokens/s against the plain engine's "
+        f"{sum(map(len, a['plain'])) / a['wall_plain']:.1f}; control plane {a['link']}; "
+        f"launches {a['counts']} ({card})")
+    check(not any(a["counts"].values()), f"21a: kernels launched {a['counts']}")
+    _greedy_parts_at_ties("21a (against 14's engine)", model, variables, greedy, a["mesh"],
+                          want[None])
+    ranks = dp_spawn(root, "21b", "gloo", 2, "mesh_gloo_task", prompts=greedy,
+                     gen_prompt=gen_prompt.tolist(), new=new, kw=kw, cases=cases, device=device,
+                     model=model_spec)
+    where = "gloo, 2 ranks sharing one card: a check, not a scaling figure"
+    for tag, shape, extra, vocab in cases:
+        lead = ranks[0][tag]
+        m, v = models[vocab]
+        matched = _greedy_parts_at_ties(tag, m, v, greedy, lead["outs"], want[vocab])
+        check(lead["compiles"] == [1, 1], f"{tag}: decode compile counts {lead['compiles']}")
+        for r, rep in enumerate(ranks):
+            rep = rep[tag]
+            shares = ", ".join(f"{k} {v / rep['wall_s']:.1%}" for k, v in
+                               rep["collective_s"].items() if v)
+            log(f"  {tag} {model_spec[0]} mesh {shape} {extra or ''} rank {r} ({where}): "
+                + (f"{rep['tokens_per_s']:.1f} tokens/s, {rep['ticks']} decode ticks at "
+                   f"{rep['ms_per_tick']:.2f} ms, " if r == 0 else f"{rep['ops']} operations, ")
+                + f"wall {rep['wall_s']:.2f} s, collectives {rep['collective_share']:.1%} "
+                f"({shares or 'none'}), peak memory {rep['peak_mib']:.1f} MiB"
+                + (f", bubble_fraction {rep['bubble']:.3f}" if r == 0 and rep.get("bubble")
+                   is not None else "") + f" ({card})")
+        log(f"  {tag}: greedy tokens equal to the plain engine's over "
+            f"{sum(matched)}/{sum(map(len, want[vocab]))} tokens (partings only at bf16 ties)"
+            + (f"; vocabulary {vocab}" if vocab else ""))
+        if "pp" in shape:
+            check(ranks[0][tag]["bubble"] is not None, f"{tag}: no bubble_fraction")
+        hop = lead.get("kvx1")
+        if hop is not None:
+            log(f"  {tag} KVX1: {hop['blocks']} blocks, {hop['bytes'] / 2**20:.2f} MiB exported "
+                f"at tp=2 (whole heads), {hop['adopted']} adopted at tp=1, re-export "
+                f"byte-equal: {hop['equal']}")
+            check(hop["equal"] and hop["adopted"] == hop["blocks"] > 0,
+                  f"{tag}: KVX1 hop {hop}")
+            _greedy_parts_at_ties(f"{tag} KVX1 tp=1", m, v, greedy[:1], [hop["tokens"]],
+                                  want[vocab][:1])
+    for r, rep in enumerate(ranks):
+        check(rep["backend"] == "gloo", f"21: rank {r} backend {rep['backend']}")
+        if counting:
+            check(not any(rep["counts"].values()), f"21: rank {r} launched {rep['counts']}")
+        toks = rep["21f"]["tokens"]
+        _greedy_parts_at_ties(f"21f rank {r}", model, variables, gen_prompt.tolist(), toks,
+                              gen_want.tolist())
+        log(f"  21f generate on a dp=2 mesh, {len(toks)} x {new} tokens, rank {r}: "
+            f"{rep['21f']['wall_s']:.2f} s ({where}; {card})")
+    log(f"  21: phase wall {time.perf_counter() - t_phase:.2f} s ({card})")
+    return read_counts()
+
+
+def torch_device_type(device) -> str:
+    import torch
+
+    return torch.device(device).type
+
+
 async def _kv_export(engine, prompt) -> dict:
     ev, res = engine.request_kv_export(prompt)
     await ev.wait()
@@ -4146,7 +4466,6 @@ def main(argv=None) -> int:
     log("phase 16: the gpt_small fleet (router, replicas, disaggregated prefill/decode, KV "
         "tiers, faults and rolling reload, deploy, the command line) at full width")
     runs.append(fleet_phase(served))
-    del served
     log("phase 17: data parallelism over torch.distributed (one NCCL rank; two gloo ranks "
         "sharing the card): bert_base_mlm and resnet50 at full width")
     runs.append(dp_phase(root))
@@ -4159,6 +4478,11 @@ def main(argv=None) -> int:
     log("phase 20: pipeline parallelism (one NCCL rank at pp=1; gpipe, remat, virtual stages "
         "and 1f1b at pp=2 on two gloo ranks sharing the card): bert_base_mlm at full width")
     runs.append(pp_phase(root))
+    log("phase 21: multi-device serving and generation (one NCCL rank at tp=1; tp=2 dense and "
+        "paged, KVX1 tp=2 to tp=1, pp=2 at depth 1 and 2, generate on dp=2, on two gloo ranks "
+        "sharing the card): gpt_small at full width")
+    runs.append(mesh_phase(served))
+    del served
     launches = {k: sum(r[k] for r in runs) for k in runs[0]}
     for k, n in launches.items():
         check(n > 0, f"kernel {k} was not launched on the main path")

@@ -97,11 +97,42 @@ def _check_context(model, dec_cfg, prompt, max_new_tokens: int):
         )
 
 
-def _refuse_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "batch-parallel decoding over a mesh is not ported yet: it comes with "
-            "multi-device serving and generation (ROADMAP.md §A item A10e)")
+def _shard_prompt(mesh, prompt):
+    """Batch-parallel decoding (reference ``_shard_prompt``): the prompt
+    splits over the mesh's ``dp`` axis (else its first axis), with the
+    reference's error when the batch does not divide. Every rank is given
+    the whole prompt and decodes its own rows. Returns ``(rows, shard)``:
+    ``rows`` is ``(lo, hi, B, group)``, None without a mesh."""
+    if mesh is None:
+        return None, prompt
+    from distkeras_tpu_torch.parallel.mesh import Mesh
+
+    if not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a distkeras_tpu_torch Mesh, not {type(mesh).__name__}")
+    axis = "dp" if "dp" in mesh.axis_names else mesh.axis_names[0]
+    n = mesh.shape[axis]
+    if prompt.shape[0] % n:
+        raise ValueError(f"batch {prompt.shape[0]} not divisible by mesh {axis}={n}")
+    if n == 1:
+        return None, prompt
+    group = mesh.group(axis)
+    if group is None:
+        raise RuntimeError(f"a mesh with {axis}={n} needs a process group over its ranks "
+                           f"(distkeras_tpu_torch.parallel.distributed.initialize)")
+    i = mesh.coords(torch.distributed.get_rank())[axis]
+    b = prompt.shape[0] // n
+    return (i * b, (i + 1) * b, prompt.shape[0], group), prompt[i * b:(i + 1) * b]
+
+
+def _gather_rows(rows, x: torch.Tensor) -> torch.Tensor:
+    """Every rank's rows of ``x`` (leading dimension) back in batch order,
+    on every rank of the mesh axis."""
+    if rows is None:
+        return x
+    group = rows[3]
+    parts = [torch.empty_like(x) for _ in range(torch.distributed.get_world_size(group))]
+    torch.distributed.all_gather(parts, x.contiguous(), group=group)
+    return torch.cat(parts, dim=0)
 
 
 def _empty_cache(dec_cfg: BertConfig, batch_size: int, device) -> dict[str, torch.Tensor]:
@@ -134,19 +165,25 @@ def greedy_ids(logits: torch.Tensor) -> torch.Tensor:
 
 
 def sample_rows(logits: torch.Tensor, temps: torch.Tensor, generator: torch.Generator,
-                top_k: int | None) -> torch.Tensor:
+                top_k: int | None, rows: tuple | None = None) -> torch.Tensor:
     """Per-row sampling over ``[B, V]`` logits: rows with ``temps <= 0``
     take :func:`greedy_ids`; the others sample at their own temperature,
     with optional top-k filtering (the k-th largest scaled logit and every
     logit equal to it stay). The draw is the Gumbel-max form of a
-    categorical draw, as ``jax.random.categorical``'s, from ``generator``."""
+    categorical draw, as ``jax.random.categorical``'s, from ``generator``.
+    ``rows=(lo, hi, total)``: these logits are rows ``lo:hi`` of a batch of
+    ``total``; the draw is the whole batch's, sliced, so a shard samples
+    what the whole batch would."""
     logits = logits.float()
     greedy = greedy_ids(logits)
     scaled = logits / torch.clamp(temps, min=1e-6)[:, None]
     if top_k is not None:
         kth = torch.topk(scaled, top_k, dim=-1).values[:, -1:]
         scaled = scaled.masked_fill(scaled < kth, -torch.inf)
-    u = torch.rand(scaled.shape, generator=generator, device=scaled.device)
+    shape = scaled.shape if rows is None else (rows[2], scaled.shape[1])
+    u = torch.rand(shape, generator=generator, device=scaled.device)
+    if rows is not None:
+        u = u[rows[0]:rows[1]]
     sampled = torch.argmax(scaled - torch.log(-torch.log(u)), dim=-1).to(torch.int32)
     return torch.where(temps > 0, sampled, greedy)
 
@@ -194,10 +231,17 @@ def generate(
     """Generate ``max_new_tokens`` continuations of ``prompt`` ``[B, S0]``
     on ``device`` (CUDA unless ``"cpu"`` is asked for; the weights move
     there). Returns an int32 ``[B, max_new_tokens]`` array of token ids.
-    ``seed`` seeds the sampling generator on the device. ``mesh`` (the
-    reference's batch-parallel decoding) is not ported and raises."""
-    _refuse_mesh(mesh)
+    ``seed`` seeds the sampling generator on the device.
+
+    ``mesh``: batch-parallel decoding (reference ``mesh``), run by every
+    rank of the mesh with the same arguments: the prompt splits over the
+    mesh's ``dp`` axis (else its first; ``B`` must divide it), each rank
+    decodes its rows with no communication, and the rows are gathered
+    back to every rank. Each shard draws the whole batch's random numbers
+    and keeps its rows', so the tokens are the unsharded call's."""
     dec, dec_cfg, params, prompt = _prepare(model, variables, prompt, max_new_tokens, device)
+    rows, prompt = _shard_prompt(mesh, prompt)
+    draw = None if rows is None else rows[:3]
     if top_k is not None and not 1 <= top_k <= dec_cfg.vocab_size:
         raise ValueError(f"top_k={top_k} outside [1, vocab_size={dec_cfg.vocab_size}]")
     B, dev = prompt.shape[0], prompt.device
@@ -207,7 +251,7 @@ def generate(
         temps = torch.full((B,), float(temperature), dtype=torch.float32, device=dev)
 
     def choose(logits):
-        return greedy_ids(logits) if greedy else sample_rows(logits, temps, gen, top_k)
+        return greedy_ids(logits) if greedy else sample_rows(logits, temps, gen, top_k, draw)
 
     with torch.inference_mode():
         # Prefill: one forward over the whole prompt fills every cache.
@@ -216,7 +260,7 @@ def generate(
         for _ in range(max_new_tokens - 1):
             logits, cache = _step(dec, params, cache, tokens[-1][:, None])
             tokens.append(choose(logits))
-        return torch.stack(tokens, dim=1).cpu().numpy()
+        return _gather_rows(rows, torch.stack(tokens, dim=1)).cpu().numpy()
 
 
 def _top_k(x: torch.Tensor, k: int):
@@ -244,11 +288,12 @@ def beam_search(
     Returns ``(sequences, scores)``: int32 ``[B, num_beams,
     max_new_tokens]`` sorted by score, and float32 ``[B, num_beams]`` total
     log-probabilities; ``sequences[:, 0]`` is the best beam. No EOS
-    handling. ``device`` and ``mesh`` as in :func:`generate`."""
-    _refuse_mesh(mesh)
+    handling. ``device`` and ``mesh`` as in :func:`generate` (an item's
+    beams stay with its shard)."""
     if num_beams < 1:
         raise ValueError(f"num_beams must be >= 1, got {num_beams}")
     dec, dec_cfg, params, prompt = _prepare(model, variables, prompt, max_new_tokens, device)
+    rows, prompt = _shard_prompt(mesh, prompt)
     K, (B, _), N, dev = num_beams, prompt.shape, max_new_tokens, prompt.device
 
     def apply(cache, tokens):
@@ -276,7 +321,8 @@ def beam_search(
             cache = gather(cache, (torch.arange(B, device=dev)[:, None] * K + parent).reshape(-1))
             hist = torch.take_along_dim(hist, parent[:, :, None], dim=1)
             hist[:, :, i] = tok
-        return hist.cpu().numpy(), scores.cpu().numpy()
+        return (_gather_rows(rows, hist).cpu().numpy(),
+                _gather_rows(rows, scores).cpu().numpy())
 
 
 class Generator:

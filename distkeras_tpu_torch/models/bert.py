@@ -573,70 +573,59 @@ class Bert(nn.Module):
                 nn.init.zeros_(module.bias)
 
     def forward(self, token_ids, train: bool = False, rng: int | None = None,
-                positions=None, block_tables=None, return_hidden: bool = False):
+                positions=None, block_tables=None, return_hidden: bool = False,
+                stage=None):
         """``rng``: the integer seed of this forward's dropout masks (needed
         when ``train`` and ``dropout_rate > 0``); site ``i`` draws from
         ``fold_in(rng, i)``. In decode mode returns ``(logits, new_cache)``.
         ``positions``/``block_tables``: the paged decode's inputs (reference
         ``Bert.__call__``). ``return_hidden``: the trunk's last activation
-        in place of the logits."""
+        in place of the logits.
+
+        ``stage=(lo, hi, first, last)``: the contiguous layer slice
+        ``[lo, hi)`` of a pipeline stage (reference ``bert.py:458-470``).
+        A ``first`` stage takes token ids and runs the embedding (and, dense
+        decode, advances ``pos_index``); a later stage takes the previous
+        stage's activation ``[B, S, H]`` in the compute dtype as its first
+        argument. A ``last`` stage runs the final LayerNorm and the tied
+        head; an earlier one returns the activation. The weights and the
+        cache given are the stage's own (``parallel/pp.py``)."""
         cfg = self.cfg
+        lo, hi, first, last = (0, cfg.num_layers, True, True) if stage is None else stage
         B, S = token_ids.shape[0], token_ids.shape[1]
         table = self.token_embed.weight  # this rank's vocab rows under tp
         tp = _tp(cfg)
-        if tp is None:
-            x = F.embedding(token_ids.long(), table)
-        else:
-            rows = table.shape[0]
-            ids = token_ids.long() - tp[1] * rows
-            inside = (ids >= 0) & (ids < rows)
-            x = torch.where(inside[..., None], F.embedding(ids.clamp(0, rows - 1), table), 0.0)
-            x = _ReduceFromTP.apply(x, tp[2])
-        x = x.to(cfg.dtype)
         new_cache = plan = None
-        if cfg.decode and cfg.paged_blocks > 0:
-            # Position-stateless: the positional window comes from the
-            # caller's positions (reference bert.py:512-526).
+        if cfg.decode:
             new_cache = {}
+        if cfg.decode and cfg.paged_blocks > 0 and (first or lo < hi):
+            # Position-stateless: the positional window comes from the
+            # caller's positions (reference bert.py:512-526), and every
+            # stage's layers index the pools through the same plan.
             if positions is None:
                 raise ValueError("paged decode needs positions [B]")
             if block_tables is None:
                 raise ValueError(
                     "paged decode needs positions [B] and block_tables [B, T] passed to "
                     "every apply")
-            pos = _pos_window(self.pos_embed, positions, S, cfg.max_seq_len)
-            x = x + pos.to(cfg.dtype)
             plan = PagedPlan(block_tables, positions, S, cfg.paged_blocks, cfg.page_tokens)
-        elif cfg.decode:
-            # Positions advance with the caches (reference bert.py:527-551).
-            new_cache = {}
-            pi = _cache_leaf(self, "pos_index", (B,) if cfg.decode_slots else (),
-                             torch.int32, x.device)
-            if cfg.decode_slots:
-                pos = _pos_window(self.pos_embed, pi, S, cfg.max_seq_len)  # [B, S, H]
-                new_cache["pos_index"] = torch.clamp(pi + S, max=cfg.max_seq_len)
-            else:
-                # lax.dynamic_slice clamps the window into the table; a
-                # plain slice past its end would silently shorten.
-                start = pi.long().clamp(0, cfg.max_seq_len - S)
-                pos = self.pos_embed[:, start + torch.arange(S, device=x.device)]
-                new_cache["pos_index"] = pi + S
-            x = x + pos.to(cfg.dtype)
-        elif cfg.ring_mesh is not None:
-            x = x + self.pos_embed[0][_sp_positions(cfg, S, x.device)].to(cfg.dtype)
+        if first:
+            x = self._embed(token_ids, table, tp, positions, new_cache)
         else:
-            x = x + self.pos_embed[:, :S].to(cfg.dtype)
+            x = token_ids  # the previous stage's activation, not re-rounded
 
         def site(i):
             return None if rng is None else fold_in(rng, i)
 
-        x = dropout(x, cfg.dropout_rate if train else 0.0, site(0))
-        for i, layer in enumerate(self.layers()):
+        if first:
+            x = dropout(x, cfg.dropout_rate if train else 0.0, site(0))
+        for i in range(lo, hi):
+            layer = getattr(self, f"layer_{i}")
             layer_cache = None if new_cache is None else {}
             x = layer(x, train=train, rng=site(i + 1), new_cache=layer_cache, paged=plan)
             if layer_cache:
                 new_cache.update({f"layer_{i}.attention.{k}": v for k, v in layer_cache.items()})
-        if return_hidden:
+        if return_hidden or not last:
             return x if new_cache is None else (x, new_cache)
         x = self.ln_final(x.float())
         if tp is not None:
@@ -652,6 +641,42 @@ class Bert(nn.Module):
         if tp is not None:  # [B, S, V/tp] -> [B, S, V]: the loss takes whole rows
             logits = _GatherFromTP.apply(logits, tp[2], tp[1], tp[0])
         return logits if new_cache is None else (logits, new_cache)
+
+    def _embed(self, token_ids, table, tp, positions, new_cache):
+        """The first stage's input: token and positional embeddings in the
+        compute dtype; dense decode also advances ``pos_index`` into
+        ``new_cache``."""
+        cfg = self.cfg
+        B, S = token_ids.shape[0], token_ids.shape[1]
+        if tp is None:
+            x = F.embedding(token_ids.long(), table)
+        else:
+            rows = table.shape[0]
+            ids = token_ids.long() - tp[1] * rows
+            inside = (ids >= 0) & (ids < rows)
+            x = torch.where(inside[..., None], F.embedding(ids.clamp(0, rows - 1), table), 0.0)
+            x = _ReduceFromTP.apply(x, tp[2])
+        x = x.to(cfg.dtype)
+        if cfg.decode and cfg.paged_blocks > 0:
+            pos = _pos_window(self.pos_embed, positions, S, cfg.max_seq_len)
+        elif cfg.decode:
+            # Positions advance with the caches (reference bert.py:527-551).
+            pi = _cache_leaf(self, "pos_index", (B,) if cfg.decode_slots else (),
+                             torch.int32, x.device)
+            if cfg.decode_slots:
+                pos = _pos_window(self.pos_embed, pi, S, cfg.max_seq_len)  # [B, S, H]
+                new_cache["pos_index"] = torch.clamp(pi + S, max=cfg.max_seq_len)
+            else:
+                # lax.dynamic_slice clamps the window into the table; a
+                # plain slice past its end would silently shorten.
+                start = pi.long().clamp(0, cfg.max_seq_len - S)
+                pos = self.pos_embed[:, start + torch.arange(S, device=x.device)]
+                new_cache["pos_index"] = pi + S
+        elif cfg.ring_mesh is not None:
+            pos = self.pos_embed[0][_sp_positions(cfg, S, x.device)]
+        else:
+            pos = self.pos_embed[:, :S]
+        return x + pos.to(cfg.dtype)
 
 
 def decode_cache(cfg: BertConfig, batch_size: int, device) -> dict[str, torch.Tensor]:

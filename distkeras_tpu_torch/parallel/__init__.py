@@ -1,10 +1,11 @@
 """Parallelism: meshes over process ranks (``mesh``), the process group
 and the sequence-parallel collectives (``distributed``), sharding rules
 (``sharding``), model- and sequence-parallel training (``gspmd``), pipeline
-parallelism (``pipeline``: GPipe and interleaved stages; ``pipeline_1f1b``),
+parallelism (``pipeline``: GPipe and interleaved stages; ``pipeline_1f1b``;
+``pp``, the serving engine's stage plan),
 and the parameter-server protocols, services and transports. The mesh
 helpers import eagerly; ``distributed``, ``sharding``, ``gspmd``,
-``pipeline`` and ``pipeline_1f1b`` (and the collectives ``axis_ring``,
+``pipeline``, ``pipeline_1f1b`` and ``pp`` (and the collectives ``axis_ring``,
 ``sp_permute``, ``sp_all_to_all``, ``pp_exchange``, and the engines
 ``pipeline_apply`` and ``pipeline_1f1b_value_and_grad``) resolve on first
 use, as in ``distkeras_tpu/parallel/__init__.py``."""
@@ -21,6 +22,7 @@ _LAZY_MODULES = {
     "sharding": "distkeras_tpu_torch.parallel.sharding",
     "pipeline": "distkeras_tpu_torch.parallel.pipeline",
     "pipeline_1f1b": "distkeras_tpu_torch.parallel.pipeline_1f1b",
+    "pp": "distkeras_tpu_torch.parallel.pp",
 }
 
 

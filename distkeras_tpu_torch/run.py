@@ -25,9 +25,15 @@ continuous-deployment controller (:mod:`distkeras_tpu_torch.deploy`).
 
 Every command runs on the card: ``--device`` defaults to ``cuda``, and
 without one the command fails unless ``--device cpu`` is given (replica
-children inherit the flag). A serving mesh (``--mesh``, ``--mesh-shape``),
-``--force-host-devices`` and ``--pipeline-depth`` above 1 are refused,
-naming ROADMAP.md §A item A10e.
+children inherit the flag). ``serve --mesh-shape tp=N,pp=M`` (or
+``--mesh``, tp over every visible card) serves ONE replica over a serving
+mesh: the command starts one rank per mesh position (NCCL, a card each;
+with ``--device cpu --force-host-devices N``, N gloo ranks on the CPU),
+the first rank binds ``--port`` and the others follow it
+(:mod:`distkeras_tpu_torch.serving.sharded`). ``--pipeline-depth`` above
+1 needs a pp mesh. ``cluster`` and ``deploy`` forward the mesh flags to
+every replica. The mesh is validated in the parent, typed, before
+anything is built.
 """
 
 from __future__ import annotations
@@ -77,22 +83,101 @@ def load_data(path: str, features_col: str, label_col: str):
     )
 
 
-_A10 = "multi-device serving (ROADMAP.md §A item A10e)"
+def _serving_mesh_plan(args, model=None):
+    """The serving mesh the flags ask for, validated in the parent before
+    anything is built (reference ``run.py:688-691``): None for one device,
+    else ``(shape, ranks, backend)``. Every mistake is a typed CLI exit:
+    a mesh that does not fit the ranks, a model that does not shard over
+    it, ``--pipeline-depth`` above 1 without a pp axis,
+    ``--force-host-devices`` without ``--device cpu`` (it never moves a
+    card's run to the CPU) or without a mesh."""
+    from distkeras_tpu_torch.parallel.mesh import parse_mesh_shape, serving_mesh
+    from distkeras_tpu_torch.serving.engine import check_serving_mesh
+
+    force = getattr(args, "force_host_devices", None)
+    wanted = bool(getattr(args, "mesh", False) or getattr(args, "mesh_shape", None))
+    if force is not None:
+        if force < 1:
+            raise SystemExit(f"--force-host-devices {force} must be >= 1")
+        if args.device != "cpu":
+            raise SystemExit(
+                f"--force-host-devices {force} runs {force} gloo ranks on the CPU and needs "
+                f"--device cpu; on the card each rank of the mesh takes a card")
+        if not wanted:
+            raise SystemExit("--force-host-devices needs --mesh or --mesh-shape: without a "
+                             "serving mesh there is no rank to start")
+    shape = None
+    n = 1
+    if wanted:
+        if args.device == "cpu":
+            n = force or 1
+        else:
+            import torch
+
+            _resolve_device(args.device)
+            n = torch.cuda.device_count()
+        try:
+            spec = parse_mesh_shape(args.mesh_shape) if args.mesh_shape else None
+            mesh = serving_mesh(spec, devices=list(range(n)))
+        except ValueError as e:
+            raise SystemExit(f"--mesh-shape: {e}") from None
+        shape = mesh.shape
+    if model is None:
+        model = load_model(args.model, json.loads(args.model_args))
+    try:
+        check_serving_mesh(
+            model, shape, slots=args.slots,
+            pipeline_depth=getattr(args, "pipeline_depth", 1) or 0,
+            spec=bool(getattr(args, "draft_model", None)),
+            constrained=bool(getattr(args, "constrained", False)),
+            kv_host_tier_mb=getattr(args, "kv_host_tier_mb", 0.0) or 0.0)
+    except ValueError as e:
+        raise SystemExit(f"serving mesh: {e}") from None
+    if shape is None:
+        return None
+    return shape, int(np.prod(list(shape.values()))), (
+        "gloo" if args.device == "cpu" else "nccl")
 
 
-def _refuse_multi_device(args) -> None:
-    """The mesh flags and ``--pipeline-depth`` above 1 need more than one
-    device: a typed CLI error naming their ROADMAP item, before anything
-    is built."""
-    if getattr(args, "force_host_devices", None):
-        raise SystemExit(f"--force-host-devices is not ported yet: it comes with {_A10}")
-    if getattr(args, "mesh", False) or getattr(args, "mesh_shape", None):
-        raise SystemExit(f"--mesh/--mesh-shape (sharded serving) is not ported yet: it "
-                         f"comes with {_A10}")
-    depth = getattr(args, "pipeline_depth", None)
-    if depth is not None and depth > 1:
-        raise SystemExit(f"--pipeline-depth {depth} needs a pp serving mesh, which is "
-                         f"not ported yet: it comes with {_A10}")
+def _mesh_flags(args) -> list[str]:
+    """The mesh flags a parent forwards to a replica child or a rank."""
+    out = []
+    if getattr(args, "mesh", False):
+        out.append("--mesh")
+    if getattr(args, "mesh_shape", None):
+        out += ["--mesh-shape", args.mesh_shape]
+    if getattr(args, "force_host_devices", None) is not None:
+        out += ["--force-host-devices", str(args.force_host_devices)]
+    return out
+
+
+def _start_mesh_ranks(argv, ranks: int):
+    """Start ranks 1..ranks-1 of a serving mesh as children running the
+    same ``serve`` command; returns ``(init_url, children)`` for rank 0,
+    which is this process. The ranks meet at a file store in a fresh
+    temporary directory."""
+    import subprocess
+    import tempfile
+
+    store = os.path.join(tempfile.mkdtemp(prefix="distkeras-mesh-"), "store")
+    url = f"file://{store}"
+    children = [subprocess.Popen([sys.executable, "-m", "distkeras_tpu_torch.run", "serve",
+                                  *argv, "--mesh-rank", str(r), "--mesh-init", url])
+                for r in range(1, ranks)]
+    return url, children
+
+
+def _stop_mesh_ranks(children, timeout: float = 60.0) -> None:
+    """Wait for the follower ranks (the leader's ``close`` ended their
+    loops), killing any that outlive ``timeout``."""
+    import subprocess
+
+    for p in children:
+        try:
+            p.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait()
 
 
 def _resolve_device(name: str):
@@ -235,12 +320,19 @@ def serve_main(argv=None, prog="serve", default_replicas=1) -> int:
     ap.add_argument("--spec-k", type=int, default=4,
                     help="draft tokens proposed per speculative tick")
     ap.add_argument("--mesh", action="store_true",
-                    help="sharded serving over a device mesh: refused, "
-                         "it comes with ROADMAP.md §A item A10e")
+                    help="sharded serving: ONE replica over a tp serving "
+                         "mesh of every visible card (or of the "
+                         "--force-host-devices CPU ranks)")
     ap.add_argument("--mesh-shape", default=None, metavar="AXIS=N[,..]",
-                    help="explicit serving mesh shape: refused (A10e)")
+                    help="explicit serving mesh shape, e.g. tp=2 or "
+                         "tp=2,pp=2: one rank per position; the first "
+                         "binds --port")
     ap.add_argument("--force-host-devices", type=int, default=None,
-                    metavar="N", help="virtual host devices: refused (A10e)")
+                    metavar="N", help="run the mesh's ranks as N gloo "
+                                      "processes on the CPU (needs "
+                                      "--device cpu)")
+    ap.add_argument("--mesh-rank", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-init", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--wire", default="auto",
                     choices=["auto", "bin1", "jsonl"],
                     help="front-door protocol policy: 'auto'/'bin1' "
@@ -357,10 +449,12 @@ def serve_main(argv=None, prog="serve", default_replicas=1) -> int:
                          "--flight-dump <dir>/flight-r<i>.json and the "
                          "supervisor collects a dead replica's file into "
                          "its restart log")
+    argv = list(sys.argv[2:] if argv is None else argv)
     args = ap.parse_args(argv)
-    _refuse_multi_device(args)
     if args.replicas > 1 or args.roles:
         return cluster_main(args)
+    model = load_model(args.model, json.loads(args.model_args))
+    mesh_plan = _serving_mesh_plan(args, model)
 
     import asyncio
 
@@ -373,8 +467,20 @@ def serve_main(argv=None, prog="serve", default_replicas=1) -> int:
     from distkeras_tpu_torch.tracing import MetricStream
 
     device = _resolve_device(args.device)
+    mesh = None
+    mesh_children: list = []
+    if mesh_plan is not None:
+        from distkeras_tpu_torch.parallel import distributed
+        from distkeras_tpu_torch.parallel.mesh import serving_mesh
+
+        shape, ranks, backend = mesh_plan
+        rank, url = args.mesh_rank, args.mesh_init
+        if rank is None:
+            rank = 0
+            url, mesh_children = _start_mesh_ranks(argv, ranks)
+        distributed.initialize(url, ranks, rank, backend=backend)
+        mesh = serving_mesh(shape, devices=list(range(ranks)))
     tracer = enable_tracing() if args.trace_out else None
-    model = load_model(args.model, json.loads(args.model_args))
     weight_version = None
     if args.weights:
         variables, weight_version = _load_params(args.weights, device)
@@ -478,7 +584,19 @@ def serve_main(argv=None, prog="serve", default_replicas=1) -> int:
                                           "--tenant-quota"),
         tenant_weights=_parse_tenant_rates(args.tenant_weight,
                                            "--tenant-weight"),
+        mesh=mesh,
         device=device)
+    if not engine.is_leader:
+        # A follower rank: run the leader's operations until it closes
+        # (an interrupt is the leader's to handle).
+        import signal
+
+        import torch
+
+        signal.signal(signal.SIGINT, signal.SIG_IGN)
+        engine.follow()
+        torch.distributed.destroy_process_group()
+        return 0
     server = ServingServer(
         engine, host=args.host, port=args.port,
         wire_mode="jsonl" if args.wire == "jsonl" else "auto")
@@ -497,7 +615,7 @@ def serve_main(argv=None, prog="serve", default_replicas=1) -> int:
                                if engine.kv_pool is not None else 0),
             "draft_model": args.draft_model,
             "spec_k": args.spec_k if args.draft_model else 0,
-            "mesh": None,
+            "mesh": None if mesh is None else mesh.shape,
             "device": str(device),
         }), flush=True)
         # Signal-driven shutdown INSIDE the loop: a raw KeyboardInterrupt
@@ -533,6 +651,15 @@ def serve_main(argv=None, prog="serve", default_replicas=1) -> int:
     except KeyboardInterrupt:
         pass
     finally:
+        if mesh is not None:
+            import torch
+
+            try:
+                engine.close()
+            except Exception as e:  # a follower already gone
+                print(json.dumps({"mesh_close_error": repr(e)}), file=sys.stderr)
+            _stop_mesh_ranks(mesh_children)
+            torch.distributed.destroy_process_group()
         if metrics.stream is not None:
             metrics.stream.close()
         if tracer is not None:
@@ -590,6 +717,8 @@ def _serving_config_flags(args) -> list[str]:
         extra += ["--prefill-chunk", str(args.prefill_chunk)]
     if getattr(args, "pipeline_depth", None) is not None:
         extra += ["--pipeline-depth", str(args.pipeline_depth)]
+    # Each replica child serves over its own mesh of ranks.
+    extra += _mesh_flags(args)
     if args.paged or args.kv_pool_mb:
         if args.paged:
             extra += ["--paged"]
@@ -655,11 +784,11 @@ def cluster_main(args) -> int:
     import signal
     import tempfile
 
-    # Typed validation in the PARENT: a refused flag or a missing card
-    # fails the cluster command with one clear line, not N crash-looping
+    # Typed validation in the PARENT: a bad mesh or a missing card fails
+    # the cluster command with one clear line, not N crash-looping
     # replica children.
-    _refuse_multi_device(args)
     _resolve_device(args.device)
+    _serving_mesh_plan(args)
     roles = _parse_roles(getattr(args, "roles", None))
     if roles is not None:
         if not (args.paged or args.kv_pool_mb):
@@ -852,12 +981,14 @@ def deploy_main(argv=None) -> int:
     ap.add_argument("--draft-weights", default=None)
     ap.add_argument("--spec-k", type=int, default=4)
     ap.add_argument("--mesh", action="store_true",
-                    help="sharded replicas: refused, it comes with "
-                         "ROADMAP.md §A item A10e")
+                    help="sharded replicas: each a tp serving mesh of "
+                         "every visible card (or --force-host-devices "
+                         "CPU ranks)")
     ap.add_argument("--mesh-shape", default=None, metavar="AXIS=N[,..]",
-                    help="per-replica serving mesh shape: refused (A10e)")
+                    help="per-replica serving mesh shape (tp=N,pp=M)")
     ap.add_argument("--force-host-devices", type=int, default=None,
-                    metavar="N", help="virtual host devices: refused (A10e)")
+                    metavar="N", help="each replica's mesh as N gloo "
+                                      "ranks on the CPU (needs --device cpu)")
     ap.add_argument("--golden", type=int, default=4,
                     help="golden prompt count the canary replica must "
                          "serve (twice each, identical greedy output, "
@@ -903,8 +1034,8 @@ def deploy_main(argv=None) -> int:
                          "would fail every deploy) and it makes canary "
                          "traffic attributable in every tenant metric")
     args = ap.parse_args(argv)
-    _refuse_multi_device(args)
     device = _resolve_device(args.device)
+    _serving_mesh_plan(args)
 
     import asyncio
     import signal

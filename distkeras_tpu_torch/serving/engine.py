@@ -112,9 +112,17 @@ allocation burst, and readmit them at admission before the prefix match.
 The transfer ids are not padded to a power-of-two bucket as the
 reference's are: nothing is compiled per shape here.
 
-What the reference has and this engine refuses, naming its ROADMAP item:
-a device mesh and ``pipeline_depth > 1`` (A10e). No step is a
-CUDA graph: a warm decode dispatch is a full eager step on the loop
+**Sharded serving** (``mesh``; :mod:`~distkeras_tpu_torch.serving.sharded`):
+one replica over the ranks of a serving mesh, tensor-parallel over its
+``tp`` axis (``H/tp`` heads a rank, the model's tp sums and gathers) and
+pipelined over its ``pp`` stages (:class:`~distkeras_tpu_torch.parallel.pp.StagePlan`).
+The mesh's first rank leads: it runs this loop and mirrors every device
+operation to the followers, which run :meth:`ServingEngine.follow`.
+``pipeline_depth > 1`` on a pp mesh micro-batches each decode tick
+across the stages; ``serving_bubble_fraction`` measures the stages' idle
+share.
+
+No step is a CUDA graph: a warm decode dispatch is a full eager step on the loop
 thread. ``HostGapTracker`` stamps a tick's dispatch before its launches,
 so ``serving_device_idle_ratio`` counts the gaps between ticks; inside an
 eager tick the device also idles between launches, which only a profiler
@@ -154,6 +162,7 @@ from distkeras_tpu_torch.serving.kv_transfer import (
 )
 from distkeras_tpu_torch.serving.metrics import ServingMetrics
 from distkeras_tpu_torch.serving.prefix_cache import KVBlockPool, PrefixCache
+from distkeras_tpu_torch.serving.sharded import StagedDecode
 from distkeras_tpu_torch.serving.scheduler import (
     REQUEST_KINDS,
     SCORELIKE_KINDS,
@@ -174,7 +183,7 @@ from distkeras_tpu_torch.telemetry.wide_events import WideEventStore
 from distkeras_tpu_torch.utils.bridge import as_state_dict
 from distkeras_tpu_torch.utils.device import resolve_device
 
-__all__ = ["ServingEngine"]
+__all__ = ["ServingEngine", "check_serving_mesh"]
 
 @torch.inference_mode()
 def _prefill_fn(module, top_k, gen, params, cache, padded, start, true_len, temp):
@@ -334,6 +343,13 @@ def _copy_blocks(pools, src: int, dst: int):
     for p in pools.values():
         p[dst] = p[src]
     return pools
+
+
+@torch.inference_mode()
+def _mask_row_fn(logits, mask):
+    """A constrained admission's prefill logits row with its additive
+    token mask."""
+    return logits + mask
 
 
 @torch.inference_mode()
@@ -584,6 +600,72 @@ def _kv_leaf_names(cache: dict) -> list[str]:
                   key=lambda name: name.split("."))
 
 
+def check_serving_mesh(model, shape, *, slots: int, pipeline_depth: int = 1,
+                       spec: bool = False, constrained: bool = False,
+                       kv_host_tier_mb: float = 0.0):
+    """The static checks of a serving mesh of axis sizes ``shape`` (None:
+    no mesh) for ``model`` and the engine's options, as ``ValueError``s
+    with the reference's messages (its ``engine.py:1132-1218``); the
+    ``serve`` command runs them in its parent before it starts a rank.
+    Returns ``(tp, pp, stage_plan)``."""
+    tp = pp = 1
+    plan = None
+    if shape is not None:
+        shape = dict(shape)
+        if "tp" not in shape:
+            raise ValueError(
+                f"serving mesh {shape} has no 'tp' axis; "
+                f"build it with parallel.mesh.serving_mesh")
+        tp = int(shape["tp"])
+        pp = int(shape.get("pp", 1))
+        extra = {a: s for a, s in shape.items() if a not in ("tp", "pp") and s > 1}
+        if extra:
+            raise ValueError(
+                f"serving mesh has non-trivial non-tp axes {extra}: "
+                f"data parallelism in serving is N replicas (run.py "
+                f"cluster), not a dp mesh axis inside one engine")
+    if constrained and pp > 1:
+        raise ValueError("constrained=True is not supported on a pp mesh yet")
+    if pipeline_depth > 1:
+        if pp < 2:
+            raise ValueError(
+                f"pipeline_depth={pipeline_depth} needs a pp>=2 "
+                f"serving mesh (micro-batched ticks only overlap "
+                f"across pipeline stages; --mesh-shape tp=N,pp=M)")
+        if spec:
+            raise ValueError(
+                f"pipeline_depth={pipeline_depth} is incompatible "
+                f"with speculative decoding (draft/verify ticks span "
+                f"the whole slot batch); use pipeline_depth<=1")
+        if slots % pipeline_depth:
+            raise ValueError(
+                f"slots={slots} does not divide into pipeline_depth="
+                f"{pipeline_depth} equal micro-batches")
+    if pp > 1 and kv_host_tier_mb > 0:
+        raise ValueError(
+            "kv_host_tier_mb > 0 is not supported on a pp mesh yet: "
+            "the host tier's gather/scatter programs span the whole "
+            "pool, which is stage-partitioned under pp")
+    if shape is not None:
+        _, cfg = _decode_module(model, slots=True)
+        if tp > 1:
+            bad = [f"{name}={val}" for name, val in (
+                ("num_heads", cfg.num_heads),
+                ("mlp_dim", cfg.mlp_dim),
+                ("vocab_size", cfg.vocab_size),
+            ) if val % tp]
+            if bad:
+                raise ValueError(
+                    f"model {getattr(model, 'name', model)!r} does not "
+                    f"shard over tp={tp}: {', '.join(bad)} not "
+                    f"divisible — pick a tp that divides all three")
+        if pp > 1:
+            from distkeras_tpu_torch.parallel.pp import plan_stages
+
+            plan = plan_stages(cfg.num_layers, pp)
+    return tp, pp, plan
+
+
 class ServingEngine:
     """Fixed-slot continuous-batching server core (reference
     ``ServingEngine``).
@@ -639,8 +721,17 @@ class ServingEngine:
     eviction bursts drain to. :meth:`request_kv_export` and
     :meth:`request_kv_import` move block chains between paged engines.
 
-    A mesh and ``pipeline_depth > 1`` (A10e) raise naming their ROADMAP
-    item (:meth:`_refuse_deferred`).
+    ``mesh``: a :func:`~distkeras_tpu_torch.parallel.mesh.serving_mesh`
+    over every rank of the process group (``tp``, and ``pp`` stages)
+    makes ONE replica of the ranks: each rank builds this engine with the
+    same arguments and whole ``variables`` and keeps its share; the rank
+    at the mesh's first position serves (:meth:`run`, the scheduler, the
+    server), the others call :meth:`follow` (``serving/sharded.py``).
+    ``mlp_dim``, ``num_heads`` and ``vocab_size`` must divide over tp and
+    the layers over pp. ``pipeline_depth > 1`` (a pp mesh, slots divisible
+    by it, no draft) splits each decode tick into that many micro-batches
+    that overlap across the stages. On a pp mesh ``constrained``,
+    ``kv_host_tier_mb`` and the KV transfers raise, as the reference's do.
 
     Drive it with :meth:`submit` + :meth:`run` (asyncio).
     """
@@ -698,7 +789,6 @@ class ServingEngine:
                 f"dispatch+harvest), 1 (dispatch tick N+1 before consuming "
                 f"tick N), or >1 (micro-batched ticks overlapping pipeline "
                 f"stages; needs a pp mesh), got {pipeline_depth}")
-        self._refuse_deferred(mesh=mesh, pipeline_depth=pipeline_depth)
         self.pipeline_depth = int(pipeline_depth)
         # Dispatched-but-unharvested ticks, oldest first (at most one), and
         # a bounded dispatch->harvest timeline (the tracez tick lane).
@@ -710,6 +800,8 @@ class ServingEngine:
         self._dispatch_warm = False
         self.model = model
         self.device = resolve_device(device)
+        self._mesh_setup(mesh, model, slots=slots, spec=draft_model is not None,
+                         constrained=constrained, kv_host_tier_mb=kv_host_tier_mb)
         self._spec = draft_model is not None
         self.draft_model = draft_model
         self.spec_k = int(spec_k)
@@ -763,7 +855,7 @@ class ServingEngine:
                     f"bytes)")
             self._module, self._cfg = _decode_module(
                 model, slots=True, paged_blocks=capacity, page_tokens=bt,
-                page_table_blocks=table_blocks)
+                page_table_blocks=table_blocks, **self._mesh_overrides())
             # Prefill pad-width bound: the context limit, not the table's
             # reach (which rounds up past it when bt does not divide it).
             self._cache_len = self.limit
@@ -782,18 +874,27 @@ class ServingEngine:
                 # clamping backward over real prefix K/V.
                 overrides["decode_cache_len"] = dense_len + (
                     self.spec_k if self._spec else 0)
-            self._module, self._cfg = _decode_module(model, slots=True, **overrides)
+            self._module, self._cfg = _decode_module(model, slots=True, **overrides,
+                                                     **self._mesh_overrides())
             # Prefill pad-width bound: the request context.
             self._cache_len = dense_len
         if top_k is not None and not 1 <= top_k <= self._cfg.vocab_size:
             raise ValueError(
                 f"top_k={top_k} outside [1, vocab_size={self._cfg.vocab_size}]"
             )
-        # Device-resident params from the start (one transfer at
-        # construction).
-        self._params = {k: v.to(dev) for k, v in variables.items()}
         self.slots = int(slots)
         self.metrics = metrics or ServingMetrics()
+        if self._pp > 1:
+            self._module = StagedDecode(
+                self._module, self._cfg, self._stage_plan, self._stage, mesh,
+                slots=self.slots, micro_batches=self._mb_count,
+                bubble=self.metrics.bubble if self._link.is_leader else None,
+                device=self.device)
+        # Device-resident params from the start (one transfer at
+        # construction); on a mesh this rank's share of them, and the whole
+        # weights' geometry, which a swap must match.
+        self._whole_params = {k: (tuple(v.shape), v.dtype) for k, v in variables.items()}
+        self._params = self._place_params(variables)
         self.scheduler = Scheduler(
             max_depth=max_queue,
             registry=self.metrics.registry,
@@ -813,7 +914,7 @@ class ServingEngine:
         # Device-resident batch state: the dense [slots, L, H, D] caches or
         # the paged pools, the last token of each row and its temperature.
         with torch.inference_mode():
-            self._cache = decode_cache(self._cfg, self.slots, dev)
+            self._cache = self._stage_cache(self.slots, dev)
             self._tokens = torch.zeros((self.slots,), dtype=torch.int32, device=dev)
             self._temps = torch.zeros((self.slots,), dtype=torch.float32, device=dev)
         self._slot_state: list[_SlotState | None] = [None] * self.slots
@@ -874,19 +975,26 @@ class ServingEngine:
         else:
             # Single-row cache geometry, as meta tensors (the reference's
             # eval_shape structs).
-            self._row_shapes = decode_cache(self._cfg, 1, "meta")
+            self._row_shapes = self._stage_cache(1, "meta")
             if prefix_cache is not None:
                 self.prefix_cache = prefix_cache
             elif prefix_cache_mb > 0:
+                # On a mesh each rank's pool holds its own share of a
+                # block (its heads, its stage's layers); the trie is the
+                # leader's.
                 self.prefix_cache = PrefixCache(
                     self._row_shapes, block_tokens=prefix_block_tokens,
                     budget_bytes=int(prefix_cache_mb * 2**20),
-                    registry=self.metrics.registry, device=dev)
+                    registry=self.metrics.registry, device=dev, mesh=mesh,
+                    stage_meshes=self._stage_meshes)
             if self.prefix_cache is not None:
                 # Cache-aware admission: the scheduler may prefer (within
                 # one priority class, bounded window) the queued request
                 # whose prefix is already resident.
                 self.scheduler.cache_probe = self.prefix_cache.probe
+                # The pool's device operations (on a mesh, mirrored).
+                self._prefix_materialize = self.prefix_cache.materialize
+                self._prefix_store = self.prefix_cache.store_rows
 
         if self._spec:
             self._draft_module, self._draft_cfg = _decode_module(
@@ -992,6 +1100,181 @@ class ServingEngine:
             self._decode_sync()
             self._spec_sync()
             self._dispatch_warm = True
+        if self._link is not None:
+            self._bind_mesh()
+
+    # -- the serving mesh (serving/sharded.py) -------------------------------
+    def _mesh_setup(self, mesh, model, *, slots, spec, constrained, kv_host_tier_mb) -> None:
+        """Validate a serving mesh (:func:`check_serving_mesh`) and join
+        it: this rank's stage and the control link whose first rank
+        leads."""
+        self.mesh = mesh
+        self._stage = 0
+        self._stage_plan = None
+        self._stage_meshes = None
+        self._link = None
+        shape = None
+        if mesh is not None:
+            from distkeras_tpu_torch.parallel.mesh import Mesh
+
+            if not isinstance(mesh, Mesh):
+                raise TypeError(f"mesh must be a distkeras_tpu_torch Mesh "
+                                f"(parallel.mesh.serving_mesh), not {type(mesh).__name__}")
+            shape = mesh.shape
+        self._tp, self._pp, self._stage_plan = check_serving_mesh(
+            model, shape, slots=slots, pipeline_depth=self.pipeline_depth, spec=spec,
+            constrained=constrained, kv_host_tier_mb=kv_host_tier_mb)
+        self._mb_count = max(1, self.pipeline_depth) if self._pp > 1 else 1
+        if mesh is None:
+            return
+        dist = torch.distributed
+        if not (dist.is_available() and dist.is_initialized()):
+            raise RuntimeError(
+                f"a serving mesh of {mesh.size} ranks needs a process group over "
+                f"them (distkeras_tpu_torch.parallel.distributed.initialize)")
+        if sorted(int(r) for r in mesh.devices.flat) != list(range(dist.get_world_size())):
+            raise ValueError(
+                f"serving mesh ranks {mesh.devices.flatten().tolist()} must be the "
+                f"process group's {dist.get_world_size()} ranks: one engine spans them all")
+        from distkeras_tpu_torch.parallel.mesh import stage_submesh
+        from distkeras_tpu_torch.serving.sharded import MeshLink
+
+        if self._pp > 1:
+            self._stage = mesh.coords(dist.get_rank())["pp"]
+            self._stage_meshes = [stage_submesh(mesh, s) for s in range(self._pp)]
+        self._link = MeshLink(mesh.devices.flatten(), self.device)
+        # Every rank builds the mesh's groups in one order: the tp axis
+        # (the model's sums and gathers), then the pp axis (the hops).
+        mesh.group("tp")
+        if self._pp > 1:
+            mesh.group("pp")
+
+    def _mesh_overrides(self) -> dict:
+        """The decode config's tp mesh on a serving mesh (its tp axis may
+        be 1: the model then sums nothing)."""
+        return {} if self.mesh is None else {"tp_mesh": self.mesh}
+
+    def _stage_cache(self, batch: int, device) -> dict:
+        """The zero decode cache of this rank: on a pp mesh its stage's
+        leaves only (``StagePlan.split_tree``), built without the rest."""
+        if self._pp == 1:
+            return decode_cache(self._cfg, batch, device)
+        shapes = self._stage_plan.split_tree(decode_cache(self._cfg, batch, "meta"))[self._stage]
+        return {k: torch.zeros(v.shape, dtype=v.dtype, device=device)
+                for k, v in shapes.items()}
+
+    def _place_params(self, variables) -> dict:
+        """Whole flat weights on this rank's device: all of them, or on a
+        mesh this rank's share (``serving/sharded.py local_params``)."""
+        dev = self.device
+        with torch.inference_mode():
+            if self.mesh is None:
+                return {k: v.to(dev) for k, v in variables.items()}
+            from distkeras_tpu_torch.models.bert import param_axes
+            from distkeras_tpu_torch.serving.sharded import local_params
+
+            variables = {k: torch.as_tensor(v) for k, v in variables.items()}
+            return local_params(variables, self.mesh,
+                                getattr(self.model, "param_axes", None) or param_axes,
+                                self._stage_plan, self._stage, dev)
+
+    _MIRRORED = ("_prefill", "_admit", "_decode_step", "_prefill_logits", "_fork_sample",
+                 "_score_chunk", "_embed_chunk", "_draft_step", "_verify_step",
+                 "_draft_prefill", "_draft_admit", "_copy_blocks", "_mask_row", "_upload",
+                 "_fresh_row_cache", "_kv_gather", "_kv_scatter", "_place_params",
+                 "_draft_prefill_slot", "_prefix_materialize", "_prefix_store",
+                 "_mesh_counts")
+    _ROOTS = ("_params", "_cache", "_tokens", "_temps", "_positions_dev", "_tables_dev",
+              "_mask_dev", "_draft_params", "_draft_cache")
+
+    def _bind_mesh(self) -> None:
+        """Register the device state every rank holds (in one order) and
+        turn the device operations into the leader's mirrored calls."""
+        from distkeras_tpu_torch.serving.sharded import _registrable
+
+        link = self._link
+        # Each rank's device and resident bytes, once (the shapes never
+        # change), for mesh_info's per-stage attribution.
+        mine = {"device": str(self.device), "params_bytes": self._params_bytes,
+                "kv_bytes": sum(v.numel() * v.element_size() for v in self._cache.values())}
+        self._rank_info = [None] * len(link.ranks)
+        torch.distributed.all_gather_object(self._rank_info, mine, group=link.group)
+        for name in self._ROOTS:
+            if getattr(self, name, None) is not None:
+                setattr(self, name, _registrable(getattr(self, name)))
+        link.bind(self, [n for n in self._MIRRORED if hasattr(self, n)], self._ROOTS)
+        if self.prefix_cache is not None and link.is_leader:
+            self.prefix_cache.store_rows = self._prefix_store
+        link.active = True
+
+    @property
+    def is_leader(self) -> bool:
+        """True on the rank that serves (always, without a mesh)."""
+        return self._link is None or self._link.is_leader
+
+    def follow(self) -> int:
+        """A follower rank's loop: run the leader's operations on this
+        rank's shard until the leader's :meth:`close`; returns how many
+        ran. Raises on the leader and without a mesh."""
+        if self._link is None or self._link.is_leader:
+            raise RuntimeError("follow() runs on a follower rank of a serving mesh; "
+                               "the leader runs run()")
+        return self._link.follow()
+
+    def close(self) -> None:
+        """Leader of a serving mesh: end the followers' loops. A no-op
+        without a mesh and on a second call."""
+        if self._link is not None and self._link.is_leader:
+            self._link.close()
+
+    def _mesh_counts(self) -> list:
+        """Every rank's decode compile count, gathered to every rank in
+        rank order (a mirrored call: all ranks enter the gather)."""
+        mine = self._counting_auditor.compiles("serving_decode")
+        out = [None] * len(self._link.ranks)
+        torch.distributed.all_gather_object(out, mine, group=self._link.group)
+        return out
+
+    def decode_compile_counts(self) -> list[int]:
+        """Per-rank decode compile counts, rank order (each must stay 1:
+        on a pp mesh that is one count per stage and tp rank); ``[count]``
+        without a mesh."""
+        if self._link is None:
+            return [self.decode_compile_count()]
+        return list(self._mesh_counts())
+
+    def mesh_info(self) -> dict | None:
+        """Static view of the engine's mesh for healthz/debugz (reference
+        ``mesh_info``): axis sizes, tp and pp, the ranks with their devices
+        and, on a pp mesh, each stage's ranks, layers and resident
+        parameter and KV bytes (gathered once at construction). None
+        unsharded."""
+        if self.mesh is None:
+            return None
+        ranks = [int(r) for r in self.mesh.devices.flatten()]
+
+        def name(r):
+            return f"rank{r}:{self._rank_info[r]['device']}"
+
+        info = {
+            "axes": {a: int(s) for a, s in self.mesh.shape.items()},
+            "tp": self._tp,
+            "pp": self._pp,
+            "devices": [name(r) for r in ranks],
+        }
+        if self._pp > 1:
+            stages = []
+            for s in range(self._pp):
+                lo, hi = self._stage_plan.layer_range(s)
+                members = [int(r) for r in self._stage_meshes[s].devices.flatten()]
+                stages.append({
+                    "stage": s, "layers": [lo, hi],
+                    "devices": [name(r) for r in members],
+                    "params_bytes": sum(self._rank_info[r]["params_bytes"] for r in members),
+                    "kv_bytes": sum(self._rank_info[r]["kv_bytes"] for r in members),
+                })
+            info["stages"] = stages
+        return info
 
     def _build_programs(self, top_k) -> None:
         """Bind the device functions of this engine's mode to its module,
@@ -1004,6 +1287,8 @@ class ServingEngine:
                       else _paged_decode_fn)
             self._decode_step = functools.partial(decode, module, top_k, self._sentinel,
                                                   gen)
+            self._copy_blocks = _copy_blocks
+            self._mask_row = _mask_row_fn
             self._prefill_logits = functools.partial(_paged_prefill_logits_fn, module)
             self._fork_sample = functools.partial(_fork_sample_fn, top_k, gen)
             self._score_chunk = functools.partial(_score_chunk_fn, module)
@@ -1019,22 +1304,6 @@ class ServingEngine:
             self._verify_step = functools.partial(verify, module, top_k, gen)
             self._draft_prefill = functools.partial(_draft_prefill_fn, self._draft_module)
             self._draft_admit = _draft_admit_fn
-
-    @staticmethod
-    def _refuse_deferred(*, mesh, pipeline_depth) -> None:
-        """Options of the reference's engine that this port does not have
-        yet raise here, naming their ROADMAP item."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "a serving mesh (tensor- or pipeline-parallel serving) is not "
-                "ported yet: it comes with multi-device serving (ROADMAP.md §A "
-                "item A10e)")
-        if pipeline_depth > 1:
-            raise ValueError(
-                f"pipeline_depth={pipeline_depth} needs a pp>=2 serving mesh "
-                f"(micro-batched ticks only overlap across pipeline stages; "
-                f"--mesh-shape tp=N,pp=M), which is not ported yet (ROADMAP.md "
-                f"§A item A10e)")
 
     def decode_compile_count(self) -> int:
         """Number of abstract signatures the decode step has seen (must
@@ -1155,6 +1424,12 @@ class ServingEngine:
                 "device_idle_ratio": self.metrics.host_gap.idle_ratio,
             },
         }
+        if self._pp > 1:
+            out["pipeline"]["stages"] = self._pp
+            out["pipeline"]["micro_batches"] = self._mb_count
+            out["pipeline"]["bubble_fraction"] = self.metrics.bubble.fraction
+        if self.mesh is not None:
+            out["mesh"] = self.mesh_info()
         if self._spec:
             drafted = self.metrics.spec_draft_tokens
             out["speculative"] = {
@@ -1448,20 +1723,21 @@ class ServingEngine:
         if self._pending_swap is not None:
             raise RuntimeError("a parameter swap is already pending")
         params = as_state_dict(variables)
-        if set(params) != set(self._params):
-            missing = sorted(set(self._params) - set(params))[:4]
-            extra = sorted(set(params) - set(self._params))[:4]
+        whole = self._whole_params  # name -> (shape, dtype) of the whole weights
+        if set(params) != set(whole):
+            missing = sorted(set(whole) - set(params))[:4]
+            extra = sorted(set(params) - set(whole))[:4]
             raise ValueError(
                 f"reload weights have {len(params)} leaves; serving model has "
-                f"{len(self._params)} (missing {missing}, unexpected {extra})")
-        for name, cur in self._params.items():
+                f"{len(whole)} (missing {missing}, unexpected {extra})")
+        for name, (shape, dtype) in whole.items():
             new = params[name]
-            if tuple(new.shape) != tuple(cur.shape) or new.dtype != cur.dtype:
+            if tuple(new.shape) != shape or new.dtype != dtype:
                 raise ValueError(
                     f"reload weight leaf {name} is "
                     f"{str(new.dtype).removeprefix('torch.')}{tuple(new.shape)}; "
                     f"serving model expects "
-                    f"{str(cur.dtype).removeprefix('torch.')}{tuple(cur.shape)}")
+                    f"{str(dtype).removeprefix('torch.')}{shape}")
         if provenance is None:
             provenance = {
                 "version": int(self.weight_version.get("version") or 0) + 1,
@@ -1499,6 +1775,11 @@ class ServingEngine:
             raise KVTransferError(
                 "KV export requires a paged engine (--paged / "
                 "--kv-pool-mb): dense caches have no block bookkeeping")
+        if self._pp > 1:
+            raise KVTransferError(
+                "KV export is not supported on a pp mesh yet: the "
+                "gather program spans the whole pool, which is "
+                "stage-partitioned under pp")
         event: asyncio.Event = asyncio.Event()
         result: dict = {}
         self._pending_kv.append(("export", prompt, event, result))
@@ -1517,23 +1798,44 @@ class ServingEngine:
             raise KVTransferError(
                 "KV import requires a paged engine (--paged / "
                 "--kv-pool-mb)")
+        if self._pp > 1:
+            raise KVTransferError(
+                "KV import is not supported on a pp mesh yet: the "
+                "scatter program spans the whole pool, which is "
+                "stage-partitioned under pp")
         event: asyncio.Event = asyncio.Event()
         result: dict = {}
         self._pending_kv.append(("import", payload, event, result))
         self.scheduler.kick()
         return event, result
 
+    def _tp_heads(self) -> tuple[int, int] | None:
+        """``(index, count)`` of this rank along the mesh's tp axis, or None
+        below tp=2."""
+        if self._tp == 1:
+            return None
+        return self.mesh.coords(torch.distributed.get_rank())["tp"], self._tp
+
     def _kv_gather(self, rows) -> list[torch.Tensor]:
-        """Pool rows ``rows`` of every KV leaf, in KVX1 leaf order, as host
-        tensors ``[len(rows), block_tokens, H, D]``: one ``index_select``
-        per leaf with a 1-d index tensor, copied into pinned memory on the
-        engine's stream, which is then waited for. Queued after every
-        dispatched tick, the gather reads what those ticks wrote."""
+        """Pool rows ``rows`` of every KV leaf, in KVX1 leaf order, as host tensors ``[len(rows), block_tokens, H, D]``: one
+        ``index_select`` per leaf with a 1-d index tensor, copied into
+        pinned memory on the engine's stream, which is then waited for.
+        Queued after every dispatched tick, the gather reads what those
+        ticks wrote. On a tp mesh every rank gathers the whole heads over
+        tp first (the reference's contract, ``kv_transfer.py:25-35``):
+        a payload always holds full heads."""
         ids = self._upload(np.asarray(rows, np.int64))
+        tp = self._tp_heads()
         out = []
         with torch.inference_mode():
             for name in self._kv_names:
                 rows_dev = self._cache[name].index_select(0, ids)
+                if tp is not None:
+                    parts = [torch.empty_like(rows_dev) for _ in range(tp[1])]
+                    with span("tp_gather"):
+                        torch.distributed.all_gather(parts, rows_dev.contiguous(),
+                                                     group=self.mesh.group("tp"))
+                    rows_dev = torch.cat(parts, dim=2)
                 if self.device.type == "cuda":
                     host = torch.empty(rows_dev.shape, dtype=rows_dev.dtype,
                                        pin_memory=True)
@@ -1545,14 +1847,19 @@ class ServingEngine:
         return out
 
     def _kv_scatter(self, rows, leaves) -> None:
-        """Write host rows ``leaves`` (KVX1 leaf order, ``[n, ...]`` each)
-        into pool rows ``rows`` of every KV leaf: a pinned non-blocking
-        upload and one in-place ``index_copy_`` per leaf, queued on the
-        engine's stream behind every dispatched tick."""
+        """Write host rows ``leaves`` (KVX1 leaf order, ``[n, ...]`` each,
+        whole heads) into pool rows ``rows`` of every KV leaf:
+        a pinned non-blocking upload and one in-place ``index_copy_`` per
+        leaf, queued on the engine's stream behind every dispatched tick.
+        A tp rank keeps its own heads of each row."""
         ids = self._upload(np.asarray(rows, np.int64))
+        tp = self._tp_heads()
         with torch.inference_mode():
             for name, data in zip(self._kv_names, leaves):
                 pool = self._cache[name]
+                if tp is not None:
+                    h = pool.shape[2]
+                    data = data[:, :, tp[0] * h:(tp[0] + 1) * h]
                 src = data.to(pool.dtype)
                 if self.device.type == "cuda":
                     src = src.pin_memory().to(self.device, non_blocking=True)
@@ -1607,7 +1914,9 @@ class ServingEngine:
         for i, (meta, name) in enumerate(zip(theirs, self._kv_names)):
             leaf = self._cache[name]
             want = (tuple(int(d) for d in meta["shape"][1:]), str(meta["dtype"]))
-            have = (tuple(leaf.shape[1:]), str(leaf.dtype).removeprefix("torch."))
+            # A payload holds whole heads; a tp rank's pools hold H/tp.
+            bt, h, d = leaf.shape[1:]
+            have = ((bt, h * self._tp, d), str(leaf.dtype).removeprefix("torch."))
             if want != have:
                 raise KVTransferError(
                     f"KV leaf {i} geometry mismatch: payload "
@@ -1810,13 +2119,12 @@ class ServingEngine:
             await self.scheduler.wait_for_kv_arrival(remaining)
 
     def _swap_sync(self, params) -> None:
-        """Executor-thread half of the swap: transfer, flush, rewarm."""
+        """Executor-thread half of the swap: transfer (on a mesh, each
+        rank its share), flush, rewarm."""
         dev = self.device
-        with torch.inference_mode():
-            params = {k: v.to(dev) for k, v in params.items()}
+        self._params = self._place_params(params)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
-        self._params = params
         if self.prefix_cache is not None:
             # Pooled K/V is a function of (weights, tokens): every cached
             # block is wrong under new weights.
@@ -1846,6 +2154,8 @@ class ServingEngine:
         shutdown."""
         if self._running:
             raise RuntimeError("engine.run() is already active")
+        if not self.is_leader:
+            raise RuntimeError("a follower rank of a serving mesh runs follow(), not run()")
         self._running = True
         if self.flight_recorder is not None:
             self.flight_recorder.record_event("engine_start",
@@ -2329,7 +2639,7 @@ class ServingEngine:
         job, req = st.prefill, st.request
         hg = self.metrics.host_gap
         dev = self.device
-        padded_dev = torch.as_tensor(padded, device=dev)
+        padded_dev = self._upload(padded)
         if req.kind == "score":
             targets = np.zeros((padded.shape[1],), np.int32)
             for j in range(c):
@@ -2338,7 +2648,7 @@ class ServingEngine:
                     targets[j] = req.prompt[p]
             self._cache, picked = self._score_chunk(
                 self._params, self._cache, padded_dev, job.pos, c,
-                self._table_row(slot), torch.as_tensor(targets, device=dev))
+                self._table_row(slot), self._upload(targets))
             hg.harvest_started()
             vals = picked.cpu().numpy()
             hg.harvest_ended()
@@ -2420,14 +2730,13 @@ class ServingEngine:
                         break
                     table[complete] = ids[0]
                     row_st.blocks.append(int(ids[0]))
-                    self._cache = _copy_blocks(self._cache, parent_tail, int(ids[0]))
+                    self._cache = self._copy_blocks(self._cache, parent_tail, int(ids[0]))
                     pool.note_cow_copy()
                 self._lens[i] = s0
             with span("cache_admit", slot=i):
                 self._tokens, self._temps = self._admit(
-                    self._tokens, self._temps, i,
-                    torch.tensor(int(toks[k]), dtype=torch.int32, device=dev),
-                    torch.tensor(float(req.temperature), dtype=torch.float32, device=dev))
+                    self._tokens, self._temps, i, self._upload(np.int32(toks[k])),
+                    self._upload(np.float32(req.temperature)))
         self._mark_tables_dirty()
         if dry:
             # Pool dry mid-fan-out: error the whole group typed, never a
@@ -2478,7 +2787,7 @@ class ServingEngine:
 
     def _fresh_row_cache(self) -> dict:
         with torch.inference_mode():
-            return decode_cache(self._cfg, 1, self.device)
+            return self._stage_cache(1, self.device)
 
     def _begin_prefill(self, req: Request) -> _PrefillJob:
         """Start a prompt's prefill (executor thread, dense): build the
@@ -2492,7 +2801,7 @@ class ServingEngine:
         if matched:
             with span("prefix_splice", blocks=len(match.ids),
                       tokens=matched):
-                cache = self.prefix_cache.materialize(match.ids)
+                cache = self._prefix_materialize(match.ids)
         else:
             cache = self._fresh_row_cache()
         if req.trace is not None and matched:
@@ -2547,8 +2856,8 @@ class ServingEngine:
         special = None
         tok = temp = None
         with span("prefill", bucket=P, offset=job.pos, prompt_len=s0):
-            padded_dev = torch.from_numpy(padded).to(dev)
-            temp = torch.full((), float(req.temperature), dtype=torch.float32, device=dev)
+            padded_dev = self._upload(padded)
+            temp = self._upload(np.float32(req.temperature))
             # The chunk counts as dispatched device work (stamped before
             # its launches, as a decode tick is), so admission phases do
             # not book their prefill time as device idle.
@@ -2565,21 +2874,20 @@ class ServingEngine:
                     self._table_row(slot))
                 hg.harvest_started()
                 if req.kind == "sample":
-                    temps_n = torch.full((req.n,), float(req.temperature),
-                                         dtype=torch.float32, device=dev)
+                    temps_n = self._upload(np.full((req.n,), req.temperature, np.float32))
                     forks = self._fork_sample(logits, temps_n)
                     special = _ForkReady([int(t) for t in forks.cpu().numpy()])
                     tok0 = None
                 else:
                     mask = st.dfa.mask_row(st.dfa_state, self._cfg.vocab_size)
                     if req.temperature > 0:
-                        row = logits + torch.as_tensor(mask, device=dev)
+                        row = self._mask_row(logits, self._upload(mask))
                         tok = self._fork_sample(row, temp[None])[0]
                         tok0 = int(tok)
                     else:
                         # The reference's host argmax over the masked row.
                         tok0 = int(np.argmax(logits.cpu().numpy() + mask))
-                        tok = torch.tensor(tok0, dtype=torch.int32, device=dev)
+                        tok = self._upload(np.int32(tok0))
                 hg.harvest_ended()
             elif self._paged:
                 self._cache, tok = self._prefill(

@@ -444,18 +444,32 @@ class PrefixCache(_BlockTrie):
     ``device`` (the template's own device when it is not ``meta``; CUDA
     unless ``"cpu"`` is asked for otherwise). ``registry``: optional
     :class:`~distkeras_tpu_torch.telemetry.registry.MetricsRegistry` for
-    the hit/miss/eviction counters and occupancy gauges. ``mesh`` and
-    ``stage_meshes`` (the sharded engines' pools) wait for ROADMAP.md §A
-    item A10e and raise.
+    the hit/miss/eviction counters and occupancy gauges.
+
+    ``mesh``: the serving mesh of a sharded engine (reference ``mesh``).
+    One process drives one device here, so each rank builds its own cache
+    from ITS single-row template: under tp its pools hold the rank's
+    ``H/tp`` heads of every block, and ``stage_meshes`` (a pp engine's
+    per-stage sub-meshes) marks a template that holds the rank's stage's
+    layers alone. One trie, the leader's, decides for every rank: the
+    engine mirrors :meth:`materialize` and :meth:`store_rows` with the
+    same block ids on each, so a block stands for the same token
+    positions in every rank's pool and a hit never moves K/V between
+    ranks, only ids.
     """
 
     def __init__(self, template, *, block_tokens: int = 16,
                  budget_bytes: int = 64 * 2**20, registry=None, mesh=None,
                  stage_meshes=None, device=None):
         if mesh is not None or stage_meshes is not None:
-            raise NotImplementedError(
-                "a sharded prefix cache (mesh/stage_meshes) is not ported yet: it "
-                "comes with multi-device serving (ROADMAP.md §A item A10e)")
+            from distkeras_tpu_torch.parallel.mesh import Mesh
+
+            for m in [mesh] + list(stage_meshes or []):
+                if m is not None and not isinstance(m, Mesh):
+                    raise TypeError(f"PrefixCache mesh/stage_meshes take "
+                                    f"distkeras_tpu_torch Meshes, not {type(m).__name__}")
+        self.mesh = mesh
+        self.stage_meshes = stage_meshes
         if block_tokens < 1:
             raise ValueError(f"block_tokens must be >= 1, got {block_tokens}")
         kv = _kv_names(template)
@@ -524,6 +538,11 @@ class PrefixCache(_BlockTrie):
         return _materialize(self.block_tokens, self._row_shapes, self._pool, ids,
                             self.device)
 
+    def store_rows(self, cache, slots, off0: int) -> None:
+        """Copy the blocks of ``cache`` from token ``off0`` on into pool
+        rows ``slots`` (the device half of :meth:`insert`)."""
+        _store(self.block_tokens, self._pool, cache, slots, off0)
+
     def insert(self, tokens, cache) -> int:
         """Store every complete block of ``tokens`` not already cached,
         copying K/V rows out of the fully-prefilled single-row ``cache``
@@ -554,7 +573,7 @@ class PrefixCache(_BlockTrie):
         if not take:
             return 0
         n = len(take)
-        _store(self.block_tokens, self._pool, cache, take, idx * self.block_tokens)
+        self.store_rows(cache, take, idx * self.block_tokens)
         for key, slot in zip(keys[idx:idx + n], take):
             child = _Node(slot, node, key)
             node.children[key] = child

@@ -2,8 +2,10 @@
 
 Copy of the reference's ``distkeras_tpu/serving/server.py`` over the
 port's :class:`~distkeras_tpu_torch.serving.engine.ServingEngine`; only its
-imports differ, and the pipeline-stage and mesh rows of ``healthz``, which
-come with multi-device serving (ROADMAP.md §A item A10e), are left out.
+imports differ. On a serving mesh the server runs on the engine's leader
+rank alone (the followers run :meth:`ServingEngine.follow`), and
+``healthz`` carries the mesh row and, on a pp mesh, the pipeline's stage
+count, micro-batches and measured bubble, as the reference's does.
 
 Wire protocol: newline-delimited JSON, one request object per line in,
 a stream of single-line events out:
@@ -856,6 +858,20 @@ class ServingServer:
                         engine.metrics.host_gap.idle_ratio,
                 },
             }
+            if engine._pp > 1:
+                # pp replica: stage count + measured bubble, so fleet
+                # rollups can spot an under-fed pipeline (bubble near
+                # 1-1/pp means depth is too shallow for this host).
+                health["pipeline"]["stages"] = engine._pp
+                health["pipeline"]["micro_batches"] = engine._mb_count
+                health["pipeline"]["bubble_fraction"] = (
+                    engine.metrics.bubble.fraction)
+            mesh = engine.mesh_info()
+            if mesh is not None:
+                # Sharded replica: axis sizes + shard devices, so fleet
+                # healthz rollups (and the deploy controller's verify)
+                # can spot a mixed-mesh fleet without an extra verb.
+                health["mesh"] = mesh
             if engine.prefix_cache is not None:
                 health["prefix_cache"] = engine.prefix_cache.stats()
             if engine.kv_pool is not None:

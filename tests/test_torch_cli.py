@@ -9,10 +9,13 @@
   drains and prints the summary line.
 - The shared replica-flag helper forwards the serving configuration and
   ``--device`` to every child; every parent parser takes those flags.
-- The refusals: ``--mesh``, ``--mesh-shape``, ``--force-host-devices`` and
-  ``--pipeline-depth 2`` on ``serve``, ``cluster`` and ``deploy`` exit
-  with one line naming ROADMAP item A10, and ``--device cuda`` without a
-  card exits naming the missing device.
+- The mesh flags (``--mesh``, ``--mesh-shape``, ``--force-host-devices``,
+  ``--pipeline-depth 2``) on ``serve``, ``cluster`` and ``deploy`` are
+  validated in the parent and a bad combination exits with one typed line
+  before anything is built; ``cluster`` and ``deploy`` forward them to
+  their replicas; ``serve --mesh-shape tp=2 --force-host-devices 2
+  --device cpu`` as a child answers a client from two ranks; ``--device
+  cuda`` without a card exits naming the missing device.
 """
 
 import argparse
@@ -113,15 +116,82 @@ def test_parsers_accept_serving_config_and_device(capsys):
             assert flag in text, (main_fn.__name__, flag)
 
 
-@pytest.mark.parametrize("argv", [["--mesh"], ["--mesh-shape", "tp=2"],
-                                  ["--force-host-devices", "2"], ["--pipeline-depth", "2"]],
-                         ids=["mesh", "mesh-shape", "force-host-devices", "pipeline-depth"])
+@pytest.mark.parametrize("argv,says", [
+    (["--mesh", "--pipeline-depth", "2"], "needs a pp>=2 serving mesh"),
+    (["--mesh-shape", "tp=2"], "needs 2 devices but 1 are visible"),
+    (["--force-host-devices", "2"], "needs --mesh or --mesh-shape"),
+    (["--pipeline-depth", "2"], "needs a pp>=2 serving mesh"),
+], ids=["mesh", "mesh-shape", "force-host-devices", "pipeline-depth"])
 @pytest.mark.parametrize("sub", ["serve", "cluster", "deploy"])
-def test_multi_device_flags_refused_naming_a10(sub, argv, tmp_path):
+def test_multi_device_flags_refused_naming_a10(sub, argv, says, tmp_path):
+    """The mesh flags are ported (A10e); what cannot run is a typed exit
+    from the parent, before any rank or replica starts."""
     extra = ["--watch-dir", str(tmp_path)] if sub == "deploy" else []
     with pytest.raises(SystemExit) as e:
         run.main([sub, "--device", "cpu", "--port", "0", *extra, *argv])
-    assert "item A10" in str(e.value), e.value
+    assert says in str(e.value), e.value
+
+
+def test_force_host_devices_needs_device_cpu_and_flags_forwarded():
+    with pytest.raises(SystemExit, match="needs --device cpu"):
+        run.main(["serve", "--device", "cuda", "--port", "0", "--mesh",
+                  "--force-host-devices", "2"])
+    with pytest.raises(SystemExit, match="does not shard over tp=3"):
+        run.main(["serve", "--device", "cpu", "--port", "0", "--mesh-shape", "tp=3",
+                  "--force-host-devices", "3"])
+    args = _base_args(mesh_shape="tp=2,pp=2", force_host_devices=4, device="cpu")
+    joined = " ".join(run._serving_config_flags(args))
+    assert "--mesh-shape tp=2,pp=2" in joined and "--force-host-devices 4" in joined
+
+
+def test_serve_mesh_e2e_child_process():
+    """``serve --mesh-shape tp=2 --force-host-devices 2 --device cpu``: the
+    parent is rank 0 and binds the port, a second rank follows; a client's
+    greedy tokens equal one rank's engine's, healthz carries the mesh row,
+    and SIGINT ends both ranks (reference
+    ``test_serve_mesh_e2e_child_process``)."""
+    import asyncio
+
+    from distkeras_tpu_torch.serving import ServingClient, ServingEngine
+
+    env = {**os.environ, "PYTHONPATH": REPO + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    model_args = '{"seq_len": 32, "vocab_size": 64}'
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "distkeras_tpu_torch.run", "serve", "--device", "cpu",
+         "--port", "0", "--model", "gpt_tiny", "--model-args", model_args, "--slots", "2",
+         "--mesh-shape", "tp=2", "--force-host-devices", "2"],
+        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    prompt = [1, 2, 3, 4, 5]
+    try:
+        banner = json.loads(proc.stdout.readline())
+        assert banner["mesh"] == {"tp": 2} and banner["device"] == "cpu"
+
+        async def one():
+            async with ServingClient("127.0.0.1", int(banner["port"])) as c:
+                done = await c.generate(prompt, 4)
+                return done, await c.healthz()
+
+        done, health = asyncio.run(one())
+        assert health["mesh"]["axes"] == {"tp": 2} and len(health["mesh"]["devices"]) == 2
+        proc.send_signal(signal.SIGINT)
+        out, err = proc.communicate(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    assert proc.returncode == 0, err[-2000:]
+    model = run.load_model("gpt_tiny", json.loads(model_args))
+    engine = ServingEngine(model, model.init(0, device="cpu"), slots=2, device="cpu")
+
+    async def alone():
+        task = asyncio.create_task(engine.run())
+        try:
+            return await engine.submit(prompt, 4).result()
+        finally:
+            engine.shutdown()
+            await task
+
+    assert done["tokens"] == asyncio.run(alone())
 
 
 @pytest.mark.parametrize("sub", ["serve", "cluster", "deploy", "train"])

@@ -65,7 +65,8 @@ def test_port_imports_neither_jax_nor_reference():
               "deploy", "deploy.publisher", "deploy.controller", "deploy.harness", "run",
               "parallel.distributed", "parallel.mesh", "parallel.sharding",
               "parallel.gspmd", "ops.ring_flash", "ops.ulysses", "parallel.pipeline",
-              "parallel.pipeline_1f1b", "training.pipeline_trainer"):
+              "parallel.pipeline_1f1b", "training.pipeline_trainer", "parallel.pp",
+              "serving.sharded", "models.bert", "serving.metrics"):
         assert f"distkeras_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"

@@ -441,12 +441,20 @@ def test_metrics_summary_and_metricsz_keys_match_reference(lm):
 # -- options of later slices ------------------------------------------------------
 
 @pytest.mark.parametrize("kw,exc,item", [
-    ({"mesh": object()}, NotImplementedError, "A10e"),
-    ({"pipeline_depth": 2}, ValueError, "A10e"),
+    ({"mesh": object()}, TypeError, "serving_mesh"),
+    ({"pipeline_depth": 2}, ValueError, "needs a pp>=2"),
 ])
 def test_deferred_options_raise_naming_item(lm, kw, exc, item):
-    with pytest.raises(exc, match=rf"item {item}\b"):
+    """A serving mesh and ``pipeline_depth > 1`` are ported
+    (``tests/test_torch_sharded_serving.py``, ``tests/test_torch_pp_serving.py``);
+    what is not a mesh, and depth 2 on one device, stay typed errors, the
+    latter with the reference's message."""
+    with pytest.raises(exc, match=item) as port_info:
         _port(lm, **kw)
+    if "pipeline_depth" in kw:
+        with pytest.raises(ValueError) as ref_info:
+            _ref(lm, **kw)
+        assert str(port_info.value) == str(ref_info.value)
 
 
 @pytest.mark.parametrize("call", [

@@ -4,7 +4,8 @@
 
 ``tests/test_torch_data_parallel.py``, ``tests/test_torch_model_parallel.py``,
 ``tests/test_torch_sequence_parallel.py``, ``tests/test_torch_ring_attention.py``,
-``tests/test_torch_pipeline.py`` and ``tests/test_torch_pipeline_trainer.py``
+``tests/test_torch_pipeline.py``, ``tests/test_torch_pipeline_trainer.py``,
+``tests/test_torch_sharded_serving.py`` and ``tests/test_torch_pp_serving.py``
 start WORLD of these. They join one gloo process group through a file
 store in WORKDIR, read the scenarios' inputs from ``WORKDIR/inputs.pkl``
 (weights bridged from the reference's init, and the data), run every
@@ -347,7 +348,191 @@ def pp_train(case: dict, workdir: str) -> dict:
     return out
 
 
-RUNNERS = {"train": train, "predict": predict, "refuse": refuse, "groups": groups,
+def gpt_model(cfg: dict) -> Model:
+    """gpt_tiny at ``cfg``'s length and vocabulary, in float32."""
+    base = bert.gpt_tiny(seq_len=cfg["seq"], vocab_size=cfg["vocab"])
+    return bert._make(dataclasses.replace(base.config, dtype=torch.float32, dropout_rate=0.0),
+                      cfg["seq"], "gpt_tiny")
+
+
+_KV_CARRY: dict = {}
+
+
+def _serve_requests(engine, c):
+    """The leader's side of one sharded-serving case: the requests (all at
+    once, or one after another), then the swap, the KV export and the
+    healthz row the case asks for."""
+    import asyncio
+
+    from distkeras_tpu_torch.serving import ServingClient, ServingServer
+
+    rep = {}
+
+    async def go():
+        server = None
+        if c.get("healthz"):
+            server = ServingServer(engine, host="127.0.0.1", port=0)
+            await server.start()
+            task = None
+        else:
+            task = asyncio.create_task(engine.run())
+        try:
+            if c.get("kv_import") is not None:
+                ev, res = engine.request_kv_import(_KV_CARRY[c["kv_import"]])
+                await asyncio.wait_for(ev.wait(), 60)
+                rep["import"] = {k: v for k, v in res.items() if k != "error"}
+            reqs = c["requests"]
+            if c.get("sequential"):
+                done = [await engine.submit(p, n, **kw).result() for p, n, kw in reqs]
+            else:
+                pending = [engine.submit(p, n, **kw) for p, n, kw in reqs]
+                done = [await r.result() for r in pending]
+            rep["outs"] = [list(map(int, d)) for d in done]
+            if not c.get("sequential"):
+                rep["scores"] = [list(r.logprobs or []) for r in pending]
+                rep["forks"] = [r.fork_completions for r in pending]
+                rep["embeds"] = [r.embedding for r in pending]
+            if c.get("swap") is not None:
+                ev, res = engine.request_param_swap(
+                    c["swap"], provenance={"version": 9, "digest": "d9"})
+                await asyncio.wait_for(ev.wait(), 60)
+                assert res.get("ok"), res
+                rep["after_swap"] = [list(map(int, await engine.submit(p, n, **kw).result()))
+                                     for p, n, kw in reqs]
+                rep["weight_version"] = engine.weight_version
+            if c.get("kv_refuse"):
+                for verb in ("request_kv_export", "request_kv_import"):
+                    try:
+                        getattr(engine, verb)(reqs[0][0] if "export" in verb else b"")
+                    except Exception as e:
+                        rep.setdefault("refused", []).append((type(e).__name__, str(e)))
+            if c.get("kv_export"):
+                ev, res = engine.request_kv_export(reqs[0][0])
+                await asyncio.wait_for(ev.wait(), 60)
+                rep["payload"] = res["payload"]
+            if server is not None:
+                async with ServingClient("127.0.0.1", server.port) as client:
+                    rep["healthz"] = await client.healthz()
+        finally:
+            if server is not None:
+                await server.stop(drain=True)
+            else:
+                engine.shutdown(drain=True)
+                await task
+
+    asyncio.run(go())
+    return rep
+
+
+def serve_mesh(case: dict, workdir: str) -> dict:
+    """Sharded serving (``ServingEngine(mesh=...)``): every rank builds the
+    engine of each case from the same whole weights; the mesh's first rank
+    serves the case's requests and closes, the others follow. A case may
+    carry a second set of weights to swap in, export a prompt's blocks,
+    hand them through an unsharded engine (``kv_relay``) or import them,
+    ask for the healthz row, or make a follower rank's decode step raise
+    (``fail``). Also runs batch-parallel ``generate``/``beam_search``
+    (``generate``)."""
+    from distkeras_tpu_torch.inference.generate import beam_search, generate
+    from distkeras_tpu_torch.parallel.mesh import serving_mesh
+    from distkeras_tpu_torch.serving import ServingEngine
+    from distkeras_tpu_torch.telemetry.recompile import RecompileAuditor
+
+    rank = distributed.process_index()
+    out = {}
+    for name, c in case["cases"].items():
+        model = gpt_model(c)
+        weights = {k: torch.as_tensor(v) for k, v in c["weights"].items()}
+        if c.get("generate"):
+            mesh = make_mesh(c["mesh"])
+            prompt = np.asarray(c["prompt"], np.int32)
+            out[name] = {
+                "greedy": generate(model, weights, prompt, c["new"], greedy=True, mesh=mesh,
+                                   device="cpu"),
+                "sampled": generate(model, weights, prompt, c["new"], temperature=0.9,
+                                    top_k=8, seed=3, mesh=mesh, device="cpu"),
+                "beam": beam_search(model, weights, prompt, c["new"], num_beams=3, mesh=mesh,
+                                    device="cpu")}
+            continue
+        kw = dict(c["engine"])
+        if kw.pop("draft", False):
+            kw.update(draft_model=model, draft_variables=weights)
+        auditor = RecompileAuditor()
+        engine = ServingEngine(model, weights, mesh=serving_mesh(c["mesh"]), auditor=auditor,
+                               arm_auditor_after_warmup=True, device="cpu", **kw)
+        rep = {}
+        fail = c.get("fail")
+        if fail is not None and rank == fail["rank"]:
+            step = engine._link._local["_decode_step"]
+            calls = [0]
+
+            def failing(*args, **kwargs):
+                calls[0] += 1
+                if calls[0] > fail["after"]:
+                    raise RuntimeError("injected follower failure")
+                return step(*args, **kwargs)
+
+            engine._link._local["_decode_step"] = failing
+        if engine.is_leader:
+            import time
+
+            t0 = time.monotonic()
+            try:
+                rep.update(_serve_requests(engine, c))
+            except Exception as e:  # the failure case's typed error
+                rep["error"] = (type(e).__name__, getattr(e, "code", None), str(e))
+            rep["seconds"] = time.monotonic() - t0
+            rep["mesh_info"] = engine.mesh_info()
+            rep["debugz"] = engine.debugz()
+            rep["bubble"] = engine.metrics.bubble.fraction
+            rep["preemptions"] = engine.metrics.preemptions
+            rep["spec_accepted"] = engine.metrics.spec_accepted_tokens
+            rep["prefix_hits"] = (engine.prefix_cache.hit_tokens
+                                  if engine.prefix_cache is not None else None)
+            if "error" not in rep:
+                rep["counts"] = engine.decode_compile_counts()
+                engine.close()
+            if c.get("kv_relay"):
+                # tp=1 in the middle of a round trip: an unsharded engine
+                # imports the payload and exports it again.
+                plain = ServingEngine(model, weights, device="cpu", **c["engine"])
+                _KV_CARRY[name] = _relay(plain, rep["payload"], c["requests"][0][0])
+                rep["relayed"] = _KV_CARRY[name]
+        else:
+            try:
+                rep["ops"] = engine.follow()
+            except Exception as e:
+                rep["error"] = (type(e).__name__, str(e))
+        rep["compiles"] = {n: auditor.compiles(n) for n in
+                           ("serving_decode", "serving_draft", "serving_verify")
+                           if n in auditor.report()}
+        out[name] = rep
+        if "error" in rep:
+            break  # the process group is gone
+    return out
+
+
+def _relay(engine, payload, prompt):
+    """Import ``payload`` into an unsharded engine and export the same
+    prompt's blocks again."""
+    import asyncio
+
+    async def go():
+        task = asyncio.create_task(engine.run())
+        try:
+            ev, res = engine.request_kv_import(payload)
+            await asyncio.wait_for(ev.wait(), 60)
+            ev, res = engine.request_kv_export(prompt)
+            await asyncio.wait_for(ev.wait(), 60)
+            return res["payload"]
+        finally:
+            engine.shutdown(drain=True)
+            await task
+
+    return asyncio.run(go())
+
+
+RUNNERS = {"serve_mesh": serve_mesh, "train": train, "predict": predict, "refuse": refuse, "groups": groups,
            "sharded_init": sharded_init, "tp_decode": tp_decode, "joint_group": joint_group,
            "sp_attention": sp_attention, "sp_forward": sp_forward, "pp_engine": pp_engine,
            "pp_train": pp_train}
@@ -401,7 +586,8 @@ def main(workdir: str, rank: int, world: int) -> int:
     finally:
         with open(os.path.join(workdir, f"result-{rank}.pkl"), "wb") as f:
             pickle.dump(results, f)
-        torch.distributed.destroy_process_group()
+        if torch.distributed.is_initialized():  # a failed follower left it
+            torch.distributed.destroy_process_group()
     return 0
 
 
