@@ -281,10 +281,28 @@ Phases, each of which must pass or the script exits non-zero:
    bubble_fraction (pp), peak memory, with the card. Decode runs dense
    masked attention and computes no loss, so the phase launches none of
    K1-K6. No scaling figure.
-22. Print the kernels line, the card's name and power limit, and last the
+22. MoE and expert parallelism (``ops/moe.py``; flash on, fused loss,
+   adam, dropout 0). 22a: bert_tiny_moe_mlm at its own widths (hidden 128,
+   4 heads of 32, 2 layers, 4 experts, vocab 1024; seq 64, batch 32) at
+   top-1 and at top-2: 3 SingleTrainer steps and Trainer.evaluate, the
+   launches of K1-K6 (2 of K1-K3 and 1 of K4-K6 a step), finite losses,
+   the aux loss at least 0.99 x the layers, the share of dropped
+   assignments; one step's gradients (the task loss plus 0.01 x the aux)
+   card against CPU within phase 5's bound. 22b: bert_base_mlm's config
+   with 8 experts at top-2 (32 x 128 tokens): the steady step's ms and
+   tokens/s, the busy share, the peak memory, the aux loss and the dropped
+   share, beside phase 5's dense step; 12 of K1-K3 and 1 of K4-K6 a step.
+   22c: one NCCL rank, SynchronousDistributedTrainer(mesh={"ep": 1}) on
+   22a's top-2 model, bitwise on SingleTrainer's weights; two gloo ranks
+   sharing the card at {"ep": 2} (each 2 of the 4 experts): losses finite,
+   equal on both ranks and within LOSS_RTOL of SingleTrainer's on the same
+   rows, the replicated leaves equal, the first step's gradients gathered
+   whole within phase 17's bound of one process's, the ep_all_reduce
+   span's share of the step (a check, not a scaling figure). Phase 2 holds K1-K6 at 22a's shapes too.
+23. Print the kernels line, the card's name and power limit, and last the
    result line {"ok": true, "device": {...}}.
 
-Phases 9-11, 15f, 16, 17, 18, 19, 20 and 21 write their checkpoints, weight files and
+Phases 9-11, 15f, 16, 17, 18, 19, 20, 21 and 22 write their checkpoints, weight files and
 stores under build/chip_smoke/ (git-ignored) and remove them.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
@@ -347,6 +365,8 @@ RESNET_NOISE_FACTOR = 3.0
 # on the card: both are (a + b) / 2 in float32, one rounding each.
 AVERAGE_ATOL_ULPS = 1.0
 CKPT_ROOT = os.path.join(REPO, "build", "chip_smoke")
+# Phases 5-6's steady train step, ms, by model name (phase 22b prints it).
+STEADY_MS: dict = {}
 
 
 def log(msg: str) -> None:
@@ -868,6 +888,7 @@ def steady_steps(model, data, batch, seq):
     run(8)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) / 8 * 1e3
+    STEADY_MS[model.name] = ms
     log(f"  steady train step: {ms:.2f} ms/step, {batch * seq / ms * 1e3:.0f} tokens/s "
         f"(8 steps, batches on the device)")
     profile("4 train steps", lambda: run(4))
@@ -4332,6 +4353,377 @@ def mesh_phase(served, root=REPO, requests=8, new=MESH_NEW, device="cuda",
     return read_counts()
 
 
+# -- phase 22: MoE and expert parallelism --------------------------------------
+
+# 22a: bert_tiny_moe_mlm's own widths (hidden 128, 4 heads of 32, 2 layers,
+# 4 experts, vocab 1024), seq 64, batch 32; 22b: bert_base_mlm's widths with
+# 8 experts at top-2, 32 x 128 tokens.
+MOE_SEQ, MOE_BATCH, MOE_STEPS = 64, 32, 3
+MOE_BASE_SEQ, MOE_BASE_EXPERTS = 128, 8
+
+
+def moe_model(top_k=1, base=False):
+    """22a's model (``bert_tiny_moe_mlm`` at top ``top_k``) or 22b's
+    (``bert_base_mlm``'s config with 8 experts at top-2), flash on, dropout
+    0: ``(model, cfg)``."""
+    from distkeras_tpu_torch.models import bert
+
+    if base:
+        cfg = dataclasses.replace(bert.bert_base_mlm().config, moe_experts=MOE_BASE_EXPERTS,
+                                  moe_top_k=2, use_flash_attention=True, dropout_rate=0.0)
+        seq, name = MOE_BASE_SEQ, "bert_base_moe_mlm"
+    else:
+        base_model = bert.bert_tiny_moe_mlm(seq_len=MOE_SEQ, top_k=top_k)
+        cfg = dataclasses.replace(base_model.config, use_flash_attention=True, dropout_rate=0.0)
+        seq, name = MOE_SEQ, base_model.name
+    return bert._make(cfg, seq, name), cfg
+
+
+def moe_copy_task(cfg, seq, rows, seed=SEED):
+    import numpy as np
+
+    from distkeras_tpu_torch import Dataset
+
+    tokens = np.random.default_rng(seed).integers(0, cfg.vocab_size,
+                                                  size=(rows, seq)).astype(np.int32)
+    return Dataset.from_arrays(features=tokens, label=tokens)
+
+
+def moe_routing(model, weights, tokens) -> tuple[float, float]:
+    """A training apply's summed aux loss, and the share of the routing's
+    assignments (tokens x top_k, over every layer) that found no seat,
+    routed again from each layer's input with the router in ``weights`` (the
+    module's own parameters are meta once the apply has returned)."""
+    import torch
+
+    from distkeras_tpu_torch.ops import moe
+
+    seen = []
+    hooks = [m.register_forward_hook(
+                 lambda mod, args, out, name=name: seen.append((name, mod, args[0])))
+             for name, m in model.module.named_modules() if isinstance(m, moe.MoEMLP)]
+    try:
+        with torch.no_grad():
+            _, state = model.apply(weights, tokens, True, 0)
+            kept = total = aux = 0
+            for name, mod, x in seen:
+                flat = x.reshape(-1, x.shape[-1])
+                dispatch, _, _, layer_aux = moe._route(
+                    flat, weights[f"{name}.router"], mod.num_experts, mod.router_top_k,
+                    mod.capacity_factor, None)
+                kept += dispatch.sum().item()
+                total += flat.shape[0] * mod.router_top_k
+                aux += layer_aux.item()
+    finally:
+        for h in hooks:
+            h.remove()
+    # The seats come from the same routing as the apply's aux loss.
+    check(math.isclose(aux, state["aux_loss"].item(), rel_tol=1e-5),
+          f"routing again gives aux {aux}, the apply {state['aux_loss'].item()}")
+    return state["aux_loss"].item(), 1.0 - kept / total
+
+
+def moe_grads(model, cfg, weights, rows, device, weight=0.01) -> tuple[dict, dict]:
+    """:func:`bert_grads` of the step's objective with the aux loss: the
+    task loss plus ``weight`` times the training apply's aux."""
+    import torch
+
+    from distkeras_tpu_torch.models import bert
+    from distkeras_tpu_torch.ops.fused_xent import fused_softmax_xent
+
+    exact_model = bert._make(dataclasses.replace(cfg, dtype=torch.float32,
+                                                 use_flash_attention=False),
+                             model.input_shape[0], model.name)
+    out = []
+    for m in (model, exact_model):
+        params = {k: v.detach().clone().to(device).requires_grad_() for k, v in weights.items()}
+        x = torch.from_numpy(rows).to(device)
+        logits, state = m.apply(params, x, True, 0)
+        loss = fused_softmax_xent(logits, x) + weight * state["aux_loss"]
+        grads = torch.autograd.grad(loss, list(params.values()))
+        out.append({k: g.float() for k, g in zip(params, grads)})
+    return out[0], out[1]
+
+
+def grad_report(got: dict, want: dict, exact: dict) -> dict:
+    """Phase 17's gradient check: each tensor's difference in norm relative
+    to its norm, against GRAD_REL_TOL or GRAD_NOISE_FACTOR x the one-process
+    bf16 step's distance from the float32 one."""
+    norms = {k: want[k].norm().item() for k in want}
+    floor = 1e-3 * max(norms.values())
+    rel = {k: (got[k].float().to(want[k].device) - want[k]).norm().item()
+           / max(norms[k], floor) for k in want}
+    noise = {k: (want[k] - exact[k]).norm().item() / max(norms[k], floor) for k in want}
+    allowed = {k: max(GRAD_REL_TOL, GRAD_NOISE_FACTOR * noise[k]) for k in want}
+    worst = max(rel, key=lambda k: rel[k] / allowed[k])
+    return {"tensors": len(rel), "median": sorted(rel.values())[len(rel) // 2],
+            "max": max(rel.values()), "worst": worst, "worst_rel": rel[worst],
+            "worst_allowed": allowed[worst]}
+
+
+def moe_tiny_case(top_k, device="cuda") -> dict:
+    """22a at one top_k: SingleTrainer for MOE_STEPS steps (adam, fused
+    loss), Trainer.evaluate, the aux loss and the dropped share, one step's
+    gradients card against CPU; returns the launch counts of the train and
+    evaluate runs."""
+    import torch
+
+    from distkeras_tpu_torch import SingleTrainer, TrainedModel, Trainer
+
+    model, cfg = moe_model(top_k)
+    data = moe_copy_task(cfg, MOE_SEQ, MOE_BATCH * MOE_STEPS)
+    loss = "fused_categorical_crossentropy"
+
+    def trainer():
+        return SingleTrainer(model, "adam", loss=loss, batch_size=MOE_BATCH, seed=SEED,
+                             device=device)
+
+    trainer().train(data.take(MOE_BATCH))  # warm-up
+    _synchronize(device)
+    reset_counts()
+    t0 = time.perf_counter()
+    tr = trainer()
+    trained = tr.train(data)
+    _synchronize(device)
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    losses = [h["loss"] for h in tr.history]
+    check(len(losses) == MOE_STEPS and all(math.isfinite(x) for x in losses),
+          f"22a top-{top_k}: losses {losses}")
+    L = cfg.num_layers
+    if torch_device_type(device) == "cuda":
+        check(counts == train_launches(cfg, MOE_STEPS), f"22a top-{top_k}: launches {counts}")
+    reset_counts()
+    metrics = Trainer(model, loss=loss, device=device).evaluate(trained, data,
+                                                                batch_size=MOE_BATCH)
+    _synchronize(device)
+    eval_counts = read_counts()
+    if torch_device_type(device) == "cuda":
+        check(eval_counts == expected(flash_attention_fwd=L * MOE_STEPS,
+                                      fused_xent_fwd=MOE_STEPS),
+              f"22a top-{top_k}: evaluate launches {eval_counts}")
+    check(math.isfinite(metrics["loss"]), f"22a top-{top_k}: eval loss {metrics['loss']}")
+    rows = data["features"][:MOE_BATCH]
+    aux, dropped = moe_routing(model, trained.variables, torch.from_numpy(rows).to(device))
+    check(math.isfinite(aux) and aux >= 0.99 * L, f"22a top-{top_k}: aux loss {aux} < 0.99 x {L}")
+    log(f"  22a top-{top_k} ({model.name}, {model.count_params()} params): {MOE_STEPS} "
+        f"SingleTrainer steps {wall / MOE_STEPS * 1e3:.2f} ms/step with the feed, losses "
+        f"{', '.join(f'{x:.4f}' for x in losses)}; evaluate loss {metrics['loss']:.4f}; aux "
+        f"loss {aux:.4f} over {L} layers, dropped {dropped:.2%} of the assignments; launches "
+        f"{counts}, evaluate {eval_counts}")
+    weights = model.init(SEED, device=device)
+    cpu_w = {k: v.cpu() for k, v in weights.items()}
+    got, _ = moe_grads(model, cfg, weights, rows[:4], device)
+    want, exact = moe_grads(model, cfg, cpu_w, rows[:4], "cpu")
+    g = grad_report({k: v.cpu() for k, v in got.items()}, want, exact)
+    log(f"  22a top-{top_k} card vs CPU, one step on 4 rows: gradient difference relative "
+        f"to the gradient's norm median {g['median']:.3g}, max {g['max']:.3g} over "
+        f"{g['tensors']} tensors; nearest its bound {g['worst']} {g['worst_rel']:.3g} (allowed "
+        f"{g['worst_allowed']:.3g})")
+    check(g["worst_rel"] <= g["worst_allowed"],
+          f"22a top-{top_k}: gradient {g['worst']} {g['worst_rel']} > {g['worst_allowed']}")
+    return {k: counts[k] + eval_counts[k] for k in counts}
+
+
+def moe_base_case(steps=4, device="cuda") -> dict:
+    """22b: the MoE block at bert_base's widths, 32 x 128 tokens: steady
+    steps (adam, fused loss) timed and profiled, the peak memory, the aux
+    loss and the dropped share; returns the launch counts of the timed
+    steps."""
+    import torch
+
+    from distkeras_tpu_torch.data.feed import DeviceFeed, minibatches
+    from distkeras_tpu_torch.ops.losses import get_optimizer
+    from distkeras_tpu_torch.training.step import TrainState, make_train_step
+
+    model, cfg = moe_model(base=True)
+    data = moe_copy_task(cfg, MOE_BASE_SEQ, MOE_BATCH * 2)
+    torch.cuda.reset_peak_memory_stats()
+    state = TrainState.create(model, get_optimizer("adam"), SEED, device)
+    step = make_train_step(model, "fused_categorical_crossentropy")
+    batches = list(DeviceFeed(minibatches(data, MOE_BATCH), device))
+
+    def run(n):
+        nonlocal state
+        for i in range(n):
+            state, m = step(state, batches[i % len(batches)])
+        return m
+
+    run(2)
+    _synchronize(device)
+    reset_counts()
+    t0 = time.perf_counter()
+    m = run(steps)
+    _synchronize(device)
+    ms = (time.perf_counter() - t0) / steps * 1e3
+    counts = read_counts()
+    check(counts == train_launches(cfg, steps), f"22b: launches {counts}")
+    check(math.isfinite(m["loss"].item()), f"22b: loss {m['loss'].item()}")
+    busy = profile("22b: 2 MoE bert_base train steps", lambda: run(2))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    aux, dropped = moe_routing(model, state.variables, batches[0]["features"])
+    dense = STEADY_MS.get("bert_base_mlm")
+    log(f"  22b ({cfg.num_layers} layers, hidden {cfg.hidden_size}, {cfg.moe_experts} experts "
+        f"of mlp {cfg.mlp_dim} at top-{cfg.moe_top_k}, {model.count_params()} params, "
+        f"{MOE_BATCH} x {MOE_BASE_SEQ} tokens): steady step {ms:.2f} ms "
+        f"({MOE_BATCH * MOE_BASE_SEQ / ms * 1e3:.0f} tokens/s), busy {busy:.1%}, peak memory "
+        f"{peak:.2f} GiB, aux loss {aux:.4f}, dropped {dropped:.2%} of the assignments; "
+        f"phase 5's dense bert_base step {dense if dense is None else f'{dense:.2f}'} ms; "
+        f"launches {counts} ({card_line()})")
+    del state, batches
+    torch.cuda.empty_cache()
+    return counts
+
+
+def moe_ep1_task(rank, world, device="cuda") -> dict:
+    """22c: one NCCL rank: SynchronousDistributedTrainer(mesh={"ep": 1}) on
+    22a's top-2 model against SingleTrainer on the same rows."""
+    import torch
+
+    from distkeras_tpu_torch import SingleTrainer
+
+    model, cfg = moe_model(2)
+    data = moe_copy_task(cfg, MOE_SEQ, MOE_BATCH * MOE_STEPS)
+    reset_counts()
+    ep = _sync_trainer(model, MOE_BATCH, device, mesh={"ep": 1}).train(data)
+    _synchronize(device)
+    counts = read_counts()
+    single = SingleTrainer(model, "adam", loss="fused_categorical_crossentropy",
+                           batch_size=MOE_BATCH, seed=SEED, device=device).train(data)
+    return {"backend": torch.distributed.get_backend(), "counts": counts,
+            "bitwise": all(torch.equal(ep.variables[k], v)
+                           for k, v in single.variables.items()),
+            "gap": _tensor_gaps(ep.variables, single.variables)}
+
+
+def moe_ep_task(rank, world, base=False, device="cuda") -> dict:
+    """22c at ``{"ep": world}`` (two gloo ranks sharing the card, on 22a's
+    top-2 model) and ``scripts/moe_chip.py cards`` (``base``: 22b's model,
+    one NCCL rank a card): 3 steps on one global batch repeated; the first
+    step's gradients, gathered whole, and on rank 0 one process's, and its
+    SingleTrainer's losses on the same rows."""
+    import numpy as np
+    import torch
+    from torch.optim.optimizer import register_optimizer_step_pre_hook
+
+    from distkeras_tpu_torch import Dataset, SingleTrainer
+    from distkeras_tpu_torch.parallel import gspmd
+    from distkeras_tpu_torch.parallel.mesh import make_mesh
+    from distkeras_tpu_torch.telemetry.spans import Tracer, disable_tracing, enable_tracing
+
+    mesh = make_mesh({"ep": world})
+    model, cfg = moe_model(2, base=base)
+    one = moe_copy_task(cfg, model.input_shape[0], MOE_BATCH)
+    data = Dataset.from_arrays(**{k: np.concatenate([one[k]] * MOE_STEPS)
+                                  for k in ("features", "label")})
+    _sync_trainer(model, MOE_BATCH, device, mesh=mesh).train(one)  # warm-up: the groups
+    names = [n for n, _ in model.module.named_parameters()]
+    shardings = gspmd.variable_shardings(model, mesh, model.module.state_dict())
+    tapped = []
+
+    def tap(optimizer, args, kwargs):
+        if not tapped:
+            tapped.extend(p.grad.detach().float().clone()
+                          for g in optimizer.param_groups for p in g["params"])
+
+    hook = register_optimizer_step_pre_hook(tap)
+    reset_counts()
+    tracer = enable_tracing(Tracer())
+    tr = _sync_trainer(model, MOE_BATCH, device, mesh=mesh)
+    trained = tr.train(data)
+    _synchronize(device)
+    disable_tracing()
+    hook.remove()
+    totals = span_totals(tracer)
+    step_n, step_s = totals.get(("train_step", None), [0, 0.0])
+    report = {"backend": torch.distributed.get_backend(), "counts": read_counts(),
+              "losses": [h["loss"] for h in tr.history],
+              "ms_per_step": step_s / max(step_n, 1) * 1e3,
+              "step_ms": [(b - a) * 1e3 for n, _, a, b in span_intervals(tracer)
+                          if n == "train_step"],
+              "ep_share": totals.get(("ep_all_reduce", None), [0, 0.0])[1] / step_s,
+              "experts": tapped[names.index("layer_0.moe_mlp.w_in")].shape[0],
+              "replicated_sums": [[trained.variables[k].double().sum().item()] for k in names
+                                  if shardings[k].is_replicated]}
+    if torch_device_type(device) == "cuda":
+        report["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    got = gspmd.gather_whole(dict(zip(names, tapped)), shardings)
+    if rank == 0:
+        want, exact = moe_grads(model, cfg, model.init(SEED, device=device), one["features"],
+                                device)
+        report["grads"] = grad_report(got, want, exact)
+        single = SingleTrainer(model, "adam", loss="fused_categorical_crossentropy",
+                               batch_size=MOE_BATCH, seed=SEED, device=device)
+        single.train(data)
+        report["single_losses"] = [h["loss"] for h in single.history]
+    return report
+
+
+def moe_ep_report(tag, ranks, cfg, counting, where) -> None:
+    """Log each rank of a :func:`moe_ep_task` run and hold it to the checks:
+    losses finite and equal on every rank and within LOSS_RTOL of
+    SingleTrainer's on the same rows, the replicated leaves equal, E/ep
+    experts a rank, the launches, and the gathered gradients within phase
+    17's bound of one process's. (The losses need not fall: at 22b's widths
+    three adam steps on one batch go down, then up, in one process too.)"""
+    r0 = ranks[0]
+    for r, rep in enumerate(ranks):
+        log(f"  {tag} rank {r} ({rep['backend']}, ep={len(ranks)}, {where}: a check, not a "
+            f"scaling figure): {rep['experts']} experts a layer, {rep['ms_per_step']:.2f} "
+            f"ms/step (steps {', '.join(f'{x:.1f}' for x in rep['step_ms'])}), ep_all_reduce "
+            f"{rep['ep_share']:.1%} of it, peak {rep.get('peak_gib', 0.0):.2f} GiB; losses "
+            f"{', '.join(f'{x:.4f}' for x in rep['losses'])}; launches {rep['counts']} "
+            f"({card_line()})")
+        check(rep["losses"] == r0["losses"] and all(math.isfinite(x) for x in rep["losses"]),
+              f"{tag}: rank {r} losses {rep['losses']}")
+        check(rep["replicated_sums"] == r0["replicated_sums"],
+              f"{tag}: rank {r}'s replicated leaves differ from rank 0's")
+        check(rep["experts"] * len(ranks) == cfg.moe_experts,
+              f"{tag}: rank {r} holds {rep['experts']} experts")
+        if counting:
+            check(rep["counts"] == train_launches(cfg, MOE_STEPS),
+                  f"{tag}: rank {r} launches {rep['counts']}")
+    gap = max(abs(a - b) / abs(b) for a, b in zip(r0["losses"], r0["single_losses"]))
+    log(f"  {tag}: losses against SingleTrainer's on the same rows "
+        f"{', '.join(f'{x:.4f}' for x in r0['single_losses'])}: largest relative gap "
+        f"{gap:.3g} (bound {LOSS_RTOL})")
+    check(gap <= LOSS_RTOL, f"{tag}: losses {gap} off SingleTrainer's")
+    g = r0["grads"]
+    log(f"  {tag}: first step's gradients over ep={len(ranks)}, gathered whole, against one "
+        f"process: median {g['median']:.3g}, max {g['max']:.3g} over {g['tensors']} tensors; "
+        f"nearest its bound {g['worst']} {g['worst_rel']:.3g} (allowed {g['worst_allowed']:.3g})")
+    check(g["worst_rel"] <= g["worst_allowed"],
+          f"{tag}: gradient {g['worst']} {g['worst_rel']} > {g['worst_allowed']}")
+
+
+def moe_phase(root=REPO, device="cuda") -> dict:
+    """22: MoE and expert parallelism; returns the launch counts of 22a's and
+    22b's runs and 22c's timed runs, every rank's summed."""
+    card = card_line()
+    t_phase = time.perf_counter()
+    counting = torch_device_type(device) == "cuda"
+    runs = [moe_tiny_case(1, device), moe_tiny_case(2, device)]
+    log(f"  22a: {time.perf_counter() - t_phase:.2f} s into the phase")
+    if counting:
+        runs.append(moe_base_case(device=device))
+        log(f"  22b: {time.perf_counter() - t_phase:.2f} s into the phase")
+    cfg = moe_model(2)[1]
+    (a,) = dp_spawn(root, "22c-ep1", None if counting else "gloo", 1, "moe_ep1_task",
+                    device=device)
+    log(f"  22c ({a['backend']}, 1 rank, mesh ep=1): weights vs SingleTrainer bitwise "
+        f"{a['bitwise']}, largest per-tensor relative gap {a['gap']:.3g}; launches "
+        f"{a['counts']}")
+    check(a["bitwise"], f"22c: ep=1 weights off SingleTrainer's by {a['gap']}")
+    if counting:
+        check(a["counts"] == train_launches(cfg, MOE_STEPS), f"22c: launches {a['counts']}")
+    ranks = dp_spawn(root, "22c-ep2", "gloo", 2, "moe_ep_task", device=device)
+    moe_ep_report("22c", ranks, cfg, counting, "gloo, 2 ranks sharing one card")
+    wall = time.perf_counter() - t_phase
+    log(f"  22: phase wall {wall:.2f} s ({card})")
+    runs += [a["counts"]] + [rep["counts"] for rep in ranks]
+    return {k: sum(r[k] for r in runs) for k in runs[0]}
+
+
 def torch_device_type(device) -> str:
     import torch
 
@@ -4406,22 +4798,26 @@ def main(argv=None) -> int:
           # a ring hop at sp=2 on gpt_small (phase 19): own shard, earlier, striped later
           flash_case(8, 256, 12, 64, True, 0, gen),
           flash_case(8, 256, 12, 64, False, 0, gen),
-          flash_case(8, 256, 12, 64, True, 1, gen)]
+          flash_case(8, 256, 12, 64, True, 1, gen),
+          flash_case(32, 64, 4, 32, False, 0, gen)]  # bert_tiny_moe_mlm (phase 22a)
     k4 = [xent_case(4096, 30522, torch.float32, gen),
           xent_case(4096, 30522, torch.bfloat16, gen),
           xent_case(4096, 50257, torch.float32, gen),
-          xent_case(1024, 30522, torch.float32, gen)]  # a 1F1B microbatch (phase 20d)
+          xent_case(1024, 30522, torch.float32, gen),  # a 1F1B microbatch (phase 20d)
+          xent_case(2048, 1024, torch.float32, gen)]  # bert_tiny_moe_mlm (phase 22a)
     k23 = [flash_bwd_cases(32, 128, 12, 64, False, 0, gen),
            flash_bwd_cases(8, 512, 12, 64, True, 0, gen),
            flash_bwd_cases(8, 512, 12, 64, True, 1, gen),
            flash_bwd_cases(32, 128, 6, 64, False, 0, gen),
            flash_bwd_cases(8, 256, 12, 64, True, 0, gen),
            flash_bwd_cases(8, 256, 12, 64, False, 0, gen),
-           flash_bwd_cases(8, 256, 12, 64, True, 1, gen)]
+           flash_bwd_cases(8, 256, 12, 64, True, 1, gen),
+           flash_bwd_cases(32, 64, 4, 32, False, 0, gen)]
     k56 = [xent_bwd_cases(4096, 30522, torch.float32, gen),
            xent_bwd_cases(4096, 30522, torch.bfloat16, gen),
            xent_bwd_cases(4096, 50257, torch.float32, gen),
-           xent_bwd_cases(1024, 30522, torch.float32, gen)]
+           xent_bwd_cases(1024, 30522, torch.float32, gen),
+           xent_bwd_cases(2048, 1024, torch.float32, gen)]
     torch.cuda.empty_cache()
     phase2 = {"flash_attention_fwd": k1, "flash_attention_dq": [c[0] for c in k23],
               "flash_attention_dkv": [c[1] for c in k23], "fused_xent_fwd": k4,
@@ -4483,6 +4879,10 @@ def main(argv=None) -> int:
         "sharing the card): gpt_small at full width")
     runs.append(mesh_phase(served))
     del served
+    log("phase 22: MoE and expert parallelism (bert_tiny_moe_mlm top-1 and top-2; the MoE "
+        "block at bert_base's widths; one NCCL rank at ep=1; ep=2 on two gloo ranks sharing "
+        "the card)")
+    runs.append(moe_phase(root))
     launches = {k: sum(r[k] for r in runs) for k in runs[0]}
     for k, n in launches.items():
         check(n > 0, f"kernel {k} was not launched on the main path")

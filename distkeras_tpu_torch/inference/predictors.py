@@ -8,7 +8,7 @@ import numpy as np
 import torch
 
 from distkeras_tpu_torch.data.dataset import Dataset
-from distkeras_tpu_torch.models.core import TrainedModel
+from distkeras_tpu_torch.models.core import TrainedModel, cross_replica_batch_stats
 from distkeras_tpu_torch.utils.device import resolve_device
 
 __all__ = ["Predictor", "ModelPredictor"]
@@ -83,8 +83,11 @@ class ModelPredictor(Predictor):
             if group is None:
                 out = model.apply(variables, torch.from_numpy(chunk).to(device), train=False)[0]
             else:
-                part = model.apply(variables, torch.from_numpy(chunk[mine]).to(device),
-                                   train=False)[0].contiguous()
+                # An MoE model routes the whole batch across the ranks, as
+                # the reference's XLA routes the sharded global batch.
+                with cross_replica_batch_stats(group):
+                    part = model.apply(variables, torch.from_numpy(chunk[mine]).to(device),
+                                       train=False)[0].contiguous()
                 parts = [torch.empty_like(part) for _ in range(dp)]
                 torch.distributed.all_gather(parts, part, group=group)
                 out = torch.cat(parts)

@@ -25,7 +25,20 @@ Attention takes the flash kernel (:mod:`distkeras_tpu_torch.ops.flash_attention`
 when ``use_flash_attention`` is set and no mask is given, else dense
 attention. Tensor parallelism (``tp_mesh``) splits the heads, the MLP and
 the vocabulary over a mesh's tp axis (Megatron's layout, explicit
-autograd-aware collectives). MoE comes with a later slice and raises here.
+autograd-aware collectives).
+
+MoE (``moe_experts > 0``, ``moe_top_k``; reference ``bert.py:419-444``):
+each layer's MLP is a routed expert mixture (:class:`~distkeras_tpu_torch.ops.moe.MoEMLP`,
+``layer_{i}.moe_mlp.{router,w_in,w_out}``) on the float32 LayerNorm output,
+with the residual kept in the compute dtype. A training apply returns the
+layers' summed load-balancing loss as ``{"aux_loss": scalar}``, the
+``new_state`` the step folds into the objective (nothing else returns it).
+Expert parallelism (``ep_mesh``, a port field as ``tp_mesh`` is): each rank
+of the mesh's ep axis computes on its ``E/ep`` experts, the output summed
+over the axis inside the layer. Under a data-parallel step the routing takes
+the whole batch's seats and statistics
+(:func:`~distkeras_tpu_torch.models.core.cross_replica_batch_stats`), as
+the reference's XLA routes the global batch.
 
 Sequence parallelism (``ring_mesh``, ``ring_axis``, ``sp_impl``; reference
 ``bert.py:235-280``): every attention layer runs across the ranks of
@@ -85,6 +98,7 @@ from torch import nn
 from distkeras_tpu_torch.models.core import Model
 from distkeras_tpu_torch.ops.attention import PagedPlan, constrain_heads, dot_product_attention
 from distkeras_tpu_torch.ops.flash_attention import flash_attention
+from distkeras_tpu_torch.ops.moe import EXPERT_AXES, MoEMLP
 from distkeras_tpu_torch.ops.ring_flash import ring_flash_attention
 from distkeras_tpu_torch.ops.ulysses import ulysses_self_attention
 from distkeras_tpu_torch.parallel.distributed import axis_ring
@@ -94,25 +108,23 @@ from distkeras_tpu_torch.utils.rng import fold_in
 
 __all__ = [
     "BertConfig", "Bert", "EncoderLayer", "SelfAttention", "dropout", "decode_cache",
-    "PARAM_AXES", "param_axes", "with_ring_mesh", "with_tp_mesh",
-    "bert_base_mlm", "bert_tiny_mlm", "gpt_tiny", "gpt_small",
+    "PARAM_AXES", "param_axes", "with_ep_mesh", "with_ring_mesh", "with_tp_mesh",
+    "bert_base_mlm", "bert_tiny_mlm", "bert_tiny_moe_mlm", "gpt_tiny", "gpt_small",
 ]
-
-# Config fields of later slices: a set value raises, naming the item.
-_LATER_SLICES = {
-    "moe_experts": "MoE (ROADMAP.md §A item A12)",
-}
 
 # The logical axes of each weight (reference ``nn.with_logical_partitioning``
 # at ``distkeras_tpu/models/bert.py:224-227, :294, :437-439, :485, :506,
-# :594``), by ``state_dict`` name. A torch ``Linear.weight`` is ``[out, in]``,
-# the transpose of flax's kernel, so its axes are the reference's reversed.
-# Every other leaf (biases, LayerNorms) has none: it is replicated.
+# :594``; ``ops/moe.py:76, :140, :148``), by ``state_dict`` name. A torch
+# ``Linear.weight`` is ``[out, in]``, the transpose of flax's kernel, so its
+# axes are the reference's reversed; the MoE expert weights are plain
+# parameters in the reference's layout, their axes as there. Every other leaf
+# (biases, LayerNorms, the MoE router) has none: it is replicated.
 PARAM_AXES: tuple[tuple[str, tuple], ...] = (
     (r"layer_\d+\.attention\.(query|key|value)\.weight", ("heads", "embed")),
     (r"layer_\d+\.attention\.out\.weight", ("embed", "heads")),
     (r"layer_\d+\.mlp_in\.weight", ("mlp", "embed")),
     (r"layer_\d+\.mlp_out\.weight", ("embed", "mlp")),
+    *((rf"layer_\d+\.moe_mlp\.{leaf}", axes) for leaf, axes in EXPERT_AXES.items()),
     (r"token_embed\.weight", ("vocab", "embed")),
     (r"pos_embed", (None, "seq", "embed")),
     (r"mlm_bias", ("vocab",)),
@@ -152,12 +164,12 @@ class BertConfig:
     page_tokens: int = 16
     page_table_blocks: int = 0
     tp_mesh: object = None
+    ep_mesh: object = None
 
     def __post_init__(self):
-        for name, where in _LATER_SLICES.items():
-            if getattr(self, name):
-                raise NotImplementedError(
-                    f"BertConfig.{name} is not ported yet: it comes with {where}")
+        if self.ep_mesh is not None and not isinstance(self.ep_mesh, Mesh):
+            raise TypeError(f"BertConfig.ep_mesh must be a distkeras_tpu_torch Mesh, "
+                            f"not {type(self.ep_mesh).__name__}")
         if self.tp_mesh is not None:
             if not isinstance(self.tp_mesh, Mesh):
                 raise TypeError(f"BertConfig.tp_mesh must be a distkeras_tpu_torch Mesh, "
@@ -176,6 +188,10 @@ class BertConfig:
                 raise NotImplementedError(
                     "BertConfig.ring_mesh with tp_mesh is not ported yet: sequence and tensor "
                     "parallelism together are A10c's remainder (ROADMAP.md §A)")
+        if self.moe_experts > 0 and (self.tp_mesh is not None or self.ring_mesh is not None):
+            raise NotImplementedError(
+                "BertConfig.moe_experts with tp_mesh or ring_mesh is not ported yet: MoE with "
+                "tensor or sequence parallelism is A12's remainder (ROADMAP.md §A)")
 
 
 def _tp_size(cfg: BertConfig) -> int:
@@ -193,6 +209,19 @@ def _tp(cfg: BertConfig):
         raise RuntimeError(f"BertConfig.tp_mesh with tp={n} needs a process group over its "
                            f"ranks (distkeras_tpu_torch.parallel.distributed.initialize)")
     return n, torch.distributed.get_rank(group), group
+
+
+def _ep(cfg: BertConfig):
+    """``(group, size)`` of ``cfg.ep_mesh``'s ep axis, ``(None, 1)`` when
+    there is no such axis above 1."""
+    n = 1 if cfg.ep_mesh is None else cfg.ep_mesh.shape.get("ep", 1)
+    if n == 1:
+        return None, 1
+    group = cfg.ep_mesh.group("ep")
+    if group is None:
+        raise RuntimeError(f"BertConfig.ep_mesh with ep={n} needs a process group over its "
+                           f"ranks (distkeras_tpu_torch.parallel.distributed.initialize)")
+    return group, n
 
 
 def _all_reduce(x, group):
@@ -520,17 +549,32 @@ class EncoderLayer(nn.Module):
         self.ln_attn = _layer_norm(cfg.hidden_size)
         self.attention = SelfAttention(cfg)
         self.ln_mlp = _layer_norm(cfg.hidden_size)
-        self.mlp_in = _ColumnDense(cfg.hidden_size, cfg.mlp_dim, cfg)
-        self.mlp_out = _reduce_dense(cfg, cfg.mlp_dim, cfg.hidden_size)
+        if cfg.moe_experts > 0:
+            group, n = _ep(cfg)
+            self.moe_mlp = MoEMLP(cfg.moe_experts, cfg.mlp_dim, cfg.hidden_size,
+                                  dtype=cfg.dtype, residual=False,
+                                  router_top_k=cfg.moe_top_k, ep_group=group, ep_size=n)
+        else:
+            self.mlp_in = _ColumnDense(cfg.hidden_size, cfg.mlp_dim, cfg)
+            self.mlp_out = _reduce_dense(cfg, cfg.mlp_dim, cfg.hidden_size)
 
     def forward(self, x, mask=None, train: bool = False, rng: int | None = None,
-                new_cache: dict | None = None, paged: PagedPlan | None = None):
+                new_cache: dict | None = None, paged: PagedPlan | None = None,
+                aux: list | None = None):
+        """``aux``: an MoE layer appends its load-balancing loss."""
         p = self.cfg.dropout_rate if train else 0.0
         y = self.attention(self.ln_attn(x.float()), mask=mask, new_cache=new_cache,
                            paged=paged)
         x = x + dropout(y, p, None if rng is None else fold_in(rng, 0))
-        y = self.mlp_in(_tp_input(self.cfg, self.ln_mlp(x.float())))
-        y = self.mlp_out(F.gelu(y, approximate="tanh"))
+        if self.cfg.moe_experts > 0:
+            # The float32 LayerNorm output in, float32 out; the residual
+            # stays in the compute dtype (reference bert.py:442-444).
+            y, layer_aux = self.moe_mlp(self.ln_mlp(x.float()))
+            if aux is not None:
+                aux.append(layer_aux)
+        else:
+            y = self.mlp_in(_tp_input(self.cfg, self.ln_mlp(x.float())))
+            y = self.mlp_out(F.gelu(y, approximate="tanh"))
         return x + dropout(y, p, None if rng is None else fold_in(rng, 1)).to(x.dtype)
 
 
@@ -561,12 +605,12 @@ class Bert(nn.Module):
     def init_weights(self, generator) -> None:
         """Initial weights as the reference draws them (in distribution):
         normal(0.02) embeddings, lecun-normal dense kernels, zero biases,
-        unit LayerNorm scales."""
+        unit LayerNorm scales, lecun-normal MoE leaves."""
         nn.init.normal_(self.token_embed.weight, 0.0, 0.02, generator=generator)
         nn.init.normal_(self.pos_embed, 0.0, 0.02, generator=generator)
         nn.init.zeros_(self.mlm_bias)
         for module in self.modules():
-            if isinstance(module, Dense):
+            if isinstance(module, (Dense, MoEMLP)):
                 module.init_weights(generator)
             elif isinstance(module, nn.LayerNorm):
                 nn.init.ones_(module.weight)
@@ -581,6 +625,9 @@ class Bert(nn.Module):
         ``positions``/``block_tables``: the paged decode's inputs (reference
         ``Bert.__call__``). ``return_hidden``: the trunk's last activation
         in place of the logits.
+
+        A training apply of an MoE config returns ``(logits, {"aux_loss":
+        the layers' summed load-balancing loss})``.
 
         ``stage=(lo, hi, first, last)``: the contiguous layer slice
         ``[lo, hi)`` of a pipeline stage (reference ``bert.py:458-470``).
@@ -619,12 +666,17 @@ class Bert(nn.Module):
 
         if first:
             x = dropout(x, cfg.dropout_rate if train else 0.0, site(0))
+        aux = [] if train and cfg.moe_experts > 0 else None
         for i in range(lo, hi):
             layer = getattr(self, f"layer_{i}")
             layer_cache = None if new_cache is None else {}
-            x = layer(x, train=train, rng=site(i + 1), new_cache=layer_cache, paged=plan)
+            x = layer(x, train=train, rng=site(i + 1), new_cache=layer_cache, paged=plan,
+                      aux=aux)
             if layer_cache:
                 new_cache.update({f"layer_{i}.attention.{k}": v for k, v in layer_cache.items()})
+        if aux is not None:
+            new_cache = {"aux_loss": torch.stack(aux).sum() if aux
+                         else torch.zeros((), device=x.device)}
         if return_hidden or not last:
             return x if new_cache is None else (x, new_cache)
         x = self.ln_final(x.float())
@@ -730,6 +782,13 @@ def with_tp_mesh(model: Model, mesh: Mesh | None) -> Model:
     return _make(cfg, model.input_shape[0], model.name)
 
 
+def with_ep_mesh(model: Model, mesh: Mesh | None) -> Model:
+    """The bert-family ``model`` with ``mesh`` as its config's ``ep_mesh``:
+    each MoE layer computes on this rank's experts of the mesh's ep axis."""
+    cfg = dataclasses.replace(model.config, ep_mesh=mesh)
+    return _make(cfg, model.input_shape[0], model.name)
+
+
 def with_ring_mesh(model: Model, mesh: Mesh | None) -> Model:
     """The bert-family ``model`` with ``mesh`` as its config's ``ring_mesh``
     (its ``ring_axis`` and ``sp_impl`` kept)."""
@@ -749,6 +808,18 @@ def bert_tiny_mlm(seq_len: int = 64, vocab_size: int = 1024,
         dropout_rate=dropout_rate,
     )
     return _make(cfg, seq_len, "bert_tiny_mlm")
+
+
+def bert_tiny_moe_mlm(seq_len: int = 64, vocab_size: int = 1024, num_experts: int = 4,
+                      top_k: int = 1) -> Model:
+    """MoE variant of ``bert_tiny_mlm``: each MLP block is a routed expert
+    mixture (ep-shardable); ``top_k=2`` selects GShard top-2 routing."""
+    cfg = BertConfig(
+        vocab_size=vocab_size, hidden_size=128, num_layers=2, num_heads=4,
+        mlp_dim=512, max_seq_len=max(seq_len, 64), moe_experts=num_experts,
+        moe_top_k=top_k,
+    )
+    return _make(cfg, seq_len, f"bert_tiny_moe{'_top2' if top_k == 2 else ''}_mlm")
 
 
 def gpt_tiny(seq_len: int = 64, vocab_size: int = 1024) -> Model:

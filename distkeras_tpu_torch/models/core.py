@@ -13,7 +13,8 @@ inference. ``from_flax``/``from_keras`` are not ported.
 
 :func:`cross_replica_batch_stats` names the process group over which a
 model's BatchNorm takes its batch moments while a data-parallel step runs,
-so that they are the global batch's, as XLA computes them in the reference.
+so that they are the global batch's, as XLA computes them in the reference;
+an MoE layer's routing takes the global batch's seats from it as well.
 """
 
 from __future__ import annotations
@@ -40,7 +41,9 @@ _BATCH_STATS_GROUP: contextvars.ContextVar = contextvars.ContextVar(
 @contextlib.contextmanager
 def cross_replica_batch_stats(group):
     """While this is entered, BatchNorm takes its train-mode moments over
-    every rank of ``group`` (None: this rank's batch alone)."""
+    every rank of ``group`` (None: this rank's batch alone), and an MoE
+    layer routes the ranks' rows as one batch
+    (:mod:`~distkeras_tpu_torch.ops.moe`)."""
     token = _BATCH_STATS_GROUP.set(group)
     try:
         yield

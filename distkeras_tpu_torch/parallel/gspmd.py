@@ -19,6 +19,11 @@ collectives are explicit:
   gathered whole once a step, as an fsdp leaf is, since a rank's tokens
   need rows outside its part (all of them striped, or past the trained
   length), and its gradient is reduce-scattered back;
+- ``ep``: an MoE model (``BertConfig.moe_experts``) computes on its ep
+  shard of the experts (:func:`distkeras_tpu_torch.models.bert.with_ep_mesh`,
+  the sums over ep in the layer: :mod:`distkeras_tpu_torch.ops.moe`); the
+  expert leaves stay split, as tp leaves do, and the ep ranks take the
+  same rows, so no gradient is averaged over ep;
 - the reduction axes (``dp``, ``fsdp`` and ``sp``): the other gradients
   and the metrics are averaged over the ranks that hold other rows or
   other columns. Every sp rank holds ``B·S/p`` tokens, so the mean of the
@@ -48,7 +53,7 @@ from collections.abc import Callable
 import numpy as np
 import torch
 
-from distkeras_tpu_torch.models.bert import with_ring_mesh, with_tp_mesh
+from distkeras_tpu_torch.models.bert import with_ep_mesh, with_ring_mesh, with_tp_mesh
 from distkeras_tpu_torch.models.core import Model
 from distkeras_tpu_torch.ops.ring_flash import stripe_shard, stripe_unshard
 from distkeras_tpu_torch.parallel.distributed import axis_ring, process_index
@@ -363,20 +368,31 @@ def make_sharded_train_step(model: Model, loss: str | Callable, mesh: Mesh,
     rank's rows of the global batch in ``batch``, the gradients and metrics
     those of the global batch. An annotated model on a tp mesh computes on
     its tp shards; a model with ``ring_mesh`` runs its attention over this
-    mesh's sp axis, on this rank's columns in ``batch``."""
+    mesh's sp axis, on this rank's columns in ``batch``; an MoE model on an
+    ep mesh computes on its ep shard of the experts."""
     if mesh.shape.get("tp", 1) > 1 and _annotated(model):
         model = with_tp_mesh(model, mesh)
+    if mesh.shape.get("ep", 1) > 1 and getattr(getattr(model, "config", None),
+                                               "moe_experts", 0) > 0:
+        model = with_ep_mesh(model, mesh)
     if getattr(getattr(model, "config", None), "ring_mesh", None) is not None:
         model = with_ring_mesh(model, mesh)
     return train_step(model, loss, Sharded(mesh), metrics, aux_loss_weight=aux_loss_weight)
 
 
-def whole_state_tree(state: TrainState) -> dict:
+def whole_state_tree(state: TrainState) -> dict | None:
     """The checkpoint tree of a sharded ``state`` with every leaf whole:
     the weights and each optimizer tensor of a weight's shape gathered like
-    the weight. Every rank calls this."""
+    the weight. Every rank calls this. Under zero1 (a
+    ``ZeroRedundancyOptimizer`` over ``dp``, its state consolidated to the
+    first rank of each dp group) only those first ranks hold a whole
+    optimizer state of their parts: they gather it over the model axes
+    (whose groups never span dp) and the other ranks return None."""
     from distkeras_tpu_torch.checkpoint import _state_tree
 
+    if getattr(state.optimizer, "rank", 0) != 0 and hasattr(
+            state.optimizer, "consolidate_state_dict"):
+        return None
     tree = _state_tree(state)
     tree["params"] = gather_whole(tree["params"], state.shardings)
     names = list(state.params)

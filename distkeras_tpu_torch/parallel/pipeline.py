@@ -61,6 +61,7 @@ import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
+from distkeras_tpu_torch.ops.moe import is_expert_leaf
 from distkeras_tpu_torch.parallel.distributed import (
     axis_ring,
     pp_exchange,
@@ -76,21 +77,20 @@ __all__ = [
     "rank_stages",
     "schedule_ticks",
     "stack_stage_params",
+    "is_expert_leaf",
     "stage_param_specs",
 ]
 
-EP_ITEM = ("expert parallelism inside the pipe is not ported yet: it comes with MoE "
-           "(ROADMAP.md §A item A12)")
-MOE_ITEM = ("an MoE trunk in the 1F1B pipe (stage_aux_seed) is not ported yet: it comes "
-            "with MoE (ROADMAP.md §A item A12)")
-
-
 def stage_param_specs(stacked, ep_size: int = 1):
-    """Per-leaf partition specs of stacked stage params: the stage axis over
-    ``pp`` (the reference's rule; its ep branch comes with A12)."""
-    if ep_size > 1:
-        raise NotImplementedError(EP_ITEM)
-    return pytree.tree_map(lambda _: ("pp",), stacked)
+    """Per-leaf partition specs of stacked stage params (reference
+    ``stage_param_specs``): the stage axis over ``pp`` everywhere, and with
+    ``ep_size > 1`` the expert dimension of the MoE expert weights
+    (:func:`is_expert_leaf`) over ``ep`` as well, ``("pp", "ep")``."""
+
+    def spec(path, _leaf):
+        return ("pp", "ep") if ep_size > 1 and is_expert_leaf(path) else ("pp",)
+
+    return pytree.tree_map_with_path(spec, stacked)
 
 
 def schedule_ticks(num_microbatches: int, num_devices: int, virtual_stages: int = 1) -> int:

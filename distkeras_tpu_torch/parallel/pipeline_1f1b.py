@@ -32,6 +32,17 @@ folded from (microbatch, stage, dp slice), the reference's ``key_for``:
 ``fold_in(fold_in(rng, m), d)`` then the dp index. So the recompute at the
 B tick draws the forward's masks.
 
+**MoE** (``stage_aux_seed``, reference ``_1f1b_local``'s MoE mode): the
+stage function returns ``(y, aux)`` and the last one ``(loss, aux)`` (or
+``(loss, aux, metric)`` under ``with_aux``), ``aux`` a stage's summed
+load-balancing loss. Each B tick backpropagates the aux output seeded with
+``stage_aux_seed`` beside the activation's cotangent (the caller folds its
+weight and ``1/M`` there), so the router's balance trains through the same
+recompute; the raw aux of every B tick is summed for the metric. An F tick
+counts none. With expert-parallel stages (a sum over an ``ep`` group
+inside the stage function) every ep rank of a pp index takes the same
+ticks, so those sums pair up.
+
 **Data parallelism.** On a mesh with ``dp > 1`` each dp slice runs its own
 pipe on its rows; loss, aux and gradients are averaged over dp, and
 ``cot_out`` is divided by the dp size (the mean-loss convention of the
@@ -50,7 +61,6 @@ from torch.utils import _pytree as pytree
 from distkeras_tpu_torch.parallel.distributed import axis_ring, pp_exchange, pp_join
 from distkeras_tpu_torch.parallel.mesh import Mesh
 from distkeras_tpu_torch.parallel.pipeline import (
-    MOE_ITEM,
     dp_folds,
     staged_collective,
     stack_stage_params,
@@ -110,21 +120,23 @@ def pipeline_1f1b_value_and_grad(
     - ``last_fn(chunk, head, x, labels_mb) -> loss`` (``(loss, aux)`` under
       ``with_aux``; a ``seed`` argument after the labels with ``rng``): the
       last stage with head and loss of one microbatch;
+    - ``stage_aux_seed`` (MoE): ``stage_fn`` returns ``(y, moe_aux)`` and
+      ``last_fn`` ``(loss, moe_aux[, aux])``; see the module's docstring;
     - ``stage_params``: this rank's chunk, a list of one parameter tree
       (1F1B is not interleaved); ``head_params``: the head's tree;
     - ``microbatches`` ``[M, B, ...]`` and ``labels`` ``[M, ...]``: this dp
       slice's rows (read on the ranks at pp index 0 and ``P-1``).
 
-    Returns ``(loss_sum[, aux_sum], stage_grads, head_grads, cot_out)``:
-    the summed microbatch losses (divide by ``M`` for the mean), the
-    gradients of ``stage_params`` (a list of one tree) and of
-    ``head_params`` (float32), and the input cotangents (float32
-    ``[M, B, ...]``). With ``reduce`` (default) every rank holds the
-    reduced values; see the module's docstring for ``reduce=False``.
-    ``stage_aux_seed`` (MoE) is refused: it comes with A12.
+    Returns ``(loss_sum[, aux_sum][, moe_aux_sum], stage_grads,
+    head_grads, cot_out)``: the summed microbatch losses (divide by ``M``
+    for the mean), the aux channels summed likewise, the gradients of
+    ``stage_params`` (a list of one tree) and of ``head_params`` (float32),
+    and the input cotangents (float32 ``[M, B, ...]``). With ``reduce``
+    (default) every rank holds the reduced values (``moe_aux_sum`` summed
+    over the stages and averaged over dp); see the module's docstring for
+    ``reduce=False``.
     """
-    if stage_aux_seed is not None:
-        raise NotImplementedError(MOE_ITEM)
+    moe = stage_aux_seed is not None
     if axis_name not in mesh.axis_names:
         raise ValueError(f"mesh axes {mesh.axis_names} have no {axis_name!r}")
     P = mesh.shape[axis_name]
@@ -139,6 +151,10 @@ def pipeline_1f1b_value_and_grad(
     d, M = ring.index, microbatches.shape[0]
     folds = dp_folds(mesh)
     last = P - 1
+
+    def run_stage(chunk, x, seed):
+        out = stage_fn(chunk, x) if seed is None else stage_fn(chunk, x, seed)
+        return out if moe else (out, None)
 
     def seed_for(m):
         if rng is None:
@@ -155,7 +171,7 @@ def pipeline_1f1b_value_and_grad(
     ring_buf: list = [None] * P
     g_params, g_head = [None] * len(params), [None] * len(head)
     loss = torch.zeros((), dtype=torch.float32, device=like.device)
-    aux = torch.zeros_like(loss)
+    aux, moe_aux = torch.zeros_like(loss), torch.zeros_like(loss)
     cot_out = torch.zeros(microbatches.shape, dtype=torch.float32, device=like.device) \
         if d == 0 else None
     act_in = cot_in = None
@@ -168,8 +184,7 @@ def pipeline_1f1b_value_and_grad(
             if d != last:
                 chunk = pytree.tree_unflatten(params, spec)
                 with torch.no_grad():
-                    seed = seed_for(m)
-                    send_act = stage_fn(chunk, x) if seed is None else stage_fn(chunk, x, seed)
+                    send_act = run_stage(chunk, x, seed_for(m))[0]
         m = _b_at(t, d, M, P)
         if m is not None:
             x = ring_buf[m % P].detach().requires_grad_()
@@ -183,8 +198,16 @@ def pipeline_1f1b_value_and_grad(
                     hp = pytree.tree_unflatten(head_leaves, head_spec)
                     args = (chunk, hp, x, labels[m]) + (() if seed is None else (seed,))
                     out = last_fn(*args)
-                    loss_m, aux_m = out if with_aux else (out, None)
-                    grads = torch.autograd.grad(loss_m, [*leaves, *head_leaves, x],
+                    out = list(out) if isinstance(out, tuple) else [out]
+                    loss_m = out.pop(0)
+                    saux_m = out.pop(0) if moe else None
+                    aux_m = out.pop(0) if with_aux else None
+                    roots, seeds = [loss_m], [torch.ones_like(loss_m)]
+                    if moe:
+                        roots.append(saux_m)
+                        seeds.append(torch.full_like(saux_m, stage_aux_seed))
+                        moe_aux = moe_aux + saux_m.detach().float()
+                    grads = torch.autograd.grad(roots, [*leaves, *head_leaves, x], seeds,
                                                 allow_unused=True)
                     _add(g_head, [None if g is None else g.float()
                                   for g in grads[len(leaves):-1]])
@@ -192,9 +215,13 @@ def pipeline_1f1b_value_and_grad(
                     if aux_m is not None:
                         aux = aux + aux_m.detach().float()
                 else:
-                    y = stage_fn(chunk, x) if seed is None else stage_fn(chunk, x, seed)
-                    grads = torch.autograd.grad(y, [*leaves, x], cot_in.to(y.dtype),
-                                                allow_unused=True)
+                    y, saux_m = run_stage(chunk, x, seed)
+                    roots, seeds = [y], [cot_in.to(y.dtype)]
+                    if moe:
+                        roots.append(saux_m)
+                        seeds.append(torch.full_like(saux_m, stage_aux_seed))
+                        moe_aux = moe_aux + saux_m.detach().float()
+                    grads = torch.autograd.grad(roots, [*leaves, x], seeds, allow_unused=True)
             _add(g_params, grads[:len(leaves)])
             gx = grads[-1] if grads[-1] is not None else torch.zeros_like(x)
             if d == 0:
@@ -211,10 +238,11 @@ def pipeline_1f1b_value_and_grad(
     if reduce:
         dp = mesh.group("dp") if folds else None
         if P > 1:
-            flat = torch.cat([loss[None], aux[None], *(g.reshape(-1) for g in g_head)])
+            flat = torch.cat([loss[None], aux[None], moe_aux[None],
+                              *(g.reshape(-1) for g in g_head)])
             flat = _all_reduce(flat, ring.group)
-            loss, aux = flat[0], flat[1]
-            g_head = [v.view_as(h) for v, h in zip(flat[2:].split([h.numel() for h in g_head]),
+            loss, aux, moe_aux = flat[0], flat[1], flat[2]
+            g_head = [v.view_as(h) for v, h in zip(flat[3:].split([h.numel() for h in g_head]),
                                                    g_head)]
             src = torch.zeros(microbatches.shape, dtype=torch.float32, device=like.device) \
                 if cot_out is None else cot_out
@@ -222,9 +250,10 @@ def pipeline_1f1b_value_and_grad(
         if dp is not None:
             n = torch.distributed.get_world_size(dp)
             loss, aux = _all_reduce(loss, dp, True), _all_reduce(aux, dp, True)
+            moe_aux = _all_reduce(moe_aux, dp, True)
             g_head = [_all_reduce(g, dp, True) for g in g_head]
             g_params = [_all_reduce(g, dp, True) for g in g_params]
             cot_out = cot_out / n
-    out = (loss,) + ((aux,) if with_aux else ())
+    out = (loss,) + ((aux,) if with_aux else ()) + ((moe_aux,) if moe else ())
     return out + ([pytree.tree_unflatten(g_params, spec)],
                   pytree.tree_unflatten(g_head, head_spec), cot_out)

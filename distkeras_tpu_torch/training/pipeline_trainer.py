@@ -28,13 +28,32 @@ each step sums it over ``pp`` once and averages it over ``dp`` (one
 the stage weights' gradients are averaged over ``dp``. So every pp rank
 steps identical replicated weights.
 
+MoE trunks (``BertConfig.moe_experts``; reference ``pipeline_trainer.py:49-72,
+:248-253, :295-307``): each stage returns its layers' summed load-balancing
+loss beside its activation. Under gpipe ``pipeline_apply(with_aux=True)``
+sums it over the stages and microbatches (and averages it over dp), and
+the step adds ``aux_loss_weight`` times its microbatch mean to the loss;
+under 1f1b the engine seeds each stage's aux with ``aux_loss_weight / M``
+(``stage_aux_seed``). The history gains ``aux_loss``, that mean; ``loss``
+stays the task loss. The routing of a stage runs on one microbatch of a
+dp slice, as in the reference's pipe. With ``ep > 1`` (a mesh of
+``dp × pp × ep``) each rank holds ``E/ep`` experts of its stage's layers
+(``stage_param_specs``' ``("pp", "ep")``) and the stage runs the MoE block
+in expert-parallel mode, its sums over the rank's ep group; the router and
+every other leaf stay whole. The ep ranks of a pp index take the same
+rows and the same ticks and draw the same dropout masks (no seed folds the
+ep index), and every replicated leaf gets the same gradient on each of
+them, so the replicated leaves' reduction runs over ``dp × pp`` alone.
+
 What ``train()`` returns, and what checkpoints hold, are the whole weights
-in the model's layout, gathered from the ranks; a resume cuts the saved
-whole state back to a rank's layers.
+in the model's layout, gathered from the ranks (the expert leaves joined
+along their expert dimension in ep order); a resume cuts the saved whole
+state back to a rank's layers and experts.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import math
 
@@ -45,12 +64,13 @@ from torch.utils.checkpoint import checkpoint
 
 from distkeras_tpu_torch.data.dataset import Dataset
 from distkeras_tpu_torch.data.feed import DeviceFeed, minibatches
+from distkeras_tpu_torch.models.bert import EncoderLayer
 from distkeras_tpu_torch.models.core import Model, TrainedModel
 from distkeras_tpu_torch.ops.losses import get_loss
 from distkeras_tpu_torch.ops.metrics import accuracy
 from distkeras_tpu_torch.parallel.distributed import process_count, process_index
 from distkeras_tpu_torch.parallel.mesh import Mesh, make_mesh
-from distkeras_tpu_torch.parallel.pipeline import EP_ITEM, pipeline_apply, rank_stages
+from distkeras_tpu_torch.parallel.pipeline import is_expert_leaf, pipeline_apply, rank_stages
 from distkeras_tpu_torch.parallel.pipeline_1f1b import pipeline_1f1b_value_and_grad
 from distkeras_tpu_torch.telemetry.spans import span
 from distkeras_tpu_torch.training.step import TrainState, all_reduce_mean_
@@ -63,17 +83,19 @@ __all__ = ["PipelineTrainer"]
 HEAD = ("token_embed.weight", "ln_final.weight", "ln_final.bias", "mlm_bias")
 
 
-def _apply_stage_sublayers(layer_mod, stage_params, x, seed, per_stage, train):
+def _apply_stage_sublayers(layer_mod, stage_params, x, seed, per_stage, train, moe=False):
     """Apply one stage's encoder sublayers (``stage_params["sub_j"]``, each a
     layer's weights by their names inside the layer). The one body behind
     both schedules' stage functions. ``seed`` is set exactly when dropout
     is on; sublayer ``j`` folds ``j`` into it, so the 1F1B recompute draws
-    the forward's masks."""
+    the forward's masks. ``moe``: returns ``(x, the layers' summed aux
+    loss)``."""
+    aux = [] if moe else None
     for j in range(per_stage):
         rng = None if seed is None else fold_in(seed, j)
         x = torch.func.functional_call(layer_mod, stage_params[f"sub_{j}"], (x,),
-                                       {"train": train, "rng": rng})
-    return x
+                                       {"train": train, "rng": rng, "aux": aux})
+    return (x, torch.stack(aux).sum()) if moe else x
 
 
 def _layer_of(name: str) -> int | None:
@@ -94,8 +116,9 @@ class PipelineTrainer(Trainer):
     ``pp × virtual_stages`` chunks and ``batch_size`` (the global batch)
     into ``num_microbatches × dp``. ``schedule`` is ``"gpipe"`` (with
     ``remat`` and ``virtual_stages``) or ``"1f1b"`` (``virtual_stages=1``).
-    ``ep`` and MoE configs come with A12 and are refused. ``device`` as the
-    other trainers': CUDA unless ``"cpu"``.
+    An MoE model trains with its aux loss, and with ``ep`` (or an ``ep``
+    axis in ``mesh``) its experts split over ep (see the module's
+    docstring). ``device`` as the other trainers': CUDA unless ``"cpu"``.
     """
 
     def __init__(
@@ -147,8 +170,6 @@ class PipelineTrainer(Trainer):
             )
         if schedule not in ("gpipe", "1f1b"):
             raise ValueError(f"unknown schedule {schedule!r}")
-        if ep is not None and ep > 1:
-            raise NotImplementedError(EP_ITEM)
         self.num_stages = num_stages
         self.num_microbatches = int(num_microbatches)
         self.virtual_stages = int(virtual_stages)
@@ -165,6 +186,7 @@ class PipelineTrainer(Trainer):
         self.checkpoint_interval_s = float(checkpoint_interval_s)
         self.resume = bool(resume)
         self._dropout = getattr(cfg, "dropout_rate", 0.0) > 0.0
+        self._moe = getattr(cfg, "moe_experts", 0) > 0
 
     # -- model surgery -------------------------------------------------------
 
@@ -218,12 +240,18 @@ class PipelineTrainer(Trainer):
         x = F.embedding(tokens.long(), rest["token_embed.weight"]).to(cfg.dtype)
         return x + rest["pos_embed"][:, :tokens.shape[1]].to(cfg.dtype)
 
-    def _stage_fn(self, per_stage: int):
-        layer_mod = self.model.module.layer_0  # on "meta": functional_call swaps weights in
-        train = self._dropout
+    def _stage_fn(self, per_stage: int, mesh: Mesh):
+        # On "meta": functional_call swaps the weights in. Under ep the layer
+        # runs its MoE block over the mesh's ep axis.
+        if mesh.shape.get("ep", 1) > 1:
+            with torch.device("meta"):
+                layer_mod = EncoderLayer(dataclasses.replace(self.cfg, ep_mesh=mesh))
+        else:
+            layer_mod = self.model.module.layer_0
+        train, moe = self._dropout, self._moe
 
         def stage_fn(chunk, x, seed=None):
-            return _apply_stage_sublayers(layer_mod, chunk, x, seed, per_stage, train)
+            return _apply_stage_sublayers(layer_mod, chunk, x, seed, per_stage, train, moe)
 
         return stage_fn
 
@@ -232,7 +260,8 @@ class PipelineTrainer(Trainer):
     def _reduce(self, state, stage_names, rest_names, metrics, groups):
         """Every rank's gradients into the step's: the replicated leaves'
         summed over pp and averaged over dp with the metrics in the same
-        buffer, the stage weights' averaged over dp. Returns the metrics."""
+        buffer (over the ranks of one ep index: the ep ranks hold the same
+        sums), the stage weights' averaged over dp. Returns the metrics."""
         world, dp_group, dp = groups
         for p in state.params.values():
             if p.grad is None:
@@ -256,8 +285,9 @@ class PipelineTrainer(Trainer):
         first, last = index == 0, index == P - 1
         loss_fn = get_loss(self.loss)
         want_acc = "accuracy" in self.metrics
-        keys = ["loss"] + (["accuracy"] if want_acc else [])
-        stage_fn = self._stage_fn(per_stage)
+        moe, dp = self._moe, mesh.shape.get("dp", 1)
+        keys = ["loss"] + (["aux_loss"] if moe else []) + (["accuracy"] if want_acc else [])
+        stage_fn = self._stage_fn(per_stage, mesh)
         if self.remat and self.schedule == "gpipe":
             plain = stage_fn
 
@@ -265,11 +295,12 @@ class PipelineTrainer(Trainer):
                 return checkpoint(plain, chunk, x, *seed, use_reentrant=False)
 
         def last_fn(chunk, head, x, labels_mb, seed=None):
-            logits = self._head_logits(head, stage_fn(chunk, x, seed))
-            loss = loss_fn(logits, labels_mb) / M
+            y, stage_aux = stage_fn(chunk, x, seed) if moe else (stage_fn(chunk, x, seed), None)
+            logits = self._head_logits(head, y)
+            out = (loss_fn(logits, labels_mb) / M,) + ((stage_aux,) if moe else ())
             if want_acc:
-                return loss, accuracy(logits.detach(), labels_mb) / M
-            return loss
+                out += (accuracy(logits.detach(), labels_mb) / M,)
+            return out if len(out) > 1 else out[0]
 
         def step(state: TrainState, batch: dict):
             tokens, labels = batch["features"], batch["label"]
@@ -286,25 +317,41 @@ class PipelineTrainer(Trainer):
             rest_names = [n for n in names if _layer_of(n) is None]
             zero = torch.zeros((), dtype=torch.float32, device=tokens.device)
             if self.schedule == "gpipe":
-                y = pipeline_apply(stage_fn, split["stages"], mb, mesh, virtual_stages=V,
-                                   rng=seed, broadcast=False)
+                res = pipeline_apply(stage_fn, split["stages"], mb, mesh, virtual_stages=V,
+                                     rng=seed, with_aux=moe, broadcast=False)
+                y, aux_sum = res if moe else (res, None)
+                # pipeline_apply's aux is the dp mean and its backward hands
+                # each dp slice 1/dp of the seed; the stage gradients are
+                # averaged over dp after, so the seed is the weight per
+                # microbatch times dp.
+                aux_seed = self.aux_loss_weight * dp / M
                 if last:
                     logits = self._head_logits(rest, y.reshape(B, S, -1))
                     loss = loss_fn(logits, labels)
-                    loss.backward()
+                    (loss + aux_seed * aux_sum if moe else loss).backward()
                     out = [loss.detach().float()]
+                    if moe:
+                        out.append(aux_sum.detach() / M)
                     if want_acc:
                         out.append(accuracy(logits.detach(), labels))
                 else:
-                    y.backward(torch.zeros_like(y))
+                    roots, seeds = [y], [torch.zeros_like(y)]
+                    if moe:
+                        roots.append(aux_sum)
+                        seeds.append(torch.full_like(aux_sum, aux_seed))
+                    torch.autograd.backward(roots, seeds)
                     out = [zero] * len(keys)
             else:
                 head = {k: rest[k] for k in HEAD}
                 labels_mb = labels.reshape(M, b, *labels.shape[1:])
                 res = pipeline_1f1b_value_and_grad(
                     stage_fn, last_fn, split["stages"], head, mb.detach(), labels_mb, mesh,
-                    rng=seed, with_aux=want_acc, reduce=False)
+                    rng=seed, with_aux=want_acc, reduce=False,
+                    stage_aux_seed=self.aux_loss_weight / M if moe else None)
                 *out, stage_grads, head_grads, cot = res
+                if moe:  # the engine's order: loss[, accuracy], moe aux
+                    moe_aux = out.pop()
+                    out.insert(1, moe_aux / M)
                 for p, g in zip(pytree.tree_leaves(split["stages"][0]),
                                 pytree.tree_leaves(stage_grads[0])):
                     p.grad = g
@@ -333,24 +380,33 @@ class PipelineTrainer(Trainer):
             if dp < 1:
                 raise ValueError(f"num_stages {pp} x ep {ep} > {world} attached devices")
             axes = {"pp": pp} if dp == 1 else {"dp": dp, "pp": pp}
-            mesh = make_mesh(axes, devices=list(range(dp * pp)))
+            if ep > 1:
+                axes["ep"] = ep
+            mesh = make_mesh(axes, devices=list(range(dp * pp * ep)))
         elif not isinstance(mesh, Mesh):
             mesh = make_mesh(dict(mesh), devices=list(range(math.prod(dict(mesh).values()))))
         if "pp" not in mesh.axis_names:
             raise ValueError(f"mesh axes {mesh.axis_names} have no 'pp' axis")
-        refused = {a: n for a, n in mesh.shape.items() if a not in ("dp", "pp") and n > 1}
-        if refused.get("ep"):
-            raise NotImplementedError(EP_ITEM)
+        refused = {a: n for a, n in mesh.shape.items() if a not in ("dp", "pp", "ep") and n > 1}
         if refused:
-            raise ValueError(f"PipelineTrainer trains over dp and pp; mesh axes {refused} "
+            raise ValueError(f"PipelineTrainer trains over dp, pp and ep; mesh axes {refused} "
                              f"are not supported")
+        num_stages = self.num_stages or mesh.shape["pp"]
+        if num_stages != mesh.shape["pp"]:
+            raise ValueError(f"num_stages {num_stages} != mesh pp axis {mesh.shape['pp']}")
+        ep_size = mesh.shape.get("ep", 1)
+        if self.ep is not None and self.ep != ep_size:
+            raise ValueError(f"ep {self.ep} != mesh ep axis {ep_size}")
+        if ep_size > 1:
+            E = getattr(self.cfg, "moe_experts", 0)
+            if not E:
+                raise ValueError("ep > 1 needs an MoE config (moe_experts > 0)")
+            if E % ep_size:
+                raise ValueError(f"moe_experts {E} not divisible by ep axis {ep_size}")
         if mesh.size != world:
             raise ValueError(
                 f"a mesh of {mesh.size} of the process group's {world} ranks: every rank "
                 f"trains, so start {mesh.size} rank(s)")
-        num_stages = self.num_stages or mesh.shape["pp"]
-        if num_stages != mesh.shape["pp"]:
-            raise ValueError(f"num_stages {num_stages} != mesh pp axis {mesh.shape['pp']}")
         return mesh
 
     def _rows(self, mesh: Mesh, coords: dict):
@@ -384,34 +440,69 @@ class PipelineTrainer(Trainer):
             dist.gather_object(obj, out if dist.get_rank() == 0 else None, dst=0)
         return out
 
-    def _layout(self, order: list[str]):
+    @staticmethod
+    def _join(parts: list[dict], order: list[str]):
+        """Every dp-first rank's ``{"ep", "params", "opt"}`` into the whole
+        model's ``(params, opt)`` by name: an expert leaf (and each of its
+        optimizer tensors of its shape) joined along its expert dimension in
+        ep order, any other leaf from the first rank that holds it."""
+        params, opt = {}, {}
+        parts = sorted(parts, key=lambda p: p["ep"])
+        for n in order:
+            held = [p for p in parts if n in p["params"]]
+            if not held:
+                continue
+            if len(held) == 1 or not is_expert_leaf(n):
+                params[n] = held[0]["params"][n]
+                if n in held[0]["opt"]:
+                    opt[n] = held[0]["opt"][n]
+                continue
+            params[n] = torch.cat([p["params"][n] for p in held])
+            if n in held[0]["opt"]:
+                shape = held[0]["params"][n].shape
+                opt[n] = {k: torch.cat([p["opt"][n][k] for p in held]) if v.shape == shape
+                          else v for k, v in held[0]["opt"][n].items()}
+        return params, opt
+
+    def _layout(self, order: list[str], coords: dict, ep: int):
         """The checkpoint layout: ``(whole, local)``, the rank's state
         gathered into the whole model's (parameters in the model's order,
-        optimizer state keyed by that order's index) and a whole tree cut
-        back to the rank's parameters."""
+        optimizer state keyed by that order's index; :meth:`_join`) and a
+        whole tree cut back to the rank's parameters and experts."""
         from distkeras_tpu_torch.checkpoint import _state_tree
 
         index = {n: i for i, n in enumerate(order)}
+        e = coords.get("ep", 0)
+
+        def mine(n, v, whole_shape):
+            if ep > 1 and is_expert_leaf(n) and v.shape == whole_shape and v.ndim:
+                k = v.shape[0] // ep
+                return v[e * k:(e + 1) * k]
+            return v
 
         def whole(state):
             tree = _state_tree(state)
             names = list(state.params)
-            mine = {"params": to_host(tree["params"]),
-                    "opt": {names[int(i)]: to_host(e) for i, e in tree["opt_state"].items()}}
-            params, opt = {}, {}
-            for part in self._gather(mine, everyone=False):
-                if part is not None:
-                    params.update(part["params"])
-                    opt.update(part["opt"])
-            return {"params": {n: params[n] for n in order if n in params}, "model_state": {},
-                    "opt_state": {str(index[n]): e for n, e in opt.items()},
+            part = None
+            if coords.get("dp", 0) == 0:
+                part = {"ep": e, "params": to_host(tree["params"]),
+                        "opt": {names[int(i)]: to_host(x) for i, x in tree["opt_state"].items()}}
+            parts = [p for p in self._gather(part, everyone=False) if p is not None]
+            if not parts:  # not the writer
+                return None
+            params, opt = self._join(parts, order)
+            return {"params": params, "model_state": {},
+                    "opt_state": {str(index[n]): x for n, x in opt.items()},
                     "step": tree["step"], "seed": tree["seed"]}
 
         def local(tree, state):
             opt = tree.get("opt_state", {})
-            return {"params": {n: tree["params"][n] for n in state.params}, "model_state": {},
-                    "opt_state": {str(i): opt[str(index[n])] for i, n in enumerate(state.params)
-                                  if str(index[n]) in opt},
+            shapes = {n: tree["params"][n].shape for n in state.params}
+            return {"params": {n: mine(n, tree["params"][n], shapes[n]) for n in state.params},
+                    "model_state": {},
+                    "opt_state": {str(i): {k: mine(n, v, shapes[n])
+                                           for k, v in opt[str(index[n])].items()}
+                                  for i, n in enumerate(state.params) if str(index[n]) in opt},
                     "step": tree["step"], "seed": tree["seed"]}
 
         return whole, local
@@ -425,9 +516,9 @@ class PipelineTrainer(Trainer):
         every rank."""
         self.record_training_start()
         mesh = self._pipeline_mesh()
-        P, dp = mesh.shape["pp"], mesh.shape.get("dp", 1)
+        P, dp, ep = mesh.shape["pp"], mesh.shape.get("dp", 1), mesh.shape.get("ep", 1)
         coords = mesh.coords(process_index())
-        index = coords["pp"]
+        index, e = coords["pp"], coords.get("ep", 0)
         variables = self.model.init(self.seed, device=self.device)
         order = list(variables)
         split, per_stage = self._split_params(variables, P, index)
@@ -437,7 +528,11 @@ class PipelineTrainer(Trainer):
             keep = layer is None or any(
                 layer // per_stage == s for s in rank_stages(P, self.virtual_stages, index))
             if keep:
-                params[n] = variables[n].requires_grad_()
+                v = variables[n]
+                if ep > 1 and is_expert_leaf(n):  # this rank's experts
+                    k = v.shape[0] // ep
+                    v = v[e * k:(e + 1) * k].clone()
+                params[n] = v.requires_grad_()
         del variables, split
         if self.schedule == "1f1b":
             if self.virtual_stages != 1:
@@ -454,12 +549,15 @@ class PipelineTrainer(Trainer):
                            int(self.seed))
         several = process_count() > 1
         world = torch.distributed.group.WORLD if several else None
-        groups = (world, mesh.group("dp") if several and dp > 1 else None, dp)
+        # The replicated leaves' sum runs over dp x pp: the ep ranks of one
+        # (dp, pp) place hold the same gradients.
+        rest = world if ep == 1 else mesh.group(("dp", "pp")) if dp > 1 else mesh.group("pp")
+        groups = (rest, mesh.group("dp") if several and dp > 1 else None, dp)
         step = self._audit(self._make_step(mesh, per_stage, index, groups),
                            f"pipeline_step_{self.schedule}")
         ck = _StepCheckpointer(self.checkpoint_dir, self.checkpoint_interval_s, self.resume,
                                like=state, group=world,
-                               layout=self._layout(order) if several else None)
+                               layout=self._layout(order, coords, ep) if several else None)
         if ck.state is not None:
             state = ck.state
         part = self._rows(mesh, coords)
@@ -482,12 +580,10 @@ class PipelineTrainer(Trainer):
         self.history = _read_history(history)
         self._emit_history()
         self.record_training_stop()
-        host = {k: v.detach() for k, v in state.params.items()}
-        mine = self._split_params(host, P, index)[0] if coords.get("dp", 0) == 0 else None
-        parts = [p for p in self._gather(
-            None if mine is None else {"pp": index, "part": pytree.tree_map(
-                lambda t: t.cpu(), mine)}) if p is not None]
-        parts = [p["part"] for p in sorted(parts, key=lambda p: p["pp"])]
-        merged = self._merge_params(parts, P, per_stage)
+        mine = None
+        if coords.get("dp", 0) == 0:
+            mine = {"ep": e, "params": {k: v.detach().cpu() for k, v in state.params.items()},
+                    "opt": {}}
+        merged, _ = self._join([p for p in self._gather(mine) if p is not None], order)
         dev = self.device
         return TrainedModel(self.model, {n: merged[n].to(dev) for n in order})

@@ -15,12 +15,13 @@ windows on its own CUDA stream, exchange with one in-process parameter
 server every ``communication_window`` steps, with periodic PS checkpoints
 and resume. A recompile ``auditor`` signs each trainer's step, as the
 reference's ``Trainer._audit`` wraps it. The synchronous trainer also
-trains tensor-parallel, fully sharded and sequence-parallel
-(:mod:`~distkeras_tpu_torch.parallel.gspmd`); on a ``pp`` axis it trains
-replicated over the axis, as the reference's does (pipeline parallelism is
+trains tensor-parallel, fully sharded, sequence-parallel and
+expert-parallel (:mod:`~distkeras_tpu_torch.parallel.gspmd`); on a ``pp``
+axis it trains replicated over the axis, as the reference's does (pipeline
+parallelism is
 :class:`~distkeras_tpu_torch.training.pipeline_trainer.PipelineTrainer`'s).
 Not ported yet, and refused with the ``ROADMAP.md`` item that brings them:
-the ep axis of a mesh, and the async trainers' multi-device islands.
+the async trainers' multi-device islands.
 A weight ``publisher`` (:class:`~distkeras_tpu_torch.deploy.WeightPublisher`)
 publishes the live weights on its cadence: the step-loop trainers per
 step, the asynchronous family the PS center from a thread of its own.
@@ -106,7 +107,9 @@ class _StepCheckpointer:
     ``whole(state)`` (and a resume cuts the whole saved tree to each rank's
     parts again by its ``local(tree, state)``): a model-parallel state
     (``like.shardings``) by default, its ranks' parts of each weight and
-    moment. The ranks of a
+    moment. A zero1 optimizer over model-parallel weights is gathered to
+    the first rank of each ``dp`` group, and those ranks then gather the
+    moments over the model axes, as the weights. The ranks of a
     collective save take rank 0's decision to save, broadcast every
     ``ZERO1_POLL_STEPS`` steps (a broadcast of a Python object waits for the
     device under NCCL), and a timed save comes up to that many steps after
@@ -131,10 +134,6 @@ class _StepCheckpointer:
         self.collective = self.zero1 or self.sharded
         if directory is None:
             return
-        if self.zero1 and self.sharded:
-            raise NotImplementedError(
-                "checkpoints of a zero1 optimizer over model-parallel weights are not "
-                "ported yet (ROADMAP.md §A, A10b's remainder)")
         self.mgr = CheckpointManager(directory)
         if resume and self.mgr.latest_step() is not None:
             if self.sharded:
@@ -151,7 +150,7 @@ class _StepCheckpointer:
         if self.zero1:
             state.optimizer.consolidate_state_dict(to=0)
         if self.sharded:
-            state = self.layout[0](state)
+            state = self.layout[0](state)  # None where zero1 consolidated elsewhere
         if self.writer:
             with span("checkpoint_save", step=step):
                 self.mgr.save(step, state=state, wait=wait)
@@ -617,10 +616,18 @@ class SynchronousDistributedTrainer(Trainer):
     size its ``ring_mesh`` must have; ``shard_sequence`` asks for that
     split and a ring model on an ``sp`` mesh always takes it (its forward
     takes a rank's own tokens). A model without ``ring_mesh`` on an ``sp``
-    mesh trains replicated over ``sp``. Only ``dp`` and ``fsdp`` carry the
-    batch: on a ``pp`` axis every rank of a pp group trains the same rows
-    and weights, replicated, as the reference's trainer does (its
-    ``model_axes`` leave ``pp`` out). What ``train()`` returns, and what checkpoints hold,
+    mesh trains replicated over ``sp``. An MoE model (``moe_experts``) on an
+    ``ep`` mesh trains expert-parallel: each rank of an ep group holds
+    ``E/ep`` experts of every layer (the ``("expert", "ep")`` rule), routes
+    the same rows as the others and computes its experts' share, summed
+    over ep inside the layer (:mod:`~distkeras_tpu_torch.ops.moe`); the
+    expert leaves stay split through the step, as tp leaves do, and every
+    gradient is averaged over the data axes alone. Routing takes the whole
+    global batch's seats and statistics, as the reference's XLA routes it.
+    ``ep`` with ``tp`` or ``sp`` is A12's remainder and refused. Only ``dp``
+    and ``fsdp`` carry the batch: on ``pp`` or ``ep`` every rank of a group
+    trains the same rows, as the reference's trainer does (its batch spec
+    names ``dp`` and ``fsdp`` alone). What ``train()`` returns, and what checkpoints hold,
     are the whole weights on every rank (gathered from the ranks' parts).
     ``num_workers`` is the ``dp`` size: None means every rank of the process
     group; more than its ranks raises the reference's message, and so does a
@@ -637,12 +644,13 @@ class SynchronousDistributedTrainer(Trainer):
     alone; ``resume=True`` restores the latest step on every rank and
     fast-forwards the deterministic batch stream past it, so a resumed run
     reproduces the uninterrupted one. A zero1 state is gathered to rank 0
-    for each save and saved as a plain one. Only rank 0 publishes. Not
-    ported yet, and refused naming their ``ROADMAP.md`` §A item:
-    ``shard_sequence`` on a model without ``ring_mesh`` (the reference's
-    XLA sequence split, A10c's remainder), ``ep`` (A12),
-    and, with model axes, a ``publisher`` and zero1 checkpoints (A10b's
-    remainder)."""
+    for each save and saved as a plain one, over model-parallel weights
+    too (:class:`_StepCheckpointer`). Only rank 0 publishes; with model
+    axes it publishes the whole weights, which every rank gathers when a
+    publish is due (:class:`_ShardedPublish`). Not ported yet, and refused
+    naming their ``ROADMAP.md`` §A item: ``shard_sequence`` on a model
+    without ``ring_mesh`` (the reference's XLA sequence split, A10c's
+    remainder), and ``ep`` with ``tp`` or ``sp`` (A12's remainder)."""
 
     def __init__(
         self,
@@ -687,12 +695,10 @@ class SynchronousDistributedTrainer(Trainer):
         self.checkpoint_interval_s = float(checkpoint_interval_s)
         self.resume = bool(resume)
 
-    _AXIS_ITEMS = {"ep": "A12"}
-
     def _training_mesh(self) -> Mesh:
-        """The mesh to train over: refuses what is not ported yet (the ep
-        axis, ``shard_sequence`` without ``ring_mesh``) and a mesh
-        that leaves ranks out."""
+        """The mesh to train over: refuses what is not ported yet (``ep``
+        with ``tp`` or ``sp``, ``shard_sequence`` without ``ring_mesh``) and
+        a mesh that leaves ranks out."""
         if self.shard_sequence and _ring_config(self.model) is None:
             raise ValueError(
                 "shard_sequence=True without BertConfig.ring_mesh is the reference's XLA "
@@ -703,11 +709,11 @@ class SynchronousDistributedTrainer(Trainer):
         if mesh is None:
             mesh = best_mesh(self.num_workers if self.num_workers is not None else world)
         sizes = mesh.shape if isinstance(mesh, Mesh) else dict(mesh)
-        refused = {a: n for a, n in sizes.items() if a in self._AXIS_ITEMS and n > 1}
-        if refused:
-            items = sorted({self._AXIS_ITEMS[a] for a in refused})
-            raise ValueError(f"mesh axes {refused} are not ported yet "
-                             f"(ROADMAP.md §A item {', '.join(items)})")
+        with_ep = {a: n for a, n in sizes.items() if a in ("tp", "sp") and n > 1}
+        if sizes.get("ep", 1) > 1 and with_ep:
+            raise ValueError(f"mesh axes {with_ep} with ep={sizes['ep']} are not ported yet: "
+                             f"expert parallelism with tensor or sequence parallelism is "
+                             f"A12's remainder (ROADMAP.md §A)")
         if not isinstance(mesh, Mesh):
             if math.prod(sizes.values()) > world:
                 raise ValueError(
@@ -736,11 +742,9 @@ class SynchronousDistributedTrainer(Trainer):
         data = sizes.get("dp", 1) * sizes.get("fsdp", 1)
         ring = _ring_config(self.model)
         sp = sizes.get("sp", 1) if ring is not None else 1  # the columns' split
-        sharded = sizes.get("fsdp", 1) > 1 or sp > 1 or (
-            sizes.get("tp", 1) > 1 and getattr(self.model, "param_axes", None) is not None)
-        if sharded and self.publisher is not None:
-            raise NotImplementedError("a publisher during model-parallel training is not "
-                                      "ported yet (ROADMAP.md §A, A10b's remainder)")
+        annotated = getattr(self.model, "param_axes", None) is not None
+        sharded = sizes.get("fsdp", 1) > 1 or sp > 1 or annotated and (
+            sizes.get("tp", 1) > 1 or sizes.get("ep", 1) > 1)
         rank = process_index()
         self.record_training_start()
         optimizer = self._optimizer()
@@ -771,10 +775,12 @@ class SynchronousDistributedTrainer(Trainer):
             batches = ({k: batch_part(mesh, v, rank, seq_dim, stripe) for k, v in b.items()}
                        for b in batches)
         history = []
+        publish = self._publish_step if rank == 0 else None
+        if sharded and world is not None:
+            publish = _ShardedPublish(self, world)
         try:
             state, step_no = _run_steps(step_fn, state, batches, self.device, history, ck,
-                                        ck.start_step,
-                                        publish=self._publish_step if rank == 0 else None)
+                                        ck.start_step, publish=publish)
             ck.finalize(step_no, state)
         finally:
             ck.close()
@@ -785,6 +791,50 @@ class SynchronousDistributedTrainer(Trainer):
         if state.shardings is not None:
             variables = gather_whole(variables, state.shardings)
         return TrainedModel(self.model, variables)
+
+
+class _ShardedPublish:
+    """The publish hook of model-parallel training: the whole weights are
+    gathered from every rank's parts (:func:`gather_whole`, collective),
+    so every rank must know when a publish is due, and rank 0 publishes
+    them. Rank 0's policy is broadcast once: a step cadence alone is
+    mirrored on every rank (no traffic a step); a wall-clock cadence is
+    rank 0's decision, broadcast every ``_StepCheckpointer.ZERO1_POLL_STEPS``
+    steps, so such a publish comes up to that many steps after it is due."""
+
+    def __init__(self, trainer: Trainer, group):
+        self.trainer, self.group = trainer, group
+        self.rank0 = torch.distributed.get_rank(group) == 0
+        self.src = torch.distributed.get_global_rank(group, 0)
+        policy = getattr(trainer.publisher, "policy", None) if self.rank0 else None
+        cadence = [None if policy is None else (policy.every_steps, policy.every_seconds)]
+        torch.distributed.broadcast_object_list(cadence, src=self.src, group=group)
+        self.cadence = cadence[0]
+        self.mirror = None
+        if self.cadence is not None and self.cadence[1] is None:
+            from distkeras_tpu_torch.deploy.publisher import PublishPolicy
+
+            self.mirror = PublishPolicy(every_steps=self.cadence[0])
+
+    def _due(self, step_no: int) -> bool:
+        if self.mirror is not None:
+            due = self.mirror.due(step_no, 0.0)
+            if due:
+                self.mirror.note_published(step_no, 0.0, None)
+            return due
+        if step_no % _StepCheckpointer.ZERO1_POLL_STEPS:
+            return False
+        due = [self.rank0 and self.trainer.publisher.policy.due(step_no, time.monotonic())]
+        torch.distributed.broadcast_object_list(due, src=self.src, group=self.group)
+        return due[0]
+
+    def __call__(self, step_no: int, state, m: dict) -> None:
+        if self.cadence is None or not self._due(step_no):
+            return
+        whole = gather_whole({k: v.detach() for k, v in state.variables.items()},
+                             state.shardings)
+        if self.rank0:
+            self.trainer._publish_step(step_no, TrainState(whole, {}, None), m)
 
 
 def _ring_config(model):

@@ -124,11 +124,20 @@ def test_port_init_draws_the_reference_distributions():
     ("ring_mesh", object()), ("tp_mesh", object()), ("moe_experts", 4),
 ])
 def test_later_slice_fields_raise(field, value):
-    """MoE raises naming its ROADMAP item; ``ring_mesh`` and ``tp_mesh`` are
-    ported and take only a port ``Mesh``."""
+    """The fields of earlier later-slice items are ported: ``ring_mesh``,
+    ``tp_mesh`` (and MoE's ``ep_mesh``) take only a port ``Mesh``, and
+    ``moe_experts`` builds MoE layers (``tests/test_torch_moe.py`` holds
+    them against the reference); MoE with tp or sp is A12's remainder."""
     if field in ("ring_mesh", "tp_mesh"):
         with pytest.raises(TypeError, match=f"{field} must be a distkeras_tpu_torch Mesh"):
             port_bert.BertConfig(**{field: value})
+        with pytest.raises(TypeError, match="ep_mesh must be a distkeras_tpu_torch Mesh"):
+            port_bert.BertConfig(ep_mesh=value)
         return
-    with pytest.raises(NotImplementedError, match="A12"):
-        port_bert.BertConfig(**{field: value})
+    cfg = port_bert.BertConfig(**{field: value})
+    names = port_bert._make(cfg, 16, "moe").module.state_dict()
+    assert {"layer_0.moe_mlp.router", "layer_0.moe_mlp.w_in"} <= set(names)
+    assert not any("mlp_in" in k for k in names)
+    from distkeras_tpu_torch.parallel.mesh import make_mesh
+    with pytest.raises(NotImplementedError, match="A12's remainder"):
+        port_bert.BertConfig(**{field: value}, tp_mesh=make_mesh({"tp": 1}, devices=[0]))

@@ -15,7 +15,8 @@ microbatches' gradients, and 1F1B's loss, aux, head gradients and
 ``cot_out`` are held against the reference's in float32 to 2e-6 absolute
 (every value O(1); float32 summation order over a few microbatches).
 The 1F1B case with dropout is held against one plain autograd pass with the
-same per-(microbatch, stage) seeds: 1e-6.
+same per-(microbatch, stage) seeds: 1e-6. The 1F1B MoE cases
+(``stage_aux_seed``) give every stage the differentiated aux ``mean(y²)``.
 """
 
 import jax
@@ -46,6 +47,7 @@ TWO = {
     "aux_p2_v2_m3": ("gpipe", {"pp": 2}, 2, 3, {"aux_cot": 0.7}),
     "1f1b_p2_m3": ("1f1b", {"pp": 2}, 1, 3, {"with_aux": True}),
     "1f1b_p2_dropout": ("1f1b", {"pp": 2}, 1, 3, {"rng": 11}),
+    "1f1b_moe_p2_m3": ("1f1b", {"pp": 2}, 1, 3, {"with_aux": True, "moe_seed": 0.3}),
 }
 FOUR = {
     "gpipe_p4_m4": ("gpipe", {"pp": 4}, 1, 4, {}),
@@ -58,14 +60,20 @@ FOUR = {
     "gpipe_dp2_pp2": ("gpipe", {"dp": 2, "pp": 2}, 1, 4, {}),
     "inter_dp2_pp2": ("gpipe", {"dp": 2, "pp": 2}, 2, 3, {"aux_cot": -0.4}),
     "1f1b_dp2_pp2": ("1f1b", {"dp": 2, "pp": 2}, 1, 3, {"with_aux": True}),
+    "1f1b_moe_p4_m5": ("1f1b", {"pp": 4}, 1, 5, {"with_aux": True, "moe_seed": 0.5}),
+    "1f1b_moe_dp2_pp2": ("1f1b", {"dp": 2, "pp": 2}, 1, 3, {"moe_seed": -0.2}),
 }
 ALL = {**TWO, **FOUR}
+# Each case's data seed: its place among the sorted names of the cases
+# without MoE, then the MoE cases in order (a new case moves no other's data).
+_MOE = [k for k, v in ALL.items() if "moe_seed" in v[4]]
+_SEEDS = {n: i for i, n in enumerate(sorted(set(ALL) - set(_MOE)) + _MOE)}
 
 
 def _case(name) -> dict:
     engine, mesh, V, M, extra = ALL[name]
     P, dp = mesh["pp"], mesh.get("dp", 1)
-    g = np.random.default_rng(sorted(ALL).index(name))
+    g = np.random.default_rng(_SEEDS[name])
     f32 = np.float32
     c = {"engine": engine, "mesh": mesh, "V": V,
          "w": (g.normal(size=(V * P, D, D)) / np.sqrt(D)).astype(f32),
@@ -138,15 +146,23 @@ def _ref_1f1b(c):
     stacked = ref_pipeline.stack_stage_params([{"w": w, "b": b} for w, b in zip(c["w"], c["b"])])
     head = {"w": c["hw"], "b": c["hb"]}
 
+    moe = c.get("moe_seed") is not None
+
+    def stage(p, x):
+        y = _ref_stage(p, x)
+        return (y, jnp.mean(y * y)) if moe else y
+
     def last(p, hp, x, yl):
         y = _ref_stage(p, x)
         loss = jnp.mean((y @ hp["w"] + hp["b"] - yl) ** 2)
-        return (loss, jnp.mean(y)) if c["with_aux"] else loss
+        out = (loss,) + ((jnp.mean(y * y),) if moe else ()) + (
+            (jnp.mean(y),) if c["with_aux"] else ())
+        return out if len(out) > 1 else loss
 
     io = JP(None, "dp") if "dp" in c["mesh"] else JP()
     out = jax.jit(lambda sp, hp, mb, yl: ref_1f1b.pipeline_1f1b_value_and_grad(
-        _ref_stage, last, sp, hp, mb, yl, mesh, with_aux=c["with_aux"], io_spec=io))(
-        stacked, head, c["mb"], c["labels"])
+        stage, last, sp, hp, mb, yl, mesh, with_aux=c["with_aux"], io_spec=io,
+        stage_aux_seed=c.get("moe_seed")))(stacked, head, c["mb"], c["labels"])
     out = jax.tree.map(np.asarray, out)
     *values, g_sp, g_head, cot = out
     return values, g_sp, g_head, cot
@@ -200,8 +216,21 @@ def test_specs_and_shardings_match_reference():
         ref = ref_pipeline.pipeline_shardings(_ref_mesh(axes))
         got = pipeline.pipeline_shardings(make_mesh(axes, devices=range(n)))
         assert [tuple(s.spec) for s in ref] == [s.spec for s in got]
-    with pytest.raises(NotImplementedError, match="A12"):
-        pipeline.stage_param_specs(stacked, ep_size=2)
+    # The ep branch: the expert weights of an MoE stage over ("pp", "ep"),
+    # the router and the rest over pp alone; the port's chunks key a
+    # layer's leaves by their dotted names.
+    moe = {"sub_0": {"moe_mlp": {k: np.zeros(2) for k in ("router", "w_in", "w_out")},
+                     "ln_mlp": {"scale": np.zeros(2)}}}
+    flat = {"sub_0": {"moe_mlp.router": 0, "moe_mlp.w_in": 0, "moe_mlp.w_out": 0,
+                      "ln_mlp.weight": 0}}
+    for ep in (1, 2):
+        want = {f"{a}.{b}": tuple(s) for a, t in ref_pipeline.stage_param_specs(
+            moe, ep)["sub_0"].items() for b, s in t.items()}
+        got = pipeline.stage_param_specs(flat, ep)["sub_0"]
+        assert got == {k.replace("scale", "weight"): v for k, v in want.items()}
+        assert pipeline.stage_param_specs(moe, ep)["sub_0"]["moe_mlp"] == {
+            k: tuple(v) for k, v in ref_pipeline.stage_param_specs(moe, ep)["sub_0"][
+                "moe_mlp"].items()}
 
 
 def test_refusals_match_reference_messages():
@@ -232,10 +261,6 @@ def test_refusals_match_reference_messages():
         with pytest.raises(ValueError) as got:
             port_call()
         assert str(got.value) == str(want.value)
-    with pytest.raises(NotImplementedError, match="A12"):
-        pipeline_1f1b.pipeline_1f1b_value_and_grad(
-            pp_stage, None, [t_chunk], {}, torch.tensor(mb), torch.tensor(mb), mesh,
-            stage_aux_seed=0.1)
 
 
 def test_one_rank_pipeline_is_the_stage_sequence():

@@ -291,7 +291,8 @@ def test_split_and_merge_invert_each_other():
 
 def test_refusals_match_reference():
     """The reference's refusals, message for message (the model zoo's package
-    name aside); the MoE and ep ones name A12."""
+    name aside); ``ep`` on a model without MoE among them (MoE and ep are
+    ported: ``tests/test_torch_moe_ep.py``)."""
     ref_model, model = _ref_model(), with_weights(pp_model(_config()), _init())
 
     def both(ref_call, port_call, exc=ValueError):
@@ -319,10 +320,10 @@ def test_refusals_match_reference():
                                      mesh=_ref_mesh({"pp": 1})).train(ref.Dataset(_data())),
          lambda: dk.PipelineTrainer(model, batch_size=6, num_microbatches=4,
                                     device="cpu").train(dk.Dataset.from_arrays(**_data())))
-    with pytest.raises(NotImplementedError, match="A12"):
-        dk.PipelineTrainer(model, ep=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="A12"):
-        bert.BertConfig(moe_experts=4)
+    both(lambda: ref.PipelineTrainer(ref_model, ep=2, mesh=_ref_mesh({"pp": 1, "ep": 2}))
+         .train(ref.Dataset(_data())),
+         lambda: dk.PipelineTrainer(model, ep=2, device="cpu", mesh=dk.parallel.make_mesh(
+             {"pp": 1, "ep": 2}, devices=[0, 1]))._pipeline_mesh())
 
 
 def test_trainer_config_builds_it():

@@ -5,8 +5,8 @@
 ``tests/test_torch_data_parallel.py``, ``tests/test_torch_model_parallel.py``,
 ``tests/test_torch_sequence_parallel.py``, ``tests/test_torch_ring_attention.py``,
 ``tests/test_torch_pipeline.py``, ``tests/test_torch_pipeline_trainer.py``,
-``tests/test_torch_sharded_serving.py`` and ``tests/test_torch_pp_serving.py``
-start WORLD of these. They join one gloo process group through a file
+``tests/test_torch_sharded_serving.py``, ``tests/test_torch_pp_serving.py``
+and ``tests/test_torch_moe_ep.py`` start WORLD of these. They join one gloo process group through a file
 store in WORKDIR, read the scenarios' inputs from ``WORKDIR/inputs.pkl``
 (weights bridged from the reference's init, and the data), run every
 scenario in order and write what each produced to
@@ -73,8 +73,16 @@ def pp_model(cfg: dict) -> Model:
     return bert._make(config, cfg["seq"], "bert_pp")
 
 
+def moe_model(cfg: dict) -> Model:
+    """:func:`pp_model`'s bert-family model with every MLP an MoE block of
+    ``cfg["experts"]`` experts, top ``cfg["top_k"]``."""
+    config = dataclasses.replace(pp_model(cfg).config, moe_experts=cfg["experts"],
+                                 moe_top_k=cfg["top_k"])
+    return bert._make(config, cfg["seq"], "bert_moe")
+
+
 MODELS = {"bert": bert_model, "mlp": mlp_model, "resnet": resnet_model, "sp": sp_model,
-          "pp": pp_model}
+          "pp": pp_model, "moe": moe_model}
 
 
 def with_weights(model: Model, weights: dict) -> Model:
@@ -266,13 +274,15 @@ def pp_stage_aux(chunk, x):
     return y, (y * y).mean()
 
 
-def pp_last(chunk, head, x, labels, seed=None, with_aux=False):
+def pp_last(chunk, head, x, labels, seed=None, with_aux=False, moe=False):
     """The pipeline tests' last stage with its head and loss: the squared
     error of ``stage(x) @ hw + hb`` against the labels (and, as the metric
-    channel, the mean of the stage's output)."""
+    channel, the mean of the stage's output; with ``moe``, the stage's
+    ``mean(y²)`` as its differentiated aux loss, before the metric)."""
     y = pp_stage(chunk, x, seed)
     loss = ((y @ head["w"] + head["b"] - labels) ** 2).mean()
-    return (loss, y.mean()) if with_aux else loss
+    out = (loss,) + (((y * y).mean(),) if moe else ()) + ((y.mean(),) if with_aux else ())
+    return out if len(out) > 1 else loss
 
 
 def pp_engine(case: dict, workdir: str) -> dict:
@@ -313,10 +323,12 @@ def pp_engine(case: dict, workdir: str) -> dict:
             rep["grads"] = [{n: t.grad.numpy() for n, t in ch.items()} for ch in chunks]
         else:
             head = {"w": torch.tensor(c["hw"]), "b": torch.tensor(c["hb"])}
-            last = functools.partial(pp_last, with_aux=c["with_aux"])
+            moe = c.get("moe_seed") is not None
+            last = functools.partial(pp_last, with_aux=c["with_aux"], moe=moe)
             res = pipeline_1f1b_value_and_grad(
-                pp_stage, last, chunks, head, mb.detach(), torch.tensor(c["labels"][:, mine]),
-                mesh, rng=c.get("rng"), with_aux=c["with_aux"])
+                pp_stage_aux if moe else pp_stage, last, chunks, head, mb.detach(),
+                torch.tensor(c["labels"][:, mine]), mesh, rng=c.get("rng"),
+                with_aux=c["with_aux"], stage_aux_seed=c.get("moe_seed"))
             *values, g_stage, g_head, cot = res
             rep["values"] = [v.item() for v in values]
             rep["grads"] = [{n: t.numpy() for n, t in g_stage[0].items()}]
@@ -328,8 +340,14 @@ def pp_engine(case: dict, workdir: str) -> dict:
 
 def pp_train(case: dict, workdir: str) -> dict:
     """``PipelineTrainer`` runs (``c["kwargs"]``, the mesh among them) of a
-    bert-family model from bridged weights; and the sync trainer's on a pp
-    mesh (``c["trainer"] == "sync"``)."""
+    bert-family model from bridged weights; and the sync trainer's
+    (``c["trainer"] == "sync"``). ``c["publish"]`` (steps) gives the trainer
+    a ``WeightPublisher`` into ``WORKDIR/<name>-pub`` on that step cadence:
+    rank 0 returns how many it published and the last one's weights."""
+    from distkeras_tpu_torch.checkpoint import load_weights_file, read_manifest
+    from distkeras_tpu_torch.deploy.publisher import PublishPolicy, WeightPublisher
+    from distkeras_tpu_torch.utils.bridge import params_from_jax
+
     out = {}
     for name, c in case["cases"].items():
         model = with_weights(MODELS[c["model"]](c["config"]), c["weights"])
@@ -340,11 +358,21 @@ def pp_train(case: dict, workdir: str) -> dict:
         cls = dk.SynchronousDistributedTrainer if c.get("trainer") == "sync" else \
             dk.PipelineTrainer
         trainer = cls(model, device="cpu", **kwargs)
+        pub = None
+        if c.get("publish"):
+            pub = WeightPublisher(os.path.join(workdir, f"{name}-pub"),
+                                  PublishPolicy(every_steps=c["publish"]))
+            trainer.publisher = pub
         trained = trainer.train(data.take(c["rows"]) if "rows" in c else data)
         out[name] = {"history": trainer.history, "weights": host(trained.variables)}
         if "checkpoint_dir" in kwargs:
             out[name]["saved_steps"] = sorted(
                 int(n) for n in os.listdir(kwargs["checkpoint_dir"]) if n.isdigit())
+        if pub is not None and distributed.process_index() == 0:
+            last = read_manifest(pub.directory)
+            out[name]["published"] = pub.published
+            out[name]["last_published"] = host(params_from_jax(
+                load_weights_file(last["path"]), device="cpu"))
     return out
 
 
@@ -571,7 +599,11 @@ def spawn_ranks(workdir: str, world: int, scenarios: dict, timeout: float = 280)
 
 
 def main(workdir: str, rank: int, world: int) -> int:
-    torch.set_num_threads(2)
+    # One intra-op thread: with two, a process's first training run now and
+    # then rounds differently from its later ones (a noise-level gradient,
+    # the attention key bias's, moves first), which breaks the bitwise
+    # checks between runs and between ranks (ROADMAP.md §C, C4).
+    torch.set_num_threads(1)
     with open(os.path.join(workdir, "inputs.pkl"), "rb") as f:
         scenarios = pickle.load(f)
     distributed.initialize(f"file://{os.path.join(workdir, 'store')}", world, rank,
