@@ -185,11 +185,12 @@ Phases, each of which must pass or the script exits non-zero:
    logged); 3 x 12 launches of K1-K3 and 3 of K4-K6; the two trainers'
    train_step spans in 3 rounds taking turns, and the step alone with the
    group and without, 5 rounds of 8 steps taking turns. 17b: two gloo ranks
-   sharing the card, global batch 64: the first step's all-reduced
+   sharing the card, bert_base_mlm cut to DP_LAYERS = 4 of its 12 layers,
+   global batch 64: the first step's all-reduced
    gradients against one process's step on the 64 rows within phase 5's
    bound (GRAD_REL_TOL, or GRAD_NOISE_FACTOR x the one-process bf16 step's
    distance from the float32 one, both on the card); each rank's launches
-   12 of K1-K3 and 1 of K4-K6 a step; the 3 losses finite, falling and
+   4 of K1-K3 and 1 of K4-K6 a step; the 3 losses finite, falling and
    equal on both ranks; zero1 on the plain run's weights within 1e-6;
    ModelPredictor(mesh=) over both ranks the same on each, and within
    LOGITS_ATOL of one process's bf16 logits on the 64 rows. 17c: resnet50,
@@ -204,14 +205,15 @@ Phases, each of which must pass or the script exits non-zero:
    (bert_base_mlm, seq 128, batch 32, flash on, fused loss, adam, dropout
    0), 3 steps of phase 5's copy task, ends on SingleTrainer's weights
    (each tensor within 1e-6 of its norm); 3 x 12 launches of K1-K3 and 3 of
-   K4-K6. 18b: SynchronousDistributedTrainer(mesh={"tp": 2}) on two gloo
+   K4-K6. 18b and 18c run bert_base_mlm cut to MP_LAYERS = 4 of its 12
+   layers. 18b: SynchronousDistributedTrainer(mesh={"tp": 2}) on two gloo
    ranks sharing the card (Megatron's layout: each rank 6 of the 12 heads,
    K1-K3 at BH = 192, K4-K6 on the gathered [4096, 30522] logits): the
    first step's gradients, gathered whole, within phase 5's bound of one
    process's on the same 32 rows; the replicated leaves (LayerNorms,
    biases, pos_embed) equal on both ranks after 3 steps; the returned
    weights whole; the tp forward on them within LOGITS_ATOL of one
-   process's; the losses finite, falling and equal on both ranks; 12 of
+   process's; the losses finite, falling and equal on both ranks; 4 of
    each of K1-K3 and 1 of each of K4-K6 a step on each rank. 18c:
    mesh={"fsdp": 2}, global batch 64: each rank holds half of every split
    leaf, its resident parameter bytes logged beside the whole model's; the
@@ -227,12 +229,13 @@ Phases, each of which must pass or the script exits non-zero:
    same rows (each tensor within 1e-6 of its norm; whether the weights are
    bitwise equal is logged); 3 x 12 launches of K1-K3 and 3 of K4-K6. 19b-19d
    on two gloo ranks sharing the card, mesh {"sp": 2}, shard_sequence=True,
-   3 steps on one global batch repeated, each rank on its columns: 19b
+   the models cut to SP_LAYERS = 4 of their 12 layers, 3 steps on one
+   global batch repeated, each rank on its columns: 19b
    gpt_small 8 x 512 with "ring" (contiguous; rank 0 skips its later hop:
-   36 launches of K1-K3, rank 1 72), 19c the same with "ring_stripe"
-   (every hop runs, the later one at causal shift 1: 72 each), 19d
+   12 launches of K1-K3, rank 1 24), 19c the same with "ring_stripe"
+   (every hop runs, the later one at causal shift 1: 24 each), 19d
    bert_base_mlm 32 x 128 with "ulysses" and flash (K1-K3 on the local head
-   group, BH = 192: 36 each); K4-K6 3 a rank on the rank's own logits. Each:
+   group, BH = 192: 12 each); K4-K6 3 a rank on the rank's own logits. Each:
    the losses finite, falling, equal on both ranks and within LOSS_RTOL of
    SingleTrainer's on the same rows; the first step's gradients, gathered
    whole, within phase 5's bound of one process's; the replicated leaves
@@ -242,13 +245,14 @@ Phases, each of which must pass or the script exits non-zero:
    grad_all_reduce spans, whether the P2P went through the host, with the
    card. No scaling figure.
 20. Pipeline parallelism, in ranks spawned as phase 17's: PipelineTrainer on
-   bert_base_mlm (seq 128, global batch 32 in M=4 microbatches, flash on,
+   bert_base_mlm at its widths, its depth cut to PP_LAYERS = 4 layers (seq
+   128, global batch 32 in M=4 microbatches, flash on,
    fused loss, adam, dropout 0), 3 steps on one global batch of the copy
    task repeated. 20a: one NCCL rank, the pipe of one stage, gpipe and
    1f1b, against the same process's unpipelined step with the pipeline's
    float32 head (its 3 losses and its first gradients). 20b-20d on two gloo
-   ranks sharing the card, mesh {"pp": 2}, 6 layers a rank: 20b gpipe
-   (and with remat), 20c virtual_stages=2 (3 layers a chunk), 20d 1f1b,
+   ranks sharing the card, mesh {"pp": 2}, 2 layers a rank: 20b gpipe
+   (and with remat), 20c virtual_stages=2 (1 layer a chunk), 20d 1f1b,
    each against 20a's one-process step: losses within LOSS_RTOL, the first
    step's gradients (each rank's own tensors) with median relative
    difference within 1e-2 and each within phase 19's bound; losses finite,
@@ -299,10 +303,38 @@ Phases, each of which must pass or the script exits non-zero:
    rows, the replicated leaves equal, the first step's gradients gathered
    whole within phase 17's bound of one process's, the ep_all_reduce
    span's share of the step (a check, not a scaling figure). Phase 2 holds K1-K6 at 22a's shapes too.
-23. Print the kernels line, the card's name and power limit, and last the
+23. The rest of sequence parallelism, and async islands, in ranks spawned
+   as phase 17's (23a-23c) and in this process (23d). 23a, the XLA
+   sequence split (SynchronousDistributedTrainer(shard_sequence=True) on
+   gpt_small without a ring_mesh; seq 512, batch 8, flash on, fused loss,
+   adam, dropout 0; 3 steps on one global batch repeated): one NCCL rank
+   at sp=1 bitwise on SingleTrainer's weights, 3 x 12 launches of K1-K3;
+   two gloo ranks sharing the card at sp=2, each on its 256 columns,
+   gathering Q, K and V over sp in every layer and running K1-K3 at the
+   whole length (36 of each a rank, 24 sp_all_gather spans a step): losses
+   equal on both ranks and within LOSS_RTOL of SingleTrainer's, the first
+   step's gradients gathered whole within phase 19's bound, the replicated
+   leaves equal, the weights whole. 23b: gpt_small (vocabulary padded to
+   50304 to split over tp, depth cut to SPTP_LAYERS = 4) on four gloo
+   ranks sharing the card, mesh {"sp": 2, "tp": 2}, "ring" and "ulysses"
+   on each rank's 6 heads: the same checks, K1-K3 per rank as phase 19's
+   hops predict. 23c (on 23a's
+   ranks): ModelPredictor(mesh={"sp": 2}) of a ring bert_base_mlm, 32 x
+   128: the whole logits on both ranks, equal, within SP_PREDICT_ATOL of
+   one process's predict; 24 launches of K1 a rank. 23d: DynSGD on
+   bert_base_mlm (seq 128, flash on, fused loss, adam, window 5), 2
+   workers x devices_per_worker=2, the one card listed four times, 16 rows
+   a replica (32 an island step), 2 windows a worker: worker 0's first
+   averaged gradient within phase 19's bound of one process's on the
+   island's 32 rows, 12 launches of K1-K3 and 1 of K4-K6 a replica step,
+   the commits equal the windows; tokens/s printed beside phase 7b's.
+   Logged: ms per step per rank and the collective spans' shares
+   (sp_all_gather, sp_permute, sp_all_to_all, tp_all_reduce, tp_gather,
+   grad_all_reduce), with the card. No scaling figure.
+24. Print the kernels line, the card's name and power limit, and last the
    result line {"ok": true, "device": {...}}.
 
-Phases 9-11, 15f, 16, 17, 18, 19, 20, 21 and 22 write their checkpoints, weight files and
+Phases 9-11, 15f, 16, 17, 18, 19, 20, 21, 22 and 23 write their checkpoints, weight files and
 stores under build/chip_smoke/ (git-ignored) and remove them.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
@@ -365,6 +397,8 @@ RESNET_NOISE_FACTOR = 3.0
 # on the card: both are (a + b) / 2 in float32, one rounding each.
 AVERAGE_ATOL_ULPS = 1.0
 CKPT_ROOT = os.path.join(REPO, "build", "chip_smoke")
+# Phase 7b's tokens/s over its two workers (phase 23d prints it beside its own).
+PHASE7_TOKENS_S: dict = {}
 # Phases 5-6's steady train step, ms, by model name (phase 22b prints it).
 STEADY_MS: dict = {}
 
@@ -1095,6 +1129,7 @@ def async_bert(seq=128, batch=32, window=5):
     moved = max((trained.variables[k].cpu() - center0[k]).abs().max().item() for k in center0)
     check(moved > 0, "7b: the center did not move")
     status = tr.training_health.statusz()
+    PHASE7_TOKENS_S["7b"] = steps * batch * seq / wall_b
     log(f"  7b: 2 workers, {steps} steps in {wall_b:.3f} s ({steps * batch * seq / wall_b:.0f} "
         f"tokens/s over both), {windows} windows, {tr.parameter_server.num_commits} commits; "
         f"loss first windows {first:.4f} -> last {last:.4f}; center moved by up to {moved:.3g}; "
@@ -1342,14 +1377,18 @@ def resnet_aeasgd(batch=32, window=4, windows=3, size=224):
 # -- phases 10 and 11: checkpoints and the replica trainers -------------------
 
 
-def bert_copy_task(seq, rows, seed=SEED, name="bert_base_mlm"):
+def bert_copy_task(seq, rows, seed=SEED, name="bert_base_mlm", vocab=None, layers=None):
+    """The bert-family ``name`` (flash on, dropout 0; ``vocab`` and
+    ``layers`` in place of its vocabulary size and depth) and a copy task
+    of ``rows`` seeded rows."""
     import numpy as np
 
     from distkeras_tpu_torch import Dataset
     from distkeras_tpu_torch.models import bert
 
-    base = getattr(bert, name)(seq_len=seq)
-    cfg = dataclasses.replace(base.config, use_flash_attention=True, dropout_rate=0.0)
+    base = getattr(bert, name)(seq_len=seq, **({"vocab_size": vocab} if vocab else {}))
+    cfg = dataclasses.replace(base.config, use_flash_attention=True, dropout_rate=0.0,
+                              num_layers=layers or base.config.num_layers)
     model = bert._make(cfg, seq, name)
     tokens = np.random.default_rng(seed).integers(0, cfg.vocab_size,
                                                   size=(rows, seq)).astype(np.int32)
@@ -2903,6 +2942,10 @@ def fleet_phase(served, slots=8, chunk=128, top_k=50, pool_mb=256, long_len=496,
 
 # -- phase 17: data parallelism over torch.distributed -------------------------
 
+# 17b's, 18b-18c's and 19b-19d's depth: the model cut to 4 of its 12 layers,
+# which keeps the script within its time with phase 23 added (the one-rank
+# NCCL runs 17a, 18a and 19a keep all 12).
+DP_LAYERS = MP_LAYERS = SP_LAYERS = 4
 # A rank of phase 17 that has not ended this long after its spawn fails the
 # phase (and is killed).
 DP_CHILD_LIMIT_S = 300
@@ -3088,8 +3131,10 @@ def dp_steady_ms(model, data, batch, device, rounds=5, steps=8) -> dict:
 
 
 def dp_gloo_task(rank, world, seq=128, batch=32, steps=3, images=8, size=224,
-                 model_name="bert_base_mlm", resnet_name="resnet50", device="cuda") -> dict:
-    """17b and 17c on two gloo ranks that share the card."""
+                 model_name="bert_base_mlm", resnet_name="resnet50", device="cuda",
+                 layers=None) -> dict:
+    """17b (the model cut to ``layers``; None: its own depth) and 17c on two
+    gloo ranks that share the card."""
     import numpy as np
     import torch
     from torch.optim.optimizer import register_optimizer_step_pre_hook
@@ -3101,7 +3146,7 @@ def dp_gloo_task(rank, world, seq=128, batch=32, steps=3, images=8, size=224,
     report = {"backend": torch.distributed.get_backend()}
     group = torch.distributed.group.WORLD
     global_batch = batch * world
-    model, cfg, data = bert_copy_task(seq, global_batch * steps, name=model_name)
+    model, cfg, data = bert_copy_task(seq, global_batch * steps, name=model_name, layers=layers)
     _sync_trainer(model, batch, device).train(data.take(global_batch))  # warm-up
 
     # 17b: three steps; the first step's all-reduced gradients, as the
@@ -3245,12 +3290,15 @@ def dp_resnet_step(rank, world, images, size, name, device, group) -> dict:
 
 
 def dp_phase(root=REPO, seq=128, batch=32, steps=3, images=8, size=224,
-             model_name="bert_base_mlm", resnet_name="resnet50", device="cuda") -> dict:
-    """17: data parallelism over torch.distributed, in spawned ranks; returns
-    the launch counts of 17a's and 17b's timed runs, every rank's summed."""
+             model_name="bert_base_mlm", resnet_name="resnet50", device="cuda",
+             layers=DP_LAYERS) -> dict:
+    """17: data parallelism over torch.distributed, in spawned ranks, 17b on
+    the model cut to ``layers`` (None: its own depth); returns the launch
+    counts of 17a's and 17b's timed runs, every rank's summed."""
     card = card_line()
     t_phase = time.perf_counter()
     cfg = bert_copy_task(seq, batch, name=model_name)[1]
+    cut = bert_copy_task(seq, batch, name=model_name, layers=layers)[1]
     counting = device == "cuda"  # the plain versions of the kernels count nothing
 
     # 17a: one rank over NCCL (the default backend).
@@ -3285,10 +3333,11 @@ def dp_phase(root=REPO, seq=128, batch=32, steps=3, images=8, size=224,
     # 17b and 17c: two gloo ranks on the one card.
     ranks = dp_spawn(root, "17b", "gloo", 2, "dp_gloo_task", seq=seq, batch=batch,
                      steps=steps, images=images, size=size, model_name=model_name,
-                     resnet_name=resnet_name, device=device)
+                     resnet_name=resnet_name, device=device, layers=layers)
     r0 = ranks[0]
     for r, rep in enumerate(ranks):
-        log(f"  17b rank {r} (gloo, 2 ranks sharing one card: a check, not a scaling figure): "
+        log(f"  17b {model_name} at {cut.num_layers} layers, rank {r} (gloo, 2 ranks sharing "
+            f"one card: a check, not a scaling figure): "
             f"{rep['steps']} steps, {rep['ms_per_step']:.2f} ms/step, all-reduce "
             f"{rep['all_reduce_share']:.1%} of it, train() {rep['wall_s']:.2f} s; losses "
             f"{', '.join(f'{x:.4f}' for x in rep['losses'])}; launches {rep['counts']}; 17c "
@@ -3299,7 +3348,7 @@ def dp_phase(root=REPO, seq=128, batch=32, steps=3, images=8, size=224,
         check(rep["pred_sums"] == r0["pred_sums"], f"17b: rank {r} predicted otherwise")
         check(rep["gap_zero1"] <= DP_EQUAL_RTOL, f"17b: zero1 {rep['gap_zero1']} off plain")
         if counting:
-            check(rep["counts"] == train_launches(cfg, steps),
+            check(rep["counts"] == train_launches(cut, steps),
                   f"17b: rank {r} launches {rep['counts']}")
     g = r0["grads"]
     log(f"  17b: first step's all-reduced gradients against one process on the "
@@ -3373,7 +3422,7 @@ def mp_nccl_task(rank, world, seq=128, batch=32, steps=3, model_name="bert_base_
 
 
 def mp_gloo_task(rank, world, axes, seq=128, batch=32, steps=3, model_name="bert_base_mlm",
-                 device="cuda") -> dict:
+                 device="cuda", layers=None) -> dict:
     """18b (``axes={"tp": 2}``) and 18c (``{"fsdp": 2}``) on two gloo ranks
     that share the card: SynchronousDistributedTrainer on the mesh for
     ``steps`` steps on one global batch of the copy task repeated (three
@@ -3394,7 +3443,7 @@ def mp_gloo_task(rank, world, axes, seq=128, batch=32, steps=3, model_name="bert
     mesh = make_mesh(axes)
     data_ranks = axes.get("dp", 1) * axes.get("fsdp", 1)
     global_batch = batch * data_ranks
-    model, cfg, one = bert_copy_task(seq, global_batch, name=model_name)
+    model, cfg, one = bert_copy_task(seq, global_batch, name=model_name, layers=layers)
     data = Dataset.from_arrays(**{k: np.concatenate([one[k]] * steps) for k in ("features",
                                                                            "label")})
     _sync_trainer(model, batch, device, mesh=axes).train(one)  # warm-up
@@ -3465,12 +3514,14 @@ def mp_gloo_task(rank, world, axes, seq=128, batch=32, steps=3, model_name="bert
 
 
 def mp_phase(root=REPO, seq=128, batch=32, steps=3, model_name="bert_base_mlm",
-             device="cuda") -> dict:
-    """18: tp and fsdp training in spawned ranks; returns the launch counts
-    of 18a's run and 18b's and 18c's timed runs, every rank's summed."""
+             device="cuda", layers=MP_LAYERS) -> dict:
+    """18: tp and fsdp training in spawned ranks, 18b and 18c on the model
+    cut to ``layers`` (None: its own depth); returns the launch counts of
+    18a's run and 18b's and 18c's timed runs, every rank's summed."""
     card = card_line()
     t_phase = time.perf_counter()
     cfg = bert_copy_task(seq, batch, name=model_name)[1]
+    cut = bert_copy_task(seq, batch, name=model_name, layers=layers)[1]
     counting = device == "cuda"  # the plain versions of the kernels count nothing
 
     (a,) = dp_spawn(root, "18a", None if counting else "gloo", 1, "mp_nccl_task", seq=seq,
@@ -3487,13 +3538,14 @@ def mp_phase(root=REPO, seq=128, batch=32, steps=3, model_name="bert_base_mlm",
     counts = [a["counts"]]
     for tag, axes in (("18b", {"tp": 2}), ("18c", {"fsdp": 2})):
         ranks = dp_spawn(root, tag, "gloo", 2, "mp_gloo_task", axes=axes, seq=seq, batch=batch,
-                         steps=steps, model_name=model_name, device=device)
+                         steps=steps, model_name=model_name, device=device, layers=layers)
         r0 = ranks[0]
         rows = batch * axes.get("fsdp", 1)
         for r, rep in enumerate(ranks):
             shares = ", ".join(f"{k[:-6]} {rep[k]:.1%}" for k in rep
                                if k.endswith("_share") and rep[k])
-            log(f"  {tag} {axes} rank {r} (gloo, 2 ranks sharing one card: a check, not a "
+            log(f"  {tag} {axes} {model_name} at {cut.num_layers} layers, rank {r} (gloo, 2 "
+                f"ranks sharing one card: a check, not a "
                 f"scaling figure): {rep['steps']} steps, {rep['ms_per_step']:.2f} ms/step "
                 f"(train_step span), of it {shares or 'no collective span'}; train() "
                 f"{rep['wall_s']:.2f} s; losses {', '.join(f'{x:.4f}' for x in rep['losses'])}; "
@@ -3510,7 +3562,7 @@ def mp_phase(root=REPO, seq=128, batch=32, steps=3, model_name="bert_base_mlm",
             check(rep["replicated_sums"] == r0["replicated_sums"],
                   f"{tag}: rank {r}'s replicated leaves differ from rank 0's")
             if counting:
-                check(rep["counts"] == train_launches(cfg, steps),
+                check(rep["counts"] == train_launches(cut, steps),
                       f"{tag}: rank {r} launches {rep['counts']}")
             counts.append(rep["counts"])
         gap = max(abs(a - b) / abs(b) for a, b in zip(r0["losses"], r0["single_losses"]))
@@ -3552,9 +3604,9 @@ def _sp_spans(tracer) -> dict:
     step_n, step_s = totals.get(("train_step", None), [0, 0.0])
     out = {"steps": step_n, "ms_per_step": step_s / max(step_n, 1) * 1e3,
            "staged": any((attrs or {}).get("staged") for ph, name, *_, attrs in tracer.events()
-                         if ph == "B" and name == "sp_permute")}
-    for name in ("sp_permute", "sp_all_to_all", "sp_gather", "sp_reduce_scatter",
-                 "grad_all_reduce"):
+                         if ph == "B" and name in ("sp_permute", "sp_all_gather"))}
+    for name in ("sp_permute", "sp_all_to_all", "sp_all_gather", "sp_gather",
+                 "sp_reduce_scatter", "tp_all_reduce", "tp_gather", "grad_all_reduce"):
         out[f"{name}_share"] = totals.get((name, None), [0, 0.0])[1] / step_s if step_s else 0.0
     return out
 
@@ -3567,11 +3619,12 @@ def sp_model(model, mesh, sp_impl):
 
 
 def sp_nccl_task(rank, world, seq=512, batch=8, steps=3, model_name="gpt_small",
-                 device="cuda") -> dict:
+                 device="cuda", impl="ring") -> dict:
     """19a: one NCCL rank: SynchronousDistributedTrainer(mesh={"sp": 1},
     shard_sequence=True) on the model with a ring_mesh of sp=1 ("ring": K1
     and an exact float32 merge per layer) against SingleTrainer on the
-    same rows."""
+    same rows. 23a (``impl`` None): the same on the model without a
+    ring_mesh (the XLA sequence split)."""
     import torch
 
     from distkeras_tpu_torch import SingleTrainer
@@ -3579,7 +3632,7 @@ def sp_nccl_task(rank, world, seq=512, batch=8, steps=3, model_name="gpt_small",
 
     model, cfg, data = bert_copy_task(seq, batch * steps, name=model_name)
     mesh = make_mesh({"sp": 1})
-    ring = sp_model(model, mesh, "ring")
+    ring = sp_model(model, mesh, impl) if impl else model
     _sync_trainer(ring, batch, device, mesh=mesh, shard_sequence=True).train(data.take(batch))
     _synchronize(device)
     reset_counts()
@@ -3596,15 +3649,19 @@ def sp_nccl_task(rank, world, seq=512, batch=8, steps=3, model_name="gpt_small",
             "max_abs": max((got[k].float() - want[k].float()).abs().max().item() for k in want)}
 
 
-def sp_gloo_task(rank, world, cases=SP_CASES, steps=3, device="cuda", axes=None) -> dict:
+def sp_gloo_task(rank, world, cases=SP_CASES, steps=3, device="cuda", axes=None,
+                 vocab=None, layers=None) -> dict:
     """19b-19d on two gloo ranks that share the card, one case after the
     other: SynchronousDistributedTrainer(mesh={"sp": 2}, shard_sequence=True)
     for ``steps`` steps on one global batch of the copy task repeated, each
     rank on its columns; the first step's gradients as the optimizer
     receives them, gathered whole; rank 0 also trains SingleTrainer on the
     same rows and takes one process's gradients on them. ``axes``: another
-    mesh (``{"dp": 2, "sp": 2}``, say; ``batch`` rows a data rank), as on
-    several cards over NCCL."""
+    mesh (``{"dp": 2, "sp": 2}``, say; ``batch`` rows a data rank, or
+    ``{"sp": 2, "tp": 2}``), as on several cards over NCCL. A case's
+    ``sp_impl`` None trains the model without a ring_mesh, the XLA
+    sequence split (23a). ``vocab`` and ``layers`` replace the model's
+    vocabulary size (one that splits over tp) and depth."""
     import numpy as np
     import torch
     from torch.optim.optimizer import register_optimizer_step_pre_hook
@@ -3618,8 +3675,9 @@ def sp_gloo_task(rank, world, cases=SP_CASES, steps=3, device="cuda", axes=None)
     out = {"backend": torch.distributed.get_backend()}
     for tag, model_name, seq, batch, impl in cases:
         global_batch = batch * mesh.shape.get("dp", 1)
-        model, cfg, one = bert_copy_task(seq, global_batch, name=model_name)
-        ring = sp_model(model, mesh, impl)
+        model, cfg, one = bert_copy_task(seq, global_batch, name=model_name, vocab=vocab,
+                                         layers=layers)
+        ring = sp_model(model, mesh, impl) if impl else model
         data = Dataset.from_arrays(**{k: np.concatenate([one[k]] * steps)
                                       for k in ("features", "label")})
         _sync_trainer(ring, batch, device, mesh=mesh, shard_sequence=True).train(one)  # warm-up
@@ -3640,7 +3698,9 @@ def sp_gloo_task(rank, world, cases=SP_CASES, steps=3, device="cuda", axes=None)
         tr = _sync_trainer(ring, batch, device, mesh=mesh, shard_sequence=True)
         trained = tr.train(data)
         _synchronize(device)
-        rep = {"wall_s": time.perf_counter() - t0}
+        rep = {"wall_s": time.perf_counter() - t0, "sp_index": mesh.coords(rank)["sp"],
+               "gathers": sum(1 for e in tracer.events()
+                              if e[0] == "B" and e[1] == "sp_all_gather")}
         disable_tracing()
         hook.remove()
         rep["counts"] = read_counts()
@@ -3687,9 +3747,10 @@ def sp_launches(cfg, steps, hops) -> dict:
 
 
 def sp_phase(root=REPO, steps=3, cases=SP_CASES, nccl=("gpt_small", 512, 8),
-             device="cuda") -> dict:
-    """19: sequence parallelism in spawned ranks; returns the launch counts
-    of 19a's and 19b-19d's timed runs, every rank's summed."""
+             device="cuda", layers=SP_LAYERS) -> dict:
+    """19: sequence parallelism in spawned ranks, 19b-19d on the models cut
+    to ``layers`` (None: their own depth); returns the launch counts of
+    19a's and 19b-19d's timed runs, every rank's summed."""
     card = card_line()
     t_phase = time.perf_counter()
     counting = device == "cuda"  # the plain versions of the kernels count nothing
@@ -3709,52 +3770,29 @@ def sp_phase(root=REPO, steps=3, cases=SP_CASES, nccl=("gpt_small", 512, 8),
         check(a["counts"] == sp_launches(cfg, steps, 1), f"19a: launches {a['counts']}")
     counts = [a["counts"]]
     ranks = dp_spawn(root, "19b", "gloo", 2, "sp_gloo_task", cases=cases, steps=steps,
-                     device=device)
+                     device=device, layers=layers)
     for tag, name, seq, batch, impl in cases:
-        cfg = bert_copy_task(seq, batch, name=name)[1]
-        r0 = ranks[0][tag]
+        cfg = bert_copy_task(seq, batch, name=name, layers=layers)[1]
+
+        def hops(rep, impl=impl, cfg=cfg):  # rank 0 of a contiguous ring skips its later hop
+            n = {"ring": 1 + rep["sp_index"], "ring_stripe": 2, "ulysses": 1}[impl]
+            return sp_launches(cfg, steps, n)
+
+        counts += sp_case_report(tag, f"{name} at {cfg.num_layers} layers", batch, seq,
+                                 f"sp=2, {impl!r}", ranks, counting, card, hops)
         for r, rep in enumerate(ranks):
-            rep = rep[tag]
-            shares = ", ".join(f"{k[:-6]} {rep[k]:.1%}" for k in rep
-                               if k.endswith("_share") and rep[k])
-            log(f"  {tag} {name} {batch} x {seq}, sp=2, {impl!r}, rank {r} (gloo, 2 ranks "
-                f"sharing one card: a check, not a scaling figure): {rep['steps']} steps, "
-                f"{rep['ms_per_step']:.2f} ms/step (train_step span), of it "
-                f"{shares or 'no collective span'}; P2P staged through the host: "
-                f"{rep['staged']}; train() {rep['wall_s']:.2f} s; losses "
-                f"{', '.join(f'{x:.4f}' for x in rep['losses'])}; launches {rep['counts']} "
-                f"({card})")
-            check(rep["losses"] == r0["losses"], f"{tag}: rank {r} losses {rep['losses']}")
-            check(all(math.isfinite(x) for x in rep["losses"]) and all(
-                b < a for a, b in zip(rep["losses"], rep["losses"][1:])),
-                f"{tag}: losses {rep['losses']} do not fall")
-            check(rep["whole"], f"{tag}: rank {r} returned weights that are not whole")
-            check(rep["split"] == ["pos_embed"], f"{tag}: split leaves {rep['split']}")
-            check(rep["replicated_sums"] == r0["replicated_sums"],
-                  f"{tag}: rank {r}'s replicated leaves differ from rank 0's")
-            if counting:
-                hops = {"ring": 1 + r, "ring_stripe": 2, "ulysses": 1}[impl]
-                check(rep["counts"] == sp_launches(cfg, steps, hops),
-                      f"{tag}: rank {r} launches {rep['counts']}")
-            counts.append(rep["counts"])
-        gap = max(abs(a - b) / abs(b) for a, b in zip(r0["losses"], r0["single_losses"]))
-        g = r0["grads"]
-        log(f"  {tag}: losses against SingleTrainer's on the same rows "
-            f"{', '.join(f'{x:.4f}' for x in r0['single_losses'])}: largest relative gap "
-            f"{gap:.3g} (bound {LOSS_RTOL}); first step's gradients, gathered whole, against "
-            f"one process: relative difference median {g['median']:.3g}, max {g['max']:.3g} "
-            f"over {g['tensors']} tensors; nearest its bound {g['worst']} {g['worst_rel']:.3g} "
-            f"(allowed {g['worst_allowed']:.3g}); {len(r0['replicated_sums'])} replicated "
-            f"leaves equal on both ranks")
-        check(gap <= LOSS_RTOL, f"{tag}: losses {gap} off SingleTrainer's")
-        check(g["worst_rel"] <= g["worst_allowed"],
-              f"{tag}: gradient {g['worst']} {g['worst_rel']} > {g['worst_allowed']}")
+            check(rep[tag]["split"] == ["pos_embed"],
+                  f"{tag}: rank {r} split leaves {rep[tag]['split']}")
     log(f"  19: phase wall {time.perf_counter() - t_phase:.2f} s ({card})")
     return {k: sum(c[k] for c in counts) for k in counts[0]}
 
 
 # -- phase 20: pipeline parallelism -------------------------------------------
 
+# Phase 20's depth: bert_base_mlm cut to 4 of its 12 layers (2 a rank at pp=2,
+# 1 a chunk under 20c's virtual stages), which keeps the script within its
+# time with phase 23 added.
+PP_LAYERS = 4
 # 20b-20d on two gloo ranks, each at the same M as 20a: (tag, schedule, kwargs)
 PP_CASES = (("20b", "gpipe", {}), ("20b-remat", "gpipe", {"remat": True}),
             ("20c", "gpipe", {"virtual_stages": 2}), ("20d", "1f1b", {}))
@@ -3918,7 +3956,8 @@ def pp_run(tag, model, one, data, batch, steps, device, plain, **kw) -> dict:
     return rep
 
 
-def pp_peak_memory(model_name, seq, rows, device, mesh, memory_m=PP_MEMORY_M) -> dict:
+def pp_peak_memory(model_name, seq, rows, device, mesh, memory_m=PP_MEMORY_M,
+                   layers=None) -> dict:
     """Peak device memory of this rank (``max_memory_allocated``) over a
     two-step run of each PP_MEMORY schedule at each M, 8 rows a microbatch."""
     import torch
@@ -3926,7 +3965,7 @@ def pp_peak_memory(model_name, seq, rows, device, mesh, memory_m=PP_MEMORY_M) ->
     out = {}
     for name, kw in PP_MEMORY:
         for M in memory_m:
-            model, cfg, one = bert_copy_task(seq, rows * M, name=model_name)
+            model, cfg, one = bert_copy_task(seq, rows * M, name=model_name, layers=layers)
             data = one.take(rows * M)
             if device == "cuda":
                 torch.cuda.empty_cache()
@@ -3940,7 +3979,7 @@ def pp_peak_memory(model_name, seq, rows, device, mesh, memory_m=PP_MEMORY_M) ->
 
 
 def pp_nccl_task(rank, world, seq=128, batch=32, steps=3, model_name="bert_base_mlm",
-                 device="cuda", M=PP_MICROBATCHES) -> dict:
+                 device="cuda", M=PP_MICROBATCHES, layers=None) -> dict:
     """20a: one NCCL rank, the pipe of one stage: PipelineTrainer under
     gpipe and 1f1b against the same process's unpipelined step with the
     pipeline's float32 head, on one global batch repeated."""
@@ -3950,7 +3989,7 @@ def pp_nccl_task(rank, world, seq=128, batch=32, steps=3, model_name="bert_base_
     from distkeras_tpu_torch import Dataset
     from distkeras_tpu_torch.parallel.mesh import make_mesh
 
-    model, cfg, one = bert_copy_task(seq, batch, name=model_name)
+    model, cfg, one = bert_copy_task(seq, batch, name=model_name, layers=layers)
     data = Dataset.from_arrays(**{k: np.concatenate([one[k]] * steps)
                                   for k in ("features", "label")})
     plain = pp_plain(model, cfg, np.asarray(one["features"]), steps, device)
@@ -3963,7 +4002,7 @@ def pp_nccl_task(rank, world, seq=128, batch=32, steps=3, model_name="bert_base_
 
 def pp_gloo_task(rank, world, seq=128, batch=32, steps=3, model_name="bert_base_mlm",
                  device="cuda", M=PP_MICROBATCHES, cases=PP_CASES, memory_rows=8,
-                 memory_m=PP_MEMORY_M, axes=None) -> dict:
+                 memory_m=PP_MEMORY_M, axes=None, layers=None) -> dict:
     """20b-20d on ``world`` gloo ranks that share the card, mesh {"pp":
     world}: each PP_CASES run on one global batch repeated, its first
     gradients against the one-process step recomputed in the rank; then
@@ -3978,7 +4017,7 @@ def pp_gloo_task(rank, world, seq=128, batch=32, steps=3, model_name="bert_base_
     from distkeras_tpu_torch import Dataset
     from distkeras_tpu_torch.parallel.mesh import make_mesh
 
-    model, cfg, one = bert_copy_task(seq, batch, name=model_name)
+    model, cfg, one = bert_copy_task(seq, batch, name=model_name, layers=layers)
     data = Dataset.from_arrays(**{k: np.concatenate([one[k]] * steps)
                                   for k in ("features", "label")})
     plain = pp_plain(model, cfg, np.asarray(one["features"]), 1, device)
@@ -3988,21 +4027,24 @@ def pp_gloo_task(rank, world, seq=128, batch=32, steps=3, model_name="bert_base_
         out[tag] = pp_run(tag, model, one, data, batch, steps, device, plain,
                           num_microbatches=M, schedule=schedule, mesh=mesh, **kw)
     del plain
-    out["memory"] = pp_peak_memory(model_name, seq, memory_rows, device, mesh, memory_m)
+    out["memory"] = pp_peak_memory(model_name, seq, memory_rows, device, mesh, memory_m, layers)
     return out
 
 
 def pp_phase(root=REPO, seq=128, batch=32, steps=3, model_name="bert_base_mlm",
              device="cuda", cases=PP_CASES, memory_rows=8, memory_m=PP_MEMORY_M,
-             M=PP_MICROBATCHES) -> dict:
-    """20: pipeline parallelism in spawned ranks; returns the launch counts
-    of 20a's and 20b-20d's timed runs, every rank's summed."""
+             M=PP_MICROBATCHES, layers=PP_LAYERS) -> dict:
+    """20: pipeline parallelism in spawned ranks, the model cut to ``layers``
+    (None: its own depth); returns the launch counts of 20a's and 20b-20d's
+    timed runs, every rank's summed."""
     card = card_line()
     t_phase = time.perf_counter()
     counting = device == "cuda"  # the plain versions of the kernels count nothing
-    cfg = bert_copy_task(seq, batch, name=model_name)[1]
+    cfg = bert_copy_task(seq, batch, name=model_name, layers=layers)[1]
+    model_name_at = f"{model_name} ({cfg.num_layers} layers)"
     (a,) = dp_spawn(root, "20a", None if counting else "gloo", 1, "pp_nccl_task", seq=seq,
-                    batch=batch, steps=steps, model_name=model_name, device=device, M=M)
+                    batch=batch, steps=steps, model_name=model_name, device=device, M=M,
+                    layers=layers)
     check(a["backend"] == ("nccl" if counting else "gloo"), f"20a: backend {a['backend']}")
     plain_losses = a["plain_losses"]
     counts = []
@@ -4012,7 +4054,7 @@ def pp_phase(root=REPO, seq=128, batch=32, steps=3, model_name="bert_base_mlm",
                            if k.endswith("_share") and rep[k])
         where = (a["backend"] if P == 1
                  else "gloo, 2 ranks sharing one card: a check, not a scaling figure")
-        log(f"  {tag} {model_name} {batch} x {seq}, pp={P}, M={M}, {schedule} {kw or ''} "
+        log(f"  {tag} {model_name_at} {batch} x {seq}, pp={P}, M={M}, {schedule} {kw or ''} "
             f"rank {index} ({where}): "
             f"{rep['steps']} steps, {rep['ms_per_step']:.2f} ms/step (pipeline_step span), of it "
             f"{shares or 'no collective span'}; {rep['p2p_calls']} pp_p2p calls (median "
@@ -4060,7 +4102,7 @@ def pp_phase(root=REPO, seq=128, batch=32, steps=3, model_name="bert_base_mlm",
     log(f"  20a: {time.perf_counter() - t_phase:.2f} s into the phase")
     ranks = dp_spawn(root, "20b", "gloo", 2, "pp_gloo_task", seq=seq, batch=batch, steps=steps,
                      model_name=model_name, device=device, M=M, cases=cases,
-                     memory_rows=memory_rows, memory_m=memory_m)
+                     memory_rows=memory_rows, memory_m=memory_m, layers=layers)
     for tag, schedule, kw in cases:
         for r, rep in enumerate(ranks):
             judge(tag, rep[tag], 2, r, schedule, kw, ranks[0][tag])
@@ -4724,6 +4766,284 @@ def moe_phase(root=REPO, device="cuda") -> dict:
     return {k: sum(r[k] for r in runs) for k in runs[0]}
 
 
+# -- phase 23: the XLA sequence split, sp with tp, the sp predictor, islands ---
+
+# 23a on two gloo ranks and 23b on four: (tag, model, seq, global batch,
+# sp_impl; None is the XLA sequence split). 23b trains gpt_small with its
+# vocabulary padded to 50304 so that the vocabulary splits over tp (phase 21's).
+XLA_CASES = (("23a", "gpt_small", 512, 8, None),)
+SPTP_CASES = (("23b-ring", "gpt_small", 512, 8, "ring"),
+              ("23b-ulysses", "gpt_small", 512, 8, "ulysses"))
+SPTP_VOCAB = 50304
+# 23b's depth: gpt_small cut to 4 of its 12 layers (four gloo ranks on one card
+# take 1.4-1.6 s a step at 12).
+SPTP_LAYERS = 4
+# 23c: ModelPredictor over sp against one process's predict on the same
+# weights, both bf16 on the card: the largest logit difference within twice
+# the card-against-CPU bf16 envelope of ROADMAP.md §C (0.031).
+SP_PREDICT_ATOL = 0.0625
+
+
+def sp_predict(rank, model_name="bert_base_mlm", seq=128, rows=32, device="cuda",
+               impl="ring") -> dict:
+    """23c: ModelPredictor(mesh={"sp": 2}) of a ring model: every rank's
+    whole [rows, seq, V] logits, their launches and wall; rank 0 also one
+    process's predict of the plain model on the same weights."""
+    import numpy as np
+
+    from distkeras_tpu_torch import Dataset, ModelPredictor, TrainedModel
+    from distkeras_tpu_torch.parallel.mesh import make_mesh
+
+    model, cfg, data = bert_copy_task(seq, rows, name=model_name)
+    mesh = make_mesh({"sp": 2})
+    ring = sp_model(model, mesh, impl)
+    weights = model.init(SEED, device=device)
+    ds = Dataset.from_arrays(features=data["features"])
+
+    def predict(m, on_mesh):
+        return np.asarray(ModelPredictor(TrainedModel(m, weights), batch_size=rows,
+                                         mesh=mesh if on_mesh else None,
+                                         device=device).predict(ds)["prediction"])
+
+    predict(ring, True)  # warm-up
+    _synchronize(device)
+    reset_counts()
+    t0 = time.perf_counter()
+    got = predict(ring, True)
+    _synchronize(device)
+    rep = {"wall_s": time.perf_counter() - t0, "counts": read_counts(),
+           "shape": list(got.shape), "finite": bool(np.isfinite(got).all()),
+           "digest": float(np.asarray(got, np.float64).sum()),
+           "sp_index": mesh.coords(rank)["sp"]}
+    if rank == 0:
+        want = predict(model, False)
+        diff = got - want
+        rep["max_abs"] = float(np.abs(diff).max())
+        rep["rel_norm"] = float(np.linalg.norm(diff) / np.linalg.norm(want))
+    return rep
+
+
+def xla_sp_task(rank, world, cases=XLA_CASES, steps=3, device="cuda",
+                predict=("bert_base_mlm", 128, 32)) -> dict:
+    """23a at sp=2 (sp_gloo_task on the model without a ring_mesh) and 23c,
+    on the same two gloo ranks."""
+    out = sp_gloo_task(rank, world, cases=cases, steps=steps, device=device)
+    name, seq, rows = predict
+    out["23c"] = sp_predict(rank, name, seq, rows, device)
+    return out
+
+
+def island_first_grads(trainer, taps) -> dict:
+    """Worker 0's first averaged gradient (its first replica's optimizer's
+    first step), by parameter name."""
+    state = trainer.worker_states[0]
+    return dict(zip(state.params, taps[id(state.optimizer)]))
+
+
+def island_phase(seq=128, batch=16, window=5, windows=2, devices=None, device="cuda",
+                 model_name="bert_base_mlm", tag="23d") -> dict:
+    """23d: DynSGD with 2 workers x devices_per_worker=2, each replica
+    ``batch`` rows (an island step is phase 7's 2 x ``batch``-row batch),
+    ``windows`` windows of ``window`` steps a worker, on ``devices`` (the
+    one card four times by default). Returns the launch counts."""
+    import numpy as np
+    import torch
+    from torch.optim.optimizer import register_optimizer_step_pre_hook
+
+    from distkeras_tpu_torch import Dataset, DynSGD
+
+    card = card_line()
+    devices = devices or [f"{device}:0" if device == "cuda" else device] * 4
+    model, cfg, _ = bert_copy_task(seq, 1, name=model_name)
+    rows = 2 * windows * window * 2 * batch
+    tokens = np.random.default_rng(SEED + 23).integers(0, cfg.vocab_size,
+                                                       size=(rows, seq)).astype(np.int32)
+    data = Dataset.from_arrays(features=tokens, label=tokens)
+    taps = {}
+
+    def tap(optimizer, args, kwargs):
+        if id(optimizer) not in taps:
+            taps[id(optimizer)] = [p.grad.detach().float().clone()
+                                   for g in optimizer.param_groups for p in g["params"]]
+
+    tr = DynSGD(model, "adam", loss="fused_categorical_crossentropy", num_workers=2,
+                devices_per_worker=2, batch_size=batch, communication_window=window,
+                seed=SEED, device=devices)
+    hook = register_optimizer_step_pre_hook(tap)
+    _synchronize(device)
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        tr.train(data)
+        _synchronize(device)
+    finally:
+        hook.remove()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    hist = tr.get_history()
+    steps = len(hist)
+    losses = [h["loss"] for h in hist]
+    replica_steps = 2 * steps  # each worker's step ran on its 2 replicas
+    L = cfg.num_layers
+    tokens_s = steps * 2 * batch * seq / wall
+    first, last = first_last(hist, window)
+    got = island_first_grads(tr, taps)
+    weights = model.init(SEED, device=torch.device(devices[0]))
+    mine = np.asarray(data.partitions(2)[0]["features"][:2 * batch])
+    want, exact = bert_grads(model, cfg, weights, mine, torch.device(devices[0]))
+    norms = {k: want[k].norm().item() for k in want}
+    floor = 1e-3 * max(norms.values())
+    rel = {k: (got[k].to(want[k].device) - want[k]).norm().item() / max(norms[k], floor)
+           for k in want}
+    noise = {k: (want[k] - exact[k]).norm().item() / max(norms[k], floor) for k in want}
+    allowed = {k: max(GRAD_REL_TOL, GRAD_NOISE_FACTOR * noise[k]) for k in want}
+    worst = max(rel, key=lambda k: rel[k] / allowed[k])
+    seven = PHASE7_TOKENS_S.get("7b")
+    log(f"  {tag}: DynSGD {model_name} 2 workers x devices_per_worker=2 on {devices}, "
+        f"{batch} rows a replica ({2 * batch} x {seq} an island step), window {window}: "
+        f"{steps} worker steps ({replica_steps} replica steps) in {wall:.3f} s, "
+        f"{tokens_s:.0f} tokens/s over both islands (phase 7b, 2 workers of 32 rows on one "
+        f"device each: {'%.0f' % seven if seven else 'not run'} tokens/s); "
+        f"{tr.parameter_server.num_commits} commits; loss first windows {first:.4f} -> last "
+        f"{last:.4f}; worker 0's first averaged gradient against one process on the island's "
+        f"{2 * batch} rows: relative difference median {sorted(rel.values())[len(rel) // 2]:.3g}, "
+        f"max {max(rel.values()):.3g} over {len(rel)} tensors, nearest its bound {worst} "
+        f"{rel[worst]:.3g} (allowed {allowed[worst]:.3g}); launches {counts} ({card})")
+    check(steps == 2 * windows * window, f"{tag}: {steps} steps")
+    check(tr.parameter_server.num_commits == 2 * windows,
+          f"{tag}: {tr.parameter_server.num_commits} commits for {2 * windows} windows")
+    check(all(math.isfinite(x) for x in losses), f"{tag}: non-finite loss {losses}")
+    check(rel[worst] <= allowed[worst],
+          f"{tag}: averaged gradient {worst} {rel[worst]} > {allowed[worst]}")
+    if torch_device_type(device) == "cuda":
+        check(counts == expected(flash_attention_fwd=L * replica_steps,
+                                 flash_attention_dq=L * replica_steps,
+                                 flash_attention_dkv=L * replica_steps,
+                                 fused_xent_fwd=replica_steps, fused_xent_stats=replica_steps,
+                                 fused_xent_grad=replica_steps),
+              f"{tag}: launches {counts} for {replica_steps} replica steps")
+    del tr, got, want, exact, taps
+    if torch_device_type(device) == "cuda":
+        torch.cuda.empty_cache()
+    return counts
+
+
+def sp_case_report(tag, name, batch, seq, label, ranks, counting, card,
+                   expected_counts) -> list:
+    """Log and check one sp case's ranks (sp_gloo_task's reports): losses
+    finite, falling, equal on every rank and within LOSS_RTOL of
+    SingleTrainer's, the first step's gradients within their bound,
+    replicated leaves equal, weights whole, and (``counting``) each rank's
+    launches, ``expected_counts(report)``. Returns their counts."""
+    r0 = ranks[0][tag]
+    counts = []
+    for r, rep in enumerate(ranks):
+        rep = rep[tag]
+        shares = ", ".join(f"{k[:-6]} {rep[k]:.1%}" for k in rep
+                           if k.endswith("_share") and rep[k])
+        log(f"  {tag} {name} {batch} x {seq}, {label}, rank {r} (gloo, {len(ranks)} ranks "
+            f"sharing one card: a check, not a scaling figure): {rep['steps']} steps, "
+            f"{rep['ms_per_step']:.2f} ms/step (train_step span), of it "
+            f"{shares or 'no collective span'}; staged through the host: {rep['staged']}; "
+            f"train() {rep['wall_s']:.2f} s; losses "
+            f"{', '.join(f'{x:.4f}' for x in rep['losses'])}; "
+            f"launches {rep['counts']} ({card})")
+        check(rep["losses"] == r0["losses"], f"{tag}: rank {r} losses {rep['losses']}")
+        check(all(math.isfinite(x) for x in rep["losses"]) and all(
+            b < a for a, b in zip(rep["losses"], rep["losses"][1:])),
+            f"{tag}: losses {rep['losses']} do not fall")
+        check(rep["whole"], f"{tag}: rank {r} returned weights that are not whole")
+        check(rep["replicated_sums"] == r0["replicated_sums"],
+              f"{tag}: rank {r}'s replicated leaves differ from rank 0's")
+        if counting:
+            want = expected_counts(rep)
+            check(rep["counts"] == want, f"{tag}: rank {r} launches {rep['counts']}, not {want}")
+        counts.append(rep["counts"])
+    gap = max(abs(a - b) / abs(b) for a, b in zip(r0["losses"], r0["single_losses"]))
+    g = r0["grads"]
+    log(f"  {tag}: losses against SingleTrainer's on the same rows "
+        f"{', '.join(f'{x:.4f}' for x in r0['single_losses'])}: largest relative gap {gap:.3g} "
+        f"(bound {LOSS_RTOL}); first step's gradients, gathered whole, against one process: "
+        f"median {g['median']:.3g}, max {g['max']:.3g} over {g['tensors']} tensors; nearest its "
+        f"bound {g['worst']} {g['worst_rel']:.3g} (allowed {g['worst_allowed']:.3g}); "
+        f"{len(r0['replicated_sums'])} replicated leaves equal on every rank")
+    check(gap <= LOSS_RTOL, f"{tag}: losses {gap} off SingleTrainer's")
+    check(g["worst_rel"] <= g["worst_allowed"],
+          f"{tag}: gradient {g['worst']} {g['worst_rel']} > {g['worst_allowed']}")
+    return counts
+
+
+def sp_remainder_phase(root=REPO, steps=3, xla=XLA_CASES, sptp=SPTP_CASES, vocab=SPTP_VOCAB,
+                       layers=SPTP_LAYERS, nccl=("gpt_small", 512, 8),
+                       predict=("bert_base_mlm", 128, 32), island=None,
+                       device="cuda") -> dict:
+    """23: the XLA sequence split (23a: one NCCL rank at sp=1, two gloo ranks
+    at sp=2), ring and Ulysses with tp on four gloo ranks (23b), the
+    predictor over sp (23c, on 23a's ranks) and async islands in this
+    process (23d); returns the launch counts of their timed runs."""
+    card = card_line()
+    t_phase = time.perf_counter()
+    counting = torch_device_type(device) == "cuda"
+    name, seq, batch = nccl
+    (a,) = dp_spawn(root, "23a1", None if counting else "gloo", 1, "sp_nccl_task", seq=seq,
+                    batch=batch, steps=steps, model_name=name, device=device, impl=None)
+    cfg = bert_copy_task(seq, batch, name=name)[1]
+    log(f"  23a ({a['backend']}, 1 rank, sp=1, shard_sequence=True, no ring_mesh): {name} "
+        f"{batch} x {seq}, {a['ms_per_step']:.2f} ms/step over {steps} steps (host clock, "
+        f"synchronized); weights vs SingleTrainer: largest per-tensor relative gap "
+        f"{a['gap_single']:.3g}, largest element difference {a['max_abs']:.3g} "
+        f"({'bitwise' if a['max_abs'] == 0 else 'not bitwise'}); launches {a['counts']} "
+        f"({card})")
+    check(a["backend"] == ("nccl" if counting else "gloo"), f"23a: backend {a['backend']}")
+    check(a["max_abs"] == 0, f"23a: sp=1 not bitwise SingleTrainer ({a['max_abs']})")
+    if counting:
+        check(a["counts"] == train_launches(cfg, steps), f"23a: launches {a['counts']}")
+    counts = [a["counts"]]
+    ranks = dp_spawn(root, "23a", "gloo", 2, "xla_sp_task", cases=xla, steps=steps,
+                     device=device, predict=predict)
+    for tag, name, seq, batch, _ in xla:
+        cfg = bert_copy_task(seq, batch, name=name)[1]
+        counts += sp_case_report(tag, name, batch, seq, "sp=2, XLA split (K/V and Q gathered, "
+                                 "K1-K3 at the whole length)", ranks, counting, card,
+                                 lambda rep, cfg=cfg: train_launches(cfg, steps))
+        for r, rep in enumerate(ranks):
+            check(rep[tag]["gathers"] == 2 * cfg.num_layers * steps,
+                  f"{tag}: rank {r} gathered over sp {rep[tag]['gathers']} times")
+    name, seq, rows = predict
+    cfg = bert_copy_task(seq, rows, name=name)[1]
+    c0 = ranks[0]["23c"]
+    for r, rep in enumerate(ranks):
+        c = rep["23c"]
+        log(f"  23c ModelPredictor(mesh={{sp: 2}}) of a ring {name}, {rows} x {seq}, rank {r}: "
+            f"logits {c['shape']}, {c['wall_s'] * 1e3:.1f} ms (host clock, synchronized); "
+            f"launches {c['counts']} ({card})")
+        check(c["finite"] and c["shape"] == [rows, seq, cfg.vocab_size],
+              f"23c: rank {r} logits {c['shape']}")
+        check(c["digest"] == c0["digest"], f"23c: rank {r}'s logits differ from rank 0's")
+        if counting:  # non-causal: every hop runs on every rank
+            want = expected(flash_attention_fwd=2 * cfg.num_layers)
+            check(c["counts"] == want, f"23c: rank {r} launches {c['counts']}")
+        counts.append(c["counts"])
+    log(f"  23c: against one process's predict on the same weights: largest difference "
+        f"{c0['max_abs']:.4g} (bound {SP_PREDICT_ATOL}), relative norm {c0['rel_norm']:.3g}")
+    check(c0["max_abs"] <= SP_PREDICT_ATOL, f"23c: logits {c0['max_abs']} off one process's")
+    ranks = dp_spawn(root, "23b", "gloo", 4, "sp_gloo_task", cases=sptp, steps=steps,
+                     device=device, axes={"sp": 2, "tp": 2}, vocab=vocab, layers=layers)
+    for tag, name, seq, batch, impl in sptp:
+        cfg = bert_copy_task(seq, batch, name=name, vocab=vocab, layers=layers)[1]
+
+        def hops(rep, impl=impl, cfg=cfg):
+            n = {"ring": 1 + rep["sp_index"], "ulysses": 1}[impl]
+            return sp_launches(cfg, steps, n)
+
+        counts += sp_case_report(tag, f"{name} at {cfg.num_layers} layers", batch, seq,
+                                 f"sp=2 x tp=2, {impl!r}", ranks, counting, card, hops)
+    log(f"  23a-23c: {time.perf_counter() - t_phase:.2f} s into the phase")
+    counts.append(island_phase(device=device, **(island or {})))
+    log(f"  23: phase wall {time.perf_counter() - t_phase:.2f} s ({card})")
+    return {k: sum(c[k] for c in counts) for k in counts[0]}
+
+
 def torch_device_type(device) -> str:
     import torch
 
@@ -4883,6 +5203,11 @@ def main(argv=None) -> int:
         "block at bert_base's widths; one NCCL rank at ep=1; ep=2 on two gloo ranks sharing "
         "the card)")
     runs.append(moe_phase(root))
+    log("phase 23: the XLA sequence split (one NCCL rank at sp=1; sp=2 on two gloo ranks), "
+        "ring and ulysses at sp=2 x tp=2 on four gloo ranks, ModelPredictor over sp, and "
+        "async islands (DynSGD, 2 workers x 2 replicas on the one card): gpt_small and "
+        "bert_base_mlm at full width")
+    runs.append(sp_remainder_phase(root))
     launches = {k: sum(r[k] for r in runs) for k in runs[0]}
     for k, n in launches.items():
         check(n > 0, f"kernel {k} was not launched on the main path")

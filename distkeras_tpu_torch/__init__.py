@@ -44,7 +44,7 @@ from distkeras_tpu_torch.data.transformers import (
 )
 from distkeras_tpu_torch.inference.evaluators import AccuracyEvaluator
 from distkeras_tpu_torch.inference.generate import Generator, beam_search, generate
-from distkeras_tpu_torch.inference.predictors import ModelPredictor
+from distkeras_tpu_torch.inference.predictors import EnsemblePredictor, ModelPredictor
 from distkeras_tpu_torch.models.bert import (
     BertConfig,
     bert_base_mlm,
@@ -95,6 +95,7 @@ __all__ = [
     "MinMaxTransformer",
     "Model",
     "ModelPredictor",
+    "EnsemblePredictor",
     "OneHotTransformer",
     "PipelineTrainer",
     "ReshapeTransformer",

@@ -59,7 +59,7 @@ def _decode_module(model, slots: bool = False, **overrides):
         )
     dec_cfg = dataclasses.replace(
         cfg, decode=True, decode_slots=slots, dropout_rate=0.0,
-        ring_mesh=None, use_flash_attention=False, **overrides,
+        ring_mesh=None, seq_mesh=None, use_flash_attention=False, **overrides,
     )
     return _decode_model(dec_cfg), dec_cfg
 

@@ -56,8 +56,22 @@ stripe/unstripe bracket around the trunk (``bert.py:556-580``) has nothing
 to do here: the tokens arrive striped and the logits leave striped. An
 axis above 1 needs a process group over the mesh's ranks
 (``RuntimeError`` otherwise). Decode mode ignores ``ring_mesh``, as the
-reference's ``generate`` drops it. ``ring_mesh`` with ``tp_mesh`` is not
-ported.
+reference's ``generate`` drops it. With ``tp_mesh`` as well, attention runs
+across the sp ranks on this rank's ``H/tp`` heads (Ulysses then needs
+``H/tp`` to divide by ``p``).
+
+The XLA sequence split (``seq_mesh``, a port field as ``tp_mesh`` is; the
+reference's ``shard_sequence=True`` on a model without ``ring_mesh``, where
+GSPMD splits the tokens over ``sp`` and gathers what attention needs): a
+rank holds its contiguous ``[B, S/p]`` columns, as under ``ring_mesh``, and
+every attention layer gathers the columns it needs over the mesh's ``sp``
+axis (:func:`~distkeras_tpu_torch.parallel.distributed.sp_all_gather_grad`,
+whose backward reduce-scatters the cotangents). Dense attention gathers K
+and V and runs its ``S/p`` query rows against the ``S`` keys, the causal
+mask offset by the rank's first column. Flash attention gathers Q as well
+and runs K1-K3 at the whole length, keeping the rank's rows: the kernels
+take one length for queries and keys, and at the whole length they round as
+the reference's flash kernel does on the gathered sequence.
 
 Decode mode (``decode=True``, reference ``bert.py:297-404, :527-551``) keeps
 dense K/V caches ``[B, L, H, D]`` (``L = decode_cache_len or max_seq_len``)
@@ -101,14 +115,15 @@ from distkeras_tpu_torch.ops.flash_attention import flash_attention
 from distkeras_tpu_torch.ops.moe import EXPERT_AXES, MoEMLP
 from distkeras_tpu_torch.ops.ring_flash import ring_flash_attention
 from distkeras_tpu_torch.ops.ulysses import ulysses_self_attention
-from distkeras_tpu_torch.parallel.distributed import axis_ring
+from distkeras_tpu_torch.parallel.distributed import axis_ring, sp_all_gather_grad
 from distkeras_tpu_torch.parallel.mesh import Mesh
 from distkeras_tpu_torch.telemetry.spans import span
 from distkeras_tpu_torch.utils.rng import fold_in
 
 __all__ = [
     "BertConfig", "Bert", "EncoderLayer", "SelfAttention", "dropout", "decode_cache",
-    "PARAM_AXES", "param_axes", "with_ep_mesh", "with_ring_mesh", "with_tp_mesh",
+    "PARAM_AXES", "param_axes", "with_ep_mesh", "with_ring_mesh", "with_seq_mesh",
+    "with_tp_mesh",
     "bert_base_mlm", "bert_tiny_mlm", "bert_tiny_moe_mlm", "gpt_tiny", "gpt_small",
 ]
 
@@ -165,6 +180,7 @@ class BertConfig:
     page_table_blocks: int = 0
     tp_mesh: object = None
     ep_mesh: object = None
+    seq_mesh: object = None
 
     def __post_init__(self):
         if self.ep_mesh is not None and not isinstance(self.ep_mesh, Mesh):
@@ -184,14 +200,21 @@ class BertConfig:
             if self.ring_axis not in self.ring_mesh.axis_names:
                 raise ValueError(f"BertConfig.ring_axis {self.ring_axis!r} is not an axis of "
                                  f"ring_mesh {self.ring_mesh.axis_names}")
-            if self.tp_mesh is not None:
-                raise NotImplementedError(
-                    "BertConfig.ring_mesh with tp_mesh is not ported yet: sequence and tensor "
-                    "parallelism together are A10c's remainder (ROADMAP.md §A)")
-        if self.moe_experts > 0 and (self.tp_mesh is not None or self.ring_mesh is not None):
+        if self.seq_mesh is not None:
+            if not isinstance(self.seq_mesh, Mesh):
+                raise TypeError(f"BertConfig.seq_mesh must be a distkeras_tpu_torch Mesh, "
+                                f"not {type(self.seq_mesh).__name__}")
+            if "sp" not in self.seq_mesh.axis_names:
+                raise ValueError(f"BertConfig.seq_mesh has no 'sp' axis: "
+                                 f"{self.seq_mesh.axis_names}")
+            if self.ring_mesh is not None:
+                raise ValueError("BertConfig.seq_mesh and ring_mesh both split the sequence: "
+                                 "give one of them")
+        if self.moe_experts > 0 and any(m is not None for m in (
+                self.tp_mesh, self.ring_mesh, self.seq_mesh)):
             raise NotImplementedError(
-                "BertConfig.moe_experts with tp_mesh or ring_mesh is not ported yet: MoE with "
-                "tensor or sequence parallelism is A12's remainder (ROADMAP.md §A)")
+                "BertConfig.moe_experts with tp_mesh, ring_mesh or seq_mesh is not ported yet: "
+                "MoE with tensor or sequence parallelism is A12's remainder (ROADMAP.md §A)")
 
 
 def _tp_size(cfg: BertConfig) -> int:
@@ -445,6 +468,8 @@ class SelfAttention(nn.Module):
             out = self._decode_attention(q, k, v, new_cache)
         elif cfg.ring_mesh is not None and mask is None:
             out = _sp_attention(cfg, q, k, v)
+        elif cfg.seq_mesh is not None and mask is None and _seq_ring(cfg).size > 1:
+            out = _gathered_attention(cfg, q, k, v)
         elif cfg.use_flash_attention and mask is None:
             out = flash_attention(q, k, v, causal=cfg.causal)
         else:
@@ -529,15 +554,44 @@ def _sp_attention(cfg: BertConfig, q, k, v):
                      f"or 'ulysses'")
 
 
+def _seq_ring(cfg: BertConfig):
+    """The :class:`AxisRing` the tokens are split over: ``ring_mesh``'s
+    ``ring_axis``, or ``seq_mesh``'s ``sp``."""
+    if cfg.ring_mesh is not None:
+        return axis_ring(cfg.ring_mesh, cfg.ring_axis)
+    return axis_ring(cfg.seq_mesh, "sp")
+
+
+def _gathered_attention(cfg: BertConfig, q, k, v):
+    """Attention of this rank's ``[B, S/p]`` query columns under
+    ``seq_mesh`` (see the module's docstring): the columns it needs
+    gathered over sp, then dense attention of the rank's rows against every
+    key, or K1-K3 at the whole length."""
+    ring = _seq_ring(cfg)
+    s = q.shape[1]
+    if cfg.use_flash_attention:
+        q, k, v = sp_all_gather_grad([q, k, v], ring)
+        out = flash_attention(q, k, v, causal=cfg.causal)
+        return out[:, ring.index * s:(ring.index + 1) * s]
+    k, v = sp_all_gather_grad([k, v], ring)
+    mask = None
+    if cfg.causal:
+        q_pos = ring.index * s + torch.arange(s, device=q.device)
+        k_pos = torch.arange(k.shape[1], device=q.device)
+        mask = (k_pos[None, :] <= q_pos[:, None])[None, None]
+    return dot_product_attention(q, k, v, mask=mask)
+
+
 def _sp_positions(cfg: BertConfig, S: int, device):
-    """The positions of this rank's ``S`` tokens under ``ring_mesh``:
-    ``m·S + j`` contiguous, ``j·p + m`` striped (rank ``m`` of ``p``)."""
-    ring = axis_ring(cfg.ring_mesh, cfg.ring_axis)
+    """The positions of this rank's ``S`` tokens under ``ring_mesh`` or
+    ``seq_mesh``: ``m·S + j`` contiguous, ``j·p + m`` striped (rank ``m``
+    of ``p``)."""
+    ring = _seq_ring(cfg)
     if S * ring.size > cfg.max_seq_len:
         raise ValueError(f"{ring.size} shards of {S} tokens exceed max_seq_len "
                          f"{cfg.max_seq_len}")
     j = torch.arange(S, device=device)
-    if cfg.sp_impl == "ring_stripe":
+    if cfg.ring_mesh is not None and cfg.sp_impl == "ring_stripe":
         return j * ring.size + ring.index
     return ring.index * S + j
 
@@ -582,7 +636,7 @@ class Bert(nn.Module):
     """BERT encoder with a tied-embedding MLM head.
 
     Input: integer token ids ``[B, S]``. Output: float32 vocab logits
-    ``[B, S, V]`` (under ``ring_mesh`` this rank's ``[B, S/p]`` shard and its
+    ``[B, S, V]`` (under ``ring_mesh`` or ``seq_mesh`` this rank's ``[B, S/p]`` shard and its
     ``[B, S/p, V]`` logits). Submodules are named as the reference's flax modules
     (``token_embed``, ``pos_embed``, ``layer_{i}``, ``ln_final``,
     ``mlm_bias``)."""
@@ -724,7 +778,7 @@ class Bert(nn.Module):
                 start = pi.long().clamp(0, cfg.max_seq_len - S)
                 pos = self.pos_embed[:, start + torch.arange(S, device=x.device)]
                 new_cache["pos_index"] = pi + S
-        elif cfg.ring_mesh is not None:
+        elif cfg.ring_mesh is not None or cfg.seq_mesh is not None:
             pos = self.pos_embed[0][_sp_positions(cfg, S, x.device)]
         else:
             pos = self.pos_embed[:, :S]
@@ -793,6 +847,14 @@ def with_ring_mesh(model: Model, mesh: Mesh | None) -> Model:
     """The bert-family ``model`` with ``mesh`` as its config's ``ring_mesh``
     (its ``ring_axis`` and ``sp_impl`` kept)."""
     cfg = dataclasses.replace(model.config, ring_mesh=mesh)
+    return _make(cfg, model.input_shape[0], model.name)
+
+
+def with_seq_mesh(model: Model, mesh: Mesh | None) -> Model:
+    """The bert-family ``model`` with ``mesh`` as its config's ``seq_mesh``:
+    its forward takes this rank's columns over the mesh's sp axis and
+    gathers what attention needs (the reference's XLA sequence split)."""
+    cfg = dataclasses.replace(model.config, seq_mesh=mesh)
     return _make(cfg, model.input_shape[0], model.name)
 
 

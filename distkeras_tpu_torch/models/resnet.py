@@ -46,6 +46,7 @@ from torch import nn
 
 from distkeras_tpu_torch.models.bert import Dense
 from distkeras_tpu_torch.models.core import Model, batch_stats_group
+from distkeras_tpu_torch.parallel.island import IslandMember, all_reduce_sum_grad
 
 __all__ = ["BasicBlock", "BatchNorm", "BottleneckBlock", "ResNet", "resnet18", "resnet50"]
 
@@ -124,7 +125,10 @@ class BatchNorm(nn.Module):
         else:
             mean, sq = x.mean(dim=(0, 2, 3)), (x * x).mean(dim=(0, 2, 3))
             group = batch_stats_group()
-            if group is not None:
+            if isinstance(group, IslandMember):  # an async island's replicas
+                moments = all_reduce_sum_grad(torch.stack([mean, sq]), group)
+                mean, sq = (moments / group.size).unbind()
+            elif group is not None:
                 # torch.distributed.all_reduce would give the right moments
                 # and no gradient through the other ranks' rows.
                 from torch.distributed.nn.functional import all_reduce

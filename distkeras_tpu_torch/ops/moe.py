@@ -55,6 +55,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from distkeras_tpu_torch.models.core import batch_stats_group
+from distkeras_tpu_torch.parallel.island import IslandMember, all_reduce_sum_grad
 from distkeras_tpu_torch.telemetry.spans import span
 
 __all__ = ["EXPERT_AXES", "MoEMLP", "capacity", "is_expert_leaf"]
@@ -159,6 +160,10 @@ def _counts(onehots, group):
     mine = torch.stack([o.sum(0) for o in onehots])
     if group is None:
         return torch.zeros_like(mine), mine
+    if isinstance(group, IslandMember):  # an async island's replicas
+        with span("moe_route"):
+            parts = group.gather(mine)
+        return parts[:group.rank].sum(0), parts.sum(0)
     n = torch.distributed.get_world_size(group)
     parts = torch.empty((n * mine.shape[0], mine.shape[1]), dtype=mine.dtype,
                         device=mine.device)
@@ -175,7 +180,8 @@ def _route(tokens, router, E: int, top_k: int, factor: float, group):
     loss, over the data ``group``'s whole batch (see the module's
     docstring)."""
     T = tokens.shape[0]
-    n = 1 if group is None else torch.distributed.get_world_size(group)
+    island = isinstance(group, IslandMember)
+    n = 1 if group is None else group.size if island else torch.distributed.get_world_size(group)
     cap = capacity(T * n, E, factor, top_k)
     gates = torch.softmax(tokens.float() @ router, dim=-1)  # [T, E]
     idx1 = torch.argmax(gates, dim=-1)
@@ -187,7 +193,9 @@ def _route(tokens, router, E: int, top_k: int, factor: float, group):
         onehots.append(F.one_hot(idx2, E).float())
     before, total = _counts(onehots, group)
     prob = gates.sum(0)
-    if group is not None:
+    if island:
+        prob = all_reduce_sum_grad(prob, group)
+    elif group is not None:
         prob = _SumOverData.apply(prob, group)
     aux = E * torch.sum(total[0] / (T * n) * (prob / (T * n)))
     d1 = _seats(onehots[0], before[0], cap)

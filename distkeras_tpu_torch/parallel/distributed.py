@@ -23,8 +23,14 @@ exchanges the chunks of a tensor's leading dimension with
 size 1 each is the identity and communicates nothing. Under gloo a CUDA
 tensor's P2P traffic is staged through host memory inside
 :func:`sp_permute` (gloo sends from host memory); NCCL never stages.
-Their spans are ``sp_permute`` (its ``staged`` attribute says whether
-the bytes went through the host) and ``sp_all_to_all``.
+:func:`sp_all_gather_grad` gathers tensors' sequence columns over the
+ring (the reference's XLA sequence split, where GSPMD gathers what
+attention needs): its forward concatenates the ranks' columns in ring
+order, its backward sums the ranks' cotangents and hands each rank back
+its own columns (a reduce-scatter). Their spans are ``sp_permute`` (its
+``staged`` attribute says whether the bytes went through the host),
+``sp_all_to_all`` and ``sp_all_gather`` (``staged`` likewise; gather and
+reduce-scatter under gloo go through host memory for a CUDA tensor).
 
 A pipeline's neighbour traffic (the reference's per-tick ``ppermute`` over
 ``pp``) is :func:`pp_exchange`: one tick's sends to the next and previous
@@ -36,6 +42,7 @@ of the same P2P (staged through the host likewise), under the span
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 
 import numpy as np
@@ -48,6 +55,8 @@ from distkeras_tpu_torch.utils.device import resolve_device
 __all__ = [
     "AxisRing",
     "axis_ring",
+    "sp_all_gather",
+    "sp_all_gather_grad",
     "sp_all_to_all",
     "sp_all_to_all_grad",
     "sp_permute",
@@ -371,6 +380,73 @@ class _AllToAll(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         return None, sp_all_to_all(grad, ctx.ring)
+
+
+def sp_all_gather(tensors, ring: AxisRing, dim: int = 1) -> list[torch.Tensor]:
+    """Each of ``tensors`` (this rank's columns along ``dim``, the same
+    shape on every rank) with the ring's ranks' columns concatenated along
+    ``dim`` in ring order: one ``all_gather_into_tensor`` of their bytes
+    over the ring's group."""
+    tensors = list(tensors)
+    if ring.size == 1:
+        return tensors
+    flat, layout = _pack(tensors)
+    staged = _staged(flat, ring.group)
+    with span("sp_all_gather", staged=staged):
+        send = flat.cpu() if staged else flat
+        whole = torch.empty(ring.size * send.numel(), dtype=send.dtype, device=send.device)
+        torch.distributed.all_gather_into_tensor(whole, send, group=ring.group)
+        whole = whole.to(flat.device).view(ring.size, -1)
+    parts = [_unpack(row, layout) for row in whole]
+    return [torch.cat([p[i] for p in parts], dim=dim) for i in range(len(tensors))]
+
+
+def _reduce_scatter_columns(grads, ring: AxisRing, dim: int) -> list[torch.Tensor]:
+    """The sum over the ring's ranks of each whole cotangent in ``grads``,
+    cut to this rank's columns along ``dim``: one ``reduce_scatter_tensor``
+    of rank-major chunks."""
+    chunks = [g.contiguous().chunk(ring.size, dim) for g in grads]
+    flat = torch.cat([torch.cat([c[r].contiguous().reshape(-1) for c in chunks])
+                      for r in range(ring.size)])
+    staged = _staged(flat, ring.group)
+    with span("sp_all_gather", staged=staged, backward=True):
+        send = flat.cpu() if staged else flat
+        mine = torch.empty(send.numel() // ring.size, dtype=send.dtype, device=send.device)
+        torch.distributed.reduce_scatter_tensor(mine, send, group=ring.group)
+        mine = mine.to(flat.device)
+    shapes = [c[0].shape for c in chunks]
+    return [part.view(shape) for part, shape in
+            zip(mine.split([math.prod(sh) for sh in shapes]), shapes)]
+
+
+class _AllGather(torch.autograd.Function):
+    """:func:`sp_all_gather`; backward, the ranks' cotangents summed and
+    each rank's columns handed back to it."""
+
+    @staticmethod
+    def forward(ctx, ring, dim, *tensors):
+        ctx.ring, ctx.dim = ring, dim
+        ctx.dtypes = [t.dtype for t in tensors]
+        return tuple(sp_all_gather(tensors, ring, dim))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        by_dtype: dict[torch.dtype, list[int]] = {}
+        for i, dt in enumerate(ctx.dtypes):
+            by_dtype.setdefault(dt, []).append(i)
+        out = [None] * len(grads)
+        for idx in by_dtype.values():
+            for i, g in zip(idx, _reduce_scatter_columns([grads[i] for i in idx], ctx.ring,
+                                                         ctx.dim)):
+                out[i] = g
+        return (None, None, *out)
+
+
+def sp_all_gather_grad(tensors, ring: AxisRing, dim: int = 1) -> list[torch.Tensor]:
+    """:func:`sp_all_gather`, differentiable in each tensor."""
+    if ring.size == 1:
+        return list(tensors)
+    return list(_AllGather.apply(ring, dim, *tensors))
 
 
 def sp_permute_grad(tensors, ring: AxisRing) -> list[torch.Tensor]:

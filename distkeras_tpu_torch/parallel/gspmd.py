@@ -14,7 +14,10 @@ collectives are explicit:
 - ``sp``: a model with ``BertConfig.ring_mesh``
   (:func:`distkeras_tpu_torch.models.bert.with_ring_mesh`) takes this rank's
   columns of the batch (:func:`batch_sharding` with ``seq_dim``) and runs
-  its attention across the sp ranks; a leaf split over ``sp``
+  its attention across the sp ranks; under ``shard_sequence`` a model
+  without one takes its columns as well and gathers the columns its
+  attention needs over sp (:func:`distkeras_tpu_torch.models.bert.with_seq_mesh`,
+  the reference's XLA sequence split); a leaf split over ``sp``
   (``pos_embed``'s sequence dimension, by the ``("seq", "sp")`` rule) is
   gathered whole once a step, as an fsdp leaf is, since a rank's tokens
   need rows outside its part (all of them striped, or past the trained
@@ -29,8 +32,8 @@ collectives are explicit:
   other columns. Every sp rank holds ``B·S/p`` tokens, so the mean of the
   ranks' mean losses is the global batch's mean, and the mean of their
   gradients is its gradient: a rank's gradient already holds what the
-  other ranks' losses send back through its K and V (the ring's and
-  Ulysses' backward), so the sum over the ranks of their gradients is the
+  other ranks' losses send back through its K and V (the ring's,
+  Ulysses' and the gather's backward), so the sum over the ranks of their gradients is the
   gradient of the sum of their losses.
 
 The step body is :func:`~distkeras_tpu_torch.training.step.make_train_step`'s
@@ -53,10 +56,15 @@ from collections.abc import Callable
 import numpy as np
 import torch
 
-from distkeras_tpu_torch.models.bert import with_ep_mesh, with_ring_mesh, with_tp_mesh
+from distkeras_tpu_torch.models.bert import (
+    with_ep_mesh,
+    with_ring_mesh,
+    with_seq_mesh,
+    with_tp_mesh,
+)
 from distkeras_tpu_torch.models.core import Model
 from distkeras_tpu_torch.ops.ring_flash import stripe_shard, stripe_unshard
-from distkeras_tpu_torch.parallel.distributed import axis_ring, process_index
+from distkeras_tpu_torch.parallel.distributed import axis_ring, process_index, sp_all_gather
 from distkeras_tpu_torch.parallel.mesh import Mesh, NamedSharding, shard_batch_spec
 from distkeras_tpu_torch.parallel.sharding import infer_variable_shardings, replicated
 from distkeras_tpu_torch.telemetry.spans import span
@@ -145,9 +153,7 @@ def gather_sequence(x: torch.Tensor, mesh: Mesh, seq_dim: int = 1,
     if mesh.shape.get("sp", 1) == 1:
         return x.detach()
     ring = axis_ring(mesh, "sp")
-    parts = [torch.empty_like(x) for _ in range(ring.size)]
-    torch.distributed.all_gather(parts, x.detach().contiguous(), group=ring.group)
-    whole = torch.cat(parts, dim=seq_dim)
+    (whole,) = sp_all_gather([x.detach()], ring, seq_dim)
     return stripe_unshard(whole, ring.size, seq_dim) if stripe else whole
 
 
@@ -362,21 +368,26 @@ class Sharded(DataParallel):
 
 def make_sharded_train_step(model: Model, loss: str | Callable, mesh: Mesh,
                             metrics: tuple[str, ...] = ("accuracy",),
-                            aux_loss_weight: float = 0.01):
+                            aux_loss_weight: float = 0.01, shard_sequence: bool = False):
     """``step(state, batch) -> (state, metrics)`` over a
     :func:`sharded_train_state`: :func:`make_train_step`'s body, this
     rank's rows of the global batch in ``batch``, the gradients and metrics
     those of the global batch. An annotated model on a tp mesh computes on
     its tp shards; a model with ``ring_mesh`` runs its attention over this
-    mesh's sp axis, on this rank's columns in ``batch``; an MoE model on an
-    ep mesh computes on its ep shard of the experts."""
+    mesh's sp axis, on this rank's columns in ``batch``; with
+    ``shard_sequence`` an annotated model without ``ring_mesh`` on an sp
+    mesh takes this rank's columns too and gathers what its attention needs
+    over sp (``BertConfig.seq_mesh``, the reference's XLA sequence split);
+    an MoE model on an ep mesh computes on its ep shard of the experts."""
+    cfg = getattr(model, "config", None)
     if mesh.shape.get("tp", 1) > 1 and _annotated(model):
         model = with_tp_mesh(model, mesh)
-    if mesh.shape.get("ep", 1) > 1 and getattr(getattr(model, "config", None),
-                                               "moe_experts", 0) > 0:
+    if mesh.shape.get("ep", 1) > 1 and getattr(cfg, "moe_experts", 0) > 0:
         model = with_ep_mesh(model, mesh)
-    if getattr(getattr(model, "config", None), "ring_mesh", None) is not None:
+    if getattr(cfg, "ring_mesh", None) is not None:
         model = with_ring_mesh(model, mesh)
+    elif shard_sequence and mesh.shape.get("sp", 1) > 1 and _annotated(model):
+        model = with_seq_mesh(model, mesh)
     return train_step(model, loss, Sharded(mesh), metrics, aux_loss_weight=aux_loss_weight)
 
 

@@ -41,6 +41,7 @@ from torch.utils.checkpoint import checkpoint
 from distkeras_tpu_torch.models.core import Model, cross_replica_batch_stats
 from distkeras_tpu_torch.ops.losses import OptimizerFactory, get_loss
 from distkeras_tpu_torch.ops.metrics import accuracy as accuracy_metric
+from distkeras_tpu_torch.parallel.island import IslandMember
 from distkeras_tpu_torch.telemetry.spans import span
 from distkeras_tpu_torch.utils.rng import fold_in
 
@@ -82,16 +83,22 @@ def all_reduce_mean_(tensors: list[torch.Tensor], group) -> None:
     """Average ``tensors`` over the ranks of ``group``, in place: the
     tensors of each dtype are flattened into one buffer, summed with one
     ``all_reduce`` and divided by the group's size. Every rank must pass
-    the same shapes in the same order. Traced as the span
+    the same shapes in the same order. ``group`` may be an async island's
+    :class:`~distkeras_tpu_torch.parallel.island.IslandMember`, whose
+    replicas are threads of this process. Traced as the span
     ``grad_all_reduce``."""
-    world = torch.distributed.get_world_size(group)
+    island = isinstance(group, IslandMember)
+    world = group.size if island else torch.distributed.get_world_size(group)
     by_dtype: dict[torch.dtype, list[torch.Tensor]] = {}
     for t in tensors:
         by_dtype.setdefault(t.dtype, []).append(t)
     with span("grad_all_reduce"):
         for bucket in by_dtype.values():
             flat = torch.cat([t.reshape(-1) for t in bucket])
-            torch.distributed.all_reduce(flat, group=group)
+            if island:
+                flat = group.sum(flat)
+            else:
+                torch.distributed.all_reduce(flat, group=group)
             flat.div_(world)
             parts = flat.split([t.numel() for t in bucket])
             torch._foreach_copy_(bucket, [v.view_as(t) for t, v in zip(bucket, parts)])
@@ -105,7 +112,10 @@ class DataParallel:
 
     def __init__(self, group=None):
         self.group = self.stats_group = group
-        self.rank = torch.distributed.get_rank(group) if group is not None else 0
+        if isinstance(group, IslandMember):
+            self.rank = group.rank
+        else:
+            self.rank = torch.distributed.get_rank(group) if group is not None else 0
 
     def variables(self, state: "TrainState"):
         """``(variables, params)``: what the forward applies, and the leaves

@@ -53,6 +53,7 @@ from distkeras_tpu_torch.parallel.gspmd import (
     zero1_optimizer,
 )
 from distkeras_tpu_torch.parallel.ha import CompressingClient, RetryingClient, StampingClient
+from distkeras_tpu_torch.parallel.island import IslandGroup
 from distkeras_tpu_torch.parallel.mesh import Mesh, best_mesh, make_mesh
 from distkeras_tpu_torch.parallel.protocols import (
     ADAGProtocol,
@@ -615,9 +616,17 @@ class SynchronousDistributedTrainer(Trainer):
     and the model runs its attention over the trainer's mesh, whose ``sp``
     size its ``ring_mesh`` must have; ``shard_sequence`` asks for that
     split and a ring model on an ``sp`` mesh always takes it (its forward
-    takes a rank's own tokens). A model without ``ring_mesh`` on an ``sp``
-    mesh trains replicated over ``sp``. An MoE model (``moe_experts``) on an
-    ``ep`` mesh trains expert-parallel: each rank of an ep group holds
+    takes a rank's own tokens). ``shard_sequence`` on an annotated model
+    without ``ring_mesh`` trains the reference's XLA sequence split
+    (reference ``trainers.py:634-657``): each rank takes its contiguous
+    columns, features and labels alike, and every attention layer gathers
+    over ``sp`` the columns it needs (``BertConfig.seq_mesh``; dense
+    attention gathers K and V, flash gathers Q, K and V and runs at the
+    whole length). Otherwise a model without ``ring_mesh`` on an ``sp``
+    mesh trains replicated over ``sp``, as does an un-annotated model
+    under ``shard_sequence`` (the reference's data-parallel branch ignores
+    it). An MoE model (``moe_experts``) on an ``ep`` mesh trains
+    expert-parallel: each rank of an ep group holds
     ``E/ep`` experts of every layer (the ``("expert", "ep")`` rule), routes
     the same rows as the others and computes its experts' share, summed
     over ep inside the layer (:mod:`~distkeras_tpu_torch.ops.moe`); the
@@ -648,9 +657,9 @@ class SynchronousDistributedTrainer(Trainer):
     too (:class:`_StepCheckpointer`). Only rank 0 publishes; with model
     axes it publishes the whole weights, which every rank gathers when a
     publish is due (:class:`_ShardedPublish`). Not ported yet, and refused
-    naming their ``ROADMAP.md`` §A item: ``shard_sequence`` on a model
-    without ``ring_mesh`` (the reference's XLA sequence split, A10c's
-    remainder), and ``ep`` with ``tp`` or ``sp`` (A12's remainder)."""
+    naming its ``ROADMAP.md`` §A item: ``ep`` with ``tp`` or ``sp`` (A12's
+    remainder). ``sp`` with ``tp`` is ported: a ring model on a ``{sp, tp}``
+    mesh runs its attention over sp on its ``H/tp`` heads."""
 
     def __init__(
         self,
@@ -697,13 +706,7 @@ class SynchronousDistributedTrainer(Trainer):
 
     def _training_mesh(self) -> Mesh:
         """The mesh to train over: refuses what is not ported yet (``ep``
-        with ``tp`` or ``sp``, ``shard_sequence`` without ``ring_mesh``) and
-        a mesh that leaves ranks out."""
-        if self.shard_sequence and _ring_config(self.model) is None:
-            raise ValueError(
-                "shard_sequence=True without BertConfig.ring_mesh is the reference's XLA "
-                "sequence split (attention over K/V gathered over sp), which is not ported "
-                "yet (ROADMAP.md §A, A10c's remainder); give the model a ring_mesh")
+        with ``tp`` or ``sp``) and a mesh that leaves ranks out."""
         world = process_count()
         mesh = self.mesh
         if mesh is None:
@@ -741,8 +744,11 @@ class SynchronousDistributedTrainer(Trainer):
         sizes = mesh.shape
         data = sizes.get("dp", 1) * sizes.get("fsdp", 1)
         ring = _ring_config(self.model)
-        sp = sizes.get("sp", 1) if ring is not None else 1  # the columns' split
         annotated = getattr(self.model, "param_axes", None) is not None
+        # the columns' split: a ring model always takes it, an annotated one
+        # under shard_sequence (the XLA split), any other trains replicated
+        split = ring is not None or (self.shard_sequence and annotated)
+        sp = sizes.get("sp", 1) if split else 1
         sharded = sizes.get("fsdp", 1) > 1 or sp > 1 or annotated and (
             sizes.get("tp", 1) > 1 or sizes.get("ep", 1) > 1)
         rank = process_index()
@@ -752,7 +758,7 @@ class SynchronousDistributedTrainer(Trainer):
             state, _ = sharded_train_state(self.model, optimizer, mesh, self.seed, self.zero1,
                                            self.device)
             step = make_sharded_train_step(self.model, self.loss, mesh, self.metrics,
-                                           self.aux_loss_weight)
+                                           self.aux_loss_weight, self.shard_sequence)
         else:
             group = mesh.group("dp")
             step = make_train_step(self.model, self.loss, self.metrics,
@@ -771,7 +777,8 @@ class SynchronousDistributedTrainer(Trainer):
                               self.label_col, num_epoch=self.num_epoch,
                               seed=self.seed if shuffle else None, start_batch=ck.start_step)
         if data > 1 or sp > 1:
-            seq_dim, stripe = (1, ring.sp_impl == "ring_stripe") if sp > 1 else (None, False)
+            seq_dim, stripe = (1, ring is not None and ring.sp_impl == "ring_stripe") \
+                if sp > 1 else (None, False)
             batches = ({k: batch_part(mesh, v, rank, seq_dim, stripe) for k, v in b.items()}
                        for b in batches)
         history = []
@@ -882,8 +889,22 @@ class AsynchronousDistributedTrainer(Trainer):
     gives each worker a :class:`GrpcClient` wrapped in
     :class:`RetryingClient`; it needs the ``grpcio`` package.
 
-    Not ported yet, and refused: ``devices_per_worker > 1`` and a weight
-    ``publisher``.
+    ``devices_per_worker=n`` above 1 makes each worker an island (reference
+    ``trainers.py:1002-1063``): worker ``w`` holds its state replicated on
+    ``devices[w·n:(w+1)·n]``, draws batches of ``batch_size · n`` rows and
+    splits each window's batch axis over them, so a replica takes
+    ``batch_size`` rows and each step is one
+    data-parallel step over the island (gradients, metrics and BatchNorm's
+    moments the island's whole batch's); the island talks to the PS as one
+    worker, through its first replica. Each replica is a thread with its own
+    stream on its own device, joined to the others by an in-process group
+    (:mod:`~distkeras_tpu_torch.parallel.island`); before each window the
+    other replicas take the first one's weights, which the exchange may have
+    moved. ``device`` may be a list of devices, the worker ``w`` of a
+    one-device run then placed on ``devices[w % len(devices)]``; a single
+    CUDA device without an index means every local card. Fewer devices than
+    ``num_workers · n`` raise the reference's message. An island feeds its
+    windows from the host (the device cache is off, as in the reference).
     """
 
     protocol_cls: type[AsyncProtocol] = DOWNPOURProtocol
@@ -921,22 +942,28 @@ class AsynchronousDistributedTrainer(Trainer):
         metric_stream=None,
         registry=None,
         auditor=None,
-        device: str | torch.device | None = None,
+        device: str | torch.device | list | None = None,
         **protocol_kwargs,
     ):
+        listed = [resolve_device(d) for d in device] if isinstance(device, (list, tuple)) \
+            else None
         super().__init__(keras_model, worker_optimizer, loss, metrics,
                          learning_rate=learning_rate, seed=seed,
                          loss_weights=loss_weights, metric_stream=metric_stream,
-                         registry=registry, auditor=auditor, device=device)
+                         registry=registry, auditor=auditor,
+                         device=listed[0] if listed else device)
         if transport not in ("inprocess", "grpc"):
             raise ValueError(f"unknown transport {transport!r}")
         if transport == "grpc":
             _import_grpc()  # fail here, not inside a worker thread
-        if int(devices_per_worker) != 1:
-            raise ValueError("devices_per_worker > 1 (multi-device islands) is not ported "
-                             "yet (ROADMAP.md §A item A10f)")
         self.num_workers = int(num_workers)
-        self.devices_per_worker = 1
+        self.devices_per_worker = int(devices_per_worker)
+        if listed is None:
+            listed = [self.device]
+            if self.devices_per_worker > 1 and self.device.type == "cuda" \
+                    and self.device.index is None:
+                listed = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+        self.devices = listed
         self.batch_size = int(batch_size)
         self.features_col = features_col
         self.label_col = label_col
@@ -1031,15 +1058,28 @@ class AsynchronousDistributedTrainer(Trainer):
         elif self.parameter_server is not None:
             self.parameter_server.stop()
 
-    def _put(self, tree: dict) -> dict:
-        """A fresh copy of ``tree`` on the trainer's device (never an alias
-        of the tree, so it can serve as the next window's baseline)."""
-        return {k: v.to(self.device, non_blocking=True, copy=True) for k, v in tree.items()}
+    def _put(self, tree: dict, device=None) -> dict:
+        """A fresh copy of ``tree`` on ``device`` (the trainer's by default;
+        never an alias of the tree, so it can serve as the next window's
+        baseline)."""
+        device = self.device if device is None else device
+        return {k: v.to(device, non_blocking=True, copy=True) for k, v in tree.items()}
+
+    def _worker_devices(self, widx: int) -> list[torch.device]:
+        """The devices of worker ``widx``: its island's, or its one device."""
+        n = self.devices_per_worker
+        if n > 1:
+            return self.devices[widx * n:(widx + 1) * n]
+        return [self.devices[widx % len(self.devices)]]
 
     def train(self, dataset: Dataset, shuffle: bool = False) -> TrainedModel:
         """Train ``num_workers`` workers asynchronously against the PS and
         return the final center on the trainer's device. ``history`` holds
         every step of every worker, tagged with its ``worker``."""
+        dpw = self.devices_per_worker
+        if dpw > 1 and self.num_workers * dpw > len(self.devices):
+            raise ValueError(f"{self.num_workers} workers x {dpw} devices_per_worker > "
+                             f"{len(self.devices)} attached devices")
         self.record_training_start()
         optimizer = self.protocol.local_optimizer(self._optimizer())
         window_fn = self._audit(make_window_train_step(self.model, self.loss, self.metrics),
@@ -1114,7 +1154,8 @@ class AsynchronousDistributedTrainer(Trainer):
 
             def worker_loop(widx: int):
                 try:
-                    stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
+                    device = self._worker_devices(widx)[0]
+                    stream = torch.cuda.Stream(device) if device.type == "cuda" else None
                     with _on_stream(stream):
                         self._worker(widx, stream, optimizer, partitions[widx::nw], window,
                                      shuffle, window_fn, cached_window_fn, win_histories[widx])
@@ -1220,13 +1261,19 @@ class AsynchronousDistributedTrainer(Trainer):
         center, carry = protocol.worker_begin(client, None)
         if health is not None:
             health.record_pull(widx)
+        devices = self._worker_devices(widx)
+        device = devices[0]
+        island = None
+        if len(devices) > 1:
+            island = _Island(self, widx, devices, optimizer)
+            window_fn = self._audit(island.window, "async_window_step")
         # The worker's own state from its seed, its weights then set to the
         # center in place and a fresh optimizer over them.
-        state = TrainState.create(self.model, optimizer, worker_seed(self.seed, widx), self.device)
+        state = TrainState.create(self.model, optimizer, worker_seed(self.seed, widx), device)
         self.worker_states[widx] = state
         keys = list(state.params)
         params = [state.params[k] for k in keys]
-        base = self._put(center)
+        base = self._put(center, device)
         with torch.no_grad():
             torch._foreach_copy_(params, [base[k] for k in keys])
         carry.window_start = base
@@ -1234,7 +1281,7 @@ class AsynchronousDistributedTrainer(Trainer):
         exchanger = xstream = None
         if self.overlap_window:
             exchanger = ThreadPoolExecutor(max_workers=1, thread_name_prefix=f"ps-exchange-{widx}")
-            xstream = torch.cuda.Stream(self.device) if stream is not None else None
+            xstream = torch.cuda.Stream(device) if stream is not None else None
 
         def exchange(snap, carry, ready):
             # The helper thread's own stream, after the worker's snapshot.
@@ -1249,7 +1296,7 @@ class AsynchronousDistributedTrainer(Trainer):
             the new params, or with ``snap`` the rebase ``new + (now -
             snap)``; the placed copy becomes the next window's baseline."""
             with span("ps_to_device", worker=widx):
-                base = self._put(new_params)
+                base = self._put(new_params, device)
             with torch.no_grad():
                 if snap is None:
                     torch._foreach_copy_(params, [base[k] for k in keys])
@@ -1299,15 +1346,15 @@ class AsynchronousDistributedTrainer(Trainer):
                 state_bytes = _tree_bytes(state.params) + sum(
                     _tree_bytes({k: v for k, v in s.items() if isinstance(v, torch.Tensor)})
                     for s in state.optimizer.state.values())
-                if self._use_device_cache(part, state_bytes):
+                if island is None and self._use_device_cache(part, state_bytes):
                     # The partition lives on the device whole; each step
                     # gathers its batch there from [W, B] index arrays.
                     xcol = torch.from_numpy(np.ascontiguousarray(part[self.features_col])
-                                            ).to(self.device)
-                    ycol = torch.from_numpy(np.asarray(part[self.label_col])).to(self.device)
+                                            ).to(device)
+                    ycol = torch.from_numpy(np.asarray(part[self.label_col])).to(device)
 
                     def exec_cached(state, idx, xcol=xcol, ycol=ycol):
-                        ix = torch.from_numpy(idx).to(self.device, non_blocking=True)
+                        ix = torch.from_numpy(idx).to(device, non_blocking=True)
                         state, ms = cached_window_fn(state, xcol, ycol, ix)
                         return state, ms, int(idx.shape[0])
 
@@ -1318,10 +1365,11 @@ class AsynchronousDistributedTrainer(Trainer):
                         exec_cached)
                 else:
                     feed = DeviceFeed(
-                        window_batches(minibatches(part, self.batch_size, self.features_col,
+                        window_batches(minibatches(part, self.batch_size * len(devices),
+                                                   self.features_col,
                                                    self.label_col, num_epoch=self.num_epoch,
                                                    seed=seed_w), window),
-                        self.device, buffer_size=2)
+                        device, buffer_size=2)
 
                     def exec_fed(state, wbatch):
                         state, ms = window_fn(state, wbatch)
@@ -1335,9 +1383,88 @@ class AsynchronousDistributedTrainer(Trainer):
         finally:
             if exchanger is not None:
                 exchanger.shutdown(wait=True)
+            if island is not None:
+                island.close()
             close = getattr(client, "close", None)  # a gRPC client's channel
             if close is not None:
                 close()
+
+
+class _Island:
+    """The replicas of one async worker after its first (see
+    :class:`AsynchronousDistributedTrainer`): their states on ``devices[1:]``
+    and a thread and stream each. :meth:`window` runs one window on every
+    replica at once, each on its share of the batch, the first replica's on
+    the calling thread."""
+
+    def __init__(self, trainer: AsynchronousDistributedTrainer, widx: int, devices, optimizer):
+        n = len(devices)
+        self.devices = devices
+        self.group = IslandGroup(n)
+        self.window_fns = [make_window_train_step(trainer.model, trainer.loss, trainer.metrics,
+                                                  process_group=self.group.member(r))
+                           for r in range(n)]
+        seed = worker_seed(trainer.seed, widx)
+        self.states = [None] + [TrainState.create(trainer.model, optimizer, seed, d)
+                                for d in devices[1:]]
+        self.streams = [None] + [torch.cuda.Stream(d) if d.type == "cuda" else None
+                                 for d in devices[1:]]
+        self.pool = ThreadPoolExecutor(max_workers=n - 1, thread_name_prefix=f"island-{widx}")
+
+    def window(self, state: TrainState, wbatch: dict) -> tuple[TrainState, dict]:
+        """One window over the island: ``state`` is the first replica's,
+        ``wbatch`` the window ``[W, B, ...]`` on its device; the other
+        replicas first take its weights. Returns the first replica's state
+        and the island's metrics."""
+        n = len(self.devices)
+        b = wbatch["features"].shape[1] // n  # the batches hold batch_size · n rows
+        parts = [{k: v[:, r * b:(r + 1) * b] for k, v in wbatch.items()} for r in range(n)]
+        ready = None
+        if self.devices[0].type == "cuda":
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(self.devices[0]))
+        keys = list(state.params)
+
+        def replica(r):
+            try:
+                with _on_stream(self.streams[r]):
+                    if ready is not None:
+                        current = torch.cuda.current_stream(self.devices[0])
+                        current.wait_event(ready)
+                        for v in parts[r].values():
+                            v.record_stream(current)
+                    st = self.states[r]
+                    with torch.no_grad():
+                        for k in keys:
+                            st.params[k].copy_(state.params[k])
+                    batch = {k: v.to(self.devices[r]) for k, v in parts[r].items()}
+                    self.states[r], _ = self.window_fns[r](st, batch)
+            except BaseException:
+                self.group.abort()
+                raise
+
+        futures = [self.pool.submit(replica, r) for r in range(1, n)]
+        errors = []
+        try:
+            state, ms = self.window_fns[0](state, parts[0])
+        except BaseException as e:
+            self.group.abort()
+            errors.append(e)
+        for future in futures:
+            try:
+                future.result()
+            except BaseException as e:
+                errors.append(e)
+        if errors:
+            raise next((e for e in errors if not isinstance(e, threading.BrokenBarrierError)),
+                       errors[0])
+        return state, ms
+
+    def close(self) -> None:
+        self.pool.shutdown(wait=True)
+        for stream in self.streams:
+            if stream is not None:
+                stream.synchronize()
 
 
 class DOWNPOUR(AsynchronousDistributedTrainer):

@@ -3,7 +3,9 @@
 
     python3 scripts/sp_chip.py probe     # one card: gloo P2P and all-to-all on CUDA tensors
     python3 scripts/sp_chip.py phase19   # one card: the ring-hop kernel cases, then phase 19
+    python3 scripts/sp_chip.py phase23   # one card: phase 1's build, then phase 23
     python3 scripts/sp_chip.py cards     # four cards, one NCCL rank each
+    python3 scripts/sp_chip.py cards23   # four cards: phase 23's cases alone
     python3 scripts/sp_chip.py cards --cpu   # the same on the CPU over gloo, tiny models
 
 ``probe`` starts two gloo ranks on the card and tries ``batch_isend_irecv``
@@ -15,10 +17,14 @@ ring hop's shape (B=8 S=256 H=12 D=64; causal, full, strict causal) and
 ``chip_smoke.sp_phase``. ``cards`` runs phase 19's two-rank task
 (``chip_smoke.sp_gloo_task``) on four ranks over NCCL at sp=4 (gpt_small
 ``ring`` and ``ring_stripe``, bert_base_mlm ``ulysses``) and at dp=2 x sp=2
-(``ring_stripe``): each rank's ms per step, span shares, losses and
-launches; rank 0's losses against SingleTrainer's and first-step
-gradients against one process, held to phase 19's bounds. Exits non-zero
-when a check fails.
+(``ring_stripe``) and at sp=2 x tp=2 (phase 23b's gpt_small ``ring`` and
+``ulysses``): each rank's ms per step, span shares, losses and launches;
+rank 0's losses against SingleTrainer's and first-step gradients against
+one process, held to phase 19's bounds; then phase 23d's islands in one
+process, DynSGD with 2 workers x 2 cards (``chip_smoke.island_phase``).
+``cards23`` runs the last two alone (``cards23 --cpu`` on the CPU).
+``phase23`` builds the kernels and runs ``chip_smoke.sp_remainder_phase``.
+Exits non-zero when a check fails.
 """
 
 from __future__ import annotations
@@ -40,6 +46,9 @@ CARDS_DPSP = (("d2s2-stripe", "gpt_small", 512, 8, "ring_stripe"),)
 CPU = (("s4-ring", "gpt_tiny", 64, 4, "ring"), ("s4-stripe", "gpt_tiny", 64, 4, "ring_stripe"),
        ("s4-ulysses", "bert_tiny_mlm", 32, 8, "ulysses"))
 CPU_DPSP = (("d2s2-stripe", "gpt_tiny", 64, 4, "ring_stripe"),)
+CPU_SPTP = (("s2t2-ring", "gpt_tiny", 64, 4, "ring"),
+            ("s2t2-ulysses", "gpt_tiny", 64, 4, "ulysses"))
+CPU_ISLAND = {"seq": 32, "batch": 4, "window": 2, "windows": 2, "model_name": "bert_tiny_mlm"}
 
 
 def _probe_rank(rank, world, store, what, out):
@@ -114,6 +123,25 @@ def phase19() -> bool:
     return True
 
 
+def phase23() -> bool:
+    import torch
+
+    from distkeras_tpu_torch.ops.flash_attention import flash_forward
+    from distkeras_tpu_torch.ops.fused_xent import fused_softmax_xent
+    from distkeras_tpu_torch.utils.build import build_all
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    build_all()
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
+    q = torch.randn(1, 64, 64, device="cuda", generator=gen).bfloat16().requires_grad_()
+    flash_forward(q, q, q)[0].sum().backward()
+    for dt in (torch.float32, torch.bfloat16):
+        x = torch.zeros(2, 8, device="cuda", dtype=dt, requires_grad=True)
+        fused_softmax_xent(x, torch.zeros(2, dtype=torch.long, device="cuda")).backward()
+    cs.log(f"phase 23 launches {cs.sp_remainder_phase()}")
+    return True
+
+
 def _report(tag, ranks, cases) -> bool:
     ok = True
     for name, _, _, _, _ in cases:
@@ -137,38 +165,50 @@ def _report(tag, ranks, cases) -> bool:
     return ok
 
 
-def cards(cpu: bool) -> bool:
+def cards(cpu: bool, only23: bool = False) -> bool:
     if cpu:
         cases, dpsp, backend, device = CPU, CPU_DPSP, "gloo", "cpu"
+        sptp, vocab, island = CPU_SPTP, None, dict(CPU_ISLAND, device="cpu")
     else:
         from distkeras_tpu_torch.utils.build import build_all
 
         build_all()
         cases, dpsp, backend, device = CARDS, CARDS_DPSP, None, "cuda"
+        sptp = tuple((f"s2t2-{impl}", *rest, impl) for _, *rest, impl in cs.SPTP_CASES)
+        vocab, island = cs.SPTP_VOCAB, {"devices": [f"cuda:{i}" for i in range(4)]}
     t0 = time.perf_counter()
-    ranks = cs.dp_spawn(REPO, "sp4", backend, 4, "sp_gloo_task", cases=cases, device=device)
-    ok = _report("sp=4", ranks, cases)
-    ranks = cs.dp_spawn(REPO, "dp2sp2", backend, 4, "sp_gloo_task", cases=dpsp, device=device,
-                        axes={"dp": 2, "sp": 2})
-    ok &= _report("dp=2 x sp=2", ranks, dpsp)
+    ok = True
+    if not only23:
+        ranks = cs.dp_spawn(REPO, "sp4", backend, 4, "sp_gloo_task", cases=cases, device=device)
+        ok &= _report("sp=4", ranks, cases)
+        ranks = cs.dp_spawn(REPO, "dp2sp2", backend, 4, "sp_gloo_task", cases=dpsp,
+                            device=device, axes={"dp": 2, "sp": 2})
+        ok &= _report("dp=2 x sp=2", ranks, dpsp)
+    ranks = cs.dp_spawn(REPO, "sp2tp2", backend, 4, "sp_gloo_task", cases=sptp, device=device,
+                        axes={"sp": 2, "tp": 2}, vocab=vocab)
+    ok &= _report("sp=2 x tp=2", ranks, sptp)
     cs.log(f"backend {ranks[0]['backend']}, ok {ok}, {time.perf_counter() - t0:.2f} s")
+    cs.log(f"islands, 2 workers x 2 devices: launches "
+           f"{cs.island_phase(tag='islands-2x2', **island)}")
     return ok
 
 
 def main(argv) -> int:
-    if argv[:1] == ["cards"] and argv[1:] == ["--cpu"]:
+    if argv[:1] in (["cards"], ["cards23"]) and argv[1:] == ["--cpu"]:
         cs.card_line = lambda: "cpu"
-        return 0 if cards(cpu=True) else 1
+        return 0 if cards(cpu=True, only23=argv[0] == "cards23") else 1
     import torch
 
-    if len(argv) != 1 or argv[0] not in ("probe", "phase19", "cards"):
+    if len(argv) != 1 or argv[0] not in ("probe", "phase19", "phase23", "cards", "cards23"):
         print(__doc__, file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("sp_chip: no CUDA device", file=sys.stderr)
         return 2
     cs.log(f"card: {cs.card_line()}; torch {torch.__version__}")
-    run = {"probe": probe, "phase19": phase19, "cards": lambda: cards(cpu=False)}[argv[0]]
+    run = {"probe": probe, "phase19": phase19, "phase23": phase23,
+           "cards": lambda: cards(cpu=False),
+           "cards23": lambda: cards(cpu=False, only23=True)}[argv[0]]
     return 0 if run() else 1
 
 

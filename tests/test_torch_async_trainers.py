@@ -195,7 +195,7 @@ def test_feed_compression_and_over_partitioning():
 
 
 @pytest.mark.parametrize("kwargs, item", [
-    ({"devices_per_worker": 2}, "item A10f"),
+    # devices_per_worker > 1 (A10f) is ported: tests/test_torch_islands.py
     ({"transport": "smoke-signals"}, "unknown transport"),
 ])
 def test_unported_arguments_raise(kwargs, item):

@@ -235,16 +235,14 @@ def test_sharded_train_state_on_one_rank_is_the_init(name):
 
 
 @pytest.mark.parametrize("kwargs, item", [
-    pytest.param({"mesh": {"sp": 2}, "shard_sequence": True}, "A10c's remainder",
-                 id="sp-A10c"),
     pytest.param({"mesh": {"pp": 2}}, "needs 2 ranks but the process group has 1",
                  id="pp-A10d"),
     pytest.param({"mesh": {"tp": 2, "ep": 2}}, "A12's remainder", id="ep-A12"),
 ])
 def test_unported_axes_name_their_item(kwargs, item):
     """The sync trainer refuses the axes of later items, naming each; the
-    sp axis is ported, and what stays refused there is the reference's XLA
-    sequence split (``shard_sequence`` on a model without ``ring_mesh``).
+    sp axis is ported, the reference's XLA sequence split with it
+    (``tests/test_torch_xla_sp.py``).
     The ep axis (A12) is ported; ep with tp or sp is A12's remainder.
     The pp axis (A10d) is ported: the sync trainer trains replicated over
     it, as the reference's does, so one process meets the rank count's

@@ -130,6 +130,55 @@ def test_sync_trainer_matches_reference(models):
 
 
 @time_limited
+def test_sync_trainer_shard_sequence_alone_matches_reference(models):
+    """shard_sequence=True on one device and an un-annotated model: the
+    reference takes its data-parallel branch, which ignores it, and so does
+    the port (the XLA sequence split itself runs on sp meshes in
+    tests/test_torch_xla_sp.py)."""
+    ref_model, port_model = models
+    x, y = _toy()
+    kwargs = {**KWARGS, "shard_sequence": True}
+    want_tr = ref.SynchronousDistributedTrainer(ref_model, num_workers=1, **kwargs)
+    want = want_tr.train(ref.Dataset.from_arrays(features=x, label=y), shuffle=True)
+    tr = dk.SynchronousDistributedTrainer(port_model, num_workers=1, device="cpu", **kwargs)
+    got = tr.train(dk.Dataset.from_arrays(features=x, label=y), shuffle=True)
+    assert len(tr.history) == 2 * 256 // 16
+    _assert_history(tr.history, want_tr.history)
+    _assert_weights(got.variables, want.variables["params"])
+
+
+@time_limited
+def test_ensemble_predictor_matches_reference(models):
+    """The reference's test_ensemble_predictor_averages shape (3 models,
+    adam, batch 16, 4 epochs; predicted in batches of 128, the last one
+    padded): the reference's trained models bridged across, the averaged
+    softmax of both predictors to 1e-6; and the port's own ensemble's
+    average sums to 1 and classifies the toy task."""
+    from distkeras_tpu.inference.predictors import EnsemblePredictor as RefEnsemblePredictor
+
+    ref_model, port_model = models
+    x, y = _toy(200)
+    kwargs = dict(worker_optimizer="adam", learning_rate=0.01, num_models=3, batch_size=16,
+                  num_epoch=4)
+    trained = ref.EnsembleTrainer(ref_model, **kwargs).train(
+        ref.Dataset.from_arrays(features=x, label=y))
+    want = RefEnsemblePredictor(trained, batch_size=128).predict(
+        ref.Dataset.from_arrays(features=x))["prediction"]
+    bridged = [dk.TrainedModel(port_model, params_from_jax(
+        jax.tree.map(np.asarray, m.variables["params"]), device="cpu")) for m in trained]
+    got = dk.EnsemblePredictor(bridged, batch_size=128, device="cpu").predict(
+        dk.Dataset.from_arrays(features=x))["prediction"]
+    assert np.asarray(got).shape == np.asarray(want).shape == (200, 2)
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want), atol=1e-6, rtol=0)
+    own = dk.EnsembleTrainer(port_model, device="cpu", **kwargs).train(
+        dk.Dataset.from_arrays(features=x, label=y))
+    probs = np.asarray(dk.EnsemblePredictor(own, batch_size=128, device="cpu").predict(
+        dk.Dataset.from_arrays(features=x))["prediction"])
+    np.testing.assert_allclose(probs.sum(-1), 1.0, atol=1e-5)
+    assert float(np.mean(np.argmax(probs, -1) == y)) > 0.85
+
+
+@time_limited
 def test_uneven_partitions_report_the_reference_drop_count(models):
     """70 rows in 3 partitions of 23/23/24, batch 8: 2/2/3 batches, so the
     lock-step stops after 2 and replica 2 drops 1, as in the reference."""
@@ -144,12 +193,10 @@ def test_uneven_partitions_report_the_reference_drop_count(models):
 
 
 @pytest.mark.parametrize("kwargs, match", [
-    # tp, fsdp and sp are ported: on one rank their two-rank meshes are too big;
-    # shard_sequence on a model without ring_mesh names A10c's remainder
+    # tp, fsdp and sp are ported: on one rank their two-rank meshes are too big
     pytest.param({"mesh": {"dp": 1, "tp": 2}}, "needs 2 ranks", id="kwargs0-A10"),
     pytest.param({"mesh": {"dp": 1, "fsdp": 2}}, "needs 2 ranks", id="kwargs1-A10"),
     pytest.param({"mesh": {"dp": 1, "sp": 2}}, "needs 2 ranks", id="kwargs2-A10"),
-    ({"shard_sequence": True}, "A10"),
     ({"num_workers": 2}, "requested 2 devices but only 1"),
     ({"mesh": {"dp": 2}}, "dp=2"),
 ])

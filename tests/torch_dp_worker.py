@@ -29,6 +29,7 @@ from distkeras_tpu_torch.models.mlp import MLP
 from distkeras_tpu_torch.models.resnet import resnet18
 from distkeras_tpu_torch.parallel import distributed
 from distkeras_tpu_torch.parallel.mesh import best_mesh, make_mesh
+from distkeras_tpu_torch.telemetry.spans import Tracer, disable_tracing, enable_tracing
 
 
 def bert_model(cfg: dict) -> Model:
@@ -51,12 +52,13 @@ def resnet_model(cfg: dict) -> Model:
 def sp_model(cfg: dict) -> Model:
     """A small bert-family model whose attention runs over the ``sp`` axis
     of ``make_mesh(cfg["ring_mesh"])`` by ``cfg["sp_impl"]`` (the plain
-    model when ``cfg["ring_mesh"]`` is None)."""
+    model when ``cfg["ring_mesh"]`` is None); flash attention unless
+    ``cfg["flash"]`` is False."""
     config = bert.BertConfig(
         vocab_size=cfg["vocab"], hidden_size=cfg["hidden"], num_layers=2,
         num_heads=cfg["heads"], mlp_dim=2 * cfg["hidden"], max_seq_len=cfg["max_seq_len"],
         dropout_rate=0.0, causal=cfg["causal"], dtype=getattr(torch, cfg["dtype"]),
-        use_flash_attention=True,
+        use_flash_attention=cfg.get("flash", True),
         ring_mesh=make_mesh(cfg["ring_mesh"]) if cfg["ring_mesh"] else None,
         sp_impl=cfg["sp_impl"])
     return bert._make(config, cfg["seq"], "bert_sp")
@@ -104,8 +106,16 @@ def train(case: dict, workdir: str) -> dict:
     if "checkpoint_dir" in kwargs:
         kwargs["checkpoint_dir"] = os.path.join(workdir, kwargs["checkpoint_dir"])
     trainer = dk.SynchronousDistributedTrainer(model, device="cpu", **kwargs)
-    trained = trainer.train(data, shuffle=case.get("shuffle", False))
+    tracer = enable_tracing(Tracer()) if case.get("trace") else None
+    try:
+        trained = trainer.train(data, shuffle=case.get("shuffle", False))
+    finally:
+        if tracer is not None:
+            disable_tracing()
     out = {"history": trainer.history, "weights": host(trained.variables)}
+    if tracer is not None:  # how many times each span opened
+        names = [e[1] for e in tracer.events() if e[0] == "B"]
+        out["spans"] = {n: names.count(n) for n in set(names)}
     if "checkpoint_dir" in kwargs:
         out["saved_steps"] = sorted(int(n) for n in os.listdir(kwargs["checkpoint_dir"])
                                     if n.isdigit())
@@ -118,7 +128,8 @@ def predict(case: dict, workdir: str) -> dict:
     data = dk.Dataset.from_arrays(features=case["features"])
     out = {}
     mesh = make_mesh(case["mesh"]) if "mesh" in case else best_mesh()
-    for name, mesh in (("mesh", mesh), ("plain", None)):
+    runs = (("mesh", mesh), ("plain", None)) if case.get("plain", True) else (("mesh", mesh),)
+    for name, mesh in runs:
         pred = dk.ModelPredictor(trained, batch_size=case["batch_size"], mesh=mesh,
                                  device="cpu")
         out[name] = np.asarray(pred.predict(data)["prediction"])
