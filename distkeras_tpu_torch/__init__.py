@@ -13,7 +13,11 @@ online serving (``ServingEngine``, a dense continuous-batching engine,
 behind the TCP ``ServingServer`` and its ``ServingClient``);
 stamped weight files that either package reads, and publish directories;
 batch inference and evaluation; the BERT/GPT family, ResNet-18/50 and the
-MLP/CNN models; and the data transformers, with flash attention forward and backward (CUDA C++) and the fused softmax
+MLP/CNN models; the data layer (``Dataset`` with CSR ``SparseColumn``s
+and the native CSV parser, the transformers, streaming sources and
+``StreamingPredictor``), ``Model.from_keras``/``Model.from_module``,
+``tracing.StepTimer`` with the card's MFU, and ``deployment.Job``; with
+flash attention forward and backward (CUDA C++) and the fused softmax
 cross-entropy forward and backward (Triton) as hand-written kernels.
 ``distkeras_tpu`` is the reference it is held against; this package never
 imports it, nor JAX.

@@ -1,9 +1,15 @@
-"""Columnar in-memory dataset: a dict of named numpy columns on the host.
+"""Columnar in-memory dataset: a dict of named columns on the host.
 
 Counterpart of ``distkeras_tpu/data/dataset.py`` ``Dataset``. The port keeps
-its own copy (numpy only) so that it never imports the reference package.
-Sparse columns, the native CSV parser and the native row gather are not part
-of this slice: columns are dense ndarrays and rows are gathered with numpy.
+its own copy (numpy and the standard library only) so that it never imports
+the reference package. A column is an ndarray or a
+:class:`~distkeras_tpu_torch.data.sparse.SparseColumn`, which row slicing,
+gathering and concat keep sparse, and which ``to_npz`` writes as its CSR
+components under the reference's ``name__csr_*`` names: an npz written by
+either package loads in the other. Where the native data plane
+(:mod:`~distkeras_tpu_torch.data.native`, ``native/fastdata.cpp``) is built,
+``from_csv`` parses all-numeric tables with it and ``gather`` moves float32
+rows with it; numpy does the rest.
 """
 
 from __future__ import annotations
@@ -20,14 +26,19 @@ class Dataset:
     """An immutable named-column table backed by numpy arrays.
 
     Columns share a leading row dimension; a column may be any rank
-    (e.g. ``features`` of shape ``[N, 784]`` or token ids ``[N, S]``).
+    (e.g. ``features`` of shape ``[N, 784]`` or images ``[N, 28, 28, 1]``).
     """
 
     def __init__(self, columns: Mapping[str, np.ndarray]):
+        from distkeras_tpu_torch.data.sparse import SparseColumn
+
         if not columns:
             raise ValueError("Dataset requires at least one column")
+        # SparseColumn stays sparse (row ops keep CSR form; np.asarray
+        # densifies on demand) — everything else materializes as ndarray.
         self._columns: dict[str, np.ndarray] = {
-            k: np.asarray(v) for k, v in columns.items()
+            k: (v if isinstance(v, SparseColumn) else np.asarray(v))
+            for k, v in columns.items()
         }
         lengths = {k: v.shape[0] for k, v in self._columns.items()}
         if len(set(lengths.values())) != 1:
@@ -50,17 +61,40 @@ class Dataset:
         label_col: str = "label",
         dtype=np.float32,
     ) -> "Dataset":
-        """Read a headered CSV. If ``features`` is given, those columns are
-        stacked into one vector column ``features_col``."""
-        with open(path, newline="") as f:
-            rows = [r for r in _csv.reader(f) if r]
-        if not rows:
+        """Read a headered CSV.
+
+        If ``features`` is given, those columns are stacked into a single
+        vector column ``features_col`` (mirroring Spark's VectorAssembler
+        stage that dist-keras notebooks used before the trainers).
+        """
+        from distkeras_tpu_torch.data import native
+
+        with open(path, "rb") as fb:
+            raw = fb.read()
+        if not raw.strip():
             raise ValueError(f"empty CSV file: {path}")
-        header, body = rows[0], rows[1:]
-        table = {
-            name: np.array([row[i] for row in body])
-            for i, name in enumerate(header)
-        }
+        nl = raw.find(b"\n")
+        if nl == -1:  # header-only file without trailing newline
+            nl = len(raw)
+        header = raw[:nl].decode().strip().split(",")
+        body = raw[nl + 1 :]
+        table: dict[str, np.ndarray] = {}
+        if native.available():
+            # Native columnar parse for all-numeric tables (the common case:
+            # the reference's ATLAS-Higgs CSV is numeric throughout).
+            nrows = body.count(b"\n") + (0 if body.endswith(b"\n") or not body else 1)
+            try:
+                mat = native.parse_csv(body, rows=nrows, cols=len(header))
+                table = {name: mat[:, i] for i, name in enumerate(header)}
+            except ValueError:
+                table = {}
+        if not table:
+            reader = _csv.reader(body.decode().splitlines())
+            rows = [r for r in reader if r]
+            table = {
+                name: np.array([row[i] for row in rows])
+                for i, name in enumerate(header)
+            }
         out: dict[str, np.ndarray] = {}
         if features is not None:
             out[features_col] = np.stack(
@@ -77,12 +111,68 @@ class Dataset:
 
     @classmethod
     def from_npz(cls, path: str) -> "Dataset":
+        """Load a dataset saved with :meth:`to_npz` (or any npz whose arrays
+        share a leading row dimension). Sparse columns round-trip in CSR
+        form (saved as ``name__csr_*`` component arrays)."""
+        from distkeras_tpu_torch.data.sparse import SparseColumn
+
         with np.load(path) as d:
-            return cls({k: d[k] for k in d.files})
+            # A base is CSR only when its full component quadruple exists;
+            # anything else (including names that merely contain
+            # "__csr_") loads as a plain column. Bases are derived by
+            # stripping the FINAL "__csr_<component>" suffix, so a column
+            # whose own name contains "__csr_" still round-trips.
+            comp = ("indptr", "indices", "values", "dim")
+
+            def strip(k):
+                for c in comp:
+                    suf = f"__csr_{c}"
+                    if k.endswith(suf):
+                        return k[: -len(suf)]
+                return None
+
+            bases = {
+                b
+                for b in (strip(k) for k in d.files)
+                if b is not None
+                and all(f"{b}__csr_{c}" in d.files for c in comp)
+            }
+            cols: dict = {}
+            for k in d.files:
+                base = strip(k)
+                if base in bases:
+                    if k.endswith("__csr_indptr"):
+                        cols[base] = SparseColumn(
+                            d[f"{base}__csr_indptr"],
+                            d[f"{base}__csr_indices"],
+                            d[f"{base}__csr_values"],
+                            int(d[f"{base}__csr_dim"]),
+                        )
+                else:
+                    cols[k] = d[k]
+            return cls(cols)
 
     def to_npz(self, path: str, compressed: bool = False) -> None:
+        from distkeras_tpu_torch.data.sparse import SparseColumn
+
         save = np.savez_compressed if compressed else np.savez
-        save(path, **self._columns)
+        arrays: dict = {}
+        for k, v in self._columns.items():
+            if "__csr_" in k and not isinstance(v, SparseColumn):
+                raise ValueError(
+                    f"column name {k!r} collides with the reserved "
+                    "'__csr_' suffix scheme used for sparse persistence"
+                )
+            if isinstance(v, SparseColumn):
+                # Persist CSR components — never the densified matrix
+                # (densifying on save would defeat the type's purpose).
+                arrays[f"{k}__csr_indptr"] = v.indptr
+                arrays[f"{k}__csr_indices"] = v.indices
+                arrays[f"{k}__csr_values"] = v.values
+                arrays[f"{k}__csr_dim"] = np.int64(v.dim)
+            else:
+                arrays[k] = v
+        save(path, **arrays)
 
     # -- basic accessors ----------------------------------------------------
 
@@ -114,6 +204,9 @@ class Dataset:
     # -- functional updates -------------------------------------------------
 
     def with_column(self, name: str, values: np.ndarray) -> "Dataset":
+        """Return a new Dataset with ``name`` added/replaced (the analogue of
+        Spark's ``withColumn`` used throughout the reference transformers).
+        Sparse columns are preserved (the constructor's coercion rule)."""
         cols = dict(self._columns)
         cols[name] = values
         return Dataset(cols)
@@ -131,28 +224,64 @@ class Dataset:
         return Dataset({k: v[start:stop] for k, v in self._columns.items()})
 
     def gather(self, indices: np.ndarray) -> "Dataset":
-        return Dataset({k: v[indices] for k, v in self._columns.items()})
+        from distkeras_tpu_torch.data import native
+
+        def _one(v: np.ndarray) -> np.ndarray:
+            # Native memcpy gather for the float32 hot path; numpy (and
+            # the CSR row-gather for sparse columns) otherwise.
+            if (
+                native.available()
+                and isinstance(v, np.ndarray)
+                and v.dtype == np.float32
+                and v.flags["C_CONTIGUOUS"]
+            ):
+                return native.gather_rows(v, indices)
+            return v[indices]
+
+        return Dataset({k: _one(v) for k, v in self._columns.items()})
 
     def shuffle(self, seed: int = 0) -> "Dataset":
+        """Row shuffle (reference ``distkeras/utils.py`` § ``shuffle``)."""
         perm = np.random.default_rng(seed).permutation(self._num_rows)
         return self.gather(perm)
 
+    @staticmethod
+    def _cat(parts):
+        from distkeras_tpu_torch.data.sparse import SparseColumn
+
+        if any(isinstance(p, SparseColumn) for p in parts):
+            # Mixed sparse/dense concat: sparse wins (sparsifying the
+            # dense minority costs O(nnz); densifying the sparse majority
+            # could OOM) — order-independent, single pass (no O(n²) fold).
+            return SparseColumn.concat_all([
+                p if isinstance(p, SparseColumn)
+                else SparseColumn.from_dense(np.asarray(p))
+                for p in parts
+            ])
+        return np.concatenate(parts)
+
     def repeat(self, n: int) -> "Dataset":
-        return Dataset({k: np.concatenate([v] * n) for k, v in self._columns.items()})
+        return Dataset({k: self._cat([v] * n) for k, v in self._columns.items()})
 
     def concat(self, other: "Dataset") -> "Dataset":
         return Dataset(
-            {k: np.concatenate([v, other._columns[k]]) for k, v in self._columns.items()}
+            {
+                k: self._cat([v, other._columns[k]])
+                for k, v in self._columns.items()
+            }
         )
 
-    # -- partitioning -------------------------------------------------------
+    # -- partitioning (replaces Spark repartition/mapPartitions) ------------
 
     def partitions(self, num_partitions: int) -> list["Dataset"]:
-        """Split rows into ``num_partitions`` near-equal contiguous shards."""
+        """Split rows into ``num_partitions`` near-equal contiguous shards —
+        the index-space analogue of ``df.repartition(n)`` +
+        ``mapPartitionsWithIndex`` in the reference trainers."""
         bounds = np.linspace(0, self._num_rows, num_partitions + 1, dtype=np.int64)
         return [self.slice(int(bounds[i]), int(bounds[i + 1])) for i in range(num_partitions)]
 
     def split(self, fraction: float, seed: int = 0) -> tuple["Dataset", "Dataset"]:
+        """Random train/test split (replaces ``df.randomSplit``)."""
         perm = np.random.default_rng(seed).permutation(self._num_rows)
         cut = int(self._num_rows * fraction)
         return self.gather(perm[:cut]), self.gather(perm[cut:])
@@ -165,10 +294,30 @@ class Dataset:
         return self.take(min(n, self._num_rows))
 
     def describe(self) -> dict[str, dict[str, float]]:
-        """Per-column summary stats for numeric columns."""
+        """Per-column summary stats for numeric columns (notebook aid)."""
         out: dict[str, dict[str, float]] = {}
+        from distkeras_tpu_torch.data.sparse import SparseColumn
+
         for name, col in self._columns.items():
             if not np.issubdtype(col.dtype, np.number):
+                continue
+            if isinstance(col, SparseColumn):
+                # Stats straight from CSR (the implicit zeros included) —
+                # no densification.
+                n_total = col.shape[0] * col.dim
+                v = col.values.astype(np.float64)
+                total = float(v.sum())
+                mean = total / n_total
+                var = (float((v * v).sum()) - n_total * mean * mean) / n_total
+                has_zero = col.nnz < n_total
+                vmin = float(v.min()) if col.nnz else 0.0
+                vmax = float(v.max()) if col.nnz else 0.0
+                out[name] = {
+                    "min": min(0.0, vmin) if has_zero else vmin,
+                    "max": max(0.0, vmax) if has_zero else vmax,
+                    "mean": mean,
+                    "std": float(np.sqrt(max(0.0, var))),
+                }
                 continue
             c = col.astype(np.float64)
             out[name] = {

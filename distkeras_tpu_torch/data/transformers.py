@@ -173,10 +173,15 @@ class ReshapeTransformer(Transformer):
 
 
 class DenseTransformer(Transformer):
-    """Densify a feature column into a contiguous float32 ``[N, dim]``
-    ndarray. The port's :class:`Dataset` holds dense columns only (sparse
-    columns are not ported), so this is the reference's dense pass-through
-    with its dtype and contiguity guarantee.
+    """Densify a sparse feature column.
+
+    Reference: ``distkeras/transformers.py`` § ``DenseTransformer`` converts
+    Spark MLlib SparseVector columns to dense ones. The sparse type here is
+    :class:`~distkeras_tpu_torch.data.sparse.SparseColumn` (CSR; built by
+    ``SparseColumn.from_rows`` from the per-row ``(indices, values)`` +
+    ``size`` form); this transformer makes it a contiguous float32
+    ``[N, dim]`` ndarray. Dense inputs pass through with the same dtype and
+    contiguity guarantee.
     """
 
     def __init__(self, input_col: str = "features", output_col: str = "features_dense"):

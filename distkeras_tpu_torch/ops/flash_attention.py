@@ -166,7 +166,7 @@ def _flash_forward_cuda(q, k, v, causal: bool, causal_shift: int):
             "flash_attention_fwd", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             out.data_ptr(), lse.data_ptr(), BH, S, D, int(causal), int(causal_shift),
             float(D**-0.5))
-    count_launch(flash_forward)
+    count_launch(flash_forward, 4.0 * BH * S * S * D)  # QK^T and PV
     return out, lse
 
 
@@ -212,7 +212,7 @@ def dq_call(q, k, v, do, lse, delta, causal: bool, causal_shift: int = 0):
             "flash_attention_dq", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), BH, Sq,
             k.shape[1], D, int(causal), int(causal_shift), float(D**-0.5))
-    count_launch(dq_call)
+    count_launch(dq_call, 4.0 * BH * Sq * k.shape[1] * D)  # dO V^T and dS K
     return dq
 
 
@@ -237,7 +237,7 @@ def dkv_call(k, v, q, do, lse, delta, causal: bool, causal_shift: int = 0):
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), BH, q.shape[1], Skv, D, int(causal), int(causal_shift),
             float(D**-0.5))
-    count_launch(dkv_call)
+    count_launch(dkv_call, 4.0 * BH * q.shape[1] * Skv * D)  # P^T dO and dS^T Q
     return dk, dv
 
 

@@ -95,6 +95,15 @@ __all__ = [
 ]
 
 
+def _as_model(model) -> Model:
+    """A port :class:`Model` as it is; anything else is taken for a Keras 3
+    model (reference ``trainers.py:81-84``), which
+    :meth:`Model.from_keras` adapts (Keras's torch backend)."""
+    if isinstance(model, Model):
+        return model
+    return Model.from_keras(model)
+
+
 class _StepCheckpointer:
     """Save and resume for the step-loop trainers (reference ``trainers.py:87-138``):
     restore the latest step into the live state, timed ``wait=False`` saves
@@ -228,9 +237,7 @@ class Trainer:
         auditor=None,
         device: str | torch.device | None = None,
     ):
-        if not isinstance(keras_model, Model):
-            raise TypeError("Trainer expects a distkeras_tpu_torch Model")
-        self.model = keras_model
+        self.model = _as_model(keras_model)
         self.device = resolve_device(device)
         self.loss_weights = loss_weights
         if loss_weights is not None:

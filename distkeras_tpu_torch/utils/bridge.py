@@ -11,7 +11,10 @@
   ``scale`` and an ``Embed`` ``embedding`` become ``weight``; every other
   leaf (``bias``, ``pos_embed`` ``[1, L, H]``, ``mlm_bias``) keeps its name
   and shape. The ``batch_stats`` collection (BatchNorm's ``mean`` and
-  ``var``) maps to the module's buffers of the same names.
+  ``var``) maps to the module's buffers of the same names. A list node
+  (a Keras model's ``{"params": {"w": [...]}, "keras_state": [...]}``,
+  :meth:`~distkeras_tpu_torch.models.core.Model.from_keras`) maps to names
+  ``w.<i>`` and ``keras_state.<i>`` and back to lists.
 - :func:`cache_from_jax` and :func:`cache_to_jax` carry a decode cache
   (the reference's ``"cache"`` collection: ``layer_{i}/attention/
   cached_key`` and so on) into the port's flat layout
@@ -37,12 +40,24 @@ _RENAMED = {"kernel": "weight", "scale": "weight", "embedding": "weight"}
 
 
 def _flatten(tree, prefix=()):
-    for key, value in tree.items():
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    for key, value in items:
         path = (*prefix, str(key))
-        if isinstance(value, dict):
+        if isinstance(value, (dict, list, tuple)):
             yield from _flatten(value, path)
         else:
             yield path, value
+
+
+def _listify(node):
+    """Nodes whose keys are ``0 .. n-1`` back to lists (a Keras model's
+    ``{"w": [...]}`` and ``keras_state``)."""
+    if not isinstance(node, dict):
+        return node
+    node = {k: _listify(v) for k, v in node.items()}
+    if node and sorted(node) == sorted(str(i) for i in range(len(node))):
+        return [node[str(i)] for i in range(len(node))]
+    return node
 
 
 def _as_tensor(leaf) -> torch.Tensor:
@@ -67,6 +82,8 @@ def params_from_jax(tree: dict, device: str | torch.device | None = None) -> dic
         out[name] = t.to(dev)
     if "params" in tree:
         for path, leaf in _flatten(tree.get("batch_stats", {})):
+            out[".".join(path)] = _as_tensor(leaf).to(dev)
+        for path, leaf in _flatten(tree.get("keras_state", []), ("keras_state",)):
             out[".".join(path)] = _as_tensor(leaf).to(dev)
     return out
 
@@ -110,11 +127,14 @@ def params_to_jax(state_dict: dict[str, torch.Tensor], module: nn.Module) -> dic
                 leaf = "scale"
         arr = arr.contiguous()
         arr = arr if arr.dtype == torch.bfloat16 else arr.numpy()
-        node = out.setdefault("batch_stats" if name in buffers else "params", {})
+        collection = "batch_stats" if name in buffers else "params"
+        if name in buffers and parents[:1] == ["keras_state"]:
+            collection, parents = "keras_state", parents[1:]
+        node = out.setdefault(collection, {})
         for p in parents:
             node = node.setdefault(p, {})
         node[leaf] = arr
-    return out
+    return {k: _listify(v) for k, v in out.items()}
 
 
 def cache_from_jax(tree: dict, device: str | torch.device | None = None) -> dict[str, torch.Tensor]:

@@ -1,8 +1,10 @@
 """The port stands alone: it imports neither JAX (nor flax, optax or
 ml_dtypes) nor the reference package, nor grpc until a gRPC transport is
-built, and its entry points run on CUDA unless asked for the CPU. Every
-module imports with ``jax`` and ``distkeras_tpu`` made unimportable, and no
-source file of the port names the reference package in an import."""
+built, nor keras or kafka until ``Model.from_keras`` or a ``KafkaSource``
+needs them, and its entry points run on CUDA unless asked for the CPU.
+Every module imports with ``jax``, ``distkeras_tpu``, ``keras`` and
+``kafka`` made unimportable, and no source file of the port names the
+reference package in an import."""
 
 import dataclasses
 import os
@@ -16,11 +18,12 @@ import torch
 
 import distkeras_tpu_torch
 from distkeras_tpu_torch.data.feed import DeviceFeed
+from distkeras_tpu_torch.data.streaming import StreamingPredictor
 from distkeras_tpu_torch.deploy.harness import make_score_fn
 from distkeras_tpu_torch.inference.generate import Generator, beam_search, generate
 from distkeras_tpu_torch.inference.predictors import ModelPredictor
 from distkeras_tpu_torch.models.bert import bert_tiny_mlm, decode_cache, gpt_tiny, with_ring_mesh
-from distkeras_tpu_torch.models.core import TrainedModel
+from distkeras_tpu_torch.models.core import Model, TrainedModel
 from distkeras_tpu_torch.models.mlp import mnist_mlp
 from distkeras_tpu_torch.models.resnet import resnet18
 from distkeras_tpu_torch.ops.losses import get_optimizer
@@ -66,13 +69,15 @@ def test_port_imports_neither_jax_nor_reference():
               "parallel.distributed", "parallel.mesh", "parallel.sharding",
               "parallel.gspmd", "ops.ring_flash", "ops.ulysses", "parallel.pipeline",
               "parallel.pipeline_1f1b", "training.pipeline_trainer", "parallel.pp",
-              "serving.sharded", "models.bert", "serving.metrics"):
+              "serving.sharded", "models.bert", "serving.metrics", "data", "data.sparse",
+              "data.native", "data.streaming", "deployment"):
         assert f"distkeras_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'ml_dtypes', 'distkeras_tpu', 'triton', 'grpc'))\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'ml_dtypes', 'distkeras_tpu', 'triton', 'grpc',"
+        " 'keras', 'kafka'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
@@ -90,7 +95,7 @@ def test_port_imports_with_jax_and_the_reference_blocked():
     stage, dropout on)."""
     code = (
         "import importlib, sys\n"
-        "for m in ('jax', 'jaxlib', 'flax', 'optax', 'distkeras_tpu'):\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'optax', 'distkeras_tpu', 'keras', 'kafka'):\n"
         "    sys.modules[m] = None  # any import of it now raises ImportError\n"
         f"for m in {_all_modules()!r}: importlib.import_module(m)\n"
         "import asyncio\n"
@@ -139,6 +144,43 @@ def test_port_imports_with_jax_and_the_reference_blocked():
     assert all(f"PP {sched} 1" in proc.stdout for sched in ("gpipe", "1f1b"))
 
 
+A11_BLOCKED = (
+    "import sys\n"
+    "for m in ('jax', 'jaxlib', 'flax', 'optax', 'distkeras_tpu', 'keras', 'kafka'):\n"
+    "    sys.modules[m] = None\n"
+    "import numpy as np\n"
+    "from distkeras_tpu_torch.data import Dataset, DenseTransformer, SparseColumn, native\n"
+    "from distkeras_tpu_torch.data.streaming import GeneratorSource, KafkaSource, StreamingPredictor\n"
+    "from distkeras_tpu_torch import TrainedModel, tracing\n"
+    "from distkeras_tpu_torch.deployment import Job\n"
+    "from distkeras_tpu_torch.models.core import Model\n"
+    "from distkeras_tpu_torch.models.mlp import mnist_mlp\n"
+    "ds = Dataset.from_arrays(features=SparseColumn.from_dense(np.eye(4, dtype=np.float32)))\n"
+    "print('DENSE', DenseTransformer('features', 'd').transform(ds)['d'].shape)\n"
+    "m = mnist_mlp()\n"
+    "p = StreamingPredictor(TrainedModel(m, m.init(0, device='cpu')), max_batch=4)\n"
+    "print('ROWS', p.run(GeneratorSource([np.zeros((6, 784), np.float32)]), lambda x, y: None)['rows'])\n"
+    "print('PEAK', tracing.device_peak_flops('cpu'))\n"
+    "for f in (lambda: KafkaSource('t'), lambda: Model.from_keras(object())):\n"
+    "    try:\n"
+    "        f()\n"
+    "    except ImportError as e:\n"
+    "        print('REFUSED', e)\n"
+)
+
+
+def test_a11_surface_without_keras_kafka_or_jax():
+    """Sparse columns, the streaming predictor, the tracing helpers and the
+    deployment module work with keras, kafka and JAX unimportable; a
+    KafkaSource and Model.from_keras refuse with ImportError."""
+    proc = subprocess.run([sys.executable, "-c", A11_BLOCKED], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "DENSE (4, 4)" in proc.stdout and "ROWS 6" in proc.stdout
+    assert "PEAK None" in proc.stdout
+    assert proc.stdout.count("REFUSED") == 2 and "kafka-python" in proc.stdout, proc.stdout
+
+
 def test_no_port_source_imports_the_reference():
     pkg = os.path.join(REPO, "distkeras_tpu_torch")
     bad = []
@@ -178,6 +220,16 @@ def test_port_imports_without_grpc():
     assert "REFUSED" in proc.stdout and "grpcio" in proc.stdout, proc.stdout
 
 
+def _example(name):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        f"isolation_example_{name}", os.path.join(REPO, "examples", "torch", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def _no_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid here")
@@ -196,7 +248,8 @@ def test_resolve_device():
                                    "generator", "serving_engine", "prefix_cache",
                                    "paged_engine", "tiered_engine", "score_fn",
                                    "initialize", "sharded_train_state", "place_sharded",
-                                   "sp_trainer", "pipeline_trainer"])
+                                   "sp_trainer", "pipeline_trainer", "streaming_predictor",
+                                   "module_init", "example_main"])
 def test_entry_points_raise_without_cuda(entry):
     _no_cuda()
     model = bert_tiny_mlm(seq_len=16, vocab_size=64)
@@ -231,6 +284,9 @@ def test_entry_points_raise_without_cuda(entry):
             with_ring_mesh(gpt, make_mesh({"sp": 1}, devices=[0])), mesh={"sp": 1},
             shard_sequence=True),
         "pipeline_trainer": lambda: distkeras_tpu_torch.PipelineTrainer(model),
+        "streaming_predictor": lambda: StreamingPredictor(TrainedModel(model, model.init(0))),
+        "module_init": lambda: Model.from_module(torch.nn.Linear(2, 2), (2,)).init(0),
+        "example_main": lambda: _example("streaming_inference").main(["--batches", "1"]),
         "prefix_cache": lambda: PrefixCache(decode_cache(
             dataclasses.replace(gpt.config, decode=True, decode_slots=True), 1, "meta"),
             block_tokens=4, budget_bytes=1 << 16),
