@@ -174,10 +174,14 @@ Phases, each of which must pass or the script exits non-zero:
    renders the fleet page, sloz lists its objectives, the replicas' memory
    rows show bytes in use on cuda:0, SIGINT exits 0. No kernel of ours
    launches.
-17. Data parallelism over torch.distributed, in spawned ranks that load
-   phase 1's kernels and meet through a file store under
-   build/chip_smoke/dp/ (a rank that fails or has not ended in
-   DP_CHILD_LIMIT_S fails the phase). 17a: one rank over NCCL:
+17. Data parallelism over torch.distributed, in ranks that load phase 1's
+   kernels and meet through a file store under build/chip_smoke/dp/ (a
+   rank that fails or has not ended in DP_CHILD_LIMIT_S fails the phase).
+   Four ranks are spawned once, while phase 1 builds the kernels (phase 2
+   waits until they have started), and run every task of phases 17-25 in
+   turn (RankPool): a task on n ranks goes to the first n, which join a
+   process group of their own for it, from launch counts of 0, and leave
+   it when it ends. 17a: one rank over NCCL:
    SynchronousDistributedTrainer(num_workers=1) on bert_base_mlm (seq 128,
    batch 32, flash on, fused loss, adam, dropout 0) for 3 steps of phase
    5's copy task ends on SingleTrainer's weights on the same rows, and so
@@ -200,7 +204,7 @@ Phases, each of which must pass or the script exits non-zero:
    train_step span and the grad_all_reduce span's share of it, the phase's
    wall time, with the card. Two ranks sharing one card give no scaling
    figure, and none is printed.
-18. Model parallelism, in ranks spawned as phase 17's. 18a: one NCCL rank:
+18. Model parallelism, in phase 17's ranks. 18a: one NCCL rank:
    make_sharded_train_step over sharded_train_state on a mesh of size 1
    (bert_base_mlm, seq 128, batch 32, flash on, fused loss, adam, dropout
    0), 3 steps of phase 5's copy task, ends on SingleTrainer's weights
@@ -221,7 +225,7 @@ Phases, each of which must pass or the script exits non-zero:
    rows. Logged: ms per step per rank (train_step span) and the shares of
    the tp_all_reduce, tp_gather, fsdp_gather and fsdp_reduce_scatter
    spans, the phase's wall time, with the card. No scaling figure.
-19. Sequence parallelism, in ranks spawned as phase 17's. 19a: one NCCL
+19. Sequence parallelism, in phase 17's ranks. 19a: one NCCL
    rank: SynchronousDistributedTrainer(mesh={"sp": 1}, shard_sequence=True)
    on gpt_small (seq 512, batch 8, flash on, fused loss, adam, dropout 0)
    with a ring_mesh of sp=1 and sp_impl "ring" (K1 and an exact float32
@@ -244,7 +248,7 @@ Phases, each of which must pass or the script exits non-zero:
    sp_permute, sp_all_to_all, sp_gather (pos_embed), sp_reduce_scatter and
    grad_all_reduce spans, whether the P2P went through the host, with the
    card. No scaling figure.
-20. Pipeline parallelism, in ranks spawned as phase 17's: PipelineTrainer on
+20. Pipeline parallelism, in phase 17's ranks: PipelineTrainer on
    bert_base_mlm at its widths, its depth cut to PP_LAYERS = 4 layers (seq
    128, global batch 32 in M=4 microbatches, flash on,
    fused loss, adam, dropout 0), 3 steps on one global batch of the copy
@@ -264,7 +268,7 @@ Phases, each of which must pass or the script exits non-zero:
    through the host; each rank's peak memory under gpipe, gpipe+remat and
    1f1b at M=4 and M=8 (8 rows a microbatch), with the card. No scaling
    figure.
-21. Multi-device serving and generation, in ranks spawned as phase 17's, on
+21. Multi-device serving and generation, in phase 17's ranks, on
    gpt_small at full width (bf16, phase 14's weights from the seed), phase
    14's engine configuration (8 slots, prefix cache, 128-token chunks) on
    8 of its greedy prompts, 32 new tokens each. 21a: one NCCL rank: the
@@ -351,10 +355,28 @@ Phases, each of which must pass or the script exits non-zero:
    against device_peak_flops(); 7 x 12 launches of K1-K3 and 7 of K4-K6.
    24d: a local deployment Job of examples/torch/streaming_inference.py
    --batches 4 --rows 512 on the card: rc 0 and its stream line.
-25. Print the kernels line, the card's name and power limit, and last the
-   result line {"ok": true, "device": {...}}.
+25. MoE with tensor and sequence parallelism (ROADMAP A12's remainder):
+   phase 22b's model (bert_base_mlm's config with 8 experts at top-2, flash
+   on, fused loss) cut to 4 of its 12 layers, 32 x 128 tokens, 3 steps on
+   one global batch, one task on four gloo ranks sharing the card, each
+   case in turn: 25a {"tp": 2, "ep": 2}; 25b {"sp": 2, "ep": 2} under the
+   XLA split (shard_sequence=True); 25c the same with a ring_mesh, "ring";
+   25d with "ulysses" (6 heads a rank). Every rank's losses finite and
+   equal, its replicated leaves equal to rank 0's, E/ep experts of M/tp
+   columns a layer, its launches (K1-K3 12 a rank, 24 under the
+   non-causal ring; K4-K6 3); rank 0's losses within LOSS_RTOL of
+   SingleTrainer's on the same weights and rows, the first step's
+   gradients gathered whole within phase 17's bound of one process's, and
+   the first step's dropped share of the assignments within
+   MOE_DROP_POINTS of one process's. Logged: ms a step per rank and the
+   shares of ep_all_reduce, moe_route, the tp_* spans, grad_all_reduce and
+   the sp_* spans, with the card. No scaling figure.
+26. Print each phase's wall and each task's (seconds from its start to
+   its ranks' joining the group, and to its end), the kernels line, the
+   card's name and power limit, and last the result line {"ok": true,
+   "device": {...}}.
 
-Phases 9-11, 15f, 16, 17, 18, 19, 20, 21, 22, 23 and 24d write their checkpoints, weight files,
+Phases 9-11, 15f, 16, 17, 18, 19, 20, 21, 22, 23, 24d and 25 write their checkpoints, weight files,
 stores and job directories under build/chip_smoke/ (git-ignored) and remove them.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
@@ -367,6 +389,7 @@ import dataclasses
 import json
 import math
 import os
+import queue
 import shutil
 import statistics
 import subprocess
@@ -421,6 +444,9 @@ CKPT_ROOT = os.path.join(REPO, "build", "chip_smoke")
 PHASE7_TOKENS_S: dict = {}
 # Phases 5-6's steady train step, ms, by model name (phase 22b prints it).
 STEADY_MS: dict = {}
+# Each task's (tag, ranks, seconds from its start to its end, and to its
+# ranks' joining the group).
+SPAWN_WALLS: list = []
 
 
 def log(msg: str) -> None:
@@ -2966,8 +2992,8 @@ def fleet_phase(served, slots=8, chunk=128, top_k=50, pool_mb=256, long_len=496,
 # which keeps the script within its time with phase 23 added (the one-rank
 # NCCL runs 17a, 18a and 19a keep all 12).
 DP_LAYERS = MP_LAYERS = SP_LAYERS = 4
-# A rank of phase 17 that has not ended this long after its spawn fails the
-# phase (and is killed).
+# A rank of phase 17 that has not ended its task this long after the task's
+# start fails the phase (and is killed).
 DP_CHILD_LIMIT_S = 300
 # 17a and 17b: final weights of two runs that take the same float32 steps
 # (one NCCL rank against SingleTrainer, zero1 against the plain optimizer),
@@ -2975,65 +3001,200 @@ DP_CHILD_LIMIT_S = 300
 DP_EQUAL_RTOL = 1e-6
 
 
+# The ranks that run phases 17-25's tasks, which main spawns once (None:
+# each dp_spawn spawns ranks of its own, as the scripts under scripts/ do).
+POOL = None
+
+
+class RankPool:
+    """``size`` ranks spawned once that run task after task. A task on
+    ``world`` ranks goes to ranks 0..world-1, which join a process group of
+    their own for it and leave it when it ends. A rank's start (torch's
+    import and its lazy imports, its CUDA context) takes seconds, which the
+    pool pays once for phases 17-25, while phase 1 builds the kernels."""
+
+    def __init__(self, root: str, size: int = 4):
+        import multiprocessing
+
+        ctx = multiprocessing.get_context("spawn")
+        self.inboxes = [ctx.Queue() for _ in range(size)]
+        self.outbox = ctx.Queue()
+        self.procs = [ctx.Process(target=pool_rank, args=(root, r, self.inboxes[r], self.outbox),
+                                  name=f"pool-{r}", daemon=True) for r in range(size)]
+        for p in self.procs:
+            p.start()
+
+    def wait_ready(self) -> float:
+        """Waits until every rank has started; returns the seconds waited."""
+        t0 = time.monotonic()
+        ready = set()
+        while len(ready) < len(self.procs):
+            check(all(p.is_alive() for p in self.procs) and
+                  time.monotonic() - t0 < DP_CHILD_LIMIT_S,
+                  f"the pool's ranks {sorted(ready)} of {len(self.procs)} started")
+            try:
+                ready.add(self.outbox.get(timeout=1.0)[0])
+            except queue.Empty:
+                pass
+        return time.monotonic() - t0
+
+    def run(self, work, backend, world, task, kwargs, t_spawn) -> tuple[list, list]:
+        """Runs ``task`` on the first ``world`` ranks: each rank's exit code
+        (None where it did not end) and the names of the ranks that did not
+        end within ``DP_CHILD_LIMIT_S``, or died, after which the pool is
+        closed."""
+        check(world <= len(self.procs), f"a task on {world} ranks in a pool of "
+              f"{len(self.procs)}")
+        for r in range(world):
+            self.inboxes[r].put((work, world, backend, task, kwargs, t_spawn))
+        codes = [None] * world
+        deadline = time.monotonic() + DP_CHILD_LIMIT_S
+        while None in codes and time.monotonic() < deadline:
+            try:
+                r, code = self.outbox.get(timeout=1.0)
+                codes[r] = code
+            except queue.Empty:
+                if not all(p.is_alive() for p in self.procs[:world]):
+                    break
+        hung = [self.procs[r].name for r, c in enumerate(codes) if c is None]
+        if hung:
+            self.close()
+        return codes, hung
+
+    def close(self) -> None:
+        """Stops every rank: those that do not stop within a minute are
+        killed."""
+        for box, p in zip(self.inboxes, self.procs):
+            if p.is_alive():
+                box.put(None)
+        deadline = time.monotonic() + 60
+        for p in self.procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+            if p.is_alive():
+                p.kill()
+                p.join()
+
+
 def dp_spawn(root: str, tag: str, backend, world: int, task: str, **kwargs) -> list[dict]:
-    """Run ``task`` (a function of this script) on ``world`` spawned ranks,
-    which join one process group through a file store under
-    build/chip_smoke/dp/; returns each rank's report. The ranks load the
-    kernels phase 1 built."""
+    """Run ``task`` (a function of this script) on ``world`` ranks, which
+    join one process group through a file store under
+    build/chip_smoke/dp/; returns each rank's report. The ranks are
+    :data:`POOL`'s where main started one, else spawned for the task; they
+    load the kernels phase 1 built."""
     import multiprocessing
 
     work = os.path.join(CKPT_ROOT, "dp", tag)
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
-    ctx = multiprocessing.get_context("spawn")
-    procs = [ctx.Process(target=dp_child, args=(root, work, r, world, backend, task, kwargs),
-                         name=f"dp-{tag}-{r}", daemon=True) for r in range(world)]
-    for p in procs:
-        p.start()
-    deadline = time.monotonic() + DP_CHILD_LIMIT_S
-    for p in procs:
-        p.join(max(0.0, deadline - time.monotonic()))
-    hung = [p.name for p in procs if p.is_alive()]
-    for p in procs:
-        if p.is_alive():
-            p.kill()
-            p.join()
+    t_spawn = time.time()
+    if POOL is not None:
+        codes, hung = POOL.run(work, backend, world, task, kwargs, t_spawn)
+    else:
+        ctx = multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=dp_child,
+                             args=(root, work, r, world, backend, task, kwargs, t_spawn),
+                             name=f"dp-{tag}-{r}", daemon=True) for r in range(world)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + DP_CHILD_LIMIT_S
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+        hung = [p.name for p in procs if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        codes = [p.exitcode for p in procs]
     reports = []
-    for r, p in enumerate(procs):
+    for r, code in enumerate(codes):
         path = os.path.join(work, f"report-{r}.json")
         rep = json.load(open(path)) if os.path.exists(path) else {}
-        check(not hung, f"{tag}: ranks {hung} still running after {DP_CHILD_LIMIT_S} s")
-        check(p.exitcode == 0 and "error" not in rep,
-              f"{tag}: rank {r} exited {p.exitcode}: {rep.get('error', 'no report')}")
+        check(not hung, f"{tag}: ranks {hung} still running after {DP_CHILD_LIMIT_S} s, "
+                        f"or dead")
+        check(code == 0 and "error" not in rep,
+              f"{tag}: rank {r} exited {code}: {rep.get('error', 'no report')}")
         reports.append(rep)
+    stamps = [rep.pop("_stamps") for rep in reports]
+    t_end = time.time() - t_spawn
+    joined = max(s["joined"] for s in stamps)
+    log(f"  ranks {tag}: {world}, {t_end:.2f} s; in the group after {joined:.2f} s (torch "
+        f"imported after {max(s['imported'] for s in stamps):.2f} s), task "
+        f"{max(s['done'] - s['joined'] for s in stamps):.2f} s")
+    SPAWN_WALLS.append((tag, world, t_end, joined))
     shutil.rmtree(work, ignore_errors=True)
     return reports
 
 
-def dp_child(root, work, rank, world, backend, task, kwargs):
-    """A rank of phase 17: joins the group, runs ``task``, writes its report."""
+def dp_child(root, work, rank, world, backend, task, kwargs, t_spawn):
+    """A rank spawned for one task: :func:`dp_rank`, then exits with its
+    code."""
     sys.path.insert(0, root)
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sys.exit(dp_rank(work, rank, world, backend, task, kwargs, t_spawn))
+
+
+def pool_rank(root, rank, inbox, outbox):
+    """A rank of :class:`RankPool`: starts (CUDA, and the modules the tasks
+    import, torch._dynamo among them, which torch.optim's first step
+    imports), says so, then runs each task it is sent through
+    :func:`dp_rank` and answers with its code, until it is sent None."""
+    sys.path.insert(0, root)
+    import torch
+    import torch._dynamo  # noqa: F401
+
+    import distkeras_tpu_torch  # noqa: F401
+    from distkeras_tpu_torch import serving  # noqa: F401
+    from distkeras_tpu_torch.inference import generate  # noqa: F401
+    from distkeras_tpu_torch.parallel import gspmd  # noqa: F401
+    from distkeras_tpu_torch.training import pipeline_trainer, trainers  # noqa: F401
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if torch.cuda.is_available():
+        torch.cuda.init()
+    outbox.put((rank, "started"))
+    while (job := inbox.get()) is not None:
+        outbox.put((rank, dp_rank(*job[:1], rank, *job[1:])))
+
+
+def dp_rank(work, rank, world, backend, task, kwargs, t_spawn) -> int:
+    """One rank's part of a task: joins the group, runs ``task`` from zero
+    launch counts, writes its report with the seconds since the task's start at
+    which it had imported torch, joined the group and finished the task,
+    and leaves the group; returns 0, or 1 where the task raised."""
+    import gc
     import traceback
 
     import torch
 
     from distkeras_tpu_torch.parallel import distributed
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    stamps = {"imported": time.time() - t_spawn}
     code = 1
     try:
+        reset_counts()
         distributed.initialize("file://" + os.path.join(work, "store"), world, rank,
                                backend=backend)
+        stamps["joined"] = time.time() - t_spawn
         report = globals()[task](rank, world, **kwargs)
         code = 0
     except BaseException:
         report = {"error": traceback.format_exc()}
+    stamps.setdefault("joined", stamps["imported"])
+    stamps["done"] = time.time() - t_spawn
+    report["_stamps"] = stamps
     with open(os.path.join(work, f"report-{rank}.json"), "w") as f:
         json.dump(report, f)
     if torch.distributed.is_initialized():
         torch.distributed.destroy_process_group()
-    sys.exit(code)
+    gc.collect()
+    if torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    return code
 
 
 def _synchronize(device) -> None:
@@ -5321,6 +5482,195 @@ def a11_phase(root=REPO, device="cuda", model_name="bert_base_mlm", seq=128) -> 
     return {k: sum(c[k] for c in counts) for k in counts[0]}
 
 
+# -- phase 25: MoE with tensor and sequence parallelism (A12's remainder) -------
+
+# 22b's model (bert_base_mlm's config with 8 experts at top-2) cut to 4 of its
+# 12 layers, as 17b-20 and 23b are, 32 x 128 tokens, 3 steps on one global
+# batch, on four gloo ranks sharing the card: (tag, mesh, sp_impl,
+# shard_sequence); sp_impl None with shard_sequence is the XLA split.
+MOE_TPSP_LAYERS = 4
+MOE_TPSP_CASES = (("25a", {"tp": 2, "ep": 2}, None, False),
+                  ("25b", {"sp": 2, "ep": 2}, None, True),
+                  ("25c", {"sp": 2, "ep": 2}, "ring", True),
+                  ("25d", {"sp": 2, "ep": 2}, "ulysses", True))
+# The first step's dropped share of the assignments against one process's on
+# the same weights and batch: both bf16, so a token near a tie may route to
+# another expert; within this many points.
+MOE_DROP_POINTS = 0.01
+MOE_TPSP_SPANS = ("ep_all_reduce", "moe_route", "tp_all_reduce", "tp_gather",
+                  "grad_all_reduce", "sp_all_gather", "sp_permute", "sp_all_to_all",
+                  "sp_reduce_scatter")
+
+
+def moe_tpsp_model(base=True, layers=MOE_TPSP_LAYERS):
+    """25's model: :func:`moe_model`'s top-2 (22b's with ``base``, else
+    22a's) at ``layers`` layers: ``(model, cfg)``."""
+    from distkeras_tpu_torch.models import bert
+
+    model, cfg = moe_model(2, base=base)
+    cfg = dataclasses.replace(cfg, num_layers=layers)
+    return bert._make(cfg, model.input_shape[0], model.name), cfg
+
+
+def moe_tpsp_task(rank, world, cases=MOE_TPSP_CASES, steps=MOE_STEPS, base=True,
+                  layers=MOE_TPSP_LAYERS, device="cuda") -> dict:
+    """25a-25d on four gloo ranks that share the card, one case after the
+    other: SynchronousDistributedTrainer on the case's mesh for ``steps``
+    steps on one global batch repeated; the first step's gradients as the
+    optimizer receives them, gathered whole; the first step's routings'
+    seated and offered assignments; rank 0 also trains SingleTrainer on the
+    same rows and takes one process's gradients and dropped share on
+    them."""
+    import numpy as np
+    import torch
+    from torch.optim.optimizer import register_optimizer_step_pre_hook
+
+    from distkeras_tpu_torch import Dataset, SingleTrainer
+    from distkeras_tpu_torch.ops import moe
+    from distkeras_tpu_torch.parallel import gspmd
+    from distkeras_tpu_torch.parallel.mesh import make_mesh
+    from distkeras_tpu_torch.telemetry.spans import Tracer, disable_tracing, enable_tracing
+
+    model, cfg = moe_tpsp_model(base, layers)
+    one = moe_copy_task(cfg, model.input_shape[0], MOE_BATCH)
+    data = Dataset.from_arrays(**{k: np.concatenate([one[k]] * steps)
+                                  for k in ("features", "label")})
+    names = [n for n, _ in model.module.named_parameters()]
+    meta = model.module.state_dict()  # shapes only: the spec's module is on "meta"
+    out = {"backend": torch.distributed.get_backend()}
+    if rank == 0:
+        single = SingleTrainer(model, "adam", loss="fused_categorical_crossentropy",
+                               batch_size=MOE_BATCH, seed=SEED, device=device)
+        single.train(data)
+        out["single_losses"] = [h["loss"] for h in single.history]
+        weights = model.init(SEED, device=device)
+        want, exact = moe_grads(model, cfg, weights, one["features"], device)
+        out["single_dropped"] = moe_routing(
+            model, weights, torch.from_numpy(one["features"]).to(device))[1]
+        del single, weights
+    for tag, axes, impl, split in cases:
+        mesh = make_mesh(axes)
+        ring = sp_model(model, mesh, impl) if impl else model
+        _sync_trainer(ring, MOE_BATCH, device, mesh=mesh, shard_sequence=split).train(one)
+        shardings = gspmd.variable_shardings(ring, mesh, meta)
+        tapped, routed = [], []
+
+        def tap(optimizer, args, kwargs):
+            if not tapped:
+                tapped.extend(p.grad.detach().float().clone()
+                              for g in optimizer.param_groups for p in g["params"])
+
+        route = moe._route
+
+        def recording(*args, **kwargs):
+            res = route(*args, **kwargs)
+            if len(routed) < cfg.num_layers:  # the first step's forward
+                routed.append((res[0].sum(), args[0].shape[0] * cfg.moe_top_k))
+            return res
+
+        hook = register_optimizer_step_pre_hook(tap)
+        moe._route = recording
+        reset_counts()
+        tracer = enable_tracing(Tracer())
+        t0 = time.perf_counter()
+        try:
+            tr = _sync_trainer(ring, MOE_BATCH, device, mesh=mesh, shard_sequence=split)
+            trained = tr.train(data)
+            _synchronize(device)
+        finally:
+            wall = time.perf_counter() - t0
+            disable_tracing()
+            moe._route = route
+            hook.remove()
+        totals = span_totals(tracer)
+        step_n, step_s = totals.get(("train_step", None), [0, 0.0])
+        rep = {"wall_s": wall, "coords": mesh.coords(rank), "counts": read_counts(),
+               "losses": [h["loss"] for h in tr.history],
+               "ms_per_step": step_s / max(step_n, 1) * 1e3,
+               "shares": {n: totals.get((n, None), [0, 0.0])[1] / step_s
+                          for n in MOE_TPSP_SPANS if (n, None) in totals},
+               "seated": sum(float(k) for k, _ in routed),
+               "offered": sum(n for _, n in routed),
+               "experts": tapped[names.index("layer_0.moe_mlp.w_in")].shape[0],
+               "columns": tapped[names.index("layer_0.moe_mlp.w_in")].shape[2],
+               "whole": all(tuple(trained.variables[k].shape) == tuple(meta[k].shape)
+                            for k in names),
+               "replicated_sums": [[trained.variables[k].double().sum().item()]
+                                   for k in names if shardings[k].is_replicated]}
+        got = gspmd.gather_whole(dict(zip(names, tapped)), shardings)
+        if rank == 0:
+            rep["grads"] = grad_report(got, want, exact)
+        out[tag] = rep
+        del trained, tr, got, tapped
+        if torch_device_type(device) == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def moe_tpsp_phase(root=REPO, cases=MOE_TPSP_CASES, steps=MOE_STEPS, base=True,
+                   layers=MOE_TPSP_LAYERS, device="cuda", backend="gloo",
+                   where="4 ranks sharing one card") -> dict:
+    """25: MoE at tp=2 x ep=2 and sp=2 x ep=2 (the XLA split, ring, Ulysses)
+    on four gloo ranks sharing the card (``backend=None``: NCCL, one rank a
+    card), each case held to one process on the same weights and batch;
+    returns the launch counts of the timed runs, every rank's summed."""
+    card = card_line()
+    t_phase = time.perf_counter()
+    counting = torch_device_type(device) == "cuda"
+    ranks = dp_spawn(root, "25", backend, 4, "moe_tpsp_task", cases=cases, steps=steps,
+                     base=base, layers=layers, device=device)
+    cfg = moe_tpsp_model(base, layers)[1]
+    r0 = ranks[0]
+    counts = []
+    for tag, axes, impl, split in cases:
+        how = (f"{impl!r}" if impl else "the XLA split" if split else "") or "no sequence split"
+        mesh = " x ".join(f"{a}={n}" for a, n in axes.items())
+        tp, ep = axes.get("tp", 1), axes.get("ep", 1)
+        for r, rank in enumerate(ranks):
+            rep = rank[tag]
+            shares = ", ".join(f"{n} {v:.1%}" for n, v in rep["shares"].items())
+            log(f"  {tag} {mesh}, {how}, rank {r} {rep['coords']} ({rank['backend']}, "
+                f"{where}: a check, not a scaling figure): {rep['experts']} experts x "
+                f"{rep['columns']} columns a layer, {rep['ms_per_step']:.2f} ms/step "
+                f"(train_step span), of it {shares or 'no collective span'}; train() "
+                f"{rep['wall_s']:.2f} s; losses {', '.join(f'{x:.4f}' for x in rep['losses'])}; "
+                f"launches {rep['counts']} ({card})")
+            check(rep["losses"] == r0[tag]["losses"]
+                  and all(math.isfinite(x) for x in rep["losses"]),
+                  f"{tag}: rank {r} losses {rep['losses']}")
+            check(rep["whole"], f"{tag}: rank {r} returned weights that are not whole")
+            check(rep["replicated_sums"] == r0[tag]["replicated_sums"],
+                  f"{tag}: rank {r}'s replicated leaves differ from rank 0's")
+            check(rep["experts"] * ep == cfg.moe_experts and rep["columns"] * tp == cfg.mlp_dim,
+                  f"{tag}: rank {r} holds {rep['experts']} experts x {rep['columns']} columns")
+            if counting:
+                hops = 2 if impl == "ring" else 1  # non-causal: every hop runs on every rank
+                want = sp_launches(cfg, steps, hops)
+                check(rep["counts"] == want, f"{tag}: rank {r} launches {rep['counts']}, "
+                      f"not {want}")
+            counts.append(rep["counts"])
+        # The ranks that hold other tokens: tp and ep ranks route the same ones.
+        own = [rank[tag] for rank in ranks
+               if rank[tag]["coords"].get("tp", 0) == 0 and rank[tag]["coords"].get("ep", 0) == 0]
+        dropped = 1.0 - sum(x["seated"] for x in own) / sum(x["offered"] for x in own)
+        gap = max(abs(a - b) / abs(b) for a, b in zip(r0[tag]["losses"], r0["single_losses"]))
+        g = r0[tag]["grads"]
+        log(f"  {tag}: losses against SingleTrainer's on the same rows "
+            f"{', '.join(f'{x:.4f}' for x in r0['single_losses'])}: largest relative gap "
+            f"{gap:.3g} (bound {LOSS_RTOL}); first step's gradients, gathered whole, against "
+            f"one process: median {g['median']:.3g}, max {g['max']:.3g} over {g['tensors']} "
+            f"tensors; nearest its bound {g['worst']} {g['worst_rel']:.3g} (allowed "
+            f"{g['worst_allowed']:.3g}); first step's dropped share {dropped:.2%}, one "
+            f"process's {r0['single_dropped']:.2%} (bound {MOE_DROP_POINTS:.0%} points)")
+        check(gap <= LOSS_RTOL, f"{tag}: losses {gap} off SingleTrainer's")
+        check(g["worst_rel"] <= g["worst_allowed"],
+              f"{tag}: gradient {g['worst']} {g['worst_rel']} > {g['worst_allowed']}")
+        check(abs(dropped - r0["single_dropped"]) <= MOE_DROP_POINTS,
+              f"{tag}: dropped {dropped} against one process's {r0['single_dropped']}")
+    log(f"  25: phase wall {time.perf_counter() - t_phase:.2f} s ({card})")
+    return {k: sum(c[k] for c in counts) for k in counts[0]}
+
+
 def torch_device_type(device) -> str:
     import torch
 
@@ -5371,7 +5721,10 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    t0 = time.perf_counter()
+    t0 = t_start = time.perf_counter()
+    global POOL
+    if not args.kernels_only:
+        POOL = RankPool(root)  # phases 17-25's ranks start while nvcc builds
     reports = build_all()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     q = torch.randn(1, 64, 64, device="cuda", generator=gen).bfloat16().requires_grad_()
@@ -5387,6 +5740,8 @@ def main(argv=None) -> int:
             if root == REPO and kernel.startswith("flash_"):  # K1-K3
                 check("0 bytes spill stores" in info, f"{kernel} spills: {info}")
 
+    if POOL is not None:
+        log(f"  the ranks of phases 17-25 started, {POOL.wait_ready():.2f} s after the build")
     log("phase 2: kernels against their plain versions on the card")
     k1 = [flash_case(32, 128, 12, 64, False, 0, gen),
           flash_case(8, 512, 12, 64, True, 0, gen),
@@ -5424,71 +5779,83 @@ def main(argv=None) -> int:
         return 0
 
     runs = []
-    log("phase 3: bert_base_mlm inference at full width")
-    runs.append(run_model("bert_base_mlm", 128, 64, 512, 32, 4))
-    log("phase 4: gpt_small inference at full width")
-    runs.append(run_model("gpt_small", 512, 8, 16, 8, 1))
-    log("phase 5: bert_base_mlm training at full width")
-    runs.append(train_model("bert_base_mlm", 128, 32, 256, 3, 2))
-    log("phase 6: gpt_small training at full width")
-    runs.append(train_model("gpt_small", 512, 8, 64, 2, 1))
-    log("phase 7: bert_base_mlm asynchronous training (DynSGD) at full width")
-    runs.append(async_bert())
-    log("phase 8: cifar10_cnn asynchronous training (ADAG) at full width")
-    async_cnn()
-    log("phase 9: resnet50 at full width, card against CPU, then AEASGD")
-    resnet_card_vs_cpu()
-    resnet_aeasgd()
-    log("phase 10: bert_base_mlm checkpoints and resume at full width")
-    counts, _ = checkpoint_phase()
+    walls = {"1-2": time.perf_counter() - t_start}
+
+    def phase(num: str, title: str, fn, *args):
+        """Logs ``phase num: title``, returns ``fn(*args)`` and keeps its wall."""
+        log(f"phase {num}: {title}")
+        t = time.perf_counter()
+        out = fn(*args)
+        walls[num] = time.perf_counter() - t
+        return out
+
+    runs.append(phase("3", "bert_base_mlm inference at full width",
+                      run_model, "bert_base_mlm", 128, 64, 512, 32, 4))
+    runs.append(phase("4", "gpt_small inference at full width",
+                      run_model, "gpt_small", 512, 8, 16, 8, 1))
+    runs.append(phase("5", "bert_base_mlm training at full width",
+                      train_model, "bert_base_mlm", 128, 32, 256, 3, 2))
+    runs.append(phase("6", "gpt_small training at full width",
+                      train_model, "gpt_small", 512, 8, 64, 2, 1))
+    runs.append(phase("7", "bert_base_mlm asynchronous training (DynSGD) at full width",
+                      async_bert))
+    phase("8", "cifar10_cnn asynchronous training (ADAG) at full width", async_cnn)
+    phase("9", "resnet50 at full width, card against CPU, then AEASGD",
+          lambda: (resnet_card_vs_cpu(), resnet_aeasgd()))
+    runs.append(phase("10", "bert_base_mlm checkpoints and resume at full width",
+                      checkpoint_phase)[0])
+    runs.append(phase("11", "bert_base_mlm EnsembleTrainer and AveragingTrainer at full width",
+                      replica_phase))
+    runs.append(phase("12", "gpt_small generation (generate, sampling, beam_search) at full "
+                      "width", generation_phase))
+    runs.append(phase("13", "real-data acceptance on the digits set (SingleTrainer, ADAG, "
+                      "AEASGD)", digits_phase))
+    counts, served = phase("14", "gpt_small ServingEngine and ServingServer at full width",
+                           serving_phase)
     runs.append(counts)
-    log("phase 11: bert_base_mlm EnsembleTrainer and AveragingTrainer at full width")
-    runs.append(replica_phase())
-    t0 = time.perf_counter()
-    log("phase 12: gpt_small generation (generate, sampling, beam_search) at full width")
-    runs.append(generation_phase())
-    log("phase 13: real-data acceptance on the digits set (SingleTrainer, ADAG, AEASGD)")
-    runs.append(digits_phase())
-    log(f"phases 12-13: {time.perf_counter() - t0:.2f} s")
-    log("phase 14: gpt_small ServingEngine and ServingServer at full width")
-    counts, served = serving_phase()
-    runs.append(counts)
-    log("phase 15: gpt_small paged serving (pool, preemption, request kinds, constrained and "
-        "speculative decoding, reload) at full width")
-    runs.append(paged_phase(served))
-    log("phase 16: the gpt_small fleet (router, replicas, disaggregated prefill/decode, KV "
-        "tiers, faults and rolling reload, deploy, the command line) at full width")
-    runs.append(fleet_phase(served))
-    log("phase 17: data parallelism over torch.distributed (one NCCL rank; two gloo ranks "
-        "sharing the card): bert_base_mlm and resnet50 at full width")
-    runs.append(dp_phase(root))
-    log("phase 18: model parallelism (one NCCL rank at mesh size 1; tp=2 and fsdp=2 on two "
-        "gloo ranks sharing the card): bert_base_mlm at full width")
-    runs.append(mp_phase(root))
-    log("phase 19: sequence parallelism (one NCCL rank at sp=1; ring, ring_stripe and ulysses "
-        "at sp=2 on two gloo ranks sharing the card): gpt_small and bert_base_mlm at full width")
-    runs.append(sp_phase(root))
-    log("phase 20: pipeline parallelism (one NCCL rank at pp=1; gpipe, remat, virtual stages "
-        "and 1f1b at pp=2 on two gloo ranks sharing the card): bert_base_mlm at full width")
-    runs.append(pp_phase(root))
-    log("phase 21: multi-device serving and generation (one NCCL rank at tp=1; tp=2 dense and "
-        "paged, KVX1 tp=2 to tp=1, pp=2 at depth 1 and 2, generate on dp=2, on two gloo ranks "
-        "sharing the card): gpt_small at full width")
-    runs.append(mesh_phase(served))
+    runs.append(phase("15", "gpt_small paged serving (pool, preemption, request kinds, "
+                      "constrained and speculative decoding, reload) at full width",
+                      paged_phase, served))
+    runs.append(phase("16", "the gpt_small fleet (router, replicas, disaggregated "
+                      "prefill/decode, KV tiers, faults and rolling reload, deploy, the "
+                      "command line) at full width", fleet_phase, served))
+    runs.append(phase("17", "data parallelism over torch.distributed (one NCCL rank; two "
+                      "gloo ranks sharing the card): bert_base_mlm and resnet50 at full width",
+                      dp_phase, root))
+    runs.append(phase("18", "model parallelism (one NCCL rank at mesh size 1; tp=2 and fsdp=2 "
+                      "on two gloo ranks sharing the card): bert_base_mlm at full width",
+                      mp_phase, root))
+    runs.append(phase("19", "sequence parallelism (one NCCL rank at sp=1; ring, ring_stripe "
+                      "and ulysses at sp=2 on two gloo ranks sharing the card): gpt_small and "
+                      "bert_base_mlm at full width", sp_phase, root))
+    runs.append(phase("20", "pipeline parallelism (one NCCL rank at pp=1; gpipe, remat, "
+                      "virtual stages and 1f1b at pp=2 on two gloo ranks sharing the card): "
+                      "bert_base_mlm at full width", pp_phase, root))
+    runs.append(phase("21", "multi-device serving and generation (one NCCL rank at tp=1; tp=2 "
+                      "dense and paged, KVX1 tp=2 to tp=1, pp=2 at depth 1 and 2, generate on "
+                      "dp=2, on two gloo ranks sharing the card): gpt_small at full width",
+                      mesh_phase, served))
     del served
-    log("phase 22: MoE and expert parallelism (bert_tiny_moe_mlm top-1 and top-2; the MoE "
-        "block at bert_base's widths; one NCCL rank at ep=1; ep=2 on two gloo ranks sharing "
-        "the card)")
-    runs.append(moe_phase(root))
-    log("phase 23: the XLA sequence split (one NCCL rank at sp=1; sp=2 on two gloo ranks), "
-        "ring and ulysses at sp=2 x tp=2 on four gloo ranks, ModelPredictor over sp, and "
-        "async islands (DynSGD, 2 workers x 2 replicas on the one card): gpt_small and "
-        "bert_base_mlm at full width")
-    runs.append(sp_remainder_phase(root))
-    log("phase 24: the data and operations extras (StreamingPredictor over a SocketSource on "
-        "bert_base_mlm, the native CSV parse and sparse features into SingleTrainer, StepTimer "
-        "and MFU on bert_base_mlm's train step, a deployment Job)")
-    runs.append(a11_phase(root))
+    runs.append(phase("22", "MoE and expert parallelism (bert_tiny_moe_mlm top-1 and top-2; "
+                      "the MoE block at bert_base's widths; one NCCL rank at ep=1; ep=2 on two "
+                      "gloo ranks sharing the card)", moe_phase, root))
+    runs.append(phase("23", "the XLA sequence split (one NCCL rank at sp=1; sp=2 on two gloo "
+                      "ranks), ring and ulysses at sp=2 x tp=2 on four gloo ranks, "
+                      "ModelPredictor over sp, and async islands (DynSGD, 2 workers x 2 "
+                      "replicas on the one card): gpt_small and bert_base_mlm at full width",
+                      sp_remainder_phase, root))
+    runs.append(phase("24", "the data and operations extras (StreamingPredictor over a "
+                      "SocketSource on bert_base_mlm, the native CSV parse and sparse features "
+                      "into SingleTrainer, StepTimer and MFU on bert_base_mlm's train step, a "
+                      "deployment Job)", a11_phase, root))
+    runs.append(phase("25", "MoE with tensor and sequence parallelism (tp=2 x ep=2, and sp=2 "
+                      "x ep=2 under the XLA split, ring and ulysses, on four gloo ranks sharing "
+                      "the card): the MoE bert_base at 4 of its 12 layers",
+                      moe_tpsp_phase, root))
+    POOL.close()
+    log(f"phase walls, s: {json.dumps({k: round(v, 2) for k, v in walls.items()})}; "
+        f"all {time.perf_counter() - t_start:.2f} s; tasks "
+        f"{json.dumps([(t, n, round(w, 2), round(j, 2)) for t, n, w, j in SPAWN_WALLS])}")
     launches = {k: sum(r[k] for r in runs) for k in runs[0]}
     for k, n in launches.items():
         check(n > 0, f"kernel {k} was not launched on the main path")

@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from distkeras_tpu_torch.models.bert import Bert, BertConfig, decode_cache
-from distkeras_tpu_torch.models.core import Model
+from distkeras_tpu_torch.models.core import Model, cross_replica_batch_stats
 from distkeras_tpu_torch.utils.device import resolve_device
 
 __all__ = ["generate", "beam_search", "Generator", "accept_prefix_length",
@@ -122,6 +122,13 @@ def _shard_prompt(mesh, prompt):
     i = mesh.coords(torch.distributed.get_rank())[axis]
     b = prompt.shape[0] // n
     return (i * b, (i + 1) * b, prompt.shape[0], group), prompt[i * b:(i + 1) * b]
+
+
+def _data_group(rows):
+    """The group of the ranks that decode other rows: an MoE layer routes
+    every step's tokens of the whole batch over it, as the reference's XLA
+    routes the sharded batch (None without a mesh)."""
+    return None if rows is None else rows[3]
 
 
 def _gather_rows(rows, x: torch.Tensor) -> torch.Tensor:
@@ -236,9 +243,11 @@ def generate(
     ``mesh``: batch-parallel decoding (reference ``mesh``), run by every
     rank of the mesh with the same arguments: the prompt splits over the
     mesh's ``dp`` axis (else its first; ``B`` must divide it), each rank
-    decodes its rows with no communication, and the rows are gathered
-    back to every rank. Each shard draws the whole batch's random numbers
-    and keeps its rows', so the tokens are the unsharded call's."""
+    decodes its rows (an MoE model routes each step's tokens of the whole
+    batch, a few small collectives a layer; anything else communicates
+    nothing), and the rows are gathered back to every rank. Each shard
+    draws the whole batch's random numbers and keeps its rows', so the
+    tokens are the unsharded call's."""
     dec, dec_cfg, params, prompt = _prepare(model, variables, prompt, max_new_tokens, device)
     rows, prompt = _shard_prompt(mesh, prompt)
     draw = None if rows is None else rows[:3]
@@ -253,7 +262,7 @@ def generate(
     def choose(logits):
         return greedy_ids(logits) if greedy else sample_rows(logits, temps, gen, top_k, draw)
 
-    with torch.inference_mode():
+    with torch.inference_mode(), cross_replica_batch_stats(_data_group(rows)):
         # Prefill: one forward over the whole prompt fills every cache.
         logits, cache = _step(dec, params, _empty_cache(dec_cfg, B, dev), prompt)
         tokens = [choose(logits)]
@@ -303,7 +312,7 @@ def beam_search(
     def gather(cache, rows):
         return {k: c[rows] if c.ndim > 0 else c for k, c in cache.items()}
 
-    with torch.inference_mode():
+    with torch.inference_mode(), cross_replica_batch_stats(_data_group(rows)):
         # Prefill on the un-replicated batch, then fan each item out to K beams.
         logp, cache = apply(_empty_cache(dec_cfg, B, dev), prompt)  # [B, V]
         V = logp.shape[-1]

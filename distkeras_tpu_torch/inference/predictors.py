@@ -44,7 +44,10 @@ class ModelPredictor(Predictor):
     under ``sp_impl="ring_stripe"``), and its logits are gathered over
     ``sp`` in natural token order, then over ``dp``. The mesh's other axes
     hold replicated weights, as the reference's predictor keeps them:
-    their ranks run the same rows."""
+    their ranks run the same rows. An MoE model routes each batch whole,
+    as the reference's XLA routes the sharded global batch: its rows over
+    dp and its columns over sp in the reference's row-major order
+    (:mod:`~distkeras_tpu_torch.ops.moe`)."""
 
     def __init__(
         self,
@@ -102,7 +105,10 @@ class ModelPredictor(Predictor):
             if pad:
                 chunk = np.concatenate([chunk, np.zeros((pad, *chunk.shape[1:]), chunk.dtype)])
             if self._ring is not None:
-                out = self._ring_rows(chunk, variables, device)
+                # An MoE layer routes the whole batch: its columns over sp
+                # (the model's ring), its rows over dp.
+                with cross_replica_batch_stats(group):
+                    out = self._ring_rows(chunk, variables, device)
                 if group is not None:
                     parts = [torch.empty_like(out) for _ in range(dp)]
                     torch.distributed.all_gather(parts, out, group=group)

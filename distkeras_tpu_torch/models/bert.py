@@ -34,11 +34,19 @@ with the residual kept in the compute dtype. A training apply returns the
 layers' summed load-balancing loss as ``{"aux_loss": scalar}``, the
 ``new_state`` the step folds into the objective (nothing else returns it).
 Expert parallelism (``ep_mesh``, a port field as ``tp_mesh`` is): each rank
-of the mesh's ep axis computes on its ``E/ep`` experts, the output summed
-over the axis inside the layer. Under a data-parallel step the routing takes
-the whole batch's seats and statistics
-(:func:`~distkeras_tpu_torch.models.core.cross_replica_batch_stats`), as
-the reference's XLA routes the global batch.
+of the mesh's ep axis computes on its ``E/ep`` experts; with ``tp_mesh`` each
+rank holds ``M/tp`` of every expert's hidden columns (``w_in`` ``[E/ep, D,
+M/tp]``, ``w_out`` ``[E/ep, M/tp, D]``, the reference's ``("expert", "ep")``
+and ``("mlp", "tp")`` rules), and the ranks' shares are summed inside the
+layer in one all-reduce over ep, tp or the joint ``(ep, tp)`` group of the
+one mesh (:func:`_moe_shards`). Under a data-parallel step
+(:func:`~distkeras_tpu_torch.models.core.cross_replica_batch_stats`) and
+under ``ring_mesh`` or ``seq_mesh`` (a rank's columns of the rows) the
+routing takes the whole batch's seats and statistics in the reference's
+row-major order over the global ``[B, S]`` (the striped one under
+``"ring_stripe"``), as its XLA routes the global batch
+(:mod:`~distkeras_tpu_torch.ops.moe`). Decode mode splits no sequence, so
+its routing has no sp part.
 
 Sequence parallelism (``ring_mesh``, ``ring_axis``, ``sp_impl``; reference
 ``bert.py:235-280``): every attention layer runs across the ranks of
@@ -210,11 +218,6 @@ class BertConfig:
             if self.ring_mesh is not None:
                 raise ValueError("BertConfig.seq_mesh and ring_mesh both split the sequence: "
                                  "give one of them")
-        if self.moe_experts > 0 and any(m is not None for m in (
-                self.tp_mesh, self.ring_mesh, self.seq_mesh)):
-            raise NotImplementedError(
-                "BertConfig.moe_experts with tp_mesh, ring_mesh or seq_mesh is not ported yet: "
-                "MoE with tensor or sequence parallelism is A12's remainder (ROADMAP.md §A)")
 
 
 def _tp_size(cfg: BertConfig) -> int:
@@ -245,6 +248,22 @@ def _ep(cfg: BertConfig):
         raise RuntimeError(f"BertConfig.ep_mesh with ep={n} needs a process group over its "
                            f"ranks (distkeras_tpu_torch.parallel.distributed.initialize)")
     return group, n
+
+
+def _moe_shards(cfg: BertConfig):
+    """The group whose ranks' MoE outputs add up to the layer's: the ep
+    group (:func:`_ep`), the tp group, or the joint ``(ep, tp)`` group of the
+    one mesh that holds both axes; None without either."""
+    group, n = _ep(cfg)
+    tp = _tp(cfg)
+    if tp is None:
+        return group
+    if n == 1:
+        return tp[2]
+    if cfg.ep_mesh is not cfg.tp_mesh:
+        raise ValueError("BertConfig.ep_mesh and tp_mesh must be the same mesh when both "
+                         "axes are above 1: the layer sums its experts' shares over both")
+    return cfg.ep_mesh.group(("ep", "tp"))
 
 
 def _all_reduce(x, group):
@@ -623,7 +642,12 @@ class EncoderLayer(nn.Module):
         if self.cfg.moe_experts > 0:
             # The float32 LayerNorm output in, float32 out; the residual
             # stays in the compute dtype (reference bert.py:442-444).
-            y, layer_aux = self.moe_mlp(self.ln_mlp(x.float()))
+            # Its shard group and sequence split are resolved here, as the
+            # attention's groups are: a mesh's groups are built collectively.
+            cfg = self.cfg
+            split = not cfg.decode and (cfg.ring_mesh is not None or cfg.seq_mesh is not None)
+            y, layer_aux = self.moe_mlp(self.ln_mlp(x.float()), shard_group=_moe_shards(cfg),
+                                        seq_ring=_seq_ring(cfg) if split else None)
             if aux is not None:
                 aux.append(layer_aux)
         else:

@@ -26,7 +26,14 @@ collectives are explicit:
   shard of the experts (:func:`distkeras_tpu_torch.models.bert.with_ep_mesh`,
   the sums over ep in the layer: :mod:`distkeras_tpu_torch.ops.moe`); the
   expert leaves stay split, as tp leaves do, and the ep ranks take the
-  same rows, so no gradient is averaged over ep;
+  same rows, so no gradient is averaged over ep. On a mesh with ``tp`` as
+  well an expert leaf is split along two dimensions over two axes
+  (``w_in`` ``[E/ep, D, M/tp]``): :func:`gather_whole`, the checkpoints and
+  the publisher gather it over the joint ``(ep, tp)`` group, which
+  :func:`sharded_train_state` builds on every rank. The routing takes the
+  whole batch: its data group is :class:`Sharded`'s ``stats_group`` (dp and
+  fsdp, BatchNorm's too), its sequence split the model's ``ring_mesh`` or
+  ``seq_mesh``;
 - the reduction axes (``dp``, ``fsdp`` and ``sp``): the other gradients
   and the metrics are averaged over the ranks that hold other rows or
   other columns. Every sp rank holds ``B·S/p`` tokens, so the mean of the
@@ -65,7 +72,7 @@ from distkeras_tpu_torch.models.bert import (
 from distkeras_tpu_torch.models.core import Model
 from distkeras_tpu_torch.ops.ring_flash import stripe_shard, stripe_unshard
 from distkeras_tpu_torch.parallel.distributed import axis_ring, process_index, sp_all_gather
-from distkeras_tpu_torch.parallel.mesh import Mesh, NamedSharding, shard_batch_spec
+from distkeras_tpu_torch.parallel.mesh import Mesh, NamedSharding, _spec_axes, shard_batch_spec
 from distkeras_tpu_torch.parallel.sharding import infer_variable_shardings, replicated
 from distkeras_tpu_torch.telemetry.spans import span
 from distkeras_tpu_torch.training.step import (
@@ -219,6 +226,9 @@ def sharded_train_state(model: Model, optimizer, mesh: Mesh, seed: int = 0,
     model_state = {k: v for k, v in local.items() if k not in trainable}
     for axis in mesh.axis_names:  # every rank builds the groups together
         mesh.group(axis)
+    for axes in dict.fromkeys(_leaf_axes(s) for s in shardings.values()):
+        if len(axes) > 1:  # a leaf split over several axes gathers over them
+            mesh.group(axes)
     if zero1 and mesh.shape.get("dp", 1) > 1 and mesh.group("dp") is not None:
         optimizer = zero1_optimizer(optimizer, mesh.group("dp"))
     state = TrainState(params, model_state, optimizer(list(params.values())), 0, int(seed),
@@ -226,26 +236,31 @@ def sharded_train_state(model: Model, optimizer, mesh: Mesh, seed: int = 0,
     return state, shardings
 
 
-def _axis(sharding: NamedSharding) -> tuple[int, str] | None:
-    """``(dim, axis)`` of a leaf split along one dimension over one axis;
-    None for a replicated leaf (an axis of size 1 splits nothing)."""
-    split = [(d, e) for d, e in enumerate(sharding.spec)
-             if e and not (isinstance(e, str) and sharding.mesh.shape[e] == 1)]
-    if not split:
-        return None
-    if len(split) > 1 or not isinstance(split[0][1], str):
-        raise NotImplementedError(f"a leaf split as {sharding.spec}: one dimension over one "
-                                  f"axis is supported")
-    return split[0]
+def _splits(sharding: NamedSharding) -> tuple[tuple[int, tuple[str, ...]], ...]:
+    """``((dim, axes), ...)``: each dimension a leaf is split along and the
+    axes it is split over (an axis of size 1 splits nothing); ``()`` for a
+    replicated leaf."""
+    out = []
+    for d, entry in enumerate(sharding.spec):
+        axes = tuple(a for a in _spec_axes(entry) if sharding.mesh.shape[a] > 1)
+        if axes:
+            out.append((d, axes))
+    return tuple(out)
+
+
+def _leaf_axes(sharding: NamedSharding) -> tuple[str, ...]:
+    """Every axis a leaf is split over, in the order of its dimensions
+    (``("ep", "tp")`` for an MoE ``w_in`` on a tp x ep mesh)."""
+    return tuple(a for _, axes in _splits(sharding) for a in axes)
 
 
 def _by_group(names, tensors: dict, shardings: dict):
-    """The split leaves of ``names`` grouped by (axis, dtype), in order."""
-    groups: dict[tuple[str, torch.dtype], list] = {}
+    """The split leaves of ``names`` grouped by (axes, dtype), in order."""
+    groups: dict[tuple[tuple[str, ...], torch.dtype], list] = {}
     for name in names:
-        split = _axis(shardings[name])
-        if split is not None:
-            groups.setdefault((split[1], tensors[name].dtype), []).append((name, split[0]))
+        axes = _leaf_axes(shardings[name])
+        if axes:
+            groups.setdefault((axes, tensors[name].dtype), []).append(name)
     return groups
 
 
@@ -258,26 +273,28 @@ def _members(group) -> list[int]:
 @torch.no_grad()
 def gather_whole(tensors: dict, shardings: dict, span_name: str = "gather_whole") -> dict:
     """Every leaf of ``tensors`` (this rank's parts) whole, without grad:
-    each split leaf gathered over its axis, one ``all_gather`` for each axis
-    and dtype. Every rank of the mesh calls this, with the same names in the
-    same order."""
+    each split leaf gathered over its axes (one axis, or the joint group of
+    several, as an MoE expert weight on a tp x ep mesh is split along two
+    dimensions), one ``all_gather`` for each set of axes and dtype. Every
+    rank of the mesh calls this, with the same names in the same order."""
     out = dict(tensors)
-    for (axis, _), leaves in _by_group(tensors, tensors, shardings).items():
-        mesh = shardings[leaves[0][0]].mesh
-        group = mesh.group(axis)
-        flat = torch.cat([tensors[name].reshape(-1) for name, _ in leaves])
-        parts = torch.empty(mesh.shape[axis] * flat.numel(), dtype=flat.dtype,
-                            device=flat.device)
+    for (axes, _), leaves in _by_group(tensors, tensors, shardings).items():
+        mesh = shardings[leaves[0]].mesh
+        group = mesh.group(axes)
+        n = math.prod(mesh.shape[a] for a in axes)
+        flat = torch.cat([tensors[name].reshape(-1) for name in leaves])
+        parts = torch.empty(n * flat.numel(), dtype=flat.dtype, device=flat.device)
         with span(span_name):
             torch.distributed.all_gather_into_tensor(parts, flat, group=group)
-        parts = parts.view(mesh.shape[axis], -1)
+        parts = parts.view(n, -1)
         for r, member in enumerate(_members(group)):
             offset = 0
-            for name, _ in leaves:
+            for name in leaves:
                 local = tensors[name]
                 if r == 0:
-                    shape = [s * (mesh.shape[axis] if d == _axis(shardings[name])[0] else 1)
-                             for d, s in enumerate(local.shape)]
+                    shape = list(local.shape)
+                    for d, split in _splits(shardings[name]):
+                        shape[d] *= math.prod(mesh.shape[a] for a in split)
                     out[name] = torch.empty(shape, dtype=local.dtype, device=local.device)
                 whole = out[name]
                 whole[shardings[name].index(whole.shape, member)] = parts[
@@ -315,9 +332,13 @@ class Sharded(DataParallel):
         """name -> axis of each leaf the step gathers whole."""
         out = {}
         for k in state.params:
-            split = _axis(state.shardings[k])
-            if split is not None and split[1] in _GATHERED:
-                out[k] = split[1]
+            axes = _leaf_axes(state.shardings[k])
+            if any(a in _GATHERED for a in axes):
+                if len(axes) > 1:
+                    raise NotImplementedError(
+                        f"{k} split as {state.shardings[k].spec}: a leaf the step gathers "
+                        f"whole is split over one axis")
+                out[k] = axes[0]
         return out
 
     def variables(self, state: TrainState):
@@ -339,17 +360,18 @@ class Sharded(DataParallel):
         keys = list(out)
         stacked = torch.stack([out[k].float() for k in keys])
         gathered = self._gathered(state)
-        for (axis, _), leaves in _by_group(gathered, state.params, state.shardings).items():
+        for ((axis,), _), leaves in _by_group(gathered, state.params,
+                                              state.shardings).items():
             group, n = mesh.group(axis), mesh.shape[axis]
             with span(f"{axis}_reduce_scatter"):
                 flat = torch.cat([params[name].grad[state.shardings[name].index(
                     params[name].shape, m)].reshape(-1) for m in _members(group)
-                    for name, _ in leaves])
+                    for name in leaves])
                 mine = torch.empty(flat.numel() // n, dtype=flat.dtype, device=flat.device)
                 torch.distributed.reduce_scatter_tensor(mine, flat, group=group)
                 mine.div_(n)
             offset = 0
-            for name, _ in leaves:
+            for name in leaves:
                 p = state.params[name]
                 p.grad = mine[offset:offset + p.numel()].view_as(p)
                 offset += p.numel()

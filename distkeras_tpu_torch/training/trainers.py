@@ -640,7 +640,12 @@ class SynchronousDistributedTrainer(Trainer):
     expert leaves stay split through the step, as tp leaves do, and every
     gradient is averaged over the data axes alone. Routing takes the whole
     global batch's seats and statistics, as the reference's XLA routes it.
-    ``ep`` with ``tp`` or ``sp`` is A12's remainder and refused. Only ``dp``
+    With ``tp`` as well each rank also holds ``M/tp`` of every expert's
+    hidden columns, and the layer sums its shares over the joint ``(ep,
+    tp)`` group; with ``sp`` (a ring model, or ``shard_sequence``) each rank
+    routes its columns in the reference's row-major order over the global
+    ``[B, S]`` (the striped one under ``"ring_stripe"``), the counts of the
+    same rows' other columns gathered over sp. Only ``dp``
     and ``fsdp`` carry the batch: on ``pp`` or ``ep`` every rank of a group
     trains the same rows, as the reference's trainer does (its batch spec
     names ``dp`` and ``fsdp`` alone). What ``train()`` returns, and what checkpoints hold,
@@ -663,10 +668,9 @@ class SynchronousDistributedTrainer(Trainer):
     for each save and saved as a plain one, over model-parallel weights
     too (:class:`_StepCheckpointer`). Only rank 0 publishes; with model
     axes it publishes the whole weights, which every rank gathers when a
-    publish is due (:class:`_ShardedPublish`). Not ported yet, and refused
-    naming its ``ROADMAP.md`` §A item: ``ep`` with ``tp`` or ``sp`` (A12's
-    remainder). ``sp`` with ``tp`` is ported: a ring model on a ``{sp, tp}``
-    mesh runs its attention over sp on its ``H/tp`` heads."""
+    publish is due (:class:`_ShardedPublish`). ``sp`` with ``tp`` is
+    ported: a ring model on a ``{sp, tp}`` mesh runs its attention over sp
+    on its ``H/tp`` heads."""
 
     def __init__(
         self,
@@ -712,18 +716,12 @@ class SynchronousDistributedTrainer(Trainer):
         self.resume = bool(resume)
 
     def _training_mesh(self) -> Mesh:
-        """The mesh to train over: refuses what is not ported yet (``ep``
-        with ``tp`` or ``sp``) and a mesh that leaves ranks out."""
+        """The mesh to train over: refuses a mesh that leaves ranks out."""
         world = process_count()
         mesh = self.mesh
         if mesh is None:
             mesh = best_mesh(self.num_workers if self.num_workers is not None else world)
         sizes = mesh.shape if isinstance(mesh, Mesh) else dict(mesh)
-        with_ep = {a: n for a, n in sizes.items() if a in ("tp", "sp") and n > 1}
-        if sizes.get("ep", 1) > 1 and with_ep:
-            raise ValueError(f"mesh axes {with_ep} with ep={sizes['ep']} are not ported yet: "
-                             f"expert parallelism with tensor or sequence parallelism is "
-                             f"A12's remainder (ROADMAP.md §A)")
         if not isinstance(mesh, Mesh):
             if math.prod(sizes.values()) > world:
                 raise ValueError(

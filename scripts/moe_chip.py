@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
-"""MoE and expert parallelism on the card, beside chip_smoke.py's phase 22.
+"""MoE and expert parallelism on the card, beside chip_smoke.py's phases 22
+and 25.
 
     python3 scripts/moe_chip.py phase22       # one card: phase 2's 22a shapes, then phase 22
+    python3 scripts/moe_chip.py phase25       # one card: phase 25 (MoE with tp and sp)
     python3 scripts/moe_chip.py cards         # four cards, one NCCL rank each
     python3 scripts/moe_chip.py cards --cpu   # the same over gloo on the CPU, a tiny model
 
@@ -16,8 +18,13 @@ each rank's ms per step and the ep_all_reduce span's share of it, the
 losses (finite, equal on every rank, within LOSS_RTOL of SingleTrainer's
 on rank 0), the replicated leaves equal, the launches (12 of K1-K3 and 1
 of K4-K6 a step), and the first step's gradients, gathered whole, against
-one process's on rank 0, within phase 17's bound. Exits non-zero when a
-check fails.
+one process's on rank 0, within phase 17's bound. ``cards`` then runs
+phase 25's 25a (``{"tp": 2, "ep": 2}``) and 25b (``{"sp": 2, "ep": 2}``
+under the XLA split) at the model's full depth of 12 layers, one NCCL rank
+a card, held to phase 25's checks (``chip_smoke.moe_tpsp_phase``).
+``phase25`` builds the kernels and runs phase 25 as ``chip_smoke.py`` does
+(four gloo ranks sharing the one card). Exits non-zero when a check
+fails.
 """
 
 from __future__ import annotations
@@ -56,6 +63,15 @@ def phase22() -> bool:
     return all(n > 0 for n in counts.values())
 
 
+def phase25() -> bool:
+    from distkeras_tpu_torch.utils.build import build_all
+
+    build_all()
+    counts = cs.moe_tpsp_phase()
+    cs.log(f"phase 25 launches {counts}")
+    return all(n > 0 for n in counts.values())
+
+
 def cards(cpu: bool) -> bool:
     if cpu:  # 22a's top-2 model: one of its 4 experts a rank
         backend, device, base = "gloo", "cpu", False
@@ -68,6 +84,11 @@ def cards(cpu: bool) -> bool:
     ranks = cs.dp_spawn(REPO, "ep4", backend, 4, "moe_ep_task", base=base, device=device)
     cs.moe_ep_report("ep=4", ranks, cs.moe_model(2, base=base)[1], not cpu,
                      "gloo on the CPU" if cpu else "one NCCL rank a card")
+    cs.log(f"ep=4: {time.perf_counter() - t0:.2f} s")
+    # 25a and 25b at full depth (the tiny model's is 2 layers).
+    cs.moe_tpsp_phase(REPO, cases=cs.MOE_TPSP_CASES[:2], base=base, layers=2 if cpu else 12,
+                      device=device, backend=backend,
+                      where="on the CPU" if cpu else "one rank a card")
     cs.log(f"ok, {time.perf_counter() - t0:.2f} s")
     return True
 
@@ -78,14 +99,14 @@ def main(argv) -> int:
         return 0 if cards(cpu=True) else 1
     import torch
 
-    if len(argv) != 1 or argv[0] not in ("phase22", "cards"):
+    if len(argv) != 1 or argv[0] not in ("phase22", "phase25", "cards"):
         print(__doc__, file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("moe_chip: no CUDA device", file=sys.stderr)
         return 2
     cs.log(f"card: {cs.card_line()}; torch {torch.__version__}")
-    run = {"phase22": phase22, "cards": lambda: cards(cpu=False)}[argv[0]]
+    run = {"phase22": phase22, "phase25": phase25, "cards": lambda: cards(cpu=False)}[argv[0]]
     return 0 if run() else 1
 
 

@@ -127,7 +127,8 @@ def test_later_slice_fields_raise(field, value):
     """The fields of earlier later-slice items are ported: ``ring_mesh``,
     ``tp_mesh`` (and MoE's ``ep_mesh``) take only a port ``Mesh``, and
     ``moe_experts`` builds MoE layers (``tests/test_torch_moe.py`` holds
-    them against the reference); MoE with tp or sp is A12's remainder."""
+    them against the reference), with ``tp_mesh`` and ``seq_mesh`` too
+    (``tests/test_torch_moe_tp_sp.py`` trains them)."""
     if field in ("ring_mesh", "tp_mesh"):
         with pytest.raises(TypeError, match=f"{field} must be a distkeras_tpu_torch Mesh"):
             port_bert.BertConfig(**{field: value})
@@ -139,5 +140,6 @@ def test_later_slice_fields_raise(field, value):
     assert {"layer_0.moe_mlp.router", "layer_0.moe_mlp.w_in"} <= set(names)
     assert not any("mlp_in" in k for k in names)
     from distkeras_tpu_torch.parallel.mesh import make_mesh
-    with pytest.raises(NotImplementedError, match="A12's remainder"):
-        port_bert.BertConfig(**{field: value}, tp_mesh=make_mesh({"tp": 1}, devices=[0]))
+    one = make_mesh({"tp": 1, "sp": 1}, devices=[0])
+    cfg = port_bert.BertConfig(**{field: value}, tp_mesh=one, seq_mesh=one)
+    assert port_bert._make(cfg, 16, "moe").module.state_dict().keys() == names.keys()

@@ -237,17 +237,17 @@ def test_sharded_train_state_on_one_rank_is_the_init(name):
 @pytest.mark.parametrize("kwargs, item", [
     pytest.param({"mesh": {"pp": 2}}, "needs 2 ranks but the process group has 1",
                  id="pp-A10d"),
-    pytest.param({"mesh": {"tp": 2, "ep": 2}}, "A12's remainder", id="ep-A12"),
+    pytest.param({"mesh": {"tp": 2, "ep": 2}}, "needs 4 ranks but the process group has 1",
+                 id="ep-A12"),
 ])
 def test_unported_axes_name_their_item(kwargs, item):
-    """The sync trainer refuses the axes of later items, naming each; the
-    sp axis is ported, the reference's XLA sequence split with it
-    (``tests/test_torch_xla_sp.py``).
-    The ep axis (A12) is ported; ep with tp or sp is A12's remainder.
-    The pp axis (A10d) is ported: the sync trainer trains replicated over
-    it, as the reference's does, so one process meets the rank count's
-    check instead (``tests/test_torch_pipeline_trainer.py`` trains it on 2
-    ranks)."""
+    """Every axis of the later items is ported, so the sync trainer refuses
+    none by name: the sp axis with the reference's XLA sequence split
+    (``tests/test_torch_xla_sp.py``); the ep axis (A12) with tp or sp too
+    (``tests/test_torch_moe_tp_sp.py``); the pp axis (A10d), over which the
+    sync trainer trains replicated, as the reference's does
+    (``tests/test_torch_pipeline_trainer.py`` trains it on 2 ranks). In one
+    process each such mesh meets the rank count's check instead."""
     from distkeras_tpu_torch import Dataset, SynchronousDistributedTrainer
 
     model = bert.bert_tiny_mlm(seq_len=16, vocab_size=64, dropout_rate=0.0)

@@ -26,6 +26,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from distkeras_tpu.data.dataset import Dataset as RefDataset
 from distkeras_tpu.models import bert as ref_bert
@@ -417,3 +418,89 @@ def test_port_init_draws_the_reference_distributions():
     for leaf, fan_in in (("router", 128), ("w_in", 8 * 128), ("w_out", 8 * 512)):
         t = state[f"layer_0.moe_mlp.{leaf}"]
         assert abs(t.std().item() - fan_in ** -0.5) < 0.1 * fan_in ** -0.5, leaf
+
+
+def _chunk_routes(x, router, p, top_k, factor, monkeypatch, bases="row"):
+    """The routing of each of ``p`` sp ranks' columns of ``x`` ``[B, S, D]``
+    (rank ``m`` holds columns ``m·S/p … (m+1)·S/p − 1``) in one process: the
+    sp collectives stand in for by the other chunks' per-row counts and gate
+    sums, computed here. ``bases="rank"``: the per-rank base a data group
+    gives (every choice of the ranks before this one first), in place of the
+    per-row one. Returns each rank's ``(dispatch, aux)``."""
+    from distkeras_tpu_torch.parallel.distributed import AxisRing
+
+    B, S, D = x.shape
+    s = S // p
+    chunks = [x[:, m * s:(m + 1) * s] for m in range(p)]
+
+    def counts(chunk):  # [B, k, E] per-row choice counts of one rank
+        gates = torch.softmax(chunk.reshape(-1, D).float() @ router, -1)
+        first = F.one_hot(gates.argmax(-1), E).float()
+        picks = [first]
+        if top_k == 2:
+            picks.append(F.one_hot((gates * (1 - first)).argmax(-1), E).float())
+        return torch.stack([o.view(B, s, E).sum(1) for o in picks], 1), gates.sum(0)
+
+    rows, probs = zip(*(counts(c) for c in chunks))
+    if bases == "row":
+        monkeypatch.setattr(moe, "_gather", lambda t, group, n: torch.stack(rows))
+    monkeypatch.setattr(moe, "_sum_prob", lambda prob, group, ring: sum(probs))
+    out = []
+    for m, chunk in enumerate(chunks):
+        ring = AxisRing(p, m, group="sp")
+        if bases == "rank":  # every row of the ranks before, then this rank's
+            ahead = sum((rows[r].sum(0) for r in range(m)), torch.zeros(top_k, E))
+            total = sum(r.sum(0) for r in rows)
+            monkeypatch.setattr(moe, "_row_bases", lambda r, g, q, a=ahead, t=total: (
+                a[None] + torch.cumsum(r, 0) - r, t))
+        dispatch, _, _, aux = moe._route(chunk.reshape(-1, D), router, E, top_k, factor,
+                                         None, ring, rows=B)
+        out.append((dispatch.view(B, s, E, -1), aux))
+    return out
+
+
+@TOPK
+@pytest.mark.parametrize("stripe", [False, True], ids=["contiguous", "striped"])
+def test_column_chunks_with_row_bases_seat_the_whole_batch(top_k, stripe, monkeypatch):
+    """A ``[B, S]`` batch split into ``p`` column chunks (sp ranks), each
+    routed with per-row bases (the choices of every earlier row on every
+    rank, then of its row on the ranks before it), seats every assignment
+    where the whole batch's routing seats it, exactly: the reference's
+    row-major order over the global ``[B, S]``. Striped: the chunks of the
+    striped sequence against the whole striped sequence, the order the
+    reference routes its striped trunk in. The capacity (0.5) drops
+    assignments, so the order decides which. The per-rank base a data group
+    uses (rank order) seats them elsewhere."""
+    from distkeras_tpu_torch.ops.ring_flash import stripe_shard
+
+    p, B, S = 4, 3, 16
+    gen = torch.Generator().manual_seed(5)
+    x = torch.randn(B, S, D, generator=gen)
+    router = torch.randn(D, E, generator=gen)
+    if stripe:
+        x = stripe_shard(x, p, 1)
+    whole, _, _, whole_aux = moe._route(x.reshape(-1, D), router, E, top_k, 0.5, None,
+                                        rows=B)
+    whole = whole.view(B, S, E, -1)
+    assert 0 < whole.sum() < B * S * top_k  # some assignments find no seat
+    chunks = _chunk_routes(x, router, p, top_k, 0.5, monkeypatch)
+    got = torch.cat([d for d, _ in chunks], dim=1)
+    assert torch.equal(got, whole)
+    for _, aux in chunks:
+        assert aux.item() == pytest.approx(whole_aux.item(), rel=1e-6)
+    by_rank = torch.cat([d for d, _ in _chunk_routes(x, router, p, top_k, 0.5, monkeypatch,
+                                                     bases="rank")], dim=1)
+    assert not torch.equal(by_rank, whole)
+
+
+def test_row_bases_without_a_split_are_the_rank_order():
+    """Rows on one rank with no data group: each row's base is the count of
+    the rows before it, so routing ``B`` rows at once equals routing the
+    flattened ``B·S`` tokens as one row."""
+    gen = torch.Generator().manual_seed(6)
+    tokens = torch.randn(4 * 8, D, generator=gen)
+    router = torch.randn(D, E, generator=gen)
+    for top_k in (1, 2):
+        by_row = moe._route(tokens, router, E, top_k, 0.5, None, rows=4)
+        flat = moe._route(tokens, router, E, top_k, 0.5, None)
+        assert torch.equal(by_row[0], flat[0]) and torch.equal(by_row[3], flat[3])

@@ -39,6 +39,7 @@ from distkeras_tpu.models import bert as ref_bert
 from distkeras_tpu.parallel.mesh import make_mesh as ref_make_mesh
 import distkeras_tpu_torch as dk
 from distkeras_tpu_torch.models import bert
+from distkeras_tpu_torch.parallel.sharding import infer_variable_shardings
 from distkeras_tpu_torch.utils.bridge import params_from_jax
 from torch_dp_worker import moe_model, spawn_ranks, with_weights
 from torch_time_limit import time_limited
@@ -278,17 +279,24 @@ def test_mesh_predictor_routes_the_whole_batch(runs):
 
 
 def test_refusals():
-    """ep with tp or sp is A12's remainder; the pipe's ep checks give the
-    reference's messages."""
+    """ep with tp or sp is ported (``tests/test_torch_moe_tp_sp.py`` trains
+    it): in one process such a mesh meets the rank count's check, and an
+    MoE ``BertConfig`` with ``tp_mesh`` builds, its expert leaves split
+    over ep and tp; the pipe's ep checks give the reference's messages."""
     model = with_weights(moe_model(_config(1)), _init("sync", 1))
     ids = np.zeros((8, SEQ), np.int32)
     data = dk.Dataset.from_arrays(features=ids, label=ids)
     for mesh in ({"tp": 2, "ep": 2}, {"sp": 2, "ep": 2}):
         tr = dk.SynchronousDistributedTrainer(model, mesh=mesh, device="cpu")
-        with pytest.raises(ValueError, match="A12's remainder"):
+        with pytest.raises(ValueError, match="needs 4 ranks but the process group has 1"):
             tr.train(data)
-    with pytest.raises(NotImplementedError, match="A12's remainder"):
-        bert.BertConfig(moe_experts=4, tp_mesh=dk.parallel.make_mesh({"tp": 1}, devices=[0]))
+    mesh = dk.parallel.make_mesh({"tp": 2, "ep": 2}, devices=[0, 1, 2, 3])
+    cfg = bert.BertConfig(moe_experts=4, tp_mesh=mesh)
+    shardings = infer_variable_shardings(
+        mesh, bert._make(cfg, SEQ, "moe").module.state_dict(), bert.param_axes)
+    assert shardings["layer_0.moe_mlp.w_in"].spec == ("ep", None, "tp")
+    assert shardings["layer_0.moe_mlp.w_out"].spec == ("ep", "tp", None)
+    assert shardings["layer_0.moe_mlp.router"].is_replicated
     ref_model, plain = _ref_model(1), with_weights(moe_model({**_config(1), "experts": 0}), {})
 
     def both(ref_call, port_call):

@@ -289,8 +289,8 @@ def test_ulysses_with_tp_needs_local_heads_to_divide():
 
 def test_seq_mesh_checks():
     """BertConfig.seq_mesh (the port's field for the XLA split) takes a
-    port Mesh with an sp axis, and not together with ring_mesh; MoE with
-    it is A12's remainder."""
+    port Mesh with an sp axis, and not together with ring_mesh; an MoE
+    config takes it too (``tests/test_torch_moe_tp_sp.py`` trains one)."""
     from distkeras_tpu_torch.models import bert
     from distkeras_tpu_torch.parallel.mesh import make_mesh
 
@@ -301,6 +301,7 @@ def test_seq_mesh_checks():
         bert.BertConfig(seq_mesh=make_mesh({"tp": 2}, devices=[0, 1]))
     with pytest.raises(ValueError, match="give one of them"):
         bert.BertConfig(seq_mesh=mesh, ring_mesh=mesh)
-    with pytest.raises(NotImplementedError, match="A12's remainder"):
-        bert.BertConfig(seq_mesh=mesh, moe_experts=4)
+    assert bert.BertConfig(seq_mesh=mesh, moe_experts=4).seq_mesh is mesh
+    with pytest.raises(ValueError, match="give one of them"):
+        bert.BertConfig(seq_mesh=mesh, ring_mesh=mesh, moe_experts=4)
     assert bert.BertConfig(seq_mesh=mesh).seq_mesh is mesh

@@ -5,9 +5,10 @@
 ``tests/test_torch_data_parallel.py``, ``tests/test_torch_model_parallel.py``,
 ``tests/test_torch_sequence_parallel.py``, ``tests/test_torch_ring_attention.py``,
 ``tests/test_torch_pipeline.py``, ``tests/test_torch_pipeline_trainer.py``,
-``tests/test_torch_sharded_serving.py``, ``tests/test_torch_pp_serving.py``
-and ``tests/test_torch_moe_ep.py`` start WORLD of these. They join one gloo process group through a file
-store in WORKDIR, read the scenarios' inputs from ``WORKDIR/inputs.pkl``
+``tests/test_torch_sharded_serving.py``, ``tests/test_torch_pp_serving.py``,
+``tests/test_torch_moe_ep.py`` and ``tests/test_torch_moe_tp_sp.py`` start
+WORLD of these. They join one gloo process group through a file store in
+WORKDIR, read the scenarios' inputs from ``WORKDIR/inputs.pkl``
 (weights bridged from the reference's init, and the data), run every
 scenario in order and write what each produced to
 ``WORKDIR/result-RANK.pkl``. The worker imports the port and torch only.
@@ -77,9 +78,14 @@ def pp_model(cfg: dict) -> Model:
 
 def moe_model(cfg: dict) -> Model:
     """:func:`pp_model`'s bert-family model with every MLP an MoE block of
-    ``cfg["experts"]`` experts, top ``cfg["top_k"]``."""
+    ``cfg["experts"]`` experts, top ``cfg["top_k"]``; causal with
+    ``cfg["causal"]``, and with ``cfg["ring_mesh"]`` its attention over the
+    ``sp`` axis of ``make_mesh(cfg["ring_mesh"])`` by ``cfg["sp_impl"]``."""
+    ring = cfg.get("ring_mesh")
     config = dataclasses.replace(pp_model(cfg).config, moe_experts=cfg["experts"],
-                                 moe_top_k=cfg["top_k"])
+                                 moe_top_k=cfg["top_k"], causal=cfg.get("causal", False),
+                                 ring_mesh=make_mesh(ring) if ring else None,
+                                 sp_impl=cfg.get("sp_impl", "ring"))
     return bert._make(config, cfg["seq"], "bert_moe")
 
 
@@ -349,6 +355,29 @@ def pp_engine(case: dict, workdir: str) -> dict:
     return out
 
 
+class _record_routes:
+    """While open, the dispatch tensors ``[T, E, C]`` of the first ``n``
+    MoE routings (``ops/moe.py _route``) this rank makes; :meth:`close`
+    stops and returns them."""
+
+    def __init__(self, n: int):
+        from distkeras_tpu_torch.ops import moe
+
+        self.moe, self.real, self.seen = moe, moe._route, []
+        if n:
+            def recording(*args, **kwargs):
+                out = self.real(*args, **kwargs)
+                if len(self.seen) < n:
+                    self.seen.append(out[0].detach().numpy().copy())
+                return out
+
+            moe._route = recording
+
+    def close(self) -> list:
+        self.moe._route = self.real
+        return self.seen
+
+
 def pp_train(case: dict, workdir: str) -> dict:
     """``PipelineTrainer`` runs (``c["kwargs"]``, the mesh among them) of a
     bert-family model from bridged weights; and the sync trainer's
@@ -369,13 +398,19 @@ def pp_train(case: dict, workdir: str) -> dict:
         cls = dk.SynchronousDistributedTrainer if c.get("trainer") == "sync" else \
             dk.PipelineTrainer
         trainer = cls(model, device="cpu", **kwargs)
+        routes = _record_routes(c.get("routes", 0))
         pub = None
         if c.get("publish"):
             pub = WeightPublisher(os.path.join(workdir, f"{name}-pub"),
                                   PublishPolicy(every_steps=c["publish"]))
             trainer.publisher = pub
-        trained = trainer.train(data.take(c["rows"]) if "rows" in c else data)
+        try:
+            trained = trainer.train(data.take(c["rows"]) if "rows" in c else data)
+        finally:
+            seen = routes.close()
         out[name] = {"history": trainer.history, "weights": host(trained.variables)}
+        if seen:
+            out[name]["routes"] = seen
         if "checkpoint_dir" in kwargs:
             out[name]["saved_steps"] = sorted(
                 int(n) for n in os.listdir(kwargs["checkpoint_dir"]) if n.isdigit())
@@ -388,9 +423,13 @@ def pp_train(case: dict, workdir: str) -> dict:
 
 
 def gpt_model(cfg: dict) -> Model:
-    """gpt_tiny at ``cfg``'s length and vocabulary, in float32."""
+    """gpt_tiny at ``cfg``'s length and vocabulary, in float32 (its MLPs MoE
+    blocks of ``cfg["experts"]`` experts at top ``cfg["top_k"]`` when
+    given)."""
     base = bert.gpt_tiny(seq_len=cfg["seq"], vocab_size=cfg["vocab"])
-    return bert._make(dataclasses.replace(base.config, dtype=torch.float32, dropout_rate=0.0),
+    return bert._make(dataclasses.replace(base.config, dtype=torch.float32, dropout_rate=0.0,
+                                          moe_experts=cfg.get("experts", 0),
+                                          moe_top_k=cfg.get("top_k", 1)),
                       cfg["seq"], "gpt_tiny")
 
 
