@@ -11,19 +11,24 @@ of the kernels are compared by one script on one card.
 Phases, each of which must pass or the script exits non-zero:
 
 1. Build the hand-written kernels from the sources in this checkout (one
-   nvcc per CUDA C++ source, all at once: the flash-attention forward, and
-   its dQ and dK/dV kernels; Triton's JIT for the fused cross-entropy
-   forward, stats and grad kernels) and print the build time and each CUDA
-   kernel's registers and spills (K1, K2 and K3 must not spill).
+   nvcc per CUDA C++ source, all at once: the flash-attention forward, its
+   dQ and dK/dV kernels, and the fused cross-entropy forward and stats
+   kernels; Triton's JIT for the fused cross-entropy grad kernel) and print
+   the build time and each CUDA kernel's registers and spills (K1-K5 must
+   not spill).
 2. Hold each kernel against its plain PyTorch version on the card, at the
    shapes the main path gives it, and time kernel, plain version and the
    one PyTorch call that computes the same function (scaled_dot_product_attention
    and its backward, with a float additive mask under the strict causal mask;
    cross_entropy and its backward, logsumexp), with the bound the card's
-   published rates put on it, and the flash wrappers' host time per call;
+   published rates put on it, and each wrapper's host time per call;
    K1-K3 also at a tp rank's shape (phase 18b) and at a ring hop's (phase
    19: B=8 S=256 H=12 D=64, causal, full and strict causal); K4-K6 also at
-   a 1F1B microbatch's logits (phase 20d: T=1024 V=30522 float32).
+   a 1F1B microbatch's logits (phase 20d: T=1024 V=30522 float32), at MoE's
+   (phase 22a: T=2048 V=1024), and at the edges of K4's and K5's schedules:
+   [4096, 50257] bf16 (rows 2-byte aligned), one row, T=37 V=1000 with
+   int32 labels, a row-strided view that starts off 16 bytes, and int64
+   labels outside [0, V), some past 2^31.
 3. Inference at full width: bert_base_mlm (seq 128, flash attention on,
    random weights from a seed) through ModelPredictor (64 rows, batch 32)
    and Trainer.evaluate with fused_categorical_crossentropy (512 rows,
@@ -421,6 +426,16 @@ XENT_STATS_RTOL = 1e-4  # f32 sum of exps by different code, in another order
 # of g, lies far below the smallest entries here, so every column is checked.
 XENT_GRAD_RTOL = {"float32": 1e-4, "bfloat16": 1.6e-2}
 XENT_GRAD_ATOL = 1e-12
+# Phase 2's K4-K6 cases at the edges of K4's and K5's two schedules, after
+# the main path's shapes: (T, V, dtype name) and xent_inputs' options.
+XENT_EDGES = (
+    ((4096, 50257, "bfloat16"), {}),  # wide rows of 100514 bytes, 2-byte aligned
+    ((1, 30522, "float32"), {}),  # one row: a grid of one block
+    ((37, 1000, "float32"), {"labels": "int32"}),  # narrow, ragged: the last block part-full
+    ((1024, 30522, "bfloat16"), {"pad": 7}),  # rows start 6 bytes past 16, stride 61058 bytes
+    ((2048, 1024, "float32"), {"labels": "int64 out of range"}),
+    ((512, 30522, "float32"), {"labels": "int64 out of range"}),
+)
 # One training step at dropout 0 from the same weights, on the card (bf16)
 # and on the CPU (bf16, and float32 as the exact step): each gradient's
 # card-CPU difference, in norm, within 5% of the gradient's norm or within 3x
@@ -541,15 +556,21 @@ def attended_pairs(S: int, causal: bool, shift: int) -> int:
 
 def ptxas_summary(report: str) -> dict:
     """Each kernel's registers and spills from ``nvcc -Xptxas -v`` output:
-    {"flash_dkv_kernel<64>": "168 registers, 0 bytes spill stores, ..."}."""
+    {"flash_dkv_kernel<64>": "168 registers, 0 bytes spill stores, ...",
+    "xent_rows_kernel<bf16, 0, int64, 256>": ...} (template arguments read from
+    the mangled name: ints, bools as 0/1, the element and label types)."""
     import re
 
+    types = {"f": "float", "13__nv_bfloat16": "bf16", "6__half": "half", "i": "int32",
+             "l": "int64"}
     out, kernel = {}, None
     for line in report.splitlines():
-        m = re.search(r"(?:entry function|Function properties for) .*?\d([a-z_]+_kernel)ILi(\d+)E",
+        m = re.search(r"(?:entry function|Function properties for) .*?\d([a-z_]+_kernel)I(.*?)E+v",
                       line)
         if m:
-            kernel = f"{m.group(1)}<{m.group(2)}>"
+            args = [a or b or types[t] for a, b, t in re.findall(
+                r"Li(\d+)E?|Lb([01])E?|(13__nv_bfloat16|6__half|[fil])", m.group(2))]
+            kernel = f"{m.group(1)}<{', '.join(args)}>"
             continue
         m = re.search(r"(\d+ bytes spill stores, \d+ bytes spill loads)|Used (\d+ registers)", line)
         if m and kernel:
@@ -601,14 +622,38 @@ def flash_case(B, S, H, D, causal, shift, gen):
     return case
 
 
-def xent_case(T, V, dtype, gen):
+def xent_inputs(T, V, dtype, gen, labels="int64", pad=0):
+    """Seeded ``[T, V]`` logits (``pad`` > 0: the view at column 3 of a
+    ``[T, V + pad]`` buffer, so that rows start off 16 bytes) and labels
+    ``"int64"`` or ``"int32"`` in ``[0, V)``, or ``"int64 out of range"`` in
+    ``[-2, V + 2)`` with every 7th moved up by 2^32 (picking no column, not
+    the column it would wrap to in int32); and the case's name."""
+    import torch
+
+    dtype = getattr(torch, dtype) if isinstance(dtype, str) else dtype
+    logits = (torch.randn(T, V + pad, device="cuda", generator=gen) * 3).to(dtype)
+    if pad:
+        logits = logits[:, 3:3 + V]
+    lo, hi = (-2, V + 2) if labels.endswith("out of range") else (0, V)
+    y = torch.randint(lo, hi, (T,), device="cuda", generator=gen,
+                      dtype=getattr(torch, labels.split()[0]))
+    if labels.endswith("out of range"):
+        y[::7] += 2**32
+    shape = f"T={T} V={V} {str(dtype).split('.')[-1]}"
+    if pad:
+        shape += f" (view at column 3 of [{T}, {V + pad}])"
+    if labels != "int64":
+        shape += f", {labels} labels"
+    return logits, y, shape
+
+
+def xent_case(T, V, dtype, gen, labels="int64", pad=0):
     import torch
     import torch.nn.functional as F
 
     from distkeras_tpu_torch.ops.fused_xent import xent_forward, xent_forward_reference
 
-    logits = (torch.randn(T, V, device="cuda", generator=gen) * 3).to(dtype)
-    labels = torch.randint(0, V, (T,), device="cuda", generator=gen)
+    logits, labels, shape = xent_inputs(T, V, dtype, gen, labels, pad)
     got = xent_forward(logits, labels)
     want = xent_forward_reference(logits, labels)
     torch.cuda.synchronize()
@@ -617,14 +662,18 @@ def xent_case(T, V, dtype, gen):
     check(math.isfinite(err) and rel <= XENT_RTOL, f"xent relative error {rel} > {XENT_RTOL}")
     ms = cuda_ms(lambda: xent_forward(logits, labels), 20)
     plain_ms = cuda_ms(lambda: xent_forward_reference(logits, labels), 3)
-    library_ms = cuda_ms(lambda: F.cross_entropy(logits, labels, reduction="none"), 20)
+    host = host_us(lambda: xent_forward(logits, labels))
+    # cross_entropy takes int64 targets in [0, V) (or its ignore_index).
+    target = labels.long().clamp(0, V - 1)
+    library_ms = cuda_ms(lambda: F.cross_entropy(logits, target, reduction="none"), 20)
     nbytes = T * V * logits.element_size() + T * labels.element_size() + T * 4
     bound, by = bound_ms(nbytes, 4.0 * T * V, F32_FLOPS)
-    case = {"shape": f"T={T} V={V} {str(dtype).split('.')[-1]}", "max_abs_err": err,
-            "max_rel_err": rel, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-            "bound_by": by, "library_ms": library_ms}
-    log(f"  K4 {case['shape']}: err {err:.3g} rel {rel:.3g} kernel {ms:.4f} ms "
-        f"plain {plain_ms:.4f} ms library {library_ms:.4f} ms bound {bound:.4f} ms ({by})")
+    case = {"shape": shape, "max_abs_err": err, "max_rel_err": rel, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by, "library_ms": library_ms,
+            "host_us": host}
+    log(f"  K4 {shape}: err {err:.3g} rel {rel:.3g} kernel {ms:.4f} ms "
+        f"plain {plain_ms:.4f} ms library {library_ms:.4f} ms bound {bound:.4f} ms ({by}), "
+        f"host {host:.2f} us a call")
     return case
 
 
@@ -686,7 +735,7 @@ def flash_bwd_cases(B, S, H, D, causal, shift, gen):
     return cases["K2"], cases["K3"]
 
 
-def xent_bwd_cases(T, V, dtype, gen):
+def xent_bwd_cases(T, V, dtype, gen, labels="int64", pad=0):
     """K5 and K6; the yardsticks are torch.logsumexp for K5 and the backward
     of F.cross_entropy (forward+backward less forward) for K5 and K6
     together."""
@@ -696,8 +745,7 @@ def xent_bwd_cases(T, V, dtype, gen):
     from distkeras_tpu_torch.ops.fused_xent import (
         xent_grad, xent_grad_reference, xent_stats, xent_stats_reference)
 
-    logits = (torch.randn(T, V, device="cuda", generator=gen) * 3).to(dtype)
-    labels = torch.randint(0, V, (T,), device="cuda", generator=gen)
+    logits, labels, shape = xent_inputs(T, V, dtype, gen, labels, pad)
     g = torch.full((T,), 1.0 / T, device="cuda")
     m, s = xent_stats(logits)
     want_m, want_s = xent_stats_reference(logits)
@@ -719,10 +767,10 @@ def xent_bwd_cases(T, V, dtype, gen):
 
     lse_ms = cuda_ms(lambda: torch.logsumexp(logits, dim=-1), 10)
     x = logits.detach().requires_grad_()
-    ce_fwd_ms = cuda_ms(lambda: F.cross_entropy(x, labels), 5)
-    ce_both_ms = cuda_ms(lambda: torch.autograd.grad(F.cross_entropy(x, labels), (x,)), 5)
+    target = labels.long().clamp(0, V - 1)
+    ce_fwd_ms = cuda_ms(lambda: F.cross_entropy(x, target), 5)
+    ce_both_ms = cuda_ms(lambda: torch.autograd.grad(F.cross_entropy(x, target), (x,)), 5)
     es = logits.element_size()
-    shape = f"T={T} V={V} {str(dtype).split('.')[-1]}"
     cases = {}
     for name, fn, plain, nbytes, ops, err, library_ms, library in (
         ("K5", lambda: xent_stats(logits), lambda: xent_stats_reference(logits),
@@ -735,12 +783,14 @@ def xent_bwd_cases(T, V, dtype, gen):
     ):
         ms = cuda_ms(fn, 10)
         plain_ms = cuda_ms(plain, 3)
+        host = host_us(fn)
         bound, by = bound_ms(nbytes, ops, F32_FLOPS)
         cases[name] = {"shape": shape, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                        "bound_ms": bound, "bound_by": by, "library_ms": library_ms,
-                       "library": library}
+                       "library": library, "host_us": host}
         log(f"  {name} {shape}: err {err:.3g} kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
-            f"library {library_ms:.4f} ms ({library}) bound {bound:.4f} ms ({by})")
+            f"library {library_ms:.4f} ms ({library}) bound {bound:.4f} ms ({by}), "
+            f"host {host:.2f} us a call")
         torch.cuda.empty_cache()
     cases["K6"]["max_rel_err"] = d_rel
     log(f"  K6 {shape}: largest error relative to the element {d_rel:.3g} (tolerance {rtol})")
@@ -5729,15 +5779,16 @@ def main(argv=None) -> int:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     q = torch.randn(1, 64, 64, device="cuda", generator=gen).bfloat16().requires_grad_()
     flash_forward(q, q, q)[0].sum().backward()  # K1, K2, K3
-    for dt in (torch.float32, torch.bfloat16):  # Triton compiles per dtype: K4, K5, K6
+    for dt in (torch.float32, torch.bfloat16):  # K4, K5; Triton compiles K6 per dtype (int64 labels)
         x = torch.zeros(2, 8, device="cuda", dtype=dt, requires_grad=True)
         fused_softmax_xent(x, torch.zeros(2, dtype=torch.long, device="cuda")).backward()
     torch.cuda.synchronize()
     log(f"phase 1: kernels built and loaded in {time.perf_counter() - t0:.2f} s")
     for name, rep in reports.items():
+        check(not rep or ptxas_summary(rep), f"{name}: no kernel found in the ptxas report")
         for kernel, info in ptxas_summary(rep).items():
             log(f"  {name}: {kernel}: {info}")
-            if root == REPO and kernel.startswith("flash_"):  # K1-K3
+            if root == REPO and kernel.startswith(("flash_", "xent_")):  # K1-K5
                 check("0 bytes spill stores" in info, f"{kernel} spills: {info}")
 
     if POOL is not None:
@@ -5756,7 +5807,8 @@ def main(argv=None) -> int:
           xent_case(4096, 30522, torch.bfloat16, gen),
           xent_case(4096, 50257, torch.float32, gen),
           xent_case(1024, 30522, torch.float32, gen),  # a 1F1B microbatch (phase 20d)
-          xent_case(2048, 1024, torch.float32, gen)]  # bert_tiny_moe_mlm (phase 22a)
+          xent_case(2048, 1024, torch.float32, gen),  # bert_tiny_moe_mlm (phase 22a)
+          *(xent_case(*case, gen, **kw) for case, kw in XENT_EDGES)]
     k23 = [flash_bwd_cases(32, 128, 12, 64, False, 0, gen),
            flash_bwd_cases(8, 512, 12, 64, True, 0, gen),
            flash_bwd_cases(8, 512, 12, 64, True, 1, gen),
@@ -5769,7 +5821,8 @@ def main(argv=None) -> int:
            xent_bwd_cases(4096, 30522, torch.bfloat16, gen),
            xent_bwd_cases(4096, 50257, torch.float32, gen),
            xent_bwd_cases(1024, 30522, torch.float32, gen),
-           xent_bwd_cases(2048, 1024, torch.float32, gen)]
+           xent_bwd_cases(2048, 1024, torch.float32, gen),
+           *(xent_bwd_cases(*case, gen, **kw) for case, kw in XENT_EDGES)]
     torch.cuda.empty_cache()
     phase2 = {"flash_attention_fwd": k1, "flash_attention_dq": [c[0] for c in k23],
               "flash_attention_dkv": [c[1] for c in k23], "fused_xent_fwd": k4,
@@ -5870,8 +5923,9 @@ def main(argv=None) -> int:
          f"{flash_src}:214"),
         ("flash_attention_dkv", "cuda", "distkeras_tpu_torch/csrc/flash_attention_bwd.cu",
          f"{flash_src}:238"),
-        ("fused_xent_fwd", "triton", "distkeras_tpu_torch/ops/fused_xent.py", f"{xent_src}:107"),
-        ("fused_xent_stats", "triton", "distkeras_tpu_torch/ops/fused_xent.py",
+        ("fused_xent_fwd", "cuda", "distkeras_tpu_torch/csrc/fused_xent_fwd.cu",
+         f"{xent_src}:107"),
+        ("fused_xent_stats", "cuda", "distkeras_tpu_torch/csrc/fused_xent_fwd.cu",
          f"{xent_src}:127"),
         ("fused_xent_grad", "triton", "distkeras_tpu_torch/ops/fused_xent.py",
          f"{xent_src}:145"),

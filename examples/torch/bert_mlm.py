@@ -80,8 +80,17 @@ def main(argv=None):
         print(f"bert-mlm {args.mode}: steps={len(hist)} "
               f"loss {hist[0]['loss']:.3f} -> {hist[-1]['loss']:.3f} "
               f"wall={time.time() - t0:.1f}s")
-    return {"steps": len(hist), "first": float(hist[0]["loss"]),
-            "last": float(hist[-1]["loss"])}
+    out = {"steps": len(hist), "first": float(hist[0]["loss"]),
+           "last": float(hist[-1]["loss"])}
+    if args.mode == "dynsgd":
+        # The history holds each worker's steps in turn, so its first and last
+        # rows are two workers' losses on other batches: report each
+        # worker's own first and last step.
+        losses = {}
+        for row in hist:
+            losses.setdefault(int(row["worker"]), []).append(float(row["loss"]))
+        out["workers"] = {w: (l[0], l[-1]) for w, l in sorted(losses.items())}
+    return out
 
 
 if __name__ == "__main__":

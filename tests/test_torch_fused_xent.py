@@ -9,6 +9,10 @@ same float32 logsumexp summed in another order); 1e-5 too for bfloat16
 logits, since both sides widen them to float32 before any arithmetic.
 """
 
+import importlib.util
+import os
+import sys
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -19,13 +23,18 @@ import torch
 from distkeras_tpu.ops.losses import LOSSES as REF_LOSSES
 from distkeras_tpu.ops.losses import get_optimizer as ref_get_optimizer
 from distkeras_tpu.ops.pallas.fused_xent import fused_softmax_xent as ref_xent
+from distkeras_tpu_torch.ops import fused_xent
 from distkeras_tpu_torch.ops.fused_xent import (
+    _xent_plan,
     fused_softmax_xent,
     xent_forward,
     xent_forward_reference,
     xent_grad,
+    xent_grad_reference,
     xent_stats,
+    xent_stats_reference,
 )
+from distkeras_tpu_torch.utils import build
 from distkeras_tpu_torch.ops.losses import LOSSES, get_loss, get_optimizer
 
 RTOL = 1e-5
@@ -127,12 +136,66 @@ def test_xent_stats_and_grad_plain_versions():
     np.testing.assert_allclose(d.numpy(), p * g[:, None], rtol=1e-5, atol=1e-7)
 
 
+def test_cpu_tensors_take_the_plain_version(monkeypatch):
+    """On CPU tensors K4, K5 (and the backward through them) and K6 run
+    their plain versions: no kernel is looked up, no library is built or
+    loaded (there is no nvcc here), Triton is not imported, nothing is
+    counted; int32 and int64 labels give the same result."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CPU tensor reached a kernel")
 
-def test_cpu_tensors_take_the_plain_version():
+    monkeypatch.setattr(fused_xent, "_kernel", refuse)
+    monkeypatch.setattr(fused_xent, "_triton_grad_kernel", refuse)
+    monkeypatch.setattr(build, "load_library", refuse)
+    monkeypatch.setitem(sys.modules, "triton", None)
     logits, labels = (torch.from_numpy(a) for a in _data(6, 9, 33))
-    before = xent_forward.launches
-    assert torch.equal(xent_forward(logits, labels), xent_forward_reference(logits, labels))
-    assert xent_forward.launches == before
+    g = torch.full((9,), 1 / 9)
+    wrappers = (xent_forward, xent_stats, xent_grad)
+    before = [w.launches for w in wrappers]
+    want = xent_forward_reference(logits, labels)
+    for y in (labels, labels.long()):
+        assert torch.equal(xent_forward(logits, y), want)
+    m, s = xent_stats(logits)
+    assert all(torch.equal(a, b) for a, b in zip((m, s), xent_stats_reference(logits)))
+    assert torch.equal(xent_grad(logits, labels, g, m, s),
+                       xent_grad_reference(logits, labels, g, m, s))
+    x = logits.clone().requires_grad_()
+    (d,) = torch.autograd.grad(fused_softmax_xent(x, labels), (x,))
+    assert torch.equal(d, xent_grad_reference(logits, labels, g, m, s))
+    assert [w.launches for w in wrappers] == before
+
+
+# Phase 2 of chip_smoke.py: the main path's shapes (bert_base and gpt_small
+# logits, a 1F1B microbatch's, MoE's), then the schedules' edges.
+_PHASE2_SHAPES = [(4096, 30522, 4), (4096, 30522, 2), (4096, 50257, 4), (1024, 30522, 4),
+                  (2048, 1024, 4), (4096, 50257, 2), (1, 30522, 4), (37, 1000, 4),
+                  (1024, 30522, 2), (512, 30522, 4)]
+
+
+@pytest.mark.parametrize("sms", [132, 7])
+@pytest.mark.parametrize("T,V,es", _PHASE2_SHAPES + [(1, 1024, 4), (333, 100, 2)])
+def test_xent_plan_picks_schedule_and_caps_grid(T, V, es, sms):
+    """K4's and K5's schedule: one warp a row, 8 rows a block, for rows of
+    at most 16 KB (V = 1024, 1000, 100), one block a row above (30522,
+    50257); the grid at least one block, within its cap of blocks an SM, and
+    no larger than the rows need. The kernel's blocks walk the rows until
+    none is left, so any such grid covers them; the card tests compare every
+    row with the plain version."""
+    plan = _xent_plan(T, V, es, sms)
+    assert plan.narrow == (V * es <= 16384)
+    assert plan.narrow == (V in (1024, 1000, 100))
+    cap = sms * (8 if plan.narrow else 4)
+    assert plan.grid == max(1, min(-(-T // (8 if plan.narrow else 1)), cap))
+    assert 1 <= plan.grid <= cap
+    if (T, V, es) == (2048, 1024, 4) and sms == 132:
+        assert plan.grid == 256  # one wave: 2048 rows, 8 a block
+
+
+def test_xent_plan_at_the_narrow_limit():
+    """16 KB rows are narrow, one element more is wide, for each width."""
+    for es in (2, 4):
+        assert _xent_plan(64, 16384 // es, es).narrow
+        assert not _xent_plan(64, 16384 // es + 1, es).narrow
 
 
 @pytest.mark.parametrize("name", ["sgd", "momentum", "adam", "adamw", "adagrad",
@@ -171,3 +234,36 @@ def test_optimizer_learning_rate_and_unknown_name():
     assert custom is torch.optim.SGD
     with pytest.raises(ValueError, match="unknown optimizer"):
         get_optimizer("lamb")
+
+
+def test_chip_smoke_ptxas_summary_names_every_kernel():
+    """Phase 1 of ``chip_smoke.py`` reads each kernel's registers and spills
+    from nvcc's ptxas report, under a name with its template arguments, for
+    kernels at namespace scope and in nvcc's renamed anonymous namespace;
+    a report with no kernel found fails the phase."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(os.path.dirname(__file__), os.pardir, "chip_smoke.py"))
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    anon = "_ZN54_INTERNAL_3c8f1a2b_17_fused_xent_fwd_cu_9e1f2a3b16xent_rows_kernel"
+    report = "\n".join([
+        "ptxas info    : Compiling entry function '_Z16flash_fwd_kernelILi64EEvPK13__nv_bfloat16"
+        "S2_S2_PS0_Pfiiiif' for 'sm_90a'",
+        "ptxas info    : Function properties for _Z16flash_fwd_kernelILi64EEvPK13__nv_bfloat16",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 168 registers, 1024 bytes smem",
+        f"ptxas info    : Compiling entry function '{anon}I13__nv_bfloat16Lb0ElLi256EEEvPKT_' for"
+        " 'sm_90a'",
+        f"ptxas info    : Function properties for {anon}I13__nv_bfloat16Lb0ElLi256EEEvPKT_",
+        "    0 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads",
+        "ptxas info    : Used 57 registers",
+        f"ptxas info    : Compiling entry function '{anon}IfLb1EiLi32EEEvPKT_' for 'sm_90a'",
+        "ptxas info    : Used 40 registers",
+    ])
+    assert chip_smoke.ptxas_summary(report) == {
+        "flash_fwd_kernel<64>": "0 bytes spill stores, 0 bytes spill loads, 168 registers",
+        "xent_rows_kernel<bf16, 0, int64, 256>":
+            "8 bytes spill stores, 8 bytes spill loads, 57 registers",
+        "xent_rows_kernel<float, 1, int32, 32>": "40 registers",
+    }
+    assert chip_smoke.ptxas_summary("ptxas info    : 0 bytes gmem") == {}

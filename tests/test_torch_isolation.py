@@ -3,8 +3,9 @@ ml_dtypes) nor the reference package, nor grpc until a gRPC transport is
 built, nor keras or kafka until ``Model.from_keras`` or a ``KafkaSource``
 needs them, and its entry points run on CUDA unless asked for the CPU.
 Every module imports with ``jax``, ``distkeras_tpu``, ``keras`` and
-``kafka`` made unimportable, and no source file of the port names the
-reference package in an import."""
+``kafka`` made unimportable, importing builds and loads no kernel
+library, and no source file of the port names the reference package in an
+import."""
 
 import dataclasses
 import os
@@ -78,6 +79,8 @@ def test_port_imports_neither_jax_nor_reference():
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'ml_dtypes', 'distkeras_tpu', 'triton', 'grpc',"
         " 'keras', 'kafka'))\n"
+        "from distkeras_tpu_torch.utils import build\n"
+        "bad += [f'lib{n}.so' for n in build._loaded]  # importing builds and loads no kernel\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )

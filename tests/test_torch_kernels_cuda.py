@@ -94,14 +94,31 @@ def test_flash_kernel_rejects_float32(gen):
         flash_forward(q, q, q)
 
 
+# (T, V) for K4 and K5: ragged vocabularies on both schedules (narrow rows
+# up to 16 KB, one warp each; wider rows a block each), the main path's
+# shapes at their widest, one row, and a part-full last block.
+_XENT_SHAPES = [(333, 30522), (333, 50257), (333, 100), (4096, 50257), (1, 30522), (1, 1024),
+                (37, 1000), (2048, 1024)]
+
+
+def _xent_labels(gen, T, V, label_dtype):
+    """Labels in [-2, V + 2); int64 ones every 7th moved up by 2^32."""
+    labels = torch.randint(-2, V + 2, (T,), device="cuda", generator=gen, dtype=label_dtype)
+    if label_dtype == torch.int64:
+        labels[::7] += 2**32
+    return labels
+
+
+@pytest.mark.parametrize("label_dtype", [torch.int64, torch.int32])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
-@pytest.mark.parametrize("V", [30522, 50257, 100])
-def test_xent_kernel_matches_plain(gen, dtype, V):
-    """Per-row loss at ragged vocabularies, labels including out-of-range
-    ones (which pick nothing). 1e-5 relative: both reduce in float32, in
+@pytest.mark.parametrize("T,V", _XENT_SHAPES)
+def test_xent_kernel_matches_plain(gen, dtype, T, V, label_dtype):
+    """Per-row loss at ragged vocabularies, int32 and int64 labels (read as
+    they are) including out-of-range ones (which pick nothing, int64 ones
+    of 2^32 and more too). 1e-5 relative: both reduce in float32, in
     another order."""
-    logits = (torch.randn(333, V, device="cuda", generator=gen) * 3).to(dtype)
-    labels = torch.randint(-2, V + 2, (333,), device="cuda", generator=gen)
+    logits = (torch.randn(T, V, device="cuda", generator=gen) * 3).to(dtype)
+    labels = _xent_labels(gen, T, V, label_dtype)
     before = xent_forward.launches
     got = xent_forward(logits, labels)
     torch.cuda.synchronize()
@@ -110,12 +127,25 @@ def test_xent_kernel_matches_plain(gen, dtype, V):
                                rtol=1e-5, atol=1e-4)
 
 
-def test_xent_kernel_takes_row_strided_logits(gen):
-    wide = torch.randn(64, 1100, device="cuda", generator=gen)
-    logits = wide[:, :1000]
-    labels = torch.randint(0, 1000, (64,), device="cuda", generator=gen)
+@pytest.mark.parametrize("T,V,pad,col,dtype", [
+    (64, 1000, 100, 0, torch.float32),    # 16-byte aligned rows
+    (64, 1000, 3, 1, torch.float32),      # rows start 4 bytes past 16
+    (64, 30522, 7, 3, torch.bfloat16),    # wide rows, 6 bytes past 16, odd stride
+    (300, 50257, 9, 5, torch.float32),    # wide rows, 4 bytes past 16
+])
+def test_xent_kernel_takes_row_strided_logits(gen, T, V, pad, col, dtype):
+    """K4 and K5 on a view of columns ``col .. col + V`` of a ``[T, V +
+    pad]`` buffer: row stride V + pad, rows starting where the view says,
+    the bytes around each row in the buffer never counted."""
+    wide = (torch.randn(T, V + pad, device="cuda", generator=gen) * 3).to(dtype)
+    logits = wide[:, col:col + V]
+    labels = torch.randint(0, V, (T,), device="cuda", generator=gen)
     torch.testing.assert_close(xent_forward(logits, labels),
                                xent_forward_reference(logits, labels), rtol=1e-5, atol=1e-4)
+    m, s = xent_stats(logits)
+    want_m, want_s = xent_stats_reference(logits)
+    assert torch.equal(m, want_m)
+    torch.testing.assert_close(s, want_s, rtol=1e-4, atol=0)
 
 
 def _backward_inputs(gen, BH, Sq, Skv, D, causal, shift):
@@ -227,17 +257,20 @@ def test_ring_of_one_hop_is_flash_on_the_card(gen, causal):
     assert all(torch.equal(a, b) for a, b in zip(grads, want_grads))
 
 
+@pytest.mark.parametrize("label_dtype", [torch.int64, torch.int32])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("V", [30522, 50257, 100])
-def test_xent_backward_kernels_match_plain(gen, dtype, V):
-    """K5 and K6 at ragged vocabularies, labels including out-of-range ones.
+@pytest.mark.parametrize("T,V", _XENT_SHAPES)
+def test_xent_backward_kernels_match_plain(gen, dtype, T, V, label_dtype):
+    """K5 and K6 at ragged vocabularies, labels including out-of-range ones
+    (int64 ones of 2^32 and more pick no column, not the one they would
+    wrap to in int32).
     m exactly (a max); s and the f32 gradient to 1e-4 relative (float32 exps
     from different code, summed in another order); bf16 gradients one bf16
     rounding of the same float32 values. The gradient is held element by
     element, with an absolute floor (1e-15) far below its smallest entries."""
-    logits = (torch.randn(333, V, device="cuda", generator=gen) * 3).to(dtype)
-    labels = torch.randint(-2, V + 2, (333,), device="cuda", generator=gen)
-    g = torch.rand(333, device="cuda", generator=gen) / 333
+    logits = (torch.randn(T, V, device="cuda", generator=gen) * 3).to(dtype)
+    labels = _xent_labels(gen, T, V, label_dtype)
+    g = torch.rand(T, device="cuda", generator=gen) / T
     n_stats, n_grad = xent_stats.launches, xent_grad.launches
     m, s = xent_stats(logits)
     d = xent_grad(logits, labels, g, m, s)
