@@ -28,7 +28,13 @@ Phases, each of which must pass or the script exits non-zero:
    (phase 22a: T=2048 V=1024), and at the edges of K4's and K5's schedules:
    [4096, 50257] bf16 (rows 2-byte aligned), one row, T=37 V=1000 with
    int32 labels, a row-strided view that starts off 16 bytes, and int64
-   labels outside [0, V), some past 2^31.
+   labels outside [0, V), some past 2^31. The generic route's K1g-K3g
+   (csrc/flash_attention_generic.cu: float32, float16 and bfloat16 at any
+   head dim up to 256): every dtype at D 8, 36, 80, 128 and 256, S 1, 17,
+   127 and 200, full, causal and strict causal, and K2g/K3g also at S_q !=
+   S_kv, each against its plain version; timed at bert's shape and gpt's
+   causal one in float32, and at both with D=128 (H=6) in bf16, beside the
+   plain version, SDPA at the same dtype and the bound.
 3. Inference at full width: bert_base_mlm (seq 128, flash attention on,
    random weights from a seed) through ModelPredictor (64 rows, batch 32)
    and Trainer.evaluate with fused_categorical_crossentropy (512 rows,
@@ -86,8 +92,9 @@ Phases, each of which must pass or the script exits non-zero:
    replicas, 3 steps each, dropout 0, one seed and data): the average
    equals the mean of the ensemble's two models computed on the card, to
    float32 rounding; ms per step.
-12. Generation on gpt_small at full width (12 layers, hidden 768, 12 heads,
-   vocab 50257, max_seq_len 512, bf16, random weights from a seed):
+12. Generation on gpt_small at its widths, its depth cut to GEN_LAYERS = 6
+   of its 12 layers (hidden 768, 12 heads, vocab 50257, max_seq_len 512,
+   bf16, random weights from a seed):
    generate() on 8 seeded prompts of 128 tokens, 128 greedy tokens (prefill
    ms, the median synchronized decode step, generated tokens/s, the device's
    busy share, peak memory, the KV cache's bytes); (a) the cached tokens
@@ -376,7 +383,18 @@ Phases, each of which must pass or the script exits non-zero:
    MOE_DROP_POINTS of one process's. Logged: ms a step per rank and the
    shares of ep_all_reduce, moe_route, the tp_* spans, grad_all_reduce and
    the sp_* spans, with the card. No scaling figure.
-26. Print each phase's wall and each task's (seconds from its start to
+26. The generic route on the slice's path at full width: bert_base_mlm in
+   float32 (flash on, fused loss, adam, dropout 0; seq 128, batch 32): 3
+   SingleTrainer steps and 2 Trainer.evaluate batches, 12 K1g a forward
+   and 12 K2g and K3g a train step, no Hopper-route launch; the steady ms a
+   step; one step on the card against the same step on the CPU from the
+   same weights (loss within 1e-5 relative; gradients within a median 1e-4
+   and a maximum 1e-3 relative L2 norm a leaf, a leaf's norm floored at
+   1e-3 of the largest). Then the long-context example's path:
+   ring_flash_attention on a ring of one, float32, H=4, causal, forward and
+   backward, at S=16384 with D=64 and D=128 (finite), and at S=4096 against
+   the plain versions.
+27. Print each phase's wall and each task's (seconds from its start to
    its ranks' joining the group, and to its end), the kernels line, the
    card's name and power limit, and last the result line {"ok": true,
    "device": {...}}.
@@ -420,6 +438,21 @@ LOSS_RTOL = 2e-3
 # bf16 ulp apart; 1e-2 of the largest gradient.
 FLASH_BWD_RTOL = 1e-2
 XENT_STATS_RTOL = 1e-4  # f32 sum of exps by different code, in another order
+# The generic route (K1g-K3g) against its plain version, of the largest
+# magnitude of the plain result (at least 1), forward and backward: float32
+# the same float32 products summed in another order, exps by different code;
+# float16 one float16 ulp (2^-11 relative) of P against different maxima and
+# O's own rounding forward, one float16 ulp of the largest gradient and P's
+# and dS's roundings backward. bfloat16 keeps FLASH_OUT_ATOL and
+# FLASH_BWD_RTOL whatever its route; lse is float32 in every case.
+GENERIC_TOL = {"float32": (2e-5, 2e-5), "float16": (2.5e-3, 2e-3)}
+GENERIC_LSE_RTOL = 1e-5
+GENERIC_DIMS = (8, 36, 80, 128, 256)
+GENERIC_LENGTHS = (1, 17, 127, 200)
+# Phase 26: bert_base_mlm in float32 on the card against the CPU, one step.
+F32_LOSS_RTOL = 1e-5
+F32_GRAD_MEDIAN_RTOL = 1e-4
+F32_GRAD_MAX_RTOL = 1e-3
 # dlogits, element by element, |d - want| <= RTOL * |want| + ATOL * g: f32 exps
 # from different code (a few ulps apart); bf16 one rounding of the same f32
 # value (at most 2**-7 relative) apart, with room for two. The floor, 1e-12
@@ -586,21 +619,60 @@ def check(cond: bool, what: str) -> None:
 # -- phase 2: kernels against their plain versions ---------------------------
 
 
-def flash_case(B, S, H, D, causal, shift, gen):
+def flash_out_check(what, got, want, dtype, backward=False) -> float:
+    """Fails unless ``got`` is within the flash tolerance of ``dtype`` of
+    ``want``; returns the largest absolute error."""
+    err = (got.float() - want.float()).abs().max().item()
+    scale = want.float().abs().max().item()
+    if dtype == "bfloat16":  # the card tests' floor: a gradient of 0 comes out as ~1e-7
+        tol = FLASH_BWD_RTOL * max(scale, 1e-3) if backward else FLASH_OUT_ATOL
+    else:
+        tol = GENERIC_TOL[dtype][backward] * max(scale, 1.0)
+    check(math.isfinite(err) and err <= tol, f"{what} {dtype}: error {err} > {tol}")
+    return err
+
+
+def flash_lse_check(what, lse, want, dtype) -> float:
+    """lse (float32) within FLASH_LSE_ATOL (bf16) or GENERIC_LSE_RTOL of
+    its magnitude (at least 1)."""
+    err = (lse - want).abs().max().item()
+    if dtype == "bfloat16":
+        ok = err <= FLASH_LSE_ATOL
+    else:
+        ok = bool(((lse - want).abs() <= GENERIC_LSE_RTOL * want.abs().clamp_min(1.0)).all())
+    check(math.isfinite(err) and ok, f"{what} {dtype}: lse error {err}")
+    return err
+
+
+def generic_check(wrapper, before: int) -> None:
+    """``wrapper`` made one launch on the generic route since its
+    ``generic.launches`` read ``before``."""
+    moved = wrapper.generic.launches - before
+    check(moved == 1, f"{wrapper.__name__}: {moved} generic launches, not 1")
+
+
+def is_generic(dtype: str, D: int) -> bool:
+    """Whether a contiguous case takes the generic route (K1g-K3g)."""
+    return dtype != "bfloat16" or D not in (32, 64)
+
+
+def flash_case(B, S, H, D, causal, shift, gen, dtype="bfloat16"):
     import torch
 
     from distkeras_tpu_torch.ops.flash_attention import flash_forward, flash_forward_reference
 
     BH = B * H
-    q, k, v = (torch.randn(BH, S, D, device="cuda", generator=gen).bfloat16() for _ in range(3))
+    q, k, v = (torch.randn(BH, S, D, device="cuda", generator=gen).to(getattr(torch, dtype))
+               for _ in range(3))
+    generic = is_generic(dtype, D)
+    before = flash_forward.generic.launches if generic else 0
     out, lse = flash_forward(q, k, v, causal, shift)
+    if generic:
+        generic_check(flash_forward, before)
     ref_out, ref_lse = flash_forward_reference(q, k, v, causal, shift)
     torch.cuda.synchronize()
-    err = (out.float() - ref_out.float()).abs().max().item()
-    lse_err = (lse - ref_lse).abs().max().item()
-    check(math.isfinite(err) and err <= FLASH_OUT_ATOL, f"flash O error {err} > {FLASH_OUT_ATOL}")
-    check(math.isfinite(lse_err) and lse_err <= FLASH_LSE_ATOL,
-          f"flash lse error {lse_err} > {FLASH_LSE_ATOL}")
+    err = flash_out_check("flash O", out, ref_out, dtype)
+    lse_err = flash_lse_check("flash", lse, ref_lse, dtype)
     ms = cuda_ms(lambda: flash_forward(q, k, v, causal, shift), 50)
     plain_ms = cuda_ms(lambda: flash_forward_reference(q, k, v, causal, shift), 5)
     host = host_us(lambda: flash_forward(q, k, v, causal, shift))
@@ -609,13 +681,14 @@ def flash_case(B, S, H, D, causal, shift, gen):
     library_ms = cuda_ms(sdpa, 50)
     library_err = (sdpa().reshape(BH, S, D).float() - ref_out.float()).abs().max().item()
     pairs = attended_pairs(S, causal, shift)
-    nbytes = 4 * BH * S * D * 2 + BH * S * 4
-    bound, by = bound_ms(nbytes, 4.0 * BH * pairs * D, BF16_TENSOR_FLOPS)
-    case = {"shape": f"B={B} S={S} H={H} D={D} causal={causal} shift={shift} bf16",
+    nbytes = 4 * BH * S * D * q.element_size() + BH * S * 4
+    bound, by = bound_ms(nbytes, 4.0 * BH * pairs * D, peak_flops(dtype))
+    case = {"shape": f"B={B} S={S} H={H} D={D} causal={causal} shift={shift} {dtype}",
             "max_abs_err": err, "lse_max_abs_err": lse_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": by, "library_ms": library_ms,
             "library_max_abs_err": library_err, "host_us": host}
-    log(f"  K1 {case['shape']}: err {err:.3g} lse_err {lse_err:.3g} "
+    log(f"  K1{'g' if generic else ''} {case['shape']}: err {err:.3g} "
+        f"lse_err {lse_err:.3g} "
         f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms library {library_ms:.4f} ms "
         f"(SDPA, err {library_err:.3g}) bound {bound:.4f} ms ({by}), "
         f"host {host:.2f} us a call")
@@ -677,7 +750,13 @@ def xent_case(T, V, dtype, gen, labels="int64", pad=0):
     return case
 
 
-def flash_bwd_cases(B, S, H, D, causal, shift, gen):
+def peak_flops(dtype: str) -> float:
+    """The card's peak for a flash kernel's products: the tensor cores' in
+    bf16 and f16, the FMA units' in float32."""
+    return F32_FLOPS if dtype == "float32" else BF16_TENSOR_FLOPS
+
+
+def flash_bwd_cases(B, S, H, D, causal, shift, gen, dtype="bfloat16"):
     """K2 and K3 on the inputs the forward gives (lse from K1's plain
     version, delta = rowsum(dO * O)); the library yardstick is SDPA's
     backward, timed as SDPA forward+backward less SDPA forward."""
@@ -687,22 +766,23 @@ def flash_bwd_cases(B, S, H, D, causal, shift, gen):
         dkv_call, dq_call, flash_dkv_reference, flash_dq_reference, flash_forward_reference)
 
     BH = B * H
-    q, k, v, do = (torch.randn(BH, S, D, device="cuda", generator=gen).bfloat16()
+    q, k, v, do = (torch.randn(BH, S, D, device="cuda", generator=gen).to(getattr(torch, dtype))
                    for _ in range(4))
     out, lse = flash_forward_reference(q, k, v, causal, shift)
     delta = (do.float() * out.float()).sum(-1, keepdim=True)
+    generic = is_generic(dtype, D)
+    before = (dq_call.generic.launches, dkv_call.generic.launches) if generic else None
     dq = dq_call(q, k, v, do, lse, delta, causal, shift)
     dk, dv = dkv_call(k, v, q, do, lse, delta, causal, shift)
+    if generic:
+        generic_check(dq_call, before[0])
+        generic_check(dkv_call, before[1])
     want_dq = flash_dq_reference(q, k, v, do, lse, delta, causal, shift)
     want_dk, want_dv = flash_dkv_reference(k, v, q, do, lse, delta, causal, shift)
     torch.cuda.synchronize()
-    errs = {}
-    for name, got, want in (("dq", dq, want_dq), ("dk", dk, want_dk), ("dv", dv, want_dv)):
-        err = (got.float() - want.float()).abs().max().item()
-        scale = want.float().abs().max().item()
-        check(math.isfinite(err) and err <= FLASH_BWD_RTOL * scale,
-              f"flash {name} error {err} > {FLASH_BWD_RTOL} x {scale}")
-        errs[name] = err
+    errs = {name: flash_out_check(f"flash {name}", got, want, dtype, backward=True)
+            for name, got, want in (("dq", dq, want_dq), ("dk", dk, want_dk),
+                                    ("dv", dv, want_dv))}
     q4, k4, v4 = (x.view(B, H, S, D).detach().requires_grad_() for x in (q, k, v))
     do4 = do.view(B, H, S, D)
     sdpa = sdpa_call(q4, k4, v4, causal, shift)
@@ -710,9 +790,9 @@ def flash_bwd_cases(B, S, H, D, causal, shift, gen):
     both_ms = cuda_ms(lambda: torch.autograd.grad(sdpa(), (q4, k4, v4), do4), 20)
     library_ms = both_ms - fwd_ms
     pairs = attended_pairs(S, causal, shift)
-    tensor = BH * S * D * 2
+    tensor = BH * S * D * q.element_size()
     stats = 2 * BH * S * 4
-    shape = f"B={B} S={S} H={H} D={D} causal={causal} shift={shift} bf16"
+    shape = f"B={B} S={S} H={H} D={D} causal={causal} shift={shift} {dtype}"
     cases = {}
     for name, fn, plain, nbytes, flops, err in (
         ("K2", lambda: dq_call(q, k, v, do, lse, delta, causal, shift),
@@ -725,14 +805,88 @@ def flash_bwd_cases(B, S, H, D, causal, shift, gen):
         ms = cuda_ms(fn, 50)
         plain_ms = cuda_ms(plain, 5)
         host = host_us(fn)
-        bound, by = bound_ms(nbytes, flops, BF16_TENSOR_FLOPS)
+        bound, by = bound_ms(nbytes, flops, peak_flops(dtype))
         cases[name] = {"shape": shape, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                        "bound_ms": bound, "bound_by": by, "host_us": host,
                        "library_ms": library_ms, "library": "SDPA backward (K2 and K3 together)"}
-        log(f"  {name} {shape}: err {err:.3g} kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
+        log(f"  {name}{'g' if generic else ''} {shape}: err {err:.3g} kernel {ms:.4f} ms "
+            f"plain {plain_ms:.4f} ms "
             f"library (K2+K3) {library_ms:.4f} ms bound {bound:.4f} ms ({by}), "
             f"host {host:.2f} us a call")
     return cases["K2"], cases["K3"]
+
+
+def generic_sweep(gen) -> dict:
+    """K1g-K3g against their plain versions at every dtype, GENERIC_DIMS,
+    GENERIC_LENGTHS (K2g/K3g also at S_q != S_kv both ways) and mask (full,
+    causal, strict causal), B=1 H=3; under shift 1 row 0's lse is exactly
+    -1e30. Each launch must be counted on the generic route. Returns the
+    largest error of each kernel and dtype, relative to the largest
+    magnitude of the plain result (at least 1), and the number of cases."""
+    import torch
+
+    from distkeras_tpu_torch.ops.flash_attention import (
+        dkv_call, dq_call, flash_dkv_reference, flash_dq_reference, flash_forward,
+        flash_forward_reference)
+
+    def rel(got, want):
+        return ((got.float() - want.float()).abs().max()
+                / want.float().abs().max().clamp_min(1.0)).item()
+
+    worst, n = {}, 0
+    masks = ((False, 0), (True, 0), (True, 1))
+    pairs = [(S, S) for S in GENERIC_LENGTHS] + [(17, 200), (200, 17), (1, 127)]
+    for dtype in ("float32", "bfloat16", "float16"):
+        dt = getattr(torch, dtype)
+        for D in GENERIC_DIMS:
+            for causal, shift in masks:
+                for S in GENERIC_LENGTHS:
+                    q, k, v = (torch.randn(3, S, D, device="cuda", generator=gen).to(dt)
+                               for _ in range(3))
+                    before = flash_forward.generic.launches
+                    out, lse = flash_forward(q, k, v, causal, shift)
+                    generic_check(flash_forward, before)
+                    want, want_lse = flash_forward_reference(q, k, v, causal, shift)
+                    what = f"K1g D={D} S={S} causal={causal} shift={shift}"
+                    flash_out_check(what, out, want, dtype)
+                    flash_lse_check(what, lse, want_lse, dtype)
+                    if shift:
+                        check(bool((lse[:, 0] == -1e30).all()), f"{what}: row 0's lse")
+                    worst[f"K1g {dtype}"] = max(worst.get(f"K1g {dtype}", 0.0), rel(out, want))
+                    n += 1
+                for Sq, Skv in pairs:
+                    q, do = (torch.randn(3, Sq, D, device="cuda", generator=gen).to(dt)
+                             for _ in range(2))
+                    k, v = (torch.randn(3, Skv, D, device="cuda", generator=gen).to(dt)
+                            for _ in range(2))
+                    s = torch.matmul(q.float(), k.float().transpose(1, 2)) * D**-0.5
+                    if causal:
+                        keep = (torch.arange(Sq, device="cuda")[:, None]
+                                >= torch.arange(Skv, device="cuda")[None, :] + shift)
+                        s = torch.where(keep, s, torch.full_like(s, -1e30))
+                    lse = torch.logsumexp(s, dim=-1, keepdim=True)
+                    out = torch.matmul(torch.softmax(s, dim=-1), v.float()).to(dt)
+                    delta = (do.float() * out.float()).sum(-1, keepdim=True)
+                    before = dq_call.generic.launches, dkv_call.generic.launches
+                    dq = dq_call(q, k, v, do, lse, delta, causal, shift)
+                    dk, dv = dkv_call(k, v, q, do, lse, delta, causal, shift)
+                    generic_check(dq_call, before[0])
+                    generic_check(dkv_call, before[1])
+                    want_dq = flash_dq_reference(q, k, v, do, lse, delta, causal, shift)
+                    want_dk, want_dv = flash_dkv_reference(k, v, q, do, lse, delta, causal,
+                                                           shift)
+                    what = f"D={D} Sq={Sq} Skv={Skv} causal={causal} shift={shift}"
+                    for name, got, want in (("K2g", dq, want_dq), ("K3g dk", dk, want_dk),
+                                            ("K3g dv", dv, want_dv)):
+                        flash_out_check(f"{name} {what}", got, want, dtype, backward=True)
+                        key = f"{name.split()[0]} {dtype}"
+                        worst[key] = max(worst.get(key, 0.0), rel(got, want))
+                    n += 1
+    torch.cuda.synchronize()
+    log(f"  K1g-K3g: {n} cases against their plain versions, each within tolerance; largest "
+        f"error relative to the result's largest magnitude: "
+        + ", ".join(f"{k} {v:.3g}" for k, v in sorted(worst.items())))
+    return {"cases": n, "worst": worst}
 
 
 def xent_bwd_cases(T, V, dtype, gen, labels="int64", pad=0):
@@ -808,7 +962,11 @@ def kernel_wrappers() -> dict:
 
     return {"flash_attention_fwd": flash_forward, "flash_attention_dq": dq_call,
             "flash_attention_dkv": dkv_call, "fused_xent_fwd": xent_forward,
-            "fused_xent_stats": xent_stats, "fused_xent_grad": xent_grad}
+            "fused_xent_stats": xent_stats, "fused_xent_grad": xent_grad,
+            # the generic route's launches, counted in K1-K3's counts too
+            "flash_attention_fwd_generic": flash_forward.generic,
+            "flash_attention_dq_generic": dq_call.generic,
+            "flash_attention_dkv_generic": dkv_call.generic}
 
 
 def reset_counts():
@@ -1673,6 +1831,10 @@ def replica_phase(seq=128, batch=32, steps=3) -> dict:
 # same positions, in relative norm, within this factor times the CPU's own
 # bf16 full forward's distance from its float32 one (row 0, same positions).
 DECODE_NOISE_FACTOR = 3.0
+# Phase 12's depth: gpt_small's widths at 6 of its 12 layers, to keep the
+# script near 600-760 s as phases are added (every check of the phase
+# compares the model with itself, on the card or the CPU).
+GEN_LAYERS = 6
 # (d): a beam's score against its sequence's summed log-probabilities from
 # one full forward: the reference test's bounds (atol 0.05, rtol 2e-3).
 BEAM_ATOL, BEAM_RTOL = 0.05, 2e-3
@@ -1706,9 +1868,10 @@ def tie_at(model, variables, prefix, a: int, b: int) -> tuple[bool, float, float
 
 
 def generation_phase(batch=8, prompt_len=128, new=128, sample_new=32, beam_batch=2,
-                     beams=4, beam_new=32, profile_new=32) -> dict:
-    """12: generate/beam_search on gpt_small at full width, bf16, random
-    weights; returns the launch counts of our kernels (none expected)."""
+                     beams=4, beam_new=32, profile_new=32, layers=GEN_LAYERS) -> dict:
+    """12: generate/beam_search on gpt_small at its widths and ``layers`` of
+    its 12 layers, bf16, random weights; returns the launch counts of our
+    kernels (none expected)."""
     import numpy as np
     import torch
 
@@ -1716,7 +1879,9 @@ def generation_phase(batch=8, prompt_len=128, new=128, sample_new=32, beam_batch
     from distkeras_tpu_torch.inference import generate as gen
     from distkeras_tpu_torch.models import bert
 
-    model = bert.gpt_small()
+    base = bert.gpt_small()
+    model = bert._make(dataclasses.replace(base.config, num_layers=layers), base.input_shape[0],
+                       base.name)
     cfg = model.config
     variables = model.init(SEED)
     rng = np.random.default_rng(SEED)
@@ -5721,6 +5886,170 @@ def moe_tpsp_phase(root=REPO, cases=MOE_TPSP_CASES, steps=MOE_STEPS, base=True,
     return {k: sum(c[k] for c in counts) for k in counts[0]}
 
 
+# -- phase 26: the generic route on the slice's path -------------------------
+
+RING_HEADS = 4
+
+
+def f32_flash_phase(seq=128, batch=32, steps=3, eval_batches=2, cpu_rows=4, ring_seq=16384,
+                    ring_check_seq=4096, ring_dims=(64, 128), model_name="bert_base_mlm") -> dict:
+    """Phase 26 (the module's docstring): bert_base_mlm in float32 with
+    flash attention through the generic route, then the float32 ring of
+    one. Returns the launch counts of the train and eval runs."""
+    import numpy as np
+    import torch
+
+    from distkeras_tpu_torch import Dataset, SingleTrainer, Trainer
+    from distkeras_tpu_torch.data.feed import DeviceFeed, minibatches
+    from distkeras_tpu_torch.models import bert
+    from distkeras_tpu_torch.ops.fused_xent import fused_softmax_xent
+    from distkeras_tpu_torch.ops.losses import get_optimizer
+    from distkeras_tpu_torch.training.step import TrainState, make_train_step
+
+    cfg = dataclasses.replace(getattr(bert, model_name)(seq_len=seq).config,
+                              use_flash_attention=True, dtype=torch.float32, dropout_rate=0.0)
+    model = bert._make(cfg, seq, model_name)
+    L = cfg.num_layers
+    rng = np.random.default_rng(SEED)
+    tokens = rng.integers(0, cfg.vocab_size, size=(batch * steps, seq)).astype(np.int32)
+    data = Dataset.from_arrays(features=tokens, label=tokens)
+
+    reset_counts()
+    tr = SingleTrainer(model, "adam", loss="fused_categorical_crossentropy", batch_size=batch,
+                       num_epoch=1, seed=SEED)
+    t0 = time.perf_counter()
+    trained = tr.train(data)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    counts = read_counts()
+    losses = [h["loss"] for h in tr.get_history()]
+    check(len(losses) == steps and all(math.isfinite(x) for x in losses),
+          f"26: float32 train losses {losses}")
+    flash = {f"flash_attention_{k}{route}": L * steps for k in ("fwd", "dq", "dkv")
+             for route in ("", "_generic")}
+    check(counts == expected(**flash, fused_xent_fwd=steps, fused_xent_stats=steps,
+                             fused_xent_grad=steps), f"26: train launches {counts}")
+    log(f"  {model_name} float32, flash on the generic route, dropout 0: {steps} SingleTrainer "
+        f"steps in {train_s:.3f} s (init and feed included), losses "
+        f"{', '.join(f'{x:.5f}' for x in losses)}; launches {counts}")
+
+    reset_counts()
+    t0 = time.perf_counter()
+    metrics = Trainer(model, loss="fused_categorical_crossentropy").evaluate(
+        trained, data.take(batch * eval_batches), batch_size=batch)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    eval_counts = read_counts()
+    check(eval_counts == expected(flash_attention_fwd=L * eval_batches,
+                                  flash_attention_fwd_generic=L * eval_batches,
+                                  fused_xent_fwd=eval_batches),
+          f"26: evaluate launches {eval_counts}")
+    check(math.isfinite(metrics["loss"]), f"26: eval loss {metrics['loss']}")
+    log(f"  evaluate {eval_batches} batches of {batch}: {eval_s:.3f} s, loss "
+        f"{metrics['loss']:.5f}; launches {eval_counts}")
+
+    state = TrainState.create(model, get_optimizer("adam"), SEED)
+    step = make_train_step(model, "fused_categorical_crossentropy")
+    batches = list(DeviceFeed(minibatches(data, batch)))
+    state, _ = step(state, batches[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(4):
+        state, _ = step(state, batches[i % len(batches)])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / 4 * 1e3
+    del state
+    log(f"  steady float32 train step: {ms:.2f} ms/step, {batch * seq / ms * 1e3:.0f} tokens/s "
+        f"(4 steps, batches on the device; bf16 on the Hopper route: phase 5)")
+
+    weights = model.init(SEED)
+    x_rows = tokens[:cpu_rows]
+
+    def loss_and_grads(device):
+        params = {k: w.detach().to(device).requires_grad_() for k, w in weights.items()}
+        x = torch.from_numpy(x_rows).to(device)
+        logits, _ = model.apply(params, x, True, 0)
+        loss = fused_softmax_xent(logits, x)
+        grads = torch.autograd.grad(loss, list(params.values()))
+        return loss.item(), {k: g.cpu() for k, g in zip(params, grads)}
+
+    gpu_loss, gpu = loss_and_grads("cuda")
+    t0 = time.perf_counter()
+    cpu_loss, cpu = loss_and_grads("cpu")
+    cpu_s = time.perf_counter() - t0
+    loss_rel = abs(gpu_loss - cpu_loss) / abs(cpu_loss)
+    norms = {k: g.norm().item() for k, g in cpu.items()}
+    # A leaf whose gradient is cancellation alone (the key bias: softmax is
+    # unchanged by a shift of a query's scores) is measured against 1e-3 of
+    # the largest gradient's norm, as phase 5 does.
+    floor = 1e-3 * max(norms.values())
+    rel = {k: (gpu[k] - cpu[k]).norm().item() / max(norms[k], floor) for k in cpu}
+    median = statistics.median(rel.values())
+    worst = sorted(rel, key=rel.get, reverse=True)
+    log(f"  card vs CPU, one float32 step on {cpu_rows} rows: loss {gpu_loss:.7f} vs "
+        f"{cpu_loss:.7f} (rel {loss_rel:.3g}); gradient difference relative to the gradient's "
+        f"norm: median {median:.3g}, max {rel[worst[0]]:.3g} ({worst[0]}) over {len(rel)} "
+        f"tensors; CPU step {cpu_s:.2f} s")
+    check(loss_rel <= F32_LOSS_RTOL, f"26: card vs CPU loss {loss_rel} > {F32_LOSS_RTOL}")
+    check(median <= F32_GRAD_MEDIAN_RTOL, f"26: gradient median {median}")
+    check(rel[worst[0]] <= F32_GRAD_MAX_RTOL, f"26: gradient {worst[0]} {rel[worst[0]]}")
+    del weights, gpu, cpu
+    ring_case(ring_seq, ring_check_seq, ring_dims)
+    return {k: counts[k] + eval_counts[k] for k in counts}
+
+
+def ring_case(seq, check_seq, dims, heads=RING_HEADS) -> None:
+    """The long-context example's path: ring_flash_attention on a ring of
+    one in float32, causal, forward and backward: at ``check_seq`` (D=128)
+    against the plain versions, at ``seq`` for each of ``dims`` finite; one
+    generic launch of K1g, K2g and K3g each."""
+    import torch
+
+    from distkeras_tpu_torch.ops.flash_attention import (
+        dkv_call, dq_call, flash_dkv_reference, flash_dq_reference, flash_forward,
+        flash_forward_reference)
+    from distkeras_tpu_torch.ops.ring_flash import ring_flash_attention
+    from distkeras_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh({"sp": 1}, devices=[torch.cuda.current_device()])
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    wrappers = (flash_forward.generic, dq_call.generic, dkv_call.generic)
+    for S, D in [(check_seq, max(dims))] + [(seq, d) for d in dims]:
+        q, k, v = (torch.randn(1, S, heads, D, device="cuda", generator=gen).requires_grad_()
+                   for _ in range(3))
+        g = torch.randn(1, S, heads, D, device="cuda", generator=gen)
+        before = [w.launches for w in wrappers]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = ring_flash_attention(q, k, v, mesh, causal=True)
+        grads = torch.autograd.grad(out, (q, k, v), g)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        check([w.launches - b for w, b in zip(wrappers, before)] == [1, 1, 1],
+              f"26: ring S={S} D={D}: generic launches")
+        finite = all(bool(torch.isfinite(t).all()) for t in (out, *grads))
+        check(finite, f"26: ring S={S} D={D}: non-finite output or gradient")
+        line = f"  ring of one, float32, S={S} H={heads} D={D} causal: forward and backward " \
+               f"{ms:.2f} ms (first call), finite"
+        if S == check_seq:
+            def fold(x):
+                return x.detach().permute(0, 2, 1, 3).reshape(heads, S, D).contiguous()
+
+            qf, kf, vf, gf = map(fold, (q, k, v, g))
+            want, lse = flash_forward_reference(qf, kf, vf, True)
+            delta = (gf * want).sum(-1, keepdim=True)
+            wants = (want, flash_dq_reference(qf, kf, vf, gf, lse, delta, True),
+                     *flash_dkv_reference(kf, vf, qf, gf, lse, delta, True))
+            errs = [flash_out_check(f"26: ring S={S} D={D} {name}", fold(got), w, "float32",
+                                    backward=name != "out")
+                    for name, got, w in zip(("out", "dq", "dk", "dv"), (out, *grads), wants)]
+            line += f"; against the plain versions: max abs err {max(errs):.3g}"
+            del want, lse, delta, wants
+        log(line)
+        del q, k, v, g, out, grads
+        torch.cuda.empty_cache()
+
+
 def torch_device_type(device) -> str:
     import torch
 
@@ -5779,6 +6108,10 @@ def main(argv=None) -> int:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     q = torch.randn(1, 64, 64, device="cuda", generator=gen).bfloat16().requires_grad_()
     flash_forward(q, q, q)[0].sum().backward()  # K1, K2, K3
+    generic = hasattr(flash_forward, "generic")  # False for an older --root
+    if generic:
+        q = torch.randn(1, 64, 64, device="cuda", generator=gen).requires_grad_()
+        flash_forward(q, q, q)[0].sum().backward()  # K1g, K2g, K3g
     for dt in (torch.float32, torch.bfloat16):  # K4, K5; Triton compiles K6 per dtype (int64 labels)
         x = torch.zeros(2, 8, device="cuda", dtype=dt, requires_grad=True)
         fused_softmax_xent(x, torch.zeros(2, dtype=torch.long, device="cuda")).backward()
@@ -5827,6 +6160,19 @@ def main(argv=None) -> int:
     phase2 = {"flash_attention_fwd": k1, "flash_attention_dq": [c[0] for c in k23],
               "flash_attention_dkv": [c[1] for c in k23], "fused_xent_fwd": k4,
               "fused_xent_stats": [c[0] for c in k56], "fused_xent_grad": [c[1] for c in k56]}
+    if generic:
+        # bert's shape and gpt's causal one in float32 (phase 26's path), and
+        # both at D=128 (H=6) in bf16
+        timed = [(32, 128, 12, 64, False, 0, "float32"), (8, 512, 12, 64, True, 0, "float32"),
+                 (32, 128, 6, 128, False, 0, "bfloat16"), (8, 512, 6, 128, True, 0, "bfloat16")]
+        k1g = [flash_case(*case[:6], gen, dtype=case[6]) for case in timed]
+        k23g = [flash_bwd_cases(*case[:6], gen, dtype=case[6]) for case in timed]
+        sweep = generic_sweep(gen)
+        torch.cuda.empty_cache()
+        phase2.update({"flash_attention_fwd_generic": k1g,
+                       "flash_attention_dq_generic": [c[0] for c in k23g],
+                       "flash_attention_dkv_generic": [c[1] for c in k23g],
+                       "generic_sweep": sweep})
     if args.kernels_only:
         print(json.dumps({"root": root, "card": card, "cases": phase2}))
         return 0
@@ -5859,8 +6205,8 @@ def main(argv=None) -> int:
                       checkpoint_phase)[0])
     runs.append(phase("11", "bert_base_mlm EnsembleTrainer and AveragingTrainer at full width",
                       replica_phase))
-    runs.append(phase("12", "gpt_small generation (generate, sampling, beam_search) at full "
-                      "width", generation_phase))
+    runs.append(phase("12", f"gpt_small generation (generate, sampling, beam_search) at its "
+                      f"widths, {GEN_LAYERS} of its 12 layers", generation_phase))
     runs.append(phase("13", "real-data acceptance on the digits set (SingleTrainer, ADAG, "
                       "AEASGD)", digits_phase))
     counts, served = phase("14", "gpt_small ServingEngine and ServingServer at full width",
@@ -5906,6 +6252,9 @@ def main(argv=None) -> int:
                       "the card): the MoE bert_base at 4 of its 12 layers",
                       moe_tpsp_phase, root))
     POOL.close()
+    runs.append(phase("26", "the generic flash route on the slice's path: bert_base_mlm in "
+                      "float32 at full width (train, eval, card against CPU), the float32 ring "
+                      "of one at S=16384", f32_flash_phase))
     log(f"phase walls, s: {json.dumps({k: round(v, 2) for k, v in walls.items()})}; "
         f"all {time.perf_counter() - t_start:.2f} s; tasks "
         f"{json.dumps([(t, n, round(w, 2), round(j, 2)) for t, n, w, j in SPAWN_WALLS])}")
@@ -5929,12 +6278,20 @@ def main(argv=None) -> int:
          f"{xent_src}:127"),
         ("fused_xent_grad", "triton", "distkeras_tpu_torch/ops/fused_xent.py",
          f"{xent_src}:145"),
+        ("flash_attention_fwd_generic", "cuda",
+         "distkeras_tpu_torch/csrc/flash_attention_generic.cu", f"{flash_src}:189"),
+        ("flash_attention_dq_generic", "cuda",
+         "distkeras_tpu_torch/csrc/flash_attention_generic.cu", f"{flash_src}:214"),
+        ("flash_attention_dkv_generic", "cuda",
+         "distkeras_tpu_torch/csrc/flash_attention_generic.cu", f"{flash_src}:238"),
     ):
         cases = phase2[name]
         main_case = cases[0]
+        # K1-K3's wrappers count both routes; their line counts the Hopper one.
+        n = launches[name] - launches.get(f"{name}_generic", 0)
         kernels.append({
             "name": name, "route": route, "source": source, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": main_case["max_abs_err"],
+            "launches": n, "max_abs_err": main_case["max_abs_err"],
             "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
             "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
             "library_ms": main_case["library_ms"], "shape": main_case["shape"],

@@ -2,14 +2,18 @@
 their plain versions.
 
 Counterpart of ``distkeras_tpu/ops/pallas/flash_attention.py``. Three
-kernels replace the three Pallas kernels:
+kernels replace the three Pallas kernels, on two routes that
+:func:`kernel_route` picks from the dtype and the head dim D:
 
-- ``csrc/flash_attention_fwd.cu`` (K1) the ``_fwd_kernel`` launched by
-  ``_flash_forward``: ``(O, lse)``;
-- ``csrc/flash_attention_bwd.cu`` K2, the ``_dq_kernel`` launched by
-  ``dq_call``: ``dQ``;
-- the same file's K3, the ``_dkv_kernel`` launched by ``dkv_call``:
-  ``dK, dV``.
+- the Hopper route, bfloat16 at D 32 or 64 with 16-byte aligned tensors:
+  ``csrc/flash_attention_fwd.cu`` (K1) the ``_fwd_kernel`` launched by
+  ``_flash_forward``: ``(O, lse)``; ``csrc/flash_attention_bwd.cu`` K2,
+  the ``_dq_kernel`` launched by ``dq_call``: ``dQ``; the same file's K3,
+  the ``_dkv_kernel`` launched by ``dkv_call``: ``dK, dV``;
+- the generic route, float32, float16 or bfloat16 at any other
+  ``1 <= D <= 256`` (the rest of what the reference takes):
+  ``csrc/flash_attention_generic.cu``, K1g, K2g and K3g, the same three
+  functions.
 
 Their source notes say what bounds them on the H100 and how they are laid
 out. :func:`flash_forward_reference`, :func:`flash_dq_reference` and
@@ -23,12 +27,15 @@ launches in its ``launches`` attribute, exactly when several threads launch
 (:func:`~distkeras_tpu_torch.ops.launches.count_launch`). Differentiating
 through :func:`flash_forward` runs ``Δ = rowsum(dO·O)`` in float32 plain torch, as
 the reference's ``_flash_backward`` does outside Pallas, then K2 and K3.
+``launches`` counts a wrapper's launches on either route; its
+``generic.launches`` those on the generic route alone.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from types import SimpleNamespace
 
 import torch
 
@@ -36,11 +43,13 @@ from distkeras_tpu_torch.ops.launches import count_launch
 
 __all__ = [
     "dkv_call", "dq_call", "flash_attention", "fwd_call", "flash_dkv_reference",
-    "flash_dq_reference", "flash_forward", "flash_forward_reference",
+    "flash_dq_reference", "flash_forward", "flash_forward_reference", "kernel_route",
 ]
 
 _NEG_INF = -1e30
-_KERNEL_HEAD_DIMS = (32, 64)  # the tiny models' 32, the published ones' 64
+_HOPPER_HEAD_DIMS = (32, 64)  # the tiny models' 32, the published ones' 64
+_MAX_HEAD_DIM = 256  # the generic route's widest padded tile
+_GENERIC_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}  # csrc codes
 _TENSOR_MAP_ERROR = 10000  # csrc/hopper_sm90.cuh kTensorMapError
 
 
@@ -125,24 +134,61 @@ def _on_cpu(x) -> bool:
     raise ValueError(f"flash attention runs on cpu or cuda, not {x.device}")
 
 
-def _check_kernel_inputs(stats=(), **tensors) -> None:
-    """What the kernels take: contiguous, 16-byte aligned bfloat16
-    ``[BH, S, D]`` tensors on one device, D in :data:`_KERNEL_HEAD_DIMS`,
-    and float32 ``[BH, S_q, 1]`` statistics."""
-    first = next(iter(tensors.values()))
-    BH, D, dev = first.shape[0], first.shape[-1], first.device
+def kernel_route(dtype, head_dim: int, aligned: bool = True) -> str:
+    """Which CUDA kernels take ``[BH, S, head_dim]`` tensors of ``dtype``:
+    ``"hopper"`` (K1-K3) for bfloat16 at head dim 32 or 64 when every tensor
+    is 16-byte aligned (``aligned``), else ``"generic"`` (K1g-K3g) for
+    float32, float16 or bfloat16 at ``1 <= head_dim <= 256``. Raises
+    ``TypeError`` for another dtype and ``ValueError`` for another head dim."""
+    if dtype not in _GENERIC_DTYPES:
+        raise TypeError(f"the flash kernels take float32, float16 or bfloat16, got {dtype}")
+    if not 1 <= head_dim <= _MAX_HEAD_DIM:
+        raise ValueError(f"the flash kernels take head dims 1 to {_MAX_HEAD_DIM}, got {head_dim}")
+    if dtype == torch.bfloat16 and head_dim in _HOPPER_HEAD_DIMS and aligned:
+        return "hopper"
+    return "generic"
+
+
+def _check_kernel_inputs(stats=(), **tensors) -> str:
+    """What the kernels take: contiguous ``[BH, S, D]`` tensors of one dtype
+    on one device and float32 ``[BH, S_q, 1]`` statistics. Returns the
+    :func:`kernel_route`."""
+    (first_name, first), *_ = tensors.items()
+    BH, D, dev, dtype = first.shape[0], first.shape[-1], first.device, first.dtype
     for name, x in tensors.items():
-        if x.dtype != torch.bfloat16:
-            raise TypeError(f"the flash kernels take bfloat16 tensors, got {name} {x.dtype}")
+        if x.dtype != dtype:
+            raise TypeError(f"the flash kernels take one dtype: {first_name} is {dtype}, "
+                            f"{name} {x.dtype}")
         if x.ndim != 3 or x.shape[0] != BH or x.shape[2] != D:
             raise ValueError(f"{name} must be [{BH}, S, {D}], got {tuple(x.shape)}")
-        if x.device != dev or not x.is_contiguous() or x.data_ptr() % 16:
-            raise ValueError(f"{name} must be a contiguous, 16-byte aligned tensor on {dev}")
-    if D not in _KERNEL_HEAD_DIMS:
-        raise ValueError(f"the flash kernels take head dim {_KERNEL_HEAD_DIMS}, got {D}")
+        if x.device != dev or not x.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous tensor on {dev}")
     for x in stats:
         if x.dtype != torch.float32 or x.device != dev or not x.is_contiguous():
             raise ValueError(f"lse/delta must be contiguous float32 tensors on {dev}")
+    return kernel_route(dtype, D, all(x.data_ptr() % 16 == 0 for x in tensors.values()))
+
+
+def _count(wrapper, route: str, flops: float) -> None:
+    """One launch of ``wrapper``'s kernel on ``route``: its ``launches``
+    (with the flops), and its ``generic.launches`` on the generic route."""
+    count_launch(wrapper, flops)
+    if route == "generic":
+        count_launch(wrapper.generic)
+
+
+def _launch_flash(route: str, kernel: str, x, n_ptrs: int, *args) -> None:
+    """Launches K1 (``kernel`` "fwd"), K2 ("dq") or K3 ("dkv") on ``route``
+    with ``args``, ``n_ptrs`` pointers then ints; the generic entry points
+    also take ``x``'s dtype code. The scale is ``D**-0.5``, D ``x``'s head dim."""
+    if route == "hopper":
+        library = "flash_attention_fwd" if kernel == "fwd" else "flash_attention_bwd"
+        symbol = f"flash_attention_{kernel}_bf16"
+    else:
+        library, symbol = "flash_attention_generic", f"flash_attention_{kernel}_generic"
+        args = (*args, _GENERIC_DTYPES[x.dtype])
+    _launch(_kernel(library, symbol, n_ptrs, len(args) - n_ptrs), symbol, x.device, *args,
+            float(x.shape[-1] ** -0.5))
 
 
 def _launch(fn, what: str, device, *args) -> None:
@@ -156,17 +202,17 @@ def _launch(fn, what: str, device, *args) -> None:
 
 
 def _flash_forward_cuda(q, k, v, causal: bool, causal_shift: int):
-    _check_kernel_inputs(q=q, k=k, v=v)
+    route = _check_kernel_inputs(q=q, k=k, v=v)
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q/k/v shapes differ: {q.shape} {k.shape} {v.shape}")
     BH, S, D = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((BH, S, 1), dtype=torch.float32, device=q.device)
-    _launch(_kernel("flash_attention_fwd", "flash_attention_fwd_bf16", 5, 5),
-            "flash_attention_fwd", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), lse.data_ptr(), BH, S, D, int(causal), int(causal_shift),
-            float(D**-0.5))
-    count_launch(flash_forward, 4.0 * BH * S * S * D)  # QK^T and PV
+    if not (BH and S):
+        return out, lse  # nothing to launch
+    _launch_flash(route, "fwd", q, 5, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                  lse.data_ptr(), BH, S, D, int(causal), int(causal_shift))
+    _count(flash_forward, route, 4.0 * BH * S * S * D)  # QK^T and PV
     return out, lse
 
 
@@ -203,20 +249,20 @@ def dq_call(q, k, v, do, lse, delta, causal: bool, causal_shift: int = 0):
     _check_backward_shapes(q, k, v, do, lse, delta)
     if _on_cpu(q):
         return flash_dq_reference(q, k, v, do, lse, delta, causal, causal_shift)
-    _check_kernel_inputs(stats=(lse, delta), q=q, k=k, v=v, do=do)
+    route = _check_kernel_inputs(stats=(lse, delta), q=q, k=k, v=v, do=do)
     BH, Sq, D = q.shape
-    if not (Sq and k.shape[1]):
+    if not (BH and Sq and k.shape[1]):
         return torch.zeros_like(q)  # no key, or no query: nothing to launch
     dq = torch.empty_like(q)  # the kernel writes every element
-    _launch(_kernel("flash_attention_bwd", "flash_attention_dq_bf16", 7, 6),
-            "flash_attention_dq", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), BH, Sq,
-            k.shape[1], D, int(causal), int(causal_shift), float(D**-0.5))
-    count_launch(dq_call, 4.0 * BH * Sq * k.shape[1] * D)  # dO V^T and dS K
+    _launch_flash(route, "dq", q, 7, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                  lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), BH, Sq, k.shape[1], D,
+                  int(causal), int(causal_shift))
+    _count(dq_call, route, 4.0 * BH * Sq * k.shape[1] * D)  # dO V^T and dS K
     return dq
 
 
 dq_call.launches = 0
+dq_call.generic = SimpleNamespace(launches=0)
 
 
 def dkv_call(k, v, q, do, lse, delta, causal: bool, causal_shift: int = 0):
@@ -227,21 +273,20 @@ def dkv_call(k, v, q, do, lse, delta, causal: bool, causal_shift: int = 0):
     _check_backward_shapes(q, k, v, do, lse, delta)
     if _on_cpu(k):
         return flash_dkv_reference(k, v, q, do, lse, delta, causal, causal_shift)
-    _check_kernel_inputs(stats=(lse, delta), k=k, v=v, q=q, do=do)
+    route = _check_kernel_inputs(stats=(lse, delta), k=k, v=v, q=q, do=do)
     BH, Skv, D = k.shape
-    if not (Skv and q.shape[1]):
+    if not (BH and Skv and q.shape[1]):
         return torch.zeros_like(k), torch.zeros_like(v)  # nothing to launch
     dk, dv = torch.empty_like(k), torch.empty_like(v)  # the kernel writes every element
-    _launch(_kernel("flash_attention_bwd", "flash_attention_dkv_bf16", 8, 6),
-            "flash_attention_dkv", k.device, k.data_ptr(), v.data_ptr(), q.data_ptr(),
-            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), BH, q.shape[1], Skv, D, int(causal), int(causal_shift),
-            float(D**-0.5))
-    count_launch(dkv_call, 4.0 * BH * q.shape[1] * Skv * D)  # P^T dO and dS^T Q
+    _launch_flash(route, "dkv", k, 8, k.data_ptr(), v.data_ptr(), q.data_ptr(), do.data_ptr(),
+                  lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), BH,
+                  q.shape[1], Skv, D, int(causal), int(causal_shift))
+    _count(dkv_call, route, 4.0 * BH * q.shape[1] * Skv * D)  # P^T dO and dS^T Q
     return dk, dv
 
 
 dkv_call.launches = 0
+dkv_call.generic = SimpleNamespace(launches=0)
 
 
 class _FlashForward(torch.autograd.Function):
@@ -278,6 +323,7 @@ def flash_forward(q, k, v, causal: bool = False, causal_shift: int = 0):
 
 
 flash_forward.launches = 0
+flash_forward.generic = SimpleNamespace(launches=0)
 
 
 def flash_attention(

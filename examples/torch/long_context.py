@@ -4,9 +4,10 @@ sequence split across the ranks of a ``torch.distributed`` group.
 With the sequence split over ``sp`` ranks, each rank holds S/p of Q, K and
 V, and the K/V shards rotate hop by hop around the ring (P2P) with an
 online softmax: a rank's peak score memory is S/p x S/p instead of S x S.
-``--flash`` runs the hand-written flash kernels on each hop (bfloat16 on
-the card); ``--ulysses`` swaps the ring for all-to-all sequence
-parallelism; ``--stripe`` balances the causal ring.
+``--flash`` runs the hand-written flash kernels on each hop (float32 at
+any ``--dim`` up to 256, as the reference's example); ``--ulysses`` swaps
+the ring for all-to-all sequence parallelism; ``--stripe`` balances the
+causal ring.
 
 Run N ranks: torchrun --nproc-per-node N examples/torch/long_context.py --seq 32768
 (without torchrun it runs at world size 1; ``--device cpu`` uses gloo ranks).
@@ -71,8 +72,7 @@ def main(argv=None):
     if args.stripe:
         q, k, v = (np.asarray(stripe_shard(torch.from_numpy(t), p)) for t in (q, k, v))
     cols = slice(rank * (S // p), (rank + 1) * (S // p))  # this rank's shard
-    dtype = torch.bfloat16 if args.flash and device.type == "cuda" else torch.float32
-    q, k, v = (torch.from_numpy(np.ascontiguousarray(t[:, cols])).to(device, dtype)
+    q, k, v = (torch.from_numpy(np.ascontiguousarray(t[:, cols])).to(device)
                for t in (q, k, v))
 
     t0 = time.time()

@@ -88,10 +88,65 @@ def test_flash_kernel_matches_plain(gen, D, S, causal, shift):
         assert torch.equal(lse[:, 0], ref_lse[:, 0])  # -1e30, as the reference's
 
 
-def test_flash_kernel_rejects_float32(gen):
-    q = torch.randn(2, 64, 64, device="cuda", generator=gen)
-    with pytest.raises(TypeError, match="bfloat16"):
-        flash_forward(q, q, q)
+def test_flash_kernel_takes_float32_on_the_generic_route(gen):
+    """float32 at the Hopper kernels' head dim goes to K1g: both counts move,
+    and the result is the plain version's to float32 rounding."""
+    q, k, v = (torch.randn(2, 64, 64, device="cuda", generator=gen) for _ in range(3))
+    before = flash_forward.launches, flash_forward.generic.launches
+    out, lse = flash_forward(q, k, v)
+    torch.cuda.synchronize()
+    assert (flash_forward.launches, flash_forward.generic.launches) == tuple(
+        n + 1 for n in before)
+    ref_out, ref_lse = flash_forward_reference(q, k, v)
+    _close_generic(out, ref_out, torch.float32, backward=False)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-5, rtol=1e-5)
+
+
+# The generic route (K1g-K3g) against the plain versions: every dtype, head
+# dims padded to 16, 64, 128 and 256 (36 and 80 ragged inside their tiles,
+# rows of 72-160 bytes in bf16, not 16-byte multiples), and lengths below one
+# 64-row tile, ragged past one and two tiles. Tolerances, of the largest
+# magnitude of the plain version's result (at least 1): float32 2e-5 (the
+# same float32 products summed in another order; exps by different code);
+# bfloat16 2e-2 forward (P rounded against different maxima: the online
+# softmax's running max against the row's max), 1e-2 backward (P and dS
+# rounded from exps by different code, one bf16 ulp apart near a rounding
+# boundary); float16 2.5e-3 forward (one float16 ulp, 2^-11 relative, of P,
+# and O's own rounding, one ulp at 1-2) and 2e-3 backward (one float16 ulp,
+# 2^-10 relative at most, of the largest gradient, and P's and dS's
+# roundings). lse, float32 in every case, to 1e-5 of its magnitude (at least 1).
+_GENERIC_DTYPES = [torch.float32, torch.bfloat16, torch.float16]
+_GENERIC_DIMS = [8, 36, 80, 128, 256]
+_GENERIC_LENGTHS = [1, 17, 127, 200]
+_GENERIC_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (2e-2, 1e-2),
+                torch.float16: (2.5e-3, 2e-3)}
+
+
+def _close_generic(got, want, dtype, backward):
+    assert got.dtype == want.dtype == dtype
+    scale = max(want.float().abs().max().item(), 1.0)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= _GENERIC_TOL[dtype][backward] * scale, (err, scale)
+
+
+@pytest.mark.parametrize("dtype", _GENERIC_DTYPES)
+@pytest.mark.parametrize("D", _GENERIC_DIMS)
+@pytest.mark.parametrize("S", _GENERIC_LENGTHS)
+@pytest.mark.parametrize("causal,shift", [(False, 0), (True, 0), (True, 1)])
+def test_flash_generic_kernel_matches_plain(gen, dtype, D, S, causal, shift):
+    """K1g (B = 1, H = 3); under shift 1 row 0 sees no key, averages every V
+    row and gets lse exactly -1e30, as the plain version's."""
+    q, k, v = (torch.randn(3, S, D, device="cuda", generator=gen).to(dtype) for _ in range(3))
+    before = flash_forward.launches, flash_forward.generic.launches
+    out, lse = flash_forward(q, k, v, causal=causal, causal_shift=shift)
+    torch.cuda.synchronize()
+    assert (flash_forward.launches, flash_forward.generic.launches) == tuple(
+        n + 1 for n in before)
+    ref_out, ref_lse = flash_forward_reference(q, k, v, causal, shift)
+    _close_generic(out, ref_out, dtype, backward=False)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-5, rtol=1e-5)
+    if causal and shift:
+        assert torch.equal(lse[:, 0], ref_lse[:, 0])
 
 
 # (T, V) for K4 and K5: ragged vocabularies on both schedules (narrow rows
@@ -148,18 +203,18 @@ def test_xent_kernel_takes_row_strided_logits(gen, T, V, pad, col, dtype):
     torch.testing.assert_close(s, want_s, rtol=1e-4, atol=0)
 
 
-def _backward_inputs(gen, BH, Sq, Skv, D, causal, shift):
-    """bf16 q/k/v/dO and the float32 lse and delta the forward would give,
-    computed densely (S_q may differ from S_kv)."""
-    q, do = (torch.randn(BH, Sq, D, device="cuda", generator=gen).bfloat16() for _ in range(2))
-    k, v = (torch.randn(BH, Skv, D, device="cuda", generator=gen).bfloat16() for _ in range(2))
+def _backward_inputs(gen, BH, Sq, Skv, D, causal, shift, dtype=torch.bfloat16):
+    """q/k/v/dO of ``dtype`` (bf16 by default) and the float32 lse and delta
+    the forward would give, computed densely (S_q may differ from S_kv)."""
+    q, do = (torch.randn(BH, Sq, D, device="cuda", generator=gen).to(dtype) for _ in range(2))
+    k, v = (torch.randn(BH, Skv, D, device="cuda", generator=gen).to(dtype) for _ in range(2))
     s = torch.matmul(q.float(), k.float().transpose(1, 2)) * D**-0.5
     if causal:
         keep = (torch.arange(Sq, device="cuda")[:, None]
                 >= torch.arange(Skv, device="cuda")[None, :] + shift)
         s = torch.where(keep, s, torch.full_like(s, -1e30))
     lse = torch.logsumexp(s, dim=-1, keepdim=True)
-    out = torch.matmul(torch.softmax(s, dim=-1), v.float()).bfloat16()
+    out = torch.matmul(torch.softmax(s, dim=-1), v.float()).to(dtype)
     delta = (do.float() * out.float()).sum(-1, keepdim=True)
     return q, k, v, do, lse, delta
 
@@ -191,6 +246,26 @@ def test_flash_backward_kernels_match_plain(gen, D, Sq, Skv, causal, shift):
     want_dk, want_dv = flash_dkv_reference(k, v, q, do, lse, delta, causal, shift)
     _close(dk, want_dk)
     _close(dv, want_dv)
+
+
+@pytest.mark.parametrize("dtype", _GENERIC_DTYPES)
+@pytest.mark.parametrize("D", _GENERIC_DIMS)
+@pytest.mark.parametrize("Sq,Skv", [(S, S) for S in _GENERIC_LENGTHS]
+                         + [(17, 200), (200, 17), (1, 127)])
+@pytest.mark.parametrize("causal,shift", [(False, 0), (True, 0), (True, 1)])
+def test_flash_generic_backward_kernels_match_plain(gen, dtype, D, Sq, Skv, causal, shift):
+    """K2g and K3g (B = 1, H = 3), S_q != S_kv both ways; under shift 1 the
+    fully masked row 0, whose P is 1 for every key."""
+    q, k, v, do, lse, delta = _backward_inputs(gen, 3, Sq, Skv, D, causal, shift, dtype)
+    n_dq, n_dkv = dq_call.generic.launches, dkv_call.generic.launches
+    dq = dq_call(q, k, v, do, lse, delta, causal, shift)
+    dk, dv = dkv_call(k, v, q, do, lse, delta, causal, shift)
+    torch.cuda.synchronize()
+    assert (dq_call.generic.launches, dkv_call.generic.launches) == (n_dq + 1, n_dkv + 1)
+    _close_generic(dq, flash_dq_reference(q, k, v, do, lse, delta, causal, shift), dtype, True)
+    want_dk, want_dv = flash_dkv_reference(k, v, q, do, lse, delta, causal, shift)
+    _close_generic(dk, want_dk, dtype, True)
+    _close_generic(dv, want_dv, dtype, True)
 
 
 @pytest.mark.parametrize("B,S,causal,shift", [(32, 128, False, 0), (8, 512, True, 0),
@@ -233,6 +308,55 @@ def test_flash_attention_gradient_on_the_card(gen, B):
             *flash_dkv_reference(kf, vf, qf, gf, lse, delta, True))
     for got, w in zip(grads, want):
         _close(fold(got), w)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_attention_float32_gradient_on_the_card(gen, causal):
+    """The autograd path in float32 (the generic route: K1g, then K2g and
+    K3g) against the plain versions on the card, to 2e-5 of the largest
+    gradient; one launch of each kernel, on the generic route."""
+    q, k, v = (torch.randn(2, 256, 4, 64, device="cuda", generator=gen).requires_grad_()
+               for _ in range(3))
+    g = torch.randn(2, 256, 4, 64, device="cuda", generator=gen)
+    wrappers = (flash_forward, dq_call, dkv_call)
+    before = [(w.launches, w.generic.launches) for w in wrappers]
+    grads = torch.autograd.grad(flash_attention(q, k, v, causal=causal), (q, k, v), g)
+    torch.cuda.synchronize()
+    assert [(w.launches, w.generic.launches) for w in wrappers] == [
+        (a + 1, b + 1) for a, b in before]
+
+    def fold(x):
+        return x.detach().permute(0, 2, 1, 3).reshape(8, 256, 64).contiguous()
+
+    qf, kf, vf, gf = map(fold, (q, k, v, g))
+    out, lse = flash_forward_reference(qf, kf, vf, causal)
+    delta = (gf * out).sum(-1, keepdim=True)
+    want = (flash_dq_reference(qf, kf, vf, gf, lse, delta, causal),
+            *flash_dkv_reference(kf, vf, qf, gf, lse, delta, causal))
+    for got, w in zip(grads, want):
+        _close_generic(fold(got), w, torch.float32, backward=True)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_ring_of_one_hop_in_float32_is_flash_on_the_card(gen, causal):
+    """The flash ring at sp=1 in float32 (the long-context example's path):
+    K1g, the float32 merge and K2g/K3g give flash attention's output and
+    gradients bit for bit, one generic launch of each kernel."""
+    from distkeras_tpu_torch.ops.ring_flash import ring_flash_attention
+    from distkeras_tpu_torch.parallel.mesh import make_mesh
+
+    q, k, v = (torch.randn(1, 512, 4, 128, device="cuda", generator=gen).requires_grad_()
+               for _ in range(3))
+    g = torch.randn(1, 512, 4, 128, device="cuda", generator=gen)
+    want = flash_attention(q, k, v, causal=causal)
+    want_grads = torch.autograd.grad(want, (q, k, v), g)
+    wrappers = (flash_forward.generic, dq_call.generic, dkv_call.generic)
+    counts = [w.launches for w in wrappers]
+    got = ring_flash_attention(q, k, v, make_mesh({"sp": 1}, devices=[0]), causal=causal)
+    grads = torch.autograd.grad(got, (q, k, v), g)
+    assert [w.launches for w in wrappers] == [n + 1 for n in counts]
+    assert torch.equal(got, want)
+    assert all(torch.equal(a, b) for a, b in zip(grads, want_grads))
 
 
 @pytest.mark.parametrize("causal", [False, True])
