@@ -29,12 +29,14 @@ Phases, each of which must pass or the script exits non-zero:
    [4096, 50257] bf16 (rows 2-byte aligned), one row, T=37 V=1000 with
    int32 labels, a row-strided view that starts off 16 bytes, and int64
    labels outside [0, V), some past 2^31. The generic route's K1g-K3g
-   (csrc/flash_attention_generic.cu: float32, float16 and bfloat16 at any
-   head dim up to 256): every dtype at D 8, 36, 80, 128 and 256, S 1, 17,
-   127 and 200, full, causal and strict causal, and K2g/K3g also at S_q !=
-   S_kv, each against its plain version; timed at bert's shape and gpt's
-   causal one in float32, and at both with D=128 (H=6) in bf16, beside the
-   plain version, SDPA at the same dtype and the bound.
+   (csrc/flash_attention_generic.cu and flash_attention_generic_bwd.cu:
+   float32, float16 and bfloat16 at any head dim, above 256 in column
+   chunks): every dtype at D 8, 36, 80, 128, 256 and 320, S 1, 17, 127 and
+   200, full, causal and strict causal, and K2g/K3g also at S_q != S_kv,
+   each against its plain version; timed at bert's shape and gpt's causal
+   one in float32, at both with D=128 (H=6) in bf16, and at bert's with
+   D=128 in float16, beside the plain version, SDPA at the same dtype and
+   the bound.
 3. Inference at full width: bert_base_mlm (seq 128, flash attention on,
    random weights from a seed) through ModelPredictor (64 rows, batch 32)
    and Trainer.evaluate with fused_categorical_crossentropy (512 rows,
@@ -424,6 +426,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 BF16_TENSOR_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
+TF32_TENSOR_FLOPS = 495e12  # H100 SXM dense TF32 tensor-core peak
 F32_FLOPS = 67e12           # H100 SXM float32 outside the tensor cores
 
 # Tolerances of kernel against plain version on the same inputs, and of the
@@ -440,14 +443,15 @@ FLASH_BWD_RTOL = 1e-2
 XENT_STATS_RTOL = 1e-4  # f32 sum of exps by different code, in another order
 # The generic route (K1g-K3g) against its plain version, of the largest
 # magnitude of the plain result (at least 1), forward and backward: float32
-# the same float32 products summed in another order, exps by different code;
+# the same float32 products summed in another order (K2g/K3g's in 3xTF32,
+# within about 2^-20 of each product), exps by different code;
 # float16 one float16 ulp (2^-11 relative) of P against different maxima and
 # O's own rounding forward, one float16 ulp of the largest gradient and P's
 # and dS's roundings backward. bfloat16 keeps FLASH_OUT_ATOL and
 # FLASH_BWD_RTOL whatever its route; lse is float32 in every case.
 GENERIC_TOL = {"float32": (2e-5, 2e-5), "float16": (2.5e-3, 2e-3)}
 GENERIC_LSE_RTOL = 1e-5
-GENERIC_DIMS = (8, 36, 80, 128, 256)
+GENERIC_DIMS = (8, 36, 80, 128, 256, 320)
 GENERIC_LENGTHS = (1, 17, 127, 200)
 # Phase 26: bert_base_mlm in float32 on the card against the CPU, one step.
 F32_LOSS_RTOL = 1e-5
@@ -756,6 +760,12 @@ def peak_flops(dtype: str) -> float:
     return F32_FLOPS if dtype == "float32" else BF16_TENSOR_FLOPS
 
 
+def bwd_peak_flops(dtype: str, generic: bool) -> float:
+    """The same for K2 and K3: on the generic route in float32 (K2g, K3g)
+    three TF32 tensor-core products make one float32 product (3xTF32)."""
+    return TF32_TENSOR_FLOPS / 3 if generic and dtype == "float32" else peak_flops(dtype)
+
+
 def flash_bwd_cases(B, S, H, D, causal, shift, gen, dtype="bfloat16"):
     """K2 and K3 on the inputs the forward gives (lse from K1's plain
     version, delta = rowsum(dO * O)); the library yardstick is SDPA's
@@ -805,7 +815,7 @@ def flash_bwd_cases(B, S, H, D, causal, shift, gen, dtype="bfloat16"):
         ms = cuda_ms(fn, 50)
         plain_ms = cuda_ms(plain, 5)
         host = host_us(fn)
-        bound, by = bound_ms(nbytes, flops, peak_flops(dtype))
+        bound, by = bound_ms(nbytes, flops, bwd_peak_flops(dtype, generic))
         cases[name] = {"shape": shape, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                        "bound_ms": bound, "bound_by": by, "host_us": host,
                        "library_ms": library_ms, "library": "SDPA backward (K2 and K3 together)"}
@@ -822,12 +832,20 @@ def generic_sweep(gen) -> dict:
     causal, strict causal), B=1 H=3; under shift 1 row 0's lse is exactly
     -1e30. Each launch must be counted on the generic route. Returns the
     largest error of each kernel and dtype, relative to the largest
-    magnitude of the plain result (at least 1), and the number of cases."""
+    magnitude of the plain result (at least 1), and the number of cases.
+    Head dims the driven package's route refuses (an older ``--root``'s
+    above 256) are left out."""
     import torch
 
     from distkeras_tpu_torch.ops.flash_attention import (
         dkv_call, dq_call, flash_dkv_reference, flash_dq_reference, flash_forward,
-        flash_forward_reference)
+        flash_forward_reference, kernel_route)
+
+    def taken(D):
+        try:
+            return kernel_route(torch.float32, D) == "generic"
+        except ValueError:
+            return False
 
     def rel(got, want):
         return ((got.float() - want.float()).abs().max()
@@ -838,7 +856,7 @@ def generic_sweep(gen) -> dict:
     pairs = [(S, S) for S in GENERIC_LENGTHS] + [(17, 200), (200, 17), (1, 127)]
     for dtype in ("float32", "bfloat16", "float16"):
         dt = getattr(torch, dtype)
-        for D in GENERIC_DIMS:
+        for D in filter(taken, GENERIC_DIMS):
             for causal, shift in masks:
                 for S in GENERIC_LENGTHS:
                     q, k, v = (torch.randn(3, S, D, device="cuda", generator=gen).to(dt)
@@ -6161,10 +6179,11 @@ def main(argv=None) -> int:
               "flash_attention_dkv": [c[1] for c in k23], "fused_xent_fwd": k4,
               "fused_xent_stats": [c[0] for c in k56], "fused_xent_grad": [c[1] for c in k56]}
     if generic:
-        # bert's shape and gpt's causal one in float32 (phase 26's path), and
-        # both at D=128 (H=6) in bf16
+        # bert's shape and gpt's causal one in float32 (phase 26's path),
+        # both at D=128 (H=6) in bf16, and bert's at D=128 in float16
         timed = [(32, 128, 12, 64, False, 0, "float32"), (8, 512, 12, 64, True, 0, "float32"),
-                 (32, 128, 6, 128, False, 0, "bfloat16"), (8, 512, 6, 128, True, 0, "bfloat16")]
+                 (32, 128, 6, 128, False, 0, "bfloat16"), (8, 512, 6, 128, True, 0, "bfloat16"),
+                 (32, 128, 6, 128, False, 0, "float16")]
         k1g = [flash_case(*case[:6], gen, dtype=case[6]) for case in timed]
         k23g = [flash_bwd_cases(*case[:6], gen, dtype=case[6]) for case in timed]
         sweep = generic_sweep(gen)
@@ -6281,9 +6300,9 @@ def main(argv=None) -> int:
         ("flash_attention_fwd_generic", "cuda",
          "distkeras_tpu_torch/csrc/flash_attention_generic.cu", f"{flash_src}:189"),
         ("flash_attention_dq_generic", "cuda",
-         "distkeras_tpu_torch/csrc/flash_attention_generic.cu", f"{flash_src}:214"),
+         "distkeras_tpu_torch/csrc/flash_attention_generic_bwd.cu", f"{flash_src}:214"),
         ("flash_attention_dkv_generic", "cuda",
-         "distkeras_tpu_torch/csrc/flash_attention_generic.cu", f"{flash_src}:238"),
+         "distkeras_tpu_torch/csrc/flash_attention_generic_bwd.cu", f"{flash_src}:238"),
     ):
         cases = phase2[name]
         main_case = cases[0]

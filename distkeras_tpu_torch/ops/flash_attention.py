@@ -11,9 +11,10 @@ kernels replace the three Pallas kernels, on two routes that
   the ``_dq_kernel`` launched by ``dq_call``: ``dQ``; the same file's K3,
   the ``_dkv_kernel`` launched by ``dkv_call``: ``dK, dV``;
 - the generic route, float32, float16 or bfloat16 at any other
-  ``1 <= D <= 256`` (the rest of what the reference takes):
-  ``csrc/flash_attention_generic.cu``, K1g, K2g and K3g, the same three
-  functions.
+  ``D >= 1`` (the rest of what the reference takes):
+  ``csrc/flash_attention_generic.cu`` K1g, the forward;
+  ``csrc/flash_attention_generic_bwd.cu`` K2g and K3g, dQ and dK/dV on the
+  tensor cores (wgmma in 16 bits, 3xTF32 in float32).
 
 Their source notes say what bounds them on the H100 and how they are laid
 out. :func:`flash_forward_reference`, :func:`flash_dq_reference` and
@@ -48,7 +49,6 @@ __all__ = [
 
 _NEG_INF = -1e30
 _HOPPER_HEAD_DIMS = (32, 64)  # the tiny models' 32, the published ones' 64
-_MAX_HEAD_DIM = 256  # the generic route's widest padded tile
 _GENERIC_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}  # csrc codes
 _TENSOR_MAP_ERROR = 10000  # csrc/hopper_sm90.cuh kTensorMapError
 
@@ -138,12 +138,13 @@ def kernel_route(dtype, head_dim: int, aligned: bool = True) -> str:
     """Which CUDA kernels take ``[BH, S, head_dim]`` tensors of ``dtype``:
     ``"hopper"`` (K1-K3) for bfloat16 at head dim 32 or 64 when every tensor
     is 16-byte aligned (``aligned``), else ``"generic"`` (K1g-K3g) for
-    float32, float16 or bfloat16 at ``1 <= head_dim <= 256``. Raises
-    ``TypeError`` for another dtype and ``ValueError`` for another head dim."""
+    float32, float16 or bfloat16 at any ``head_dim >= 1`` (above 256 in
+    column chunks). Raises ``TypeError`` for another dtype and
+    ``ValueError`` for a head dim below 1."""
     if dtype not in _GENERIC_DTYPES:
         raise TypeError(f"the flash kernels take float32, float16 or bfloat16, got {dtype}")
-    if not 1 <= head_dim <= _MAX_HEAD_DIM:
-        raise ValueError(f"the flash kernels take head dims 1 to {_MAX_HEAD_DIM}, got {head_dim}")
+    if head_dim < 1:
+        raise ValueError(f"the flash kernels take head dims of 1 or more, got {head_dim}")
     if dtype == torch.bfloat16 and head_dim in _HOPPER_HEAD_DIMS and aligned:
         return "hopper"
     return "generic"
@@ -185,7 +186,8 @@ def _launch_flash(route: str, kernel: str, x, n_ptrs: int, *args) -> None:
         library = "flash_attention_fwd" if kernel == "fwd" else "flash_attention_bwd"
         symbol = f"flash_attention_{kernel}_bf16"
     else:
-        library, symbol = "flash_attention_generic", f"flash_attention_{kernel}_generic"
+        library = "flash_attention_generic" + ("" if kernel == "fwd" else "_bwd")
+        symbol = f"flash_attention_{kernel}_generic"
         args = (*args, _GENERIC_DTYPES[x.dtype])
     _launch(_kernel(library, symbol, n_ptrs, len(args) - n_ptrs), symbol, x.device, *args,
             float(x.shape[-1] ** -0.5))

@@ -29,10 +29,12 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-# The generic flash kernels are 45 template instances: nvcc optimizes them
-# on all of the host's threads (on the H100's 8-core host, 14.8 s against
-# 25.7 s in one thread), so that their build ends with the others'.
-SOURCE_FLAGS = {"flash_attention_generic": ("--split-compile=0",)}
+# The generic flash sources hold many template instances (K1g 18, K2g and
+# K3g 20): nvcc optimizes them on all of the host's threads (on the H100's
+# 8-core host one source of 45 such instances built in 14.8 s against
+# 25.7 s in one thread), so that their builds end with the others'.
+SOURCE_FLAGS = {"flash_attention_generic": ("--split-compile=0",),
+                "flash_attention_generic_bwd": ("--split-compile=0",)}
 
 _loaded: dict[str, ctypes.CDLL] = {}
 _load_lock = threading.Lock()  # one build of a library when threads race to it

@@ -5,7 +5,7 @@ With the sequence split over ``sp`` ranks, each rank holds S/p of Q, K and
 V, and the K/V shards rotate hop by hop around the ring (P2P) with an
 online softmax: a rank's peak score memory is S/p x S/p instead of S x S.
 ``--flash`` runs the hand-written flash kernels on each hop (float32 at
-any ``--dim`` up to 256, as the reference's example); ``--ulysses`` swaps
+any ``--dim``, as the reference's example); ``--ulysses`` swaps
 the ring for all-to-all sequence parallelism; ``--stripe`` balances the
 causal ring.
 

@@ -1,10 +1,11 @@
 """The flash functions of the generic route (float32, float16 and bfloat16
-at head dims the Hopper kernels do not take, up to 256) against the
-reference's Pallas kernels, and the choice of route.
+at any head dim the Hopper kernels do not take) against the reference's
+Pallas kernels, and the choice of route.
 
 The reference runs in interpret mode on the CPU, as tests/test_flash_attention.py
 runs it; the port runs the plain versions its wrappers take for CPU tensors,
-which compute what K1g-K3g compute on the card (``csrc/flash_attention_generic.cu``).
+which compute what K1g-K3g compute on the card (``csrc/flash_attention_generic.cu``,
+``csrc/flash_attention_generic_bwd.cu``).
 Inputs come from a seeded numpy generator: B = 1, H = 2, S = 32, the
 reference's blocks 16, so its online softmax rescales once.
 
@@ -44,10 +45,11 @@ F16_BWD_TOL = 8e-3
 TOL = {"float32": (F32_TOL, F32_TOL), "bfloat16": (BF16_TOL, BF16_BWD_TOL),
        "float16": (F16_TOL, F16_BWD_TOL)}
 
-# (dtype, head dim): every D the generic route pads to 16, 64, 128 and 256.
+# (dtype, head dim): every D the generic route pads to 16, 64, 128 and 256,
+# and D above 256, which the kernels take in column chunks.
 CASES = [("float32", 8), ("float32", 36), ("float32", 128), ("float32", 256),
-         ("bfloat16", 8), ("bfloat16", 36), ("bfloat16", 128), ("bfloat16", 256),
-         ("float16", 12), ("float16", 128)]
+         ("float32", 320), ("bfloat16", 8), ("bfloat16", 36), ("bfloat16", 128),
+         ("bfloat16", 256), ("bfloat16", 512), ("float16", 12), ("float16", 128)]
 MASKS = [(False, 0), (True, 0), (True, 1)]
 BLOCK = 16
 
@@ -148,11 +150,12 @@ def test_flash_attention_gradient_matches_reference(dtype, D, causal):
     (torch.bfloat16, 128, "generic"), (torch.bfloat16, 256, "generic"),
     (torch.float32, 64, "generic"), (torch.float32, 8, "generic"),
     (torch.float32, 256, "generic"), (torch.float16, 32, "generic"),
-    (torch.float16, 12, "generic"),
+    (torch.float16, 12, "generic"), (torch.float32, 257, "generic"),
+    (torch.bfloat16, 512, "generic"),
 ])
 def test_kernel_route(dtype, D, route):
     """bf16 at D 32 and 64 takes the Hopper kernels; every other float
-    dtype and head dim up to 256 the generic ones."""
+    dtype and head dim the generic ones, above 256 in column chunks."""
     assert kernel_route(dtype, D) == route
 
 
@@ -167,9 +170,7 @@ def test_kernel_route_takes_the_generic_kernels_for_unaligned_bf16():
 
 
 @pytest.mark.parametrize("dtype,D,error,match", [
-    (torch.float32, 257, ValueError, "head dims 1 to 256"),
-    (torch.bfloat16, 512, ValueError, "head dims 1 to 256"),
-    (torch.float16, 0, ValueError, "head dims 1 to 256"),
+    (torch.float16, 0, ValueError, "head dims of 1 or more"),
     (torch.int32, 64, TypeError, "float32, float16 or bfloat16"),
     (torch.float64, 64, TypeError, "float32, float16 or bfloat16"),
 ])

@@ -104,11 +104,14 @@ def test_flash_kernel_takes_float32_on_the_generic_route(gen):
 
 # The generic route (K1g-K3g) against the plain versions: every dtype, head
 # dims padded to 16, 64, 128 and 256 (36 and 80 ragged inside their tiles,
-# rows of 72-160 bytes in bf16, not 16-byte multiples), and lengths below one
-# 64-row tile, ragged past one and two tiles. Tolerances, of the largest
-# magnitude of the plain version's result (at least 1): float32 2e-5 (the
-# same float32 products summed in another order; exps by different code);
-# bfloat16 2e-2 forward (P rounded against different maxima: the online
+# rows of 72-160 bytes in bf16, not 16-byte multiples), 320 and 512 in
+# column chunks, and lengths below one 64-row tile, ragged past one and two
+# tiles. Tolerances, of the largest magnitude of the plain version's result
+# (at least 1): float32 2e-5 (the same float32 products summed in another
+# order; exps by different code; K2g/K3g take their products in 3xTF32,
+# hi.hi + hi.lo + lo.hi of a TF32 hi and the rest lo, which leaves out lo.lo
+# and lo's truncation to TF32 bits, within about 2^-20 = 9.5e-7 of each
+# product); bfloat16 2e-2 forward (P rounded against different maxima: the online
 # softmax's running max against the row's max), 1e-2 backward (P and dS
 # rounded from exps by different code, one bf16 ulp apart near a rounding
 # boundary); float16 2.5e-3 forward (one float16 ulp, 2^-11 relative, of P,
@@ -116,7 +119,7 @@ def test_flash_kernel_takes_float32_on_the_generic_route(gen):
 # 2^-10 relative at most, of the largest gradient, and P's and dS's
 # roundings). lse, float32 in every case, to 1e-5 of its magnitude (at least 1).
 _GENERIC_DTYPES = [torch.float32, torch.bfloat16, torch.float16]
-_GENERIC_DIMS = [8, 36, 80, 128, 256]
+_GENERIC_DIMS = [8, 36, 80, 128, 256, 320, 512]
 _GENERIC_LENGTHS = [1, 17, 127, 200]
 _GENERIC_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (2e-2, 1e-2),
                 torch.float16: (2.5e-3, 2e-3)}
