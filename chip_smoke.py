@@ -30,10 +30,12 @@ Phases, each of which must pass or the script exits non-zero:
    int32 labels, a row-strided view that starts off 16 bytes, and int64
    labels outside [0, V), some past 2^31. The generic route's K1g-K3g
    (csrc/flash_attention_generic.cu and flash_attention_generic_bwd.cu:
-   float32, float16 and bfloat16 at any head dim, above 256 in column
-   chunks): every dtype at D 8, 36, 80, 128, 256 and 320, S 1, 17, 127 and
-   200, full, causal and strict causal, and K2g/K3g also at S_q != S_kv,
-   each against its plain version; timed at bert's shape and gpt's causal
+   float32, float16 and bfloat16 at any head dim, above 128 (16 bits) or 64
+   (float32) in column chunks): every dtype at D 8, 36, 80, 128, 256 and
+   320, S 1, 17, 127 and 200, full, causal and strict causal, and K2g/K3g
+   also at S_q != S_kv, then on views whose bases are not 16-byte aligned
+   (bf16 at D=64, D=36 in each dtype, float16 at D=128; S=200 under each
+   mask and S=1000 strict causal), each against its plain version; timed at bert's shape and gpt's causal
    one in float32, at both with D=128 (H=6) in bf16, and at bert's with
    D=128 in float16, beside the plain version, SDPA at the same dtype and
    the bound.
@@ -453,6 +455,11 @@ GENERIC_TOL = {"float32": (2e-5, 2e-5), "float16": (2.5e-3, 2e-3)}
 GENERIC_LSE_RTOL = 1e-5
 GENERIC_DIMS = (8, 36, 80, 128, 256, 320)
 GENERIC_LENGTHS = (1, 17, 127, 200)
+# (dtype, D) of the generic sweep's cases on views at element offset 1 (bases
+# off 16 bytes): bf16 at D=64 routed generic by its alignment alone, D=36 in
+# each dtype (rows of 72 or 144 bytes), D=128 in float16.
+GENERIC_UNALIGNED = (("bfloat16", 64), ("float32", 36), ("bfloat16", 36), ("float16", 36),
+                     ("float16", 128))
 # Phase 26: bert_base_mlm in float32 on the card against the CPU, one step.
 F32_LOSS_RTOL = 1e-5
 F32_GRAD_MEDIAN_RTOL = 1e-4
@@ -686,7 +693,7 @@ def flash_case(B, S, H, D, causal, shift, gen, dtype="bfloat16"):
     library_err = (sdpa().reshape(BH, S, D).float() - ref_out.float()).abs().max().item()
     pairs = attended_pairs(S, causal, shift)
     nbytes = 4 * BH * S * D * q.element_size() + BH * S * 4
-    bound, by = bound_ms(nbytes, 4.0 * BH * pairs * D, peak_flops(dtype))
+    bound, by = bound_ms(nbytes, 4.0 * BH * pairs * D, flash_peak_flops(dtype))
     case = {"shape": f"B={B} S={S} H={H} D={D} causal={causal} shift={shift} {dtype}",
             "max_abs_err": err, "lse_max_abs_err": lse_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": by, "library_ms": library_ms,
@@ -754,16 +761,12 @@ def xent_case(T, V, dtype, gen, labels="int64", pad=0):
     return case
 
 
-def peak_flops(dtype: str) -> float:
-    """The card's peak for a flash kernel's products: the tensor cores' in
-    bf16 and f16, the FMA units' in float32."""
-    return F32_FLOPS if dtype == "float32" else BF16_TENSOR_FLOPS
-
-
-def bwd_peak_flops(dtype: str, generic: bool) -> float:
-    """The same for K2 and K3: on the generic route in float32 (K2g, K3g)
-    three TF32 tensor-core products make one float32 product (3xTF32)."""
-    return TF32_TENSOR_FLOPS / 3 if generic and dtype == "float32" else peak_flops(dtype)
+def flash_peak_flops(dtype: str) -> float:
+    """The card's peak for a flash kernel's products (K1-K3, K1g-K3g): the
+    tensor cores' in bf16 and f16; in float32 (the generic route only) a
+    third of TF32's, since three TF32 tensor-core products make one float32
+    product (3xTF32)."""
+    return TF32_TENSOR_FLOPS / 3 if dtype == "float32" else BF16_TENSOR_FLOPS
 
 
 def flash_bwd_cases(B, S, H, D, causal, shift, gen, dtype="bfloat16"):
@@ -815,7 +818,7 @@ def flash_bwd_cases(B, S, H, D, causal, shift, gen, dtype="bfloat16"):
         ms = cuda_ms(fn, 50)
         plain_ms = cuda_ms(plain, 5)
         host = host_us(fn)
-        bound, by = bound_ms(nbytes, flops, bwd_peak_flops(dtype, generic))
+        bound, by = bound_ms(nbytes, flops, flash_peak_flops(dtype))
         cases[name] = {"shape": shape, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                        "bound_ms": bound, "bound_by": by, "host_us": host,
                        "library_ms": library_ms, "library": "SDPA backward (K2 and K3 together)"}
@@ -826,15 +829,27 @@ def flash_bwd_cases(B, S, H, D, causal, shift, gen, dtype="bfloat16"):
     return cases["K2"], cases["K3"]
 
 
+def offset_view(x):
+    """A copy of ``x`` as the view at element offset 1 of a flat buffer:
+    contiguous, its base 2 or 4 bytes off a 16-byte boundary."""
+    import torch
+
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    flat[1:].copy_(x.reshape(-1))
+    return flat[1:].view(x.shape)
+
+
 def generic_sweep(gen) -> dict:
     """K1g-K3g against their plain versions at every dtype, GENERIC_DIMS,
     GENERIC_LENGTHS (K2g/K3g also at S_q != S_kv both ways) and mask (full,
-    causal, strict causal), B=1 H=3; under shift 1 row 0's lse is exactly
-    -1e30. Each launch must be counted on the generic route. Returns the
-    largest error of each kernel and dtype, relative to the largest
-    magnitude of the plain result (at least 1), and the number of cases.
-    Head dims the driven package's route refuses (an older ``--root``'s
-    above 256) are left out."""
+    causal, strict causal), B=1 H=3; then GENERIC_UNALIGNED's cases on views
+    whose bases are not 16-byte aligned, at S=200 under each mask and at
+    S=1000 under the strict causal mask (many query tiles, dealt longest
+    first). Under shift 1 row 0's lse is exactly -1e30. Each launch must be
+    counted on the generic route. Returns the largest error of each kernel
+    and dtype, relative to the largest magnitude of the plain result (at
+    least 1), and the number of cases. Head dims the driven package's route
+    refuses (an older ``--root``'s above 256) are left out."""
     import torch
 
     from distkeras_tpu_torch.ops.flash_attention import (
@@ -851,55 +866,67 @@ def generic_sweep(gen) -> dict:
         return ((got.float() - want.float()).abs().max()
                 / want.float().abs().max().clamp_min(1.0)).item()
 
-    worst, n = {}, 0
+    worst = {}
+
+    def forward(dtype, D, S, causal, shift, view=lambda x: x):
+        dt = getattr(torch, dtype)
+        q, k, v = (view(torch.randn(3, S, D, device="cuda", generator=gen).to(dt))
+                   for _ in range(3))
+        before = flash_forward.generic.launches
+        out, lse = flash_forward(q, k, v, causal, shift)
+        generic_check(flash_forward, before)
+        want, want_lse = flash_forward_reference(q, k, v, causal, shift)
+        what = f"K1g D={D} S={S} causal={causal} shift={shift}"
+        flash_out_check(what, out, want, dtype)
+        flash_lse_check(what, lse, want_lse, dtype)
+        if shift:
+            check(bool((lse[:, 0] == -1e30).all()), f"{what}: row 0's lse")
+        worst[f"K1g {dtype}"] = max(worst.get(f"K1g {dtype}", 0.0), rel(out, want))
+
+    def backward(dtype, D, Sq, Skv, causal, shift, view=lambda x: x):
+        dt = getattr(torch, dtype)
+        q, do = (torch.randn(3, Sq, D, device="cuda", generator=gen).to(dt) for _ in range(2))
+        k, v = (torch.randn(3, Skv, D, device="cuda", generator=gen).to(dt) for _ in range(2))
+        s = torch.matmul(q.float(), k.float().transpose(1, 2)) * D**-0.5
+        if causal:
+            keep = (torch.arange(Sq, device="cuda")[:, None]
+                    >= torch.arange(Skv, device="cuda")[None, :] + shift)
+            s = torch.where(keep, s, torch.full_like(s, -1e30))
+        lse = torch.logsumexp(s, dim=-1, keepdim=True)
+        out = torch.matmul(torch.softmax(s, dim=-1), v.float()).to(dt)
+        delta = (do.float() * out.float()).sum(-1, keepdim=True)
+        q, k, v, do = map(view, (q, k, v, do))
+        before = dq_call.generic.launches, dkv_call.generic.launches
+        dq = dq_call(q, k, v, do, lse, delta, causal, shift)
+        dk, dv = dkv_call(k, v, q, do, lse, delta, causal, shift)
+        generic_check(dq_call, before[0])
+        generic_check(dkv_call, before[1])
+        want_dq = flash_dq_reference(q, k, v, do, lse, delta, causal, shift)
+        want_dk, want_dv = flash_dkv_reference(k, v, q, do, lse, delta, causal, shift)
+        what = f"D={D} Sq={Sq} Skv={Skv} causal={causal} shift={shift}"
+        for name, got, want in (("K2g", dq, want_dq), ("K3g dk", dk, want_dk),
+                                ("K3g dv", dv, want_dv)):
+            flash_out_check(f"{name} {what}", got, want, dtype, backward=True)
+            key = f"{name.split()[0]} {dtype}"
+            worst[key] = max(worst.get(key, 0.0), rel(got, want))
+
+    n = 0
     masks = ((False, 0), (True, 0), (True, 1))
     pairs = [(S, S) for S in GENERIC_LENGTHS] + [(17, 200), (200, 17), (1, 127)]
     for dtype in ("float32", "bfloat16", "float16"):
-        dt = getattr(torch, dtype)
         for D in filter(taken, GENERIC_DIMS):
             for causal, shift in masks:
                 for S in GENERIC_LENGTHS:
-                    q, k, v = (torch.randn(3, S, D, device="cuda", generator=gen).to(dt)
-                               for _ in range(3))
-                    before = flash_forward.generic.launches
-                    out, lse = flash_forward(q, k, v, causal, shift)
-                    generic_check(flash_forward, before)
-                    want, want_lse = flash_forward_reference(q, k, v, causal, shift)
-                    what = f"K1g D={D} S={S} causal={causal} shift={shift}"
-                    flash_out_check(what, out, want, dtype)
-                    flash_lse_check(what, lse, want_lse, dtype)
-                    if shift:
-                        check(bool((lse[:, 0] == -1e30).all()), f"{what}: row 0's lse")
-                    worst[f"K1g {dtype}"] = max(worst.get(f"K1g {dtype}", 0.0), rel(out, want))
+                    forward(dtype, D, S, causal, shift)
                     n += 1
                 for Sq, Skv in pairs:
-                    q, do = (torch.randn(3, Sq, D, device="cuda", generator=gen).to(dt)
-                             for _ in range(2))
-                    k, v = (torch.randn(3, Skv, D, device="cuda", generator=gen).to(dt)
-                            for _ in range(2))
-                    s = torch.matmul(q.float(), k.float().transpose(1, 2)) * D**-0.5
-                    if causal:
-                        keep = (torch.arange(Sq, device="cuda")[:, None]
-                                >= torch.arange(Skv, device="cuda")[None, :] + shift)
-                        s = torch.where(keep, s, torch.full_like(s, -1e30))
-                    lse = torch.logsumexp(s, dim=-1, keepdim=True)
-                    out = torch.matmul(torch.softmax(s, dim=-1), v.float()).to(dt)
-                    delta = (do.float() * out.float()).sum(-1, keepdim=True)
-                    before = dq_call.generic.launches, dkv_call.generic.launches
-                    dq = dq_call(q, k, v, do, lse, delta, causal, shift)
-                    dk, dv = dkv_call(k, v, q, do, lse, delta, causal, shift)
-                    generic_check(dq_call, before[0])
-                    generic_check(dkv_call, before[1])
-                    want_dq = flash_dq_reference(q, k, v, do, lse, delta, causal, shift)
-                    want_dk, want_dv = flash_dkv_reference(k, v, q, do, lse, delta, causal,
-                                                           shift)
-                    what = f"D={D} Sq={Sq} Skv={Skv} causal={causal} shift={shift}"
-                    for name, got, want in (("K2g", dq, want_dq), ("K3g dk", dk, want_dk),
-                                            ("K3g dv", dv, want_dv)):
-                        flash_out_check(f"{name} {what}", got, want, dtype, backward=True)
-                        key = f"{name.split()[0]} {dtype}"
-                        worst[key] = max(worst.get(key, 0.0), rel(got, want))
+                    backward(dtype, D, Sq, Skv, causal, shift)
                     n += 1
+    for dtype, D in GENERIC_UNALIGNED:
+        for S, (causal, shift) in [(200, mask) for mask in masks] + [(1000, (True, 1))]:
+            forward(dtype, D, S, causal, shift, offset_view)
+            backward(dtype, D, S, S, causal, shift, offset_view)
+            n += 2
     torch.cuda.synchronize()
     log(f"  K1g-K3g: {n} cases against their plain versions, each within tolerance; largest "
         f"error relative to the result's largest magnitude: "

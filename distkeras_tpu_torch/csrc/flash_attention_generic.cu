@@ -1,319 +1,232 @@
-// Flash attention forward for every float dtype and head dim the reference
-// takes: float32, float16 and bfloat16 at any D >= 1 (K1g, the forward of
-// the "generic route"; bf16 at D 32 and 64 takes the Hopper kernel of
-// flash_attention_fwd.cu, and the generic backward K2g/K3g lives in
-// flash_attention_generic_bwd.cu).
+// Flash attention forward of the generic route for Hopper (sm_90a): K1g, for
+// float32, float16 and bfloat16 at any head dim D >= 1, any row and base
+// alignment, causal shift 0 and 1 (bf16 at D 32 and 64 on 16-byte aligned
+// tensors takes flash_attention_fwd.cu instead; the generic backward K2g/K3g
+// lives in flash_attention_generic_bwd.cu, on the same building blocks of
+// flash_generic_sm90.cuh).
 //
 // Replaces the Pallas kernel of distkeras_tpu/ops/pallas/flash_attention.py
 // outside the Hopper kernel's domain: K1g, `_fwd_kernel` launched by
 // `_flash_forward` (:189): O = softmax(Q K^T * scale [masked]) V, lse = m +
-// log(l) per query row. The causal mask `row >= col + causal_shift` fills
-// scores with -1e30 (not -inf), so a query row that sees no key (shift 1,
-// row 0) weighs every key equally and gets lse exactly -1e30, as in the
-// reference. All arithmetic is float32 (full float32 FMAs, no TF32); P is
-// rounded to the input type before P.V, where the plain version
-// (ops/flash_attention.py) rounds it; for float32 that rounding is the
-// identity. The scale is the caller's D^-1/2.
+// log(l) per query row, float32. The causal mask `row >= col + causal_shift`
+// fills scores with -1e30 (not -inf), so a query row that sees no key (shift
+// 1, row 0) weighs every key equally and gets lse exactly -1e30, as in the
+// reference. P is rounded to the input type before P V, where the plain
+// version (ops/flash_attention.py) rounds it (the identity in float32); l
+// sums the unrounded P. The scale is the caller's D^-1/2.
 //
-// What bounds it on the H100: per (bh) slice it does 4*S*S*D flops on 4
-// tensors of S*D elements: S flops a float32 byte, 128 at bert_base's S =
-// 128, against the card's float32 ratio of 67 TFLOP/s (FMA units, not
-// tensor cores) over 3.35 TB/s, 20 flops a byte: compute bound in float32 at
-// every S past ~20, and in bf16/f16 too, since it does its products on the
-// FMA units.
+// What bounds it on the H100: per (bh) slice it does 4 S^2 D flops (about
+// half that under the causal mask) on 3 tensors of S x D in and 1 out: S / 4
+// flops a byte in float32, S / 2 in 16 bits. Against the tensor cores'
+// balance points (3xTF32: 495 / 3 TFLOP/s over 3.35 TB/s, 49 flops a byte;
+// bf16/f16 295) it is bound by its bytes at bert's S = 128 in every dtype,
+// and by its operations in float32 at gpt's S = 512, as long as its
+// products run on the tensor cores. They do:
+// - float16 and bfloat16: wgmma m64n64k16, f32 accumulators, on 128-byte-
+//   swizzled panels. S = Q K^T reads both operands K-major (Ops16::scores);
+//   O += P V takes P from the score accumulators rounded to 16 bits in
+//   registers and V MN-major through the transpose bit (Ops16::product).
+// - float32: 3xTF32 on mma.sync m16n8k8 (OpsF32), within about 2^-20 of each
+//   product, each k8 step's three products summed apart and joined to the
+//   accumulator by one float32 add: float32's accuracy at D = 512 too. P
+//   feeds the second product from the accumulators through the permuted
+//   reduction index.
 //
-// Design, simple first (a tensor-core design is later work): one block of
-// 256 threads per tile of 64 query rows of one (bh) slice; tiles are copied
-// from device memory into float32 tiles in shared memory, element by
-// element, columns past D as zeros, rows past S as zeros: no alignment is
-// asked of rows (D = 12 in f16 is 24 bytes a row). Each thread owns a 4 x
-// (BK/16) piece of the 64 x BK score tile (rows g*4..g*4+3, columns l +
-// 16*j, for g = tid/16 and l = tid%16), so a row's max and sum are shuffles
-// within a half warp, and a 4 x (Dp/16) piece of the output (columns l +
-// 16*j) whose rows match its score rows: the rescale needs no exchange. The
-// padded width Dp (16, 32, 64, 128 or 256, the least that holds D) is a
-// template argument, D a run-time one: the products loop to D, not to Dp.
-// Tiles of D elements a row are stored at a stride of Dp + 1 floats, so
-// that 16 lanes reading one column of 16 rows hit 16 banks. BK is 64 keys,
-// 32 at Dp = 256, which keeps shared memory under 227 KB and the
-// accumulators at 64 registers a thread.
-// D above 256 goes through column chunks of Dp = 256: a grid axis gives
-// each block one chunk of O's columns, and the scores reduce over the whole
-// D, one chunk of Q and K staged at a time, the block's own chunk last (its
-// V chunk staged with it); each chunk's block recomputes the scores.
-// Causal tiles skip key tiles wholly above the diagonal, except the tile
-// holding a row that sees no key (row < shift), which weighs every key.
+// Design: a block of one warpgroup (128 threads) a tile of 64 query rows and
+// one chunk of W = 64 NP of O's columns (NP panels; W = 64 in float32, 64 or
+// 128 in 16 bits), looping over key tiles of 64. Q, K and V are staged by
+// cp.async of any alignment (columns past D and rows past S as zeros). When D
+// fits one chunk Q stays in shared memory and K and V are double-buffered,
+// the next tile's copy in flight during the current tile's products. The
+// online softmax runs in registers on the accumulator layout: a row's values
+// lie on the 4 lanes of a group, so its max is two shuffles (xor 1, 2); O's
+// accumulators hold the same rows, so the rescale needs no exchange, and the
+// row sum is reduced once, at the end. Scores are in log2 units (exp2 on the
+// special-function unit); a row whose max is the mask fill gets lse -1e30
+// exactly. O leaves through shared memory as whole rows (16-byte stores
+// where aligned); lse is written once a row, by chunk 0.
+// Any D through column chunks on a grid axis (the kChunks instances): the
+// scores reduce over the whole D, one chunk of Q and K staged at a time, the
+// block's own chunk last with its V chunk; each chunk's block recomputes the
+// scores. Causal blocks skip key tiles wholly above the diagonal, except the
+// tile holding a row that sees no key (row < shift), which weighs every key,
+// and deal their query tiles longest first, as K2g does.
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "flash_generic_sm90.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;  // 16 groups of 16 lanes
-constexpr int kRows = 64;      // query rows of a tile
-constexpr float kMasked = -1e30f;
+using namespace flash_generic;
 
-template <typename T>
-__device__ __forceinline__ float to_f(T x);
-template <>
-__device__ __forceinline__ float to_f<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ float to_f<__half>(__half x) {
-  return __half2float(x);
-}
-template <>
-__device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
+constexpr float kLn2 = 0.6931471805599453f;
 
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __half from_f<__half>(float x) {
-  return __float2half_rn(x);
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
+// The register cap of an instance: ptxas spilled the float32 instances at
+// some caps and not at others (unchunked: 200, 224 and 232 spilled, 208,
+// 216 and 240-255 not; chunked: every cap from 208 to 255 spilled, 200
+// not); the 16-bit instances take at most 168 registers under either.
+template <bool kChunks>
+constexpr int kMaxRegs = kChunks ? 200 : 255;
 
-// x rounded to T and widened again: where the plain versions round P and dS.
-template <typename T>
-__device__ __forceinline__ float round_to(float x) {
-  return to_f<T>(from_f<T>(x));
-}
-
-// Reductions over the 16 lanes (a half warp) that share a row group.
-__device__ __forceinline__ float group16_max(float x) {
-#pragma unroll
-  for (int off = 8; off; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float group16_sum(float x) {
-#pragma unroll
-  for (int off = 8; off; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-// dst[r][d] (stride Dp + 1) = src[row0 + r][col0 + d] as float32 for r <
-// R, d < Dp; zero past S rows or `width` columns. src is one (bh) slice,
-// [S, D] contiguous.
-template <typename T, int Dp, int R>
-__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src, int row0,
-                                          int S, int D, int col0, int width) {
-  constexpr int LD = Dp + 1;
-  for (int idx = threadIdx.x; idx < R * Dp; idx += kThreads) {
-    const int r = idx / Dp, d = idx % Dp, row = row0 + r;
-    dst[r * LD + d] =
-        (row < S && d < width) ? to_f<T>(src[(size_t)row * D + col0 + d]) : 0.f;
-  }
-}
-
-// The scores of this thread's 4 x NJ piece of a 64 x BK tile over the first
-// D columns: a[i][j] (+)= sum_d A[g*4+i][d] B[l+16j][d] (kAdd: added to a).
-template <int Dp, int NJ, bool kAdd = false>
-__device__ __forceinline__ void tile_dots(float (&a)[4][NJ], const float* A, const float* B,
-                                          int D, int g, int l) {
-  constexpr int LD = Dp + 1;
-  if (!kAdd) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) a[i][j] = 0.f;
-  }
-#pragma unroll 4
-  for (int d = 0; d < D; ++d) {
-    float x[4], y[NJ];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) x[i] = A[(g * 4 + i) * LD + d];
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) y[j] = B[(l + 16 * j) * LD + d];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) a[i][j] = fmaf(x[i], y[j], a[i][j]);
-  }
-}
-
-// The masked, scaled score of query `row` against key `col`.
-__device__ __forceinline__ float score(float dot, float scale, int row, int col, int causal,
-                                       int shift) {
-  const float x = dot * scale;
-  return (causal && row < col + shift) ? kMasked : x;
-}
-
-// acc[i][jd] += sum_c W[g*4+i][c] X[c][l+16jd] over c < n: W a 64 x BK tile
-// (stride BK + 1), X a BK x Dp tile (stride Dp + 1).
-template <int Dp, int BK>
-__device__ __forceinline__ void tile_product(float (&acc)[4][Dp / 16], const float* W,
-                                             const float* X, int n, int g, int l) {
-  constexpr int LD = Dp + 1, PLD = BK + 1;
-#pragma unroll 4
-  for (int c = 0; c < n; ++c) {
-    float w[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) w[i] = W[(g * 4 + i) * PLD + c];
-#pragma unroll
-    for (int jd = 0; jd < Dp / 16; ++jd) {
-      const float x = X[c * LD + l + 16 * jd];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[i][jd] = fmaf(w[i], x, acc[i][jd]);
-    }
-  }
-}
-
-// The number of keys a causal query tile [q0, q0 + 64) needs: keys up to
-// its last row's diagonal, or every key if a row of it sees none.
-__device__ __forceinline__ int causal_keys(int q0, int Skv, int causal, int shift) {
-  if (!causal || q0 < shift) return Skv;
-  return min(Skv, q0 + kRows - shift);
-}
-
-// K1g. Block (tile, chunk, bh) of a grid of q_tiles * nc * BH blocks; nc,
-// the number of Dp-column chunks of D, is 1 unless D > 256, which takes the
-// kChunks instance (the others compile without the chunk loop).
-template <typename T, int Dp, int BK, bool kChunks>
-__global__ void __launch_bounds__(kThreads)
+// K1g. Block w of a grid of q_tiles * nc * BH: query tiles outermost,
+// longest first under the causal mask, then the chunk, then the (bh) slice.
+// nc, the number of W-column chunks of D, is 1 unless the kChunks instance
+// runs (D > W).
+template <typename T, int NP, bool kChunks>
+__global__ void __maxnreg__(kMaxRegs<kChunks>)
     flash_fwd_generic_kernel(const T* __restrict__ q, const T* __restrict__ k,
                              const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
-                             int S, int D, int q_tiles, int chunks, int causal, int shift,
-                             float scale) {
+                             int bh_count, int S, int D, int chunks, int causal, int shift,
+                             float scale, int gran) {
+  using Ops = OpsOf<T, NP>;
   const int nc = kChunks ? chunks : 1;
-  constexpr int LD = Dp + 1, PLD = BK + 1, NJ = BK / 16, ND = Dp / 16;
-  extern __shared__ float smem[];
-  float* Qs = smem;            // [64][LD]
-  float* Ks = Qs + kRows * LD;  // [BK][LD]
-  float* Vs = Ks + BK * LD;     // [BK][LD]
-  float* Ps = Vs + BK * LD;     // [64][PLD]
-  const int q0 = (blockIdx.x % q_tiles) * kRows, oc = blockIdx.x / q_tiles % nc;
-  const size_t bh = blockIdx.x / q_tiles / nc, base = bh * S * (size_t)D;
-  const int c0 = oc * Dp, width = min(Dp, D - c0);  // this block's columns of O
-  const int g = threadIdx.x >> 4, l = threadIdx.x & 15;
+  constexpr int TB = Ops::kTileBytes, W = Ops::kWidth;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sQ = align_1024(smem_raw);
+  unsigned char* sKV = sQ + TB;  // stage s: K at sKV + 2 s TB, V right after
 
-  if (nc == 1) load_tile<T, Dp, kRows>(Qs, q + base, q0, S, D, 0, D);
-  float m[4], sum[4], acc[4][ND];
+  const int n_qb = (S + kRows - 1) / kRows;
+  const int qi = blockIdx.x / (nc * bh_count), rest = blockIdx.x % (nc * bh_count);
+  const int oc = rest / bh_count, bh = rest % bh_count;
+  int qb = qi;
+  if (causal) qb = shift ? (qi == 0 ? 0 : n_qb - qi) : n_qb - 1 - qi;
+  const int q0 = qb * kRows;
+  const size_t base = (size_t)bh * S * D;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  float acc[NP][32];  // O, this chunk's columns, unnormalised
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kMasked;
-    sum[i] = 0.f;
+  for (int p = 0; p < NP; ++p)
 #pragma unroll
-    for (int jd = 0; jd < ND; ++jd) acc[i][jd] = 0.f;
-  }
-  const int kv_end = causal_keys(q0, S, causal, shift);
-  for (int k0 = 0; k0 < kv_end; k0 += BK) {
-    float s[4][NJ];
-    if (!kChunks) {
-      __syncthreads();  // the last tile's K, V and P are read
-      load_tile<T, Dp, BK>(Ks, k + base, k0, S, D, 0, D);
-      load_tile<T, Dp, BK>(Vs, v + base, k0, S, D, 0, D);
+    for (int i = 0; i < 32; ++i) acc[p][i] = 0.f;
+  const float scale_log2 = scale * kLog2e, fill_log2 = to_log2(kMaskFill);
+  // Each row's running max (log2 units) and this thread's part of its sum.
+  float m[2] = {fill_log2, fill_log2}, l[2] = {0.f, 0.f};
+
+  // Step n = kt * nc + i: key tile kt, chunk (oc + 1 + i) % nc (the
+  // block's own last, with V). With one chunk Q is staged once and K/V
+  // double-buffered; with several, every step stages its chunk, one step at
+  // a time.
+  const int k_tiles = (causal_keys(q0, S, causal, shift) + kRows - 1) / kRows;
+  const int steps = k_tiles * nc;
+  constexpr bool pipelined = !kChunks;
+  auto issue = [&](int n, int buf) {
+    const int i = n % nc, col0 = (oc + 1 + i) % nc * W, k0 = n / nc * kRows;
+    if (!pipelined || n == 0) Ops::stage(sQ, q + base, q0, S, D, col0, gran, tid, 128);
+    unsigned char* sK = sKV + 2 * buf * TB;
+    Ops::stage(sK, k + base, k0, S, D, col0, gran, tid, 128);
+    if (i == nc - 1) Ops::stage(sK + TB, v + base, k0, S, D, col0, gran, tid, 128);
+    cp_async_commit();
+  };
+
+  float sc[32];  // S = Q K^T, 64 x 64, summed over the chunks; then P
+  issue(0, 0);
+  for (int kt = 0, n = 0; kt < k_tiles; ++kt) {
+    const unsigned char* sK = sKV;
+    for (int i = 0; i < nc; ++i, ++n) {
+      const int buf = pipelined ? n & 1 : 0;
+      if (pipelined && n + 1 < steps) {
+        issue(n + 1, buf ^ 1);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      fence_async_smem();  // this thread's copies and zeros, to wgmma's proxy
       __syncthreads();
-      tile_dots<Dp, NJ>(s, Qs, Ks, D, g, l);
-    } else {
-      // Chunk (oc + 1 + c) % nc of Q and K at step c, the block's own
-      // last, with its V.
-      tile_dots<Dp, NJ>(s, Qs, Ks, 0, g, l);  // zeros
-      for (int c = 0; c < nc; ++c) {
-        const int cc = (oc + 1 + c) % nc * Dp, w = min(Dp, D - cc);
-        __syncthreads();  // the last chunk's (tile's) Q, K, V and P are read
-        load_tile<T, Dp, kRows>(Qs, q + base, q0, S, D, cc, w);
-        load_tile<T, Dp, BK>(Ks, k + base, k0, S, D, cc, w);
-        if (c == nc - 1) load_tile<T, Dp, BK>(Vs, v + base, k0, S, D, cc, w);
+      sK = sKV + 2 * buf * TB;
+      Ops::scores(sc, sQ, sK, min(W, D - (oc + 1 + i) % nc * W), i > 0, warp, lane);
+      if (i + 1 < nc) {  // kChunks: the next chunk's Q and K, once these are read
         __syncthreads();
-        tile_dots<Dp, NJ, true>(s, Qs, Ks, w, g, l);
+        issue(n + 1, 0);
+      }
+    }
+    // The scores are whole. This thread's columns are k0 + 2t + c for c =
+    // 8j + (e & 1): scores before seen[h], masked from there to `inside`,
+    // outside the sequence past it (no key at all).
+    const int k0 = kt * kRows, inside = S - k0 - 2 * t;
+    int seen[2];
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      seen[h] = causal ? min(inside, q0 + 16 * warp + g + 8 * h - shift + 1 - k0 - 2 * t) : inside;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = 8 * j + (e & 1), h = e >> 1;
+        float x = sc[4 * j + e] * scale_log2;
+        if (c >= seen[h]) x = c < inside ? fill_log2 : -INFINITY;
+        sc[4 * j + e] = x;
+        mx[h] = fmaxf(mx[h], x);
+      }
+    }
+    float corr[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      corr[h] = exp2_approx(m[h] - mx[h]);
+      m[h] = mx[h];
+      l[h] *= corr[h];
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2_approx(sc[4 * j + e] - m[e >> 1]);
+        l[e >> 1] += p;
+        sc[4 * j + e] = p;
       }
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + g * 4 + i;
-      float tile_max = kMasked;
+    for (int p = 0; p < NP; ++p)
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int col = k0 + l + 16 * j;
-        s[i][j] = score(s[i][j], scale, row, col, causal, shift);
-        if (col < S) tile_max = fmaxf(tile_max, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], group16_max(tile_max));
-      const float corr = expf(m[i] - m_new);
-      float part = 0.f;
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int col = k0 + l + 16 * j;
-        const float p = col < S ? expf(s[i][j] - m_new) : 0.f;
-        part += p;
-        Ps[(g * 4 + i) * PLD + l + 16 * j] = round_to<T>(p);
-      }
-      sum[i] = sum[i] * corr + group16_sum(part);
-      m[i] = m_new;
-#pragma unroll
-      for (int jd = 0; jd < ND; ++jd) acc[i][jd] *= corr;
-    }
-    __syncthreads();
-    tile_product<Dp, BK>(acc, Ps, Vs, min(BK, S - k0), g, l);
+      for (int r = 0; r < 32; ++r) acc[p][r] *= corr[(r >> 1) & 1];
+    Ops::product(acc, sc, sK + TB, warp, lane);  // O += P V
+    __syncthreads();  // the buffers of this step are read
+    if (!pipelined && n < steps) issue(n, 0);
   }
+
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + g * 4 + i;
-    if (row >= S) continue;
-    const float l_safe = fmaxf(sum[i], 1e-30f);
-#pragma unroll
-    for (int jd = 0; jd < ND; ++jd) {
-      const int d = l + 16 * jd;
-      if (d < width) o[base + (size_t)row * D + c0 + d] = from_f<T>(acc[i][jd] / l_safe);
-    }
-    if (l == 0 && oc == 0) lse[bh * S + row] = m[i] + logf(l_safe);
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    l[h] = fmaxf(l[h], 1e-30f);
+    const int row = q0 + 16 * warp + g + 8 * h;
+    if (oc == 0 && t == 0 && row < S)
+      lse[(size_t)bh * S + row] = (m[h] == fill_log2 ? kMaskFill : m[h] * kLn2) + logf(l[h]);
   }
+  const float inv[2] = {1.f / l[0], 1.f / l[1]};
+#pragma unroll
+  for (int p = 0; p < NP; ++p)
+#pragma unroll
+    for (int r = 0; r < 32; ++r) acc[p][r] *= inv[(r >> 1) & 1];
+  // O through the (free) K/V stages: coalesced rows.
+  tile_to_smem<T, NP>(sKV, acc, warp, lane);
+  __syncthreads();
+  smem_to_rows<T, NP>(o + base, sKV, q0, S, D, oc * W, gran, tid, 128);
 }
 
-// The key tile of a padded width: 64, or 32 at Dp = 256 (shared memory).
-template <int Dp>
-constexpr int key_tile() {
-  return Dp >= 256 ? 32 : 64;
-}
-
-template <typename Kernel, typename... Args>
-int launch_kernel(Kernel kernel, long long blocks, size_t smem, cudaStream_t stream,
-                  Args... args) {
-  if (blocks <= 0 || blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  const cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(args...);
-  return (int)cudaGetLastError();
-}
-
-template <typename T, int Dp, bool kChunks = false>
+template <typename T, int NP>
 int fwd(const void* q, const void* k, const void* v, void* o, void* lse, int bh, int s, int d,
         int causal, int shift, float scale, cudaStream_t stream) {
-  constexpr int BK = key_tile<Dp>();
-  const size_t smem = sizeof(float) * (kRows * (Dp + 1) + 2 * BK * (Dp + 1) + kRows * (BK + 1));
-  const int tiles = (s + kRows - 1) / kRows, nc = (d + Dp - 1) / Dp;
-  return launch_kernel(flash_fwd_generic_kernel<T, Dp, BK, kChunks>, (long long)tiles * nc * bh,
-                       smem, stream, static_cast<const T*>(q), static_cast<const T*>(k),
+  using Ops = OpsOf<T, NP>;
+  const void* ptrs[4] = {q, k, v, o};
+  const int gran = granule(d, sizeof(T), ptrs, 4);
+  const int nc = (d + Ops::kWidth - 1) / Ops::kWidth;
+  // Q and two stages of K and V (one stage in chunks), and 1024 bytes to
+  // align the first.
+  const size_t smem = (nc > 1 ? 3 : 5) * (size_t)Ops::kTileBytes + 1024;
+  return launch_kernel(nc > 1 ? flash_fwd_generic_kernel<T, NP, true>
+                              : flash_fwd_generic_kernel<T, NP, false>,
+                       (long long)((s + kRows - 1) / kRows) * nc * bh, 128, smem, stream,
+                       static_cast<const T*>(q), static_cast<const T*>(k),
                        static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
-                       s, d, tiles, nc, causal, shift, scale);
+                       bh, s, d, nc, causal, shift, scale, gran);
 }
 
-// fwd<T, Dp> at the least padded width Dp that holds d, or Dp = 256 in
-// chunks above it.
+// 16 bits: one panel a chunk up to D = 64, two above (D = 128 in one chunk).
 template <typename T, typename... Args>
-int by_dim(int d, Args... args) {
-  if (d < 1) return (int)cudaErrorInvalidValue;
-  if (d <= 16) return fwd<T, 16>(args...);
-  if (d <= 32) return fwd<T, 32>(args...);
-  if (d <= 64) return fwd<T, 64>(args...);
-  if (d <= 128) return fwd<T, 128>(args...);
-  if (d <= 256) return fwd<T, 256>(args...);
-  return fwd<T, 256, true>(args...);
+int fwd16(int d, Args... args) {
+  return d <= kPanel ? fwd<T, 1>(args...) : fwd<T, 2>(args...);
 }
 
 }  // namespace
@@ -325,15 +238,15 @@ extern "C" int flash_attention_fwd_generic(const void* q, const void* k, const v
                                            void* lse, int bh, int s, int d, int causal,
                                            int causal_shift, int dtype, float scale,
                                            void* stream) {
+  if (d < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return by_dim<float>(d, q, k, v, o, lse, bh, s, d, causal, causal_shift, scale, st);
+      return fwd<float, 1>(q, k, v, o, lse, bh, s, d, causal, causal_shift, scale, st);
     case 1:
-      return by_dim<__nv_bfloat16>(d, q, k, v, o, lse, bh, s, d, causal, causal_shift, scale,
-                                   st);
+      return fwd16<bf16>(d, q, k, v, o, lse, bh, s, d, causal, causal_shift, scale, st);
     case 2:
-      return by_dim<__half>(d, q, k, v, o, lse, bh, s, d, causal, causal_shift, scale, st);
+      return fwd16<__half>(d, q, k, v, o, lse, bh, s, d, causal, causal_shift, scale, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

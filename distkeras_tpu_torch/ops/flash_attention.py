@@ -13,8 +13,9 @@ kernels replace the three Pallas kernels, on two routes that
 - the generic route, float32, float16 or bfloat16 at any other
   ``D >= 1`` (the rest of what the reference takes):
   ``csrc/flash_attention_generic.cu`` K1g, the forward;
-  ``csrc/flash_attention_generic_bwd.cu`` K2g and K3g, dQ and dK/dV on the
-  tensor cores (wgmma in 16 bits, 3xTF32 in float32).
+  ``csrc/flash_attention_generic_bwd.cu`` K2g and K3g, dQ and dK/dV; all
+  three on the tensor cores (wgmma in 16 bits, 3xTF32 in float32), built on
+  the blocks of ``csrc/flash_generic_sm90.cuh``.
 
 Their source notes say what bounds them on the H100 and how they are laid
 out. :func:`flash_forward_reference`, :func:`flash_dq_reference` and
@@ -138,8 +139,8 @@ def kernel_route(dtype, head_dim: int, aligned: bool = True) -> str:
     """Which CUDA kernels take ``[BH, S, head_dim]`` tensors of ``dtype``:
     ``"hopper"`` (K1-K3) for bfloat16 at head dim 32 or 64 when every tensor
     is 16-byte aligned (``aligned``), else ``"generic"`` (K1g-K3g) for
-    float32, float16 or bfloat16 at any ``head_dim >= 1`` (above 256 in
-    column chunks). Raises ``TypeError`` for another dtype and
+    float32, float16 or bfloat16 at any ``head_dim >= 1`` (above 64 in
+    float32 and 128 in 16 bits in column chunks). Raises ``TypeError`` for another dtype and
     ``ValueError`` for a head dim below 1."""
     if dtype not in _GENERIC_DTYPES:
         raise TypeError(f"the flash kernels take float32, float16 or bfloat16, got {dtype}")

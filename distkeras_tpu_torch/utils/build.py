@@ -4,10 +4,10 @@ Each source under ``distkeras_tpu_torch/csrc/`` becomes one shared library
 with a plain C interface, compiled for Hopper (``sm_90a``) into
 ``build/kernels/`` at the root of the checkout on first use. The library's
 file name carries a hash of its source, of every header under ``csrc/``
-(the sources share ``mma_bf16.cuh`` and ``hopper_sm90.cuh``) and of the
-flags, so an edited source or header is rebuilt and an unchanged one is
-loaded as it is. ``build_all`` starts one
-``nvcc`` for each source at once and waits for all of them.
+(the sources share ``mma_bf16.cuh``, ``hopper_sm90.cuh`` and
+``flash_generic_sm90.cuh``) and of the flags, so an edited source or header
+is rebuilt and an unchanged one is loaded as it is. ``build_all`` starts
+one ``nvcc`` for each source at once and waits for all of them.
 :data:`SOURCE_FLAGS` adds flags for one source.
 """
 
@@ -29,7 +29,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-# The generic flash sources hold many template instances (K1g 18, K2g and
+# The generic flash sources hold many template instances (K1g 10, K2g and
 # K3g 20): nvcc optimizes them on all of the host's threads (on the H100's
 # 8-core host one source of 45 such instances built in 14.8 s against
 # 25.7 s in one thread), so that their builds end with the others'.

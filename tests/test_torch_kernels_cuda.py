@@ -271,6 +271,60 @@ def test_flash_generic_backward_kernels_match_plain(gen, dtype, D, Sq, Skv, caus
     _close_generic(dv, want_dv, dtype, True)
 
 
+# The generic kernels' staging on views at element offset 1 of a flat buffer
+# (bases 2 or 4 bytes off a 16-byte boundary, so the copies go by 4 or 2
+# bytes): bf16 at D=64, which the Hopper route leaves to the generic one for
+# its alignment alone, D=36 in each dtype and float16 at D=128; S=200 under
+# each mask, and S=1000 under the strict causal mask (16 query tiles, dealt
+# longest first). The tolerances are _GENERIC_TOL's.
+_UNALIGNED = [(torch.bfloat16, 64), (torch.float32, 36), (torch.bfloat16, 36),
+              (torch.float16, 36), (torch.float16, 128)]
+_UNALIGNED_MASKS = [(200, False, 0), (200, True, 0), (200, True, 1), (1000, True, 1)]
+
+
+def _offset_view(x):
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    flat[1:].copy_(x.reshape(-1))
+    view = flat[1:].view(x.shape)
+    assert view.is_contiguous() and view.data_ptr() % 16
+    return view
+
+
+@pytest.mark.parametrize("dtype,D", _UNALIGNED)
+@pytest.mark.parametrize("S,causal,shift", _UNALIGNED_MASKS)
+def test_flash_generic_kernel_takes_unaligned_views(gen, dtype, D, S, causal, shift):
+    """K1g on inputs whose bases are not 16-byte aligned; under shift 1 row
+    0's lse is exactly -1e30."""
+    q, k, v = (_offset_view(torch.randn(3, S, D, device="cuda", generator=gen).to(dtype))
+               for _ in range(3))
+    before = flash_forward.generic.launches
+    out, lse = flash_forward(q, k, v, causal=causal, causal_shift=shift)
+    torch.cuda.synchronize()
+    assert flash_forward.generic.launches == before + 1
+    ref_out, ref_lse = flash_forward_reference(q, k, v, causal, shift)
+    _close_generic(out, ref_out, dtype, backward=False)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-5, rtol=1e-5)
+    if shift:
+        assert bool((lse[:, 0] == -1e30).all())
+
+
+@pytest.mark.parametrize("dtype,D", _UNALIGNED)
+@pytest.mark.parametrize("S,causal,shift", _UNALIGNED_MASKS)
+def test_flash_generic_backward_kernels_take_unaligned_views(gen, dtype, D, S, causal, shift):
+    """K2g and K3g on inputs whose bases are not 16-byte aligned."""
+    q, k, v, do, lse, delta = _backward_inputs(gen, 3, S, S, D, causal, shift, dtype)
+    q, k, v, do = map(_offset_view, (q, k, v, do))
+    n_dq, n_dkv = dq_call.generic.launches, dkv_call.generic.launches
+    dq = dq_call(q, k, v, do, lse, delta, causal, shift)
+    dk, dv = dkv_call(k, v, q, do, lse, delta, causal, shift)
+    torch.cuda.synchronize()
+    assert (dq_call.generic.launches, dkv_call.generic.launches) == (n_dq + 1, n_dkv + 1)
+    _close_generic(dq, flash_dq_reference(q, k, v, do, lse, delta, causal, shift), dtype, True)
+    want_dk, want_dv = flash_dkv_reference(k, v, q, do, lse, delta, causal, shift)
+    _close_generic(dk, want_dk, dtype, True)
+    _close_generic(dv, want_dv, dtype, True)
+
+
 @pytest.mark.parametrize("B,S,causal,shift", [(32, 128, False, 0), (8, 512, True, 0),
                                                (8, 512, True, 1)])
 def test_flash_dq_kernel_at_main_path_shapes(gen, B, S, causal, shift):
