@@ -1,0 +1,12 @@
+"""K4-K6's share of their roofline: their summed bound a step
+(``counts.py``) over their summed device time a step, in percent. Nothing
+where no loss kernel ran."""
+
+from perfbench.trace import class_us
+
+
+def read(t: dict) -> float | None:
+    us = class_us(t["device"]).get("xent", 0.0)
+    if not us:
+        return None
+    return 100.0 * t["bounds"]["xent"] * t["stretch_steps"] / (us / 1e6)
