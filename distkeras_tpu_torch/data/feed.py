@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from distkeras_tpu_torch.data.dataset import Dataset
+from distkeras_tpu_torch.telemetry.spans import span
 from distkeras_tpu_torch.utils.device import resolve_device
 
 __all__ = ["minibatches", "window_batches", "index_windows", "DeviceFeed"]
@@ -123,7 +124,8 @@ class DeviceFeed:
     waits on that copy's event before it gets the batch, so the next batch's
     transfer overlaps the current step's compute. On the CPU it only wraps
     the arrays with ``torch.from_numpy``. ``device`` is CUDA unless ``"cpu"``
-    is asked for."""
+    is asked for. Traced as the spans ``feed_put`` (a batch's copy and its
+    enqueue) and ``feed_take`` (the hand-off to the consuming stream)."""
 
     def __init__(self, batches: Iterator[Batch], device: str | torch.device | None = None,
                  buffer_size: int = 2):
@@ -156,8 +158,13 @@ class DeviceFeed:
     def __iter__(self):
         buffer: collections.deque = collections.deque()
         for batch in self._batches:
-            buffer.append(self._put(batch))
+            with span("feed_put"):
+                buffer.append(self._put(batch))
             if len(buffer) >= self._buffer_size:
-                yield self._take(buffer.popleft())
+                with span("feed_take"):
+                    item = self._take(buffer.popleft())
+                yield item
         while buffer:
-            yield self._take(buffer.popleft())
+            with span("feed_take"):
+                item = self._take(buffer.popleft())
+            yield item

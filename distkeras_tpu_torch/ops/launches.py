@@ -1,9 +1,11 @@
-"""Kernel launch counters that stay exact when several threads launch.
+"""Counters on functions that stay exact when several threads count.
 
-Each kernel wrapper keeps its count in its ``launches`` attribute, which
-callers read and reset. ``wrapper.launches += 1`` is a read-modify-write,
-so two worker threads launching at once could lose a count;
-:func:`count_launch` makes the increment under one lock. A wrapper also
+A counted function keeps each count in an attribute of its own, which
+callers read and reset: a kernel wrapper its ``launches``, the gradient
+all-reduce its ``bytes`` and ``calls``. ``wrapper.launches += 1`` is a
+read-modify-write, so two worker threads counting at once could lose a
+count; :func:`count` makes the increments under one lock, and
+:func:`count_launch` is its call for a kernel launch. A wrapper also
 hands :func:`count_launch` the matrix-product flops of its kernel's plain
 version, which :func:`kernel_flops` sums for
 :func:`~distkeras_tpu_torch.tracing.compiled_step_flops` (the flop counter
@@ -15,7 +17,7 @@ from __future__ import annotations
 import contextlib
 import threading
 
-__all__ = ["count_launch", "kernel_flops"]
+__all__ = ["count", "count_launch", "kernel_flops"]
 
 _LOCK = threading.Lock()
 _TALLIES: list = []
@@ -26,13 +28,21 @@ class _Tally:
         self.flops = 0.0
 
 
-def count_launch(wrapper, flops: float = 0.0) -> None:
-    """Add one to ``wrapper.launches``, atomically, and ``flops`` to every
-    open :func:`kernel_flops` tally."""
+def count(holder, flops: float = 0.0, **increments) -> None:
+    """Add each of ``increments`` to the attribute of ``holder`` it names
+    (``count(f, bytes=n, calls=1)``), all under one lock, and ``flops`` to
+    every open :func:`kernel_flops` tally."""
     with _LOCK:
-        wrapper.launches += 1
+        for name, n in increments.items():
+            setattr(holder, name, getattr(holder, name) + n)
         for tally in _TALLIES:
             tally.flops += flops
+
+
+def count_launch(wrapper, flops: float = 0.0) -> None:
+    """Add one to ``wrapper.launches`` and ``flops`` to every open
+    :func:`kernel_flops` tally."""
+    count(wrapper, flops, launches=1)
 
 
 @contextlib.contextmanager

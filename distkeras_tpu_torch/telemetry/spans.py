@@ -1,14 +1,26 @@
-"""Hierarchical wall-clock spans with Chrome-trace export.
+"""Hierarchical wall-clock spans with Chrome-trace export, on the profiler's
+timeline too.
 
 Copy of the reference's ``distkeras_tpu/telemetry/spans.py`` (jax-free).
-``torch.profiler`` traces the device timeline; these spans trace the
-*host* timeline: where a worker's window spends its wall clock between
-device launches (the window's steps, the PS exchange, the rebase).
+A span marks a region of the host's work: a training step's forward,
+backward and optimizer step, the feed's copies, the PS exchange, the
+rebase. It lands in two places, each only while it is on:
+
+- the active :class:`Tracer`, on the ``perf_counter`` clock, exported as a
+  Chrome trace of the host alone;
+- ``torch.profiler``'s timeline, while the profiler records: the span opens
+  a ``record_function`` range named :data:`RANGE_PREFIX` + its name, so it
+  shares the profiler's clock with every device activity, and the kernels a
+  span launched (on any thread, the autograd engine's included) can be put
+  down to it by time.
 
 - **Near-zero overhead when disabled.** ``span("name")`` with no active
-  tracer is one module-global read plus returning a shared no-op context
-  manager: no allocation, no clock read, so hot paths keep their
-  ``with span(...)`` lines unconditionally.
+  tracer and no recording profiler is one module-global read and one read
+  of the profiler's flag (``torch.autograd.profiler._is_profiler_enabled``,
+  looked up only once torch is imported: this module imports no torch) plus
+  returning a shared no-op context manager: no allocation, no clock read,
+  no ``record_function`` (which costs microseconds even with the profiler
+  off), so hot paths keep their ``with span(...)`` lines unconditionally.
 - **Correct nesting across threads and asyncio tasks.** Parent tracking
   uses a :class:`contextvars.ContextVar`; trace lanes (the Chrome-trace
   ``tid``) are keyed by the running task, or the thread when no loop runs.
@@ -22,11 +34,13 @@ from __future__ import annotations
 import contextvars
 import json
 import os
+import sys
 import threading
 import time
 from typing import Any
 
 __all__ = [
+    "RANGE_PREFIX",
     "Tracer",
     "span",
     "enable_tracing",
@@ -48,6 +62,27 @@ class _NullSpan:
 
 
 _NULL_SPAN = _NullSpan()
+
+# What a span's profiler range is named: this prefix, then the span's name.
+RANGE_PREFIX = "dk."
+
+
+def _profiling() -> bool:
+    """Whether ``torch.profiler`` records now; False while torch is not
+    imported."""
+    profiler = sys.modules.get("torch.autograd.profiler")
+    return profiler is not None and profiler._is_profiler_enabled
+
+
+def _open_range(name: str):
+    """The entered ``record_function`` range of span ``name`` while the
+    profiler records, else None."""
+    if not _profiling():
+        return None
+    r = sys.modules["torch.autograd.profiler"].record_function(RANGE_PREFIX + name)
+    r.__enter__()
+    return r
+
 
 # The active span in the CURRENT logical context (task- and thread-local).
 _CURRENT: contextvars.ContextVar["_Span | None"] = contextvars.ContextVar(
@@ -72,15 +107,21 @@ def _lane_key():
 
 
 class _Span:
-    __slots__ = ("_tracer", "name", "attrs", "_token", "_lane", "_t0",
-                 "_recorded")
+    """One span, recorded into ``tracer`` (when not None) and the profiler's
+    range (when it records at ``__enter__``)."""
 
-    def __init__(self, tracer: "Tracer", name: str, attrs: dict):
+    __slots__ = ("_tracer", "name", "attrs", "_token", "_lane", "_t0",
+                 "_recorded", "_range")
+
+    def __init__(self, tracer: "Tracer | None", name: str, attrs: dict):
         self._tracer = tracer
         self.name = name
         self.attrs = attrs
 
     def __enter__(self):
+        self._range = _open_range(self.name)
+        if self._tracer is None:
+            return self
         parent = _CURRENT.get()
         self._token = _CURRENT.set(self)
         self._lane = self._tracer._lane()
@@ -95,10 +136,13 @@ class _Span:
         return self
 
     def __exit__(self, *exc):
-        if self._recorded:
-            t1 = time.perf_counter()
-            self._tracer._record_e(self.name, t1, self._lane)
-        _CURRENT.reset(self._token)
+        if self._tracer is not None:
+            if self._recorded:
+                t1 = time.perf_counter()
+                self._tracer._record_e(self.name, t1, self._lane)
+            _CURRENT.reset(self._token)
+        if self._range is not None:
+            self._range.__exit__(*exc)
         return False
 
 
@@ -227,9 +271,10 @@ def active_tracer() -> Tracer | None:
 
 def span(name: str, **attrs: Any):
     """Context manager marking one timed region, parented to the
-    enclosing span of the current task/thread. A no-op singleton when
-    tracing is disabled — safe to leave on every hot path."""
+    enclosing span of the current task/thread, and a profiler range while
+    the profiler records. A no-op singleton when neither is on — safe to
+    leave on every hot path."""
     t = _ACTIVE
     if t is None:
-        return _NULL_SPAN
+        return _Span(None, name, attrs) if _profiling() else _NULL_SPAN
     return t.span(name, **attrs)

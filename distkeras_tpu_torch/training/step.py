@@ -39,6 +39,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from distkeras_tpu_torch.models.core import Model, cross_replica_batch_stats
+from distkeras_tpu_torch.ops.launches import count
 from distkeras_tpu_torch.ops.losses import OptimizerFactory, get_loss
 from distkeras_tpu_torch.ops.metrics import accuracy as accuracy_metric
 from distkeras_tpu_torch.parallel.island import IslandMember
@@ -86,15 +87,19 @@ def all_reduce_mean_(tensors: list[torch.Tensor], group) -> None:
     the same shapes in the same order. ``group`` may be an async island's
     :class:`~distkeras_tpu_torch.parallel.island.IslandMember`, whose
     replicas are threads of this process. Traced as the span
-    ``grad_all_reduce``."""
+    ``grad_all_reduce``. Counted: each call adds the bytes of the flattened
+    buffers it reduces (``numel * itemsize`` summed over ``tensors``) to
+    ``all_reduce_mean_.bytes``, and one to ``all_reduce_mean_.calls``."""
     island = isinstance(group, IslandMember)
     world = group.size if island else torch.distributed.get_world_size(group)
     by_dtype: dict[torch.dtype, list[torch.Tensor]] = {}
     for t in tensors:
         by_dtype.setdefault(t.dtype, []).append(t)
+    nbytes = 0
     with span("grad_all_reduce"):
         for bucket in by_dtype.values():
             flat = torch.cat([t.reshape(-1) for t in bucket])
+            nbytes += flat.numel() * flat.element_size()
             if island:
                 flat = group.sum(flat)
             else:
@@ -102,6 +107,11 @@ def all_reduce_mean_(tensors: list[torch.Tensor], group) -> None:
             flat.div_(world)
             parts = flat.split([t.numel() for t in bucket])
             torch._foreach_copy_(bucket, [v.view_as(t) for t, v in zip(bucket, parts)])
+    count(all_reduce_mean_, bytes=nbytes, calls=1)
+
+
+all_reduce_mean_.bytes = 0
+all_reduce_mean_.calls = 0
 
 
 class DataParallel:
@@ -204,7 +214,17 @@ def train_step(model: Model, loss: str | Callable, parallel: DataParallel,
                metrics: tuple[str, ...] = ("accuracy",), remat: bool = False,
                aux_loss_weight: float = 0.01, grad_accum_steps: int = 1):
     """:func:`make_train_step`'s step, its weights and reductions those of
-    ``parallel``."""
+    ``parallel``.
+
+    Traced as spans (:mod:`~distkeras_tpu_torch.telemetry.spans`), in this
+    order: ``forward`` (the model with its head), ``loss`` (the loss and the
+    auxiliary losses), ``backward`` (the backward pass and the zero-filling
+    of missing gradients; under ``remat`` the recomputed forward too),
+    ``step_metrics`` (the loss and accuracy metrics), ``grad_all_reduce``
+    (data parallel, in :func:`all_reduce_mean_`) and ``optimizer_step``
+    (the optimizer's step and ``zero_grad``). Under ``grad_accum_steps > 1``
+    each micro-step opens its own ``forward``, ``loss``, ``backward`` and
+    ``step_metrics``."""
     loss_fn = get_loss(loss)
     accum = max(1, int(grad_accum_steps))
     # Rank r > 0 draws its dropout masks from its own seeds: the same seed
@@ -223,10 +243,27 @@ def train_step(model: Model, loss: str | Callable, parallel: DataParallel,
         return run(variables, features, rng)
 
     def forward(variables, features, labels, rng):
-        outputs, new_model_state = apply(variables, features, rng)
-        task_loss, new_model_state = apply_aux_loss(
-            loss_fn(outputs, labels), new_model_state, aux_loss_weight)
+        with span("forward"):
+            outputs, new_model_state = apply(variables, features, rng)
+        with span("loss"):
+            task_loss, new_model_state = apply_aux_loss(
+                loss_fn(outputs, labels), new_model_state, aux_loss_weight)
         return task_loss, outputs.detach(), new_model_state
+
+    def backward(loss_value, params: dict, last: bool):
+        with span("backward"):
+            loss_value.backward()  # under accumulation, gradients add up in .grad
+            if not last:
+                return
+            if accum > 1:
+                torch._foreach_div_([p.grad for p in params.values() if p.grad is not None],
+                                    accum)
+            # optax updates every parameter, an unused one with a zero
+            # gradient (weight decay and momentum still move it); torch
+            # skips a None grad.
+            for p in params.values():
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
 
     def step(state: TrainState, batch: dict) -> tuple[TrainState, dict]:
         features, labels = batch["features"], batch["label"]
@@ -237,10 +274,11 @@ def train_step(model: Model, loss: str | Callable, parallel: DataParallel,
         if accum == 1:
             loss_value, outputs, new_model_state = forward(
                 variables, features, labels, step_seed)
-            loss_value.backward()
-            out = {"loss": loss_value.detach()}
-            if "accuracy" in metrics:
-                out["accuracy"] = accuracy_metric(outputs, labels)
+            backward(loss_value, params, True)
+            with span("step_metrics"):
+                out = {"loss": loss_value.detach()}
+                if "accuracy" in metrics:
+                    out["accuracy"] = accuracy_metric(outputs, labels)
         else:
             B = features.shape[0]
             if B % accum:
@@ -256,24 +294,19 @@ def train_step(model: Model, loss: str | Callable, parallel: DataParallel,
                 loss_value, outputs, ms = forward(
                     {**variables, **new_model_state}, features[part], labels[part],
                     fold_in(step_seed, i))
-                loss_value.backward()  # gradients add up in .grad
-                loss_sum = loss_sum + loss_value.detach()
-                if "accuracy" in metrics:
-                    acc_sum = acc_sum + accuracy_metric(outputs, labels[part])
+                backward(loss_value, params, i == accum - 1)
+                with span("step_metrics"):
+                    loss_sum = loss_sum + loss_value.detach()
+                    if "accuracy" in metrics:
+                        acc_sum = acc_sum + accuracy_metric(outputs, labels[part])
                 new_model_state = ms or new_model_state
-            grads = [p.grad for p in params.values() if p.grad is not None]
-            torch._foreach_div_(grads, accum)
             out = {"loss": loss_sum / accum}
             if "accuracy" in metrics:
                 out["accuracy"] = acc_sum / accum
-        # optax updates every parameter, an unused one with a zero gradient
-        # (weight decay and momentum still move it); torch skips a None grad.
-        for p in params.values():
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
         out = parallel.reduce(state, params, out)
-        state.optimizer.step()
-        state.optimizer.zero_grad(set_to_none=True)
+        with span("optimizer_step"):
+            state.optimizer.step()
+            state.optimizer.zero_grad(set_to_none=True)
         if new_model_state:
             state.model_state = {k: v.detach() for k, v in new_model_state.items()}
         state.step += 1
